@@ -10,16 +10,25 @@ toolkit and Triton. Phases, each of which raises on failure:
 2. build the kernels from the checkout's sources (``nvcc`` per CUDA source,
    all at once; Triton compiles at first launch) and print the build time;
 3. hold each kernel against its plain PyTorch version at every shape of the
-   slice's path, in float32 and bfloat16 (the fused kernel with and without
-   its score output), printing the error against the stated tolerance and
-   the kernel's, the plain version's, the bound's and the library call's times;
-4. wiring check: one lm-100m step at budget 0.999 keeps every block of every
-   sketched site with scale 1, runs both kernels at every site, and gives the
-   exact-backprop gradients within tolerance;
-5. the slice's main path: ``Runtime(...).train`` of lm-100m for 5 steps with
-   the pallas / block-128 l1@0.2 policy, with the launch counts read around it;
-6. a step breakdown: exact-backprop steps beside sketched ones, and a
-   profiler trace of one step of each (device busy time, top device and
+   slices' paths, in float32 and bfloat16, printing the error against the
+   stated tolerance and the kernel's, the plain version's, the bound's and the
+   library call's times: the score kernel; the fused kernel with and without
+   its score output; the unfused dX / dW pair, which must equal the fused
+   kernel's dX and dWc bit for bit; the streaming kernel, whose dX, dWc and db
+   must equal the fused kernel's bit for bit and whose scores must be the same
+   on two calls;
+4. wiring check: one lm-100m step at budget 0.999 under each of the
+   ``pallas``, ``onepass`` and ``stale`` policies keeps every block of every
+   sketched site with scale 1, launches each path's kernels at every site and
+   no other kernel, gives the exact-backprop gradients within tolerance, and
+   (plan carry) returns every site's plain column reduction of G as its
+   refreshed carry;
+5. the main paths: ``Runtime(...).train`` of lm-100m for 5 steps with the
+   block-128 l1@0.2 policy under ``pallas``, ``onepass`` and ``stale``, each
+   with the launch counts set to 0 just before it and read just after, and
+   the carry's refresh checked after the plan-carry runs;
+6. a step breakdown: exact-backprop steps beside the three sketched ones, and
+   a profiler trace of one step of each (device busy time, top device and
    host ops);
 7. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -44,8 +53,15 @@ BATCH, SEQ, STEPS = 8, 256, 5
 N_ROWS = BATCH * SEQ
 # the slice's kernel shapes and their calls per step (84 sketched sites)
 SCORE_SHAPES = {(N_ROWS, 768): 60, (N_ROWS, 2048): 24}
-FUSED_SHAPES = {(768, 768, 1): 48, (2048, 768, 3): 24, (768, 2048, 1): 12}  # (n, d, rb)
+# (n, d, rb): the fused kernel under pallas and stale, the streaming kernel
+# under onepass, and the unfused pair that would replace the fused kernel
+FUSED_SHAPES = {(768, 768, 1): 48, (2048, 768, 3): 24, (768, 2048, 1): 12}
 BLOCK = 128
+BACKENDS = ("pallas", "onepass", "stale")
+# the kernels each sketched site launches, per backend
+SITE_KERNELS = {"pallas": ("col_l1_scores", "block_gather_matmul_fused"),
+                "onepass": ("block_stream_matmul_fused",),
+                "stale": ("block_gather_matmul_fused",)}
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -171,6 +187,97 @@ def check_fused(gen, dev):
     return rows
 
 
+def _block_problem(gen, dev, n, d, rb, dtype):
+    nb = n // BLOCK
+    idx = torch.sort(torch.randperm(nb, generator=gen, device=dev)[:rb]).values.to(torch.int32)
+    scales = 1.0 + 4.0 * torch.rand(rb, generator=gen, device=dev)
+    G = torch.randn((N_ROWS, n), generator=gen, device=dev).to(dtype)
+    W = (torch.randn((n, d), generator=gen, device=dev) * d ** -0.5).to(dtype)
+    X = torch.randn((N_ROWS, d), generator=gen, device=dev).to(dtype)
+    return G, idx, scales, W, X
+
+
+def check_unfused(gen, dev):
+    """The unfused dX and dW kernels: against their plain versions, and bit
+    for bit against the fused kernel's dX and dWc. ``calls`` is the fused
+    kernel's count at the shape, the calls the pair would replace."""
+    from repro_torch.kernels import sketch_matmul as sm
+
+    rows = {"block_gather_matmul": [], "block_gather_matmul_dw": []}
+    for (n, d, rb), calls in FUSED_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            G, idx, scales, W, X = _block_problem(gen, dev, n, d, rb, dtype)
+            fused = sm.block_gather_matmul_fused(G, idx, scales, W, X, block=BLOCK)
+            isz, kept = G.element_size(), rb * BLOCK
+            for name, operand, out in (("block_gather_matmul", W, fused[0]),
+                                       ("block_gather_matmul_dw", X, fused[1])):
+                kern, plain = getattr(sm, name), getattr(sm, name + "_plain")
+                got = kern(G, idx, scales, operand, block=BLOCK)
+                torch.cuda.synchronize()
+                err = max_err(got, plain(G, idx, scales, operand, block=BLOCK), TOL[dtype])[0]
+                if not torch.equal(got, out):
+                    raise AssertionError(f"{name} differs from the fused kernel's output")
+                n_bytes = isz * (N_ROWS * kept + kept * d + N_ROWS * d) + 8 * rb
+                row = dict(shape=[N_ROWS, n, d, rb], dtype=str(dtype).split(".")[-1],
+                           calls=calls, max_abs_err=err, bit_identical_to_fused=True,
+                           ms=cuda_ms(lambda: kern(G, idx, scales, operand, block=BLOCK)),
+                           plain_ms=cuda_ms(lambda: plain(G, idx, scales, operand,
+                                                          block=BLOCK)),
+                           **bound(n_bytes, 2 * N_ROWS * kept * d, dtype))
+                print(f"[kernel] {name} {row}")
+                rows[name].append(row)
+    return rows
+
+
+def check_stream(gen, dev):
+    """The streaming kernel: against its plain version in both score modes;
+    dX, dWc and db bit for bit the fused kernel's for the same keeps (the kept
+    columns' scores too); every score the same on a second call."""
+    from repro_torch.kernels import sketch_matmul as sm
+
+    rows = []
+    for (n, d, rb), calls in FUSED_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            G, idx, scales, W, X = _block_problem(gen, dev, n, d, rb, dtype)
+            args = (G, idx, scales, W, X)
+            kept_cols = (idx.long()[:, None] * BLOCK
+                         + torch.arange(BLOCK, device=dev)[None, :]).reshape(-1)
+            for mode in ("l1", "l2"):
+                got = sm.block_stream_matmul_fused(*args, block=BLOCK, score_mode=mode)
+                want = sm.block_stream_matmul_fused_plain(*args, block=BLOCK, score_mode=mode)
+                fused = sm.block_gather_matmul_fused(*args, block=BLOCK, with_scores=True,
+                                                     score_mode=mode)
+                again = sm.block_stream_matmul_fused(*args, block=BLOCK, score_mode=mode)
+                torch.cuda.synchronize()
+                errs = [max_err(g, w, TOL[dtype] if name in ("dX", "dWc") else 1e-5)[0]
+                        for name, g, w in zip(("dX", "dWc", "db", "scores"), got, want)]
+                if not all(torch.equal(a, b) for a, b in zip(got[:3], fused[:3])):
+                    raise AssertionError("stream kernel's dX, dWc or db differ from the "
+                                         "fused kernel's for the same keeps")
+                if not torch.equal(got[3][kept_cols], fused[3].reshape(-1)):
+                    raise AssertionError("stream kernel's kept scores differ from the fused "
+                                         "kernel's")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("block_stream_matmul_fused is not deterministic")
+                isz, kept = G.element_size(), rb * BLOCK
+                n_bytes = (isz * (N_ROWS * n + kept * d + 2 * N_ROWS * d + kept * d)
+                           + 8 * rb + 4 * kept + 4 * n)
+                n_ops = 4 * N_ROWS * kept * d + 2 * N_ROWS * n
+                row = dict(shape=[N_ROWS, n, d, rb], dtype=str(dtype).split(".")[-1],
+                           mode=mode, calls=calls, max_abs_err=max(errs),
+                           bit_identical_to_fused=True, deterministic=True,
+                           ms=cuda_ms(lambda: sm.block_stream_matmul_fused(
+                               *args, block=BLOCK, score_mode=mode)),
+                           fused_ms=cuda_ms(lambda: sm.block_gather_matmul_fused(
+                               *args, block=BLOCK, with_scores=True, score_mode=mode)),
+                           plain_ms=cuda_ms(lambda: sm.block_stream_matmul_fused_plain(
+                               *args, block=BLOCK, score_mode=mode)),
+                           **bound(n_bytes, n_ops, dtype))
+                print(f"[kernel] block_stream_matmul_fused {row}")
+                rows.append(row)
+    return rows
+
+
 def lm100m():
     from repro_torch.configs.base import ArchConfig
 
@@ -179,78 +286,121 @@ def lm100m():
                       q_chunk=128, kv_chunk=256)
 
 
-def slice_policy(budget):
+def slice_policy(budget, backend="pallas"):
     from repro_torch.api import SketchConfig, SketchPolicy
 
-    return SketchPolicy(base=SketchConfig(method="l1", budget=budget, backend="pallas",
+    return SketchPolicy(base=SketchConfig(method="l1", budget=budget, backend=backend,
                                           block=BLOCK))
 
 
+def expected_counts(backend, per_site):
+    """Launches of every kernel, zeros included, when each sketched site runs
+    ``per_site`` backwards under ``backend``."""
+    from repro_torch.kernels import ops
+
+    return {name: per_site * 7 * lm100m().n_layers if name in SITE_KERNELS[backend] else 0
+            for name in ops.KERNELS}
+
+
 def wiring_check(dev):
-    """One lm-100m step at budget 0.999: every block kept with scale 1, both
-    kernels at every site, gradients equal to exact backprop."""
+    """One lm-100m step at budget 0.999 under each backend: every block kept
+    with scale 1, the backend's kernels at every site and no other, gradients
+    equal to exact backprop, and (plan carry) every site's refreshed carry
+    equal to the plain column reduction of that site's G."""
     from repro_torch import rng
     from repro_torch.api import Runtime
+    from repro_torch.core import plan_state as pstate
     from repro_torch.data.synthetic import LMStream
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import lm
     from repro_torch.optim import sgd
     from repro_torch.train.train_step import batch_to_device, init_state
     from repro_torch.tree import tree_leaves
 
     cfg = lm100m()
-    state = init_state(rng.fold_in(11, 0), cfg, sgd(0.0), device=dev)
+    state = init_state(rng.fold_in(11, 0), cfg, sgd(0.0), device=dev,
+                       policy=slice_policy(0.999, "onepass"))
     batch = batch_to_device(next(LMStream(vocab=cfg.vocab, seed=11).batches(BATCH, SEQ)), dev)
-    leaves = tree_leaves(state.params)
+    _, carry = pstate.collect_plan_state(state.params)  # path -> carry leaf
+    carry_ids = {id(t) for t in carry.values()}
+    weights = [p for p in tree_leaves(state.params) if id(p) not in carry_ids]
+    # a site's weight -> the path of its carry leaf, to name the spied G
+    site_of = {}
+    for i, layer in enumerate(state.params["layers"]):
+        for group in ("attn", "mlp"):
+            for name, site in layer[group].items():
+                site_of[site["w"].data_ptr()] = f"layers/{i}/{group}/{name}/{pstate.PLAN_SLOT}"
+    if len(carry) != 7 * cfg.n_layers or set(carry) != set(site_of.values()):
+        raise AssertionError(f"init_state seeded {len(carry)} carry leaves")
     step_key = rng.fold_in(11, 1)
 
-    def grads(runtime):
-        ctx = runtime.ctx(step_key, n_layers=cfg.n_layers)
+    def grads(policy):
+        ctx = Runtime(policy=policy, device=dev).ctx(step_key, n_layers=cfg.n_layers)
         loss, _ = lm.lm_loss(state.params, batch, ctx, cfg, step_key)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        paths = sorted(carry) if pstate.policy_uses_carry(policy) else []
+        gs = torch.autograd.grad(loss, weights + [carry[p] for p in paths])
+        return loss.detach(), gs[:len(weights)], dict(zip(paths, gs[len(weights):]))
 
-    loss_e, g_exact = grads(Runtime(policy=None, device=dev))
-    plans = []
-    fused = ops.block_gather_matmul_fused
-
-    def spy(G, block_idx, scales, W, X, **kw):
-        plans.append((G.shape[1] // kw["block"], block_idx.clone(), scales.clone()))
-        return fused(G, block_idx, scales, W, X, **kw)
-
-    ops.reset_launch_counts()
-    ops.block_gather_matmul_fused = spy
-    try:
-        loss_s, g_sk = grads(Runtime(policy=slice_policy(0.999), device=dev))
-    finally:
-        ops.block_gather_matmul_fused = fused
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    loss_e, g_exact, _ = grads(None)
     n_sites = 7 * cfg.n_layers
-    if counts != {"col_l1_scores": n_sites, "block_gather_matmul_fused": n_sites}:
-        raise AssertionError(f"budget-0.999 step launched {counts}, want {n_sites} each")
-    if len(plans) != n_sites:
-        raise AssertionError(f"{len(plans)} fused calls, want {n_sites}")
-    for nb, idx, scales in plans:
-        if idx.numel() != nb or not torch.equal(idx.cpu(), torch.arange(nb)) \
-                or not torch.all(scales == 1.0):
-            raise AssertionError(f"budget 0.999 dropped or rescaled a block: {idx} {scales}")
-    if not torch.allclose(loss_s, loss_e, rtol=1e-6, atol=0):
-        raise AssertionError(f"loss differs: {loss_s.item()} vs {loss_e.item()}")
-    worst = 0.0
-    for a, b in zip(g_sk, g_exact):
-        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-        worst = max(worst, rel)
-    if not worst <= GRAD_RTOL:
-        raise AssertionError(f"sketched@0.999 vs exact gradients: max rel err {worst:.3e} > {GRAD_RTOL}")
-    print(f"[wiring] budget 0.999: {n_sites} sites, every block kept with scale 1, "
-          f"launches {counts}, loss {loss_e.item():.6f}, "
-          f"max rel grad err {worst:.3e} (tol {GRAD_RTOL})")
-    del state, g_exact, g_sk
+    for backend in BACKENDS:
+        kernel = SITE_KERNELS[backend][-1]
+        plans, plain_scores = [], {}
+        real = getattr(ops, kernel)
+
+        def spy(G, block_idx, scales, W, X, **kw):
+            plans.append((G.shape[1] // kw["block"], block_idx.clone(), scales.clone()))
+            plain_scores[site_of[W.data_ptr()]] = ref.col_scores_ref(G, mode="l1")
+            return real(G, block_idx, scales, W, X, **kw)
+
+        ops.reset_launch_counts()
+        setattr(ops, kernel, spy)
+        try:
+            loss_s, g_sk, fresh = grads(slice_policy(0.999, backend))
+        finally:
+            setattr(ops, kernel, real)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts != expected_counts(backend, 1):
+            raise AssertionError(f"{backend} budget-0.999 step launched {counts}, "
+                                 f"want {expected_counts(backend, 1)}")
+        if len(plans) != n_sites:
+            raise AssertionError(f"{len(plans)} {kernel} calls, want {n_sites}")
+        for nb, idx, scales in plans:
+            if idx.numel() != nb or not torch.equal(idx.cpu(), torch.arange(nb)) \
+                    or not torch.all(scales == 1.0):
+                raise AssertionError(f"budget 0.999 dropped or rescaled a block: {idx} {scales}")
+        if not torch.allclose(loss_s, loss_e, rtol=1e-6, atol=0):
+            raise AssertionError(f"loss differs: {loss_s.item()} vs {loss_e.item()}")
+        worst = 0.0
+        for a, b in zip(g_sk, g_exact):
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, rel)
+        if not worst <= GRAD_RTOL:
+            raise AssertionError(f"{backend}@0.999 vs exact gradients: max rel err "
+                                 f"{worst:.3e} > {GRAD_RTOL}")
+        carry_err = 0.0
+        if backend != "pallas":
+            if set(fresh) != set(carry) or set(plain_scores) != set(carry):
+                raise AssertionError(f"{backend}: {len(fresh)} refreshed carries, "
+                                     f"{len(plain_scores)} spied sites, want {len(carry)}")
+            for path, got in fresh.items():
+                carry_err = max(carry_err, max_err(got, plain_scores[path], 1e-5)[0])
+            if not all(torch.equal(v, torch.ones_like(v)) for v in carry.values()):
+                raise AssertionError(f"{backend}: a backward alone changed a carry leaf")
+        print(f"[wiring] {backend} budget 0.999: {n_sites} sites, every block kept with "
+              f"scale 1, launches {counts}, loss {loss_e.item():.6f}, max rel grad err "
+              f"{worst:.3e} (tol {GRAD_RTOL}), max carry err {carry_err:.3e} "
+              f"(tol 1e-5 of the largest score)")
+        del g_sk, fresh
+    del state, g_exact
 
 
-def main_path(dev):
-    """The slice: Runtime.train of lm-100m for STEPS steps, pallas l1@0.2."""
+def main_path(dev, backend):
+    """A slice's main path: Runtime.train of lm-100m for STEPS steps, l1@0.2
+    block 128 under ``backend``, with the launch counts read around it."""
     from repro_torch.api import Runtime
+    from repro_torch.core import plan_state as pstate
     from repro_torch.data.synthetic import LMStream
     from repro_torch.kernels import ops
     from repro_torch.models import lm
@@ -258,7 +408,7 @@ def main_path(dev):
     from repro_torch.tree import tree_leaves
 
     cfg = lm100m()
-    runtime = Runtime(policy=slice_policy(0.2), device=dev)
+    runtime = Runtime(policy=slice_policy(0.2, backend), device=dev)
     opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
     data = LMStream(vocab=cfg.vocab, seed=0).batches(BATCH, SEQ)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -266,20 +416,37 @@ def main_path(dev):
     state, history = runtime.train(cfg, opt, data, steps=STEPS, log_every=1)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    want = 7 * cfg.n_layers * STEPS
-    if counts != {name: want for name in counts}:
-        raise AssertionError(f"main path launched {counts}, want {want} each")
+    if counts != expected_counts(backend, STEPS):
+        raise AssertionError(f"{backend} main path launched {counts}, "
+                             f"want {expected_counts(backend, STEPS)}")
     losses = [h["loss"] for h in history]
     if len(history) != STEPS or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite or missing losses: {losses}")
     if not all(torch.isfinite(p).all() for p in tree_leaves(state.params)):
         raise AssertionError("non-finite parameters after training")
+    _, carry = pstate.collect_plan_state(state.params)
+    if backend == "pallas" and carry:
+        raise AssertionError("the pallas policy seeded carry leaves")
+    if backend != "pallas":
+        if len(carry) != 7 * cfg.n_layers:
+            raise AssertionError(f"{len(carry)} carry leaves, want {7 * cfg.n_layers}")
+        for path, v in carry.items():
+            prior = v == 1.0
+            if backend == "onepass" and prior.any():
+                raise AssertionError(f"onepass left prior values in {path}")
+            # stale refreshes only the kept blocks: at l1@0.2 five steps keep
+            # at most 5 of 6 (or 15 of 16) blocks, so some prior must remain
+            if backend == "stale" and (prior.all() or not prior.any()):
+                raise AssertionError(f"stale carry {path}: {int(prior.sum())} of "
+                                     f"{v.numel()} entries still hold the prior")
     n_params = lm.num_params(state.params)
     step_ms = [1e3 * h["step_s"] for h in history]
-    print(f"[train] lm-100m ({n_params} params), batch {BATCH}x{SEQ}, pallas l1@0.2 "
-          f"block {BLOCK}: losses {losses}")
-    print(f"[train] step ms {step_ms} (first includes warm-up); peak memory "
+    print(f"[train] {backend}: lm-100m ({n_params} params incl. "
+          f"{sum(v.numel() for v in carry.values())} carried scores), batch {BATCH}x{SEQ}, "
+          f"l1@0.2 block {BLOCK}: losses {losses}")
+    print(f"[train] {backend}: step ms {step_ms} (first includes warm-up); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {counts}")
+    del state
     return counts
 
 
@@ -290,8 +457,9 @@ def _device_us(evt) -> float:
 
 def step_breakdown(dev, reps=3):
     """Where a step's time goes: lm-100m steps with exact backprop beside the
-    slice's sketched steps (host clock around synchronised steps), and a
-    profiler trace of one step of each: device-busy share and top kernels."""
+    sketched steps of each backend (host clock around synchronised steps),
+    and a profiler trace of one step of each: device-busy share and top
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -303,7 +471,8 @@ def step_breakdown(dev, reps=3):
     cfg = lm100m()
     batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=3).batches(BATCH, SEQ),
                                  range(reps + 2))]
-    for label, policy in (("exact", None), ("pallas-l1@0.2", slice_policy(0.2))):
+    runs = [("exact", None)] + [(f"{b}-l1@0.2", slice_policy(0.2, b)) for b in BACKENDS]
+    for label, policy in runs:
         runtime = Runtime(policy=policy, device=dev)
         opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
         state = runtime.init_state(rng.fold_in(3, 0), cfg, opt)
@@ -384,26 +553,46 @@ def main() -> int:
     t0 = time.perf_counter()
     score_rows = check_scores(gen, dev)
     fused_rows = check_fused(gen, dev)
+    unfused_rows = check_unfused(gen, dev)
+    stream_rows = check_stream(gen, dev)
     print(f"[kernel] checks and timings {time.perf_counter() - t0:.1f} s (first calls "
           f"include Triton's compile)")
 
     wiring_check(dev)
-    counts = main_path(dev)
+    path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
+    launches = {name: sum(c[name] for c in path_counts.values())
+                for name in path_counts["pallas"]}
     step_breakdown(dev)
 
-    f32s = [r for r in score_rows if r["dtype"] == "float32" and r["mode"] == "l1"]
-    f32f = [r for r in fused_rows if r["dtype"] == "float32" and not r["with_scores"]]
+    def f32(rows, **match):
+        return [r for r in rows if r["dtype"] == "float32"
+                and all(r[k] == v for k, v in match.items())]
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    replaces = "src/repro/kernels/sketch_matmul.py:"
     kernels = [
         kernel_entry("col_l1_scores", "triton", "src/repro_torch/kernels/col_scores.py",
-                     "src/repro/kernels/col_scores.py:42", counts["col_l1_scores"], f32s,
-                     [r for r in score_rows if r["dtype"] == "float32"], library=True),
-        kernel_entry("block_gather_matmul_fused", "cuda",
-                     "src/repro_torch/kernels/csrc/block_gather_matmul_fused.cu",
-                     "src/repro/kernels/sketch_matmul.py:210",
-                     counts["block_gather_matmul_fused"], f32f,
-                     [r for r in fused_rows if r["dtype"] == "float32"], library=False),
+                     "src/repro/kernels/col_scores.py:42", launches["col_l1_scores"],
+                     f32(score_rows, mode="l1"), f32(score_rows), library=True),
+        kernel_entry("block_gather_matmul", "cuda", csrc + "block_gather_matmul_fused.cu",
+                     replaces + "47", launches["block_gather_matmul"],
+                     f32(unfused_rows["block_gather_matmul"]),
+                     f32(unfused_rows["block_gather_matmul"]), library=False),
+        kernel_entry("block_gather_matmul_dw", "cuda", csrc + "block_gather_matmul_fused.cu",
+                     replaces + "109", launches["block_gather_matmul_dw"],
+                     f32(unfused_rows["block_gather_matmul_dw"]),
+                     f32(unfused_rows["block_gather_matmul_dw"]), library=False),
+        kernel_entry("block_gather_matmul_fused", "cuda", csrc + "block_gather_matmul_fused.cu",
+                     replaces + "210", launches["block_gather_matmul_fused"],
+                     f32(fused_rows, with_scores=False), f32(fused_rows), library=False),
+        kernel_entry("block_stream_matmul_fused", "cuda", csrc + "block_stream_matmul_fused.cu",
+                     replaces + "381", launches["block_stream_matmul_fused"],
+                     f32(stream_rows, mode="l1"), f32(stream_rows), library=False),
     ]
-    print("# kernels: times are float32, summed over one step's calls at the slice's shapes")
+    print(f"# launches: summed over the main paths' runs ({STEPS} steps each): "
+          f"{json.dumps(path_counts)}")
+    print("# kernels: times are float32, summed over one step's calls at the paths' shapes "
+          "(the unfused pair: the fused kernel's calls, which it would replace)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -40,7 +40,9 @@ class Runtime:
     def init_state(self, seed: int, cfg, opt, *, params=None):
         from repro_torch.train.train_step import init_state
 
-        return init_state(seed, cfg, opt, params=params, device=self.device)
+        # the policy lets plan-carry estimators seed their carry leaves
+        return init_state(seed, cfg, opt, params=params, device=self.device,
+                          policy=self.policy)
 
     def train_step(self, cfg, opt) -> Callable:
         """``step_fn(state, batch, key) -> (state, metrics)`` for this runtime."""

@@ -7,8 +7,9 @@ entry. ``SketchConfig.backend`` is the registry key.
 
 Contract (unbiasedness): ``E[dX] = G·W``, ``E[dW] = Gᵀ·X``, ``E[db] = Σ G``.
 
-The builtin ``mask``, ``compact`` and ``pallas`` backends are registered by
-``core/sketched_linear.py`` when ``repro_torch.core`` is imported.
+The builtin ``mask``, ``compact``, ``pallas``, ``onepass`` and ``stale``
+backends are registered by ``core/sketched_linear.py`` when
+``repro_torch.core`` is imported.
 """
 from __future__ import annotations
 
@@ -31,6 +32,11 @@ class EstimatorVJP:
     Compact form: ``rows [r, d_in]`` are the kept dW rows, ``cols [r]`` their
     int64 row indices into the dense weight, and ``db_c [r]`` the bias
     gradient restricted to the same columns; the site scatters them.
+
+    ``state`` (plan carry): the refreshed per-site plan state (fresh column
+    scores, ``[n]`` f32) emitted by :meth:`Estimator.apply_with_state`. The
+    site returns it as the gradient of its carry input; the train step writes
+    it back into the parameters for the next step (``core/plan_state.py``).
     """
 
     dx: torch.Tensor  # [N, d_in] flattened-input gradient
@@ -39,6 +45,7 @@ class EstimatorVJP:
     rows: Optional[torch.Tensor] = None
     cols: Optional[torch.Tensor] = None
     db_c: Optional[torch.Tensor] = None
+    state: Optional[torch.Tensor] = None
 
     @property
     def is_compact(self) -> bool:
@@ -58,10 +65,25 @@ class Estimator:
       apply(cfg, G2d, X2d, w, gen, *, has_b): the backward; returns an
         :class:`EstimatorVJP`. ``gen`` is the site's ``torch.Generator``.
       compact_rank(cfg, n): number of compact rows ``apply`` emits.
+      carry_size(cfg, n): size of the per-site plan-carry state of a site of
+        width ``n`` (required when ``plan_carry``; read by
+        ``core/plan_state.py`` to build the carry leaf).
+      apply_with_state(cfg, G2d, X2d, w, gen, state, *, has_b): the plan-carry
+        spelling of ``apply``: sample from the CARRIED ``state`` (previous
+        step's scores; ``None`` means no carry yet, the uniform prior), run
+        the one-pass backward, and return the :class:`EstimatorVJP` with
+        ``state`` set to the refreshed carry. The site calls it instead of
+        ``apply`` when ``plan_carry``. The default ignores ``state`` and
+        delegates to ``apply`` (no refresh).
+
+    ``plan_carry``: the estimator samples the step-t sketch from state
+    carried over from step t-1 instead of a score pass over G, so the
+    backward's only read of G is the estimator's kernel.
     """
 
     name: str = "?"
     supports_compact_grad: bool = False
+    plan_carry: bool = False
 
     def validate(self, cfg) -> None:  # noqa: B027 — optional hook
         pass
@@ -71,6 +93,12 @@ class Estimator:
 
     def compact_rank(self, cfg, n: int) -> int:
         raise NotImplementedError(f"estimator {self.name!r} is not compact")
+
+    def carry_size(self, cfg, n: int) -> int:
+        raise NotImplementedError(f"estimator {self.name!r} carries no plan")
+
+    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b) -> EstimatorVJP:
+        return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b)
 
 
 _REGISTRY: Dict[str, Estimator] = {}

@@ -1,0 +1,156 @@
+"""Plan-carry state: the previous step's column scores, carried through the step.
+
+Port of ``repro/core/plan_state.py``. The plan-carry estimators (``onepass``,
+``stale``, ``core/sketched_linear.py``) sample the step-t sketch from scores
+computed at step t-1, so the backward's only read of G is the estimator's
+kernel. The carry is a permanent parameter leaf, as in JAX:
+
+* :func:`with_plan_state` adds an ``"sslot"`` leaf (``[n]`` float32 ones,
+  the uniform prior) to every carry-capable site's dict at ``init_state``.
+* ``nn.common.dense`` passes the leaf to the site; the site's backward
+  returns the REFRESHED scores as the leaf's gradient (``core/site.py``).
+* :func:`collect_plan_state` takes the refreshed scores out of the gradient
+  tree and zeroes those leaves there, so the carry never enters the gradient
+  norm, the clipping or the optimizer's moments.
+* :func:`write_plan_state` writes the refreshed scores over the carry leaves
+  after the optimizer update.
+
+The JAX model stacks its layers, so its leaf is ``[n_layers, n]``; the port
+keeps one dict per layer (``params["layers"]``) and one ``[n]`` leaf in each.
+
+Unbiasedness does not depend on the carry's freshness: the solver floors
+every keep probability strictly above zero, so given ANY carry
+``E[dW | carry] = GᵀX`` exactly; staleness moves only the variance.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import estimators
+from repro_torch.core.sketching import effective_cfg
+
+__all__ = ["PLAN_SLOT", "plan_carry_capable", "policy_uses_carry", "with_plan_state",
+           "collect_plan_state", "write_plan_state"]
+
+PLAN_SLOT = "sslot"
+
+
+def _estimator(cfg):
+    if cfg is None or cfg.is_noop:
+        return None
+    try:
+        est = estimators.get_estimator(cfg.backend)
+    except KeyError:
+        return None
+    return est if getattr(est, "plan_carry", False) else None
+
+
+def plan_carry_capable(cfg) -> bool:
+    """Does this site's estimator carry a plan?"""
+    return _estimator(cfg) is not None
+
+
+def policy_uses_carry(policy) -> bool:
+    """True when any config the policy can hand out (base or a role override)
+    is a plan-carry estimator."""
+    if policy is None:
+        return False
+    return plan_carry_capable(policy.base) or any(
+        plan_carry_capable(cfg) for _, cfg in policy.overrides)
+
+
+def _site_role(path) -> Optional[str]:
+    """The role of the linear site at ``path`` (attn/cross q|k|v|o, mlp
+    in|gate|out), or None."""
+    if len(path) < 2:
+        return None
+    parent, leaf = path[-2], path[-1]
+    if parent in ("attn", "cross") and leaf in ("q", "k", "v", "o"):
+        return f"{parent}_{leaf}"
+    if parent == "mlp" and leaf in ("in", "gate", "out"):
+        return f"mlp_{leaf}"
+    return None
+
+
+def with_plan_state(params, policy, *, n_layers: int = 1):
+    """``params`` with a uniform-prior carry leaf in every site whose config
+    carries a plan. Ones, not zeros: equal scores are the uniform sampling
+    prior for step 0.
+
+    Only ``location="all"`` policies get leaves, as in JAX (whose stacked
+    layers cannot tell layers apart). The result is a new tree of dicts
+    holding the same tensors."""
+    if policy is None or policy.location != "all":
+        return params
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            out = {k: walk(v, path + (k,)) for k, v in node.items()}
+            role = _site_role(path)
+            w = node.get("w")
+            if role is not None and w is not None:
+                cfg = policy.config_for(role, 0, n_layers)
+                est = _estimator(cfg)
+                if est is not None:
+                    n = w.shape[0]
+                    out[PLAN_SLOT] = torch.ones(est.carry_size(effective_cfg(cfg, n), n),
+                                                dtype=torch.float32, device=w.device)
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path) for v in node)
+        return node
+
+    return walk(params, ())
+
+
+def collect_plan_state(grads) -> Tuple[object, Dict[str, torch.Tensor]]:
+    """Take the refreshed scores out of a gradient tree.
+
+    Returns ``(clean_grads, fresh)``: ``clean_grads`` has every ``"sslot"``
+    gradient replaced by zeros (same structure as the parameters, invisible
+    to the gradient norm and the optimizer), and ``fresh`` maps the
+    ``/``-joined path of each carry leaf to its refreshed scores."""
+    fresh: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                if k == PLAN_SLOT:
+                    fresh["/".join(map(str, path + (k,)))] = v
+                    out[k] = torch.zeros_like(v)
+                else:
+                    out[k] = walk(v, path + (k,))
+            return out
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (i,)) for i, v in enumerate(node))
+        return node
+
+    return walk(grads, ()), fresh
+
+
+@torch.no_grad()
+def write_plan_state(params, fresh: Dict[str, torch.Tensor]):
+    """Write ``fresh`` (from :func:`collect_plan_state`) over the carry leaves
+    of ``params``, in place, and return ``params``. Leaves absent from
+    ``fresh`` keep their carry."""
+    if not fresh:
+        return params
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                p = path + (k,)
+                key = "/".join(map(str, p))
+                if k == PLAN_SLOT and key in fresh:
+                    v.copy_(fresh[key])
+                else:
+                    walk(v, p)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+
+    walk(params, ())
+    return params

@@ -8,9 +8,12 @@ estimator from the registry (``core/estimators.py``):
 * ``compact`` — the r kept columns, reduced-shape matmuls (plain PyTorch);
 * ``pallas``  — compact semantics; block-granular configs run the
                 hand-written fused backward kernel (dX, compact dW and compact
-                db from G's kept blocks) and the score kernel.
-
-The ``onepass`` and ``stale`` plan-carry estimators are not ported yet.
+                db from G's kept blocks) and the score kernel;
+* ``onepass`` — plan carry: the plan is sampled from the previous step's
+                scores; block-granular configs run the streaming kernel, whose
+                one launch gives the gradients and every column's fresh score;
+* ``stale``   — plan carry with a partial refresh: the fused kernel with its
+                kept-block scores; the other columns keep their carried score.
 """
 from __future__ import annotations
 
@@ -20,9 +23,10 @@ import torch
 
 from repro_torch.core import estimators
 from repro_torch.core.estimators import EstimatorVJP
+from repro_torch.core.scores import kernel_reduction_mode, scores_from_kernel_reduction
 from repro_torch.core.sketching import (COLUMN_METHODS, SketchConfig, column_plan,
-                                        effective_cfg, sketch_dense,
-                                        static_block_rank, static_rank)
+                                        column_plan_from_scores, effective_cfg,
+                                        sketch_dense, static_block_rank, static_rank)
 
 __all__ = ["sketched_linear", "linear", "block_cols"]
 
@@ -130,21 +134,127 @@ class _PallasEstimator(_CompactEstimator):
         return EstimatorVJP(dx=dX2d, rows=rows, cols=idx, db_c=db_c)
 
 
+class _PlanCarryEstimator(_PallasEstimator):
+    """Shared machinery of the one-pass estimators: the step-t sketch is
+    sampled from CARRIED column scores (the previous step's, or the uniform
+    prior on the first step), with no score pass over G, and the backward's
+    one sweep over G gives the gradient AND the score refresh.
+
+    Unbiasedness does not depend on the carry being fresh: given the carried
+    scores, every column keeps a strictly positive probability (the solver's
+    relative floor and the all-zero guard of ``column_plan_from_scores``) and
+    kept columns are rescaled by 1/p, so ``E[dW | carry] = GᵀX`` exactly;
+    staleness moves only the variance.
+    """
+
+    plan_carry = True
+
+    def validate(self, cfg) -> None:
+        super().validate(cfg)
+        if kernel_reduction_mode(cfg.method) is None:
+            raise ValueError(
+                f"backend {cfg.backend!r} needs an l1/l2-family score method "
+                f"(its fresh scores come from the backward kernel's column "
+                f"reduction), got {cfg.method!r}")
+
+    def carry_size(self, cfg, n: int) -> int:
+        return n
+
+    def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
+        return self.apply_with_state(cfg, G2d, X2d, w, gen, None, has_b=has_b)
+
+    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b):
+        n = G2d.shape[-1]
+        cfg = effective_cfg(cfg, n)
+        if state is None:
+            state = torch.ones(n, dtype=torch.float32, device=G2d.device)  # uniform prior
+        plan = column_plan_from_scores(cfg, state, gen, want_compact=True)
+        return self._one_pass(cfg, G2d, plan, w, X2d, state)
+
+    def _one_pass(self, cfg, G2d, plan, w, X2d, state) -> EstimatorVJP:
+        raise NotImplementedError
+
+
+class _OnePassEstimator(_PlanCarryEstimator):
+    """Streaming selection: ALL of G goes through the backward kernel once;
+    the kept blocks (the plan sampled from the carried scores) give dX,
+    compact dW and db, and EVERY column's fresh score comes from the same
+    launch: a full score refresh per step."""
+
+    name = "onepass"
+
+    def _one_pass(self, cfg, G2d, plan, w, X2d, state):
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels import ref as kref
+
+        mode = kernel_reduction_mode(cfg.method)
+        idx, scales = plan.indices, plan.scales
+        if cfg.block > 1:
+            dX2d, dWc, db_blk, red = kops.block_stream_matmul_fused(
+                G2d, idx, scales, w, X2d, block=cfg.block, score_mode=mode)
+            rows, cols, db_c = (dWc.reshape(-1, w.shape[1]), block_cols(idx, cfg.block),
+                                db_blk.reshape(-1))
+        else:
+            # arbitrary column gathers have no kernel in either package
+            dX2d, rows, db_c, red = kref.gather_cols_onepass_ref(G2d, idx, scales, w, X2d,
+                                                                 score_mode=mode)
+            cols = idx
+        return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c,
+                            state=scores_from_kernel_reduction(cfg.method, red))
+
+
+class _StalePlanEstimator(_PlanCarryEstimator):
+    """Stale plan: the kept-only fused backward (the ``pallas`` backend's G
+    traffic: dropped blocks are never read), with the kept columns' raw
+    scores reduced in the same launch. The refresh is PARTIAL: unkept columns
+    keep their carried score until they are sampled."""
+
+    name = "stale"
+
+    def _one_pass(self, cfg, G2d, plan, w, X2d, state):
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels import ref as kref
+
+        mode = kernel_reduction_mode(cfg.method)
+        idx, scales = plan.indices, plan.scales
+        if cfg.block > 1:
+            dX2d, dWc, db_blk, kept = kops.block_gather_matmul_fused(
+                G2d, idx, scales, w, X2d, block=cfg.block, with_scores=True,
+                score_mode=mode)
+            rows, cols, db_c = (dWc.reshape(-1, w.shape[1]), block_cols(idx, cfg.block),
+                                db_blk.reshape(-1))
+            kept = kept.reshape(-1)
+        else:
+            dX2d, rows, db_c, kept = kref.gather_cols_fused_scores_ref(
+                G2d, idx, scales, w, X2d, score_mode=mode)
+            cols = idx
+        # out of place: the carry passed in stays as it was
+        fresh = state.detach().to(torch.float32, copy=True)
+        fresh[cols] = scores_from_kernel_reduction(cfg.method, kept)
+        return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c, state=fresh)
+
+
 estimators.register_estimator(_MaskEstimator())
 estimators.register_estimator(_CompactEstimator())
 estimators.register_estimator(_PallasEstimator())
+estimators.register_estimator(_OnePassEstimator())
+estimators.register_estimator(_StalePlanEstimator())
 
 
 def sketched_linear(x, w, b=None, *, key: Optional[torch.Generator] = None,
-                    cfg: Optional[SketchConfig] = None):
+                    cfg: Optional[SketchConfig] = None,
+                    plan_state: Optional[torch.Tensor] = None):
     """``x @ w.T (+ b)`` whose backward is the ``cfg`` estimator.
 
     ``key`` is the site's ``torch.Generator``; ``cfg=None``, a no-op config or
-    no generator give the exact linear (plain autograd).
+    no generator give the exact linear (plain autograd). ``plan_state`` is the
+    site's plan-carry leaf (previous step's column scores) for the ``onepass``
+    and ``stale`` backends: the backward returns the refreshed scores as its
+    gradient (``core/site.py``).
     """
     from repro_torch.core import site
 
-    return site.sketched_site(cfg, x, w, b, key)
+    return site.sketched_site(cfg, x, w, b, key, plan_state)
 
 
 # Alias used across the nn substrate.

@@ -4,7 +4,9 @@ Port of ``repro/core/sketching.py``: :class:`SketchConfig` plus functions that
 turn an output-gradient matrix ``G`` ([N, d_out]) into a column plan or an
 unbiased surrogate ``Ĝ`` with ``E[Ĝ | G] = G``. The ``mask`` backend
 materialises ``Ĝ``; the ``compact`` and ``pallas`` backends use the plan's
-kept indices and ``1/p`` scales directly (``core/sketched_linear.py``).
+kept indices and ``1/p`` scales directly (``core/sketched_linear.py``). The
+plan-carry backends (``onepass``, ``stale``) sample from scores carried over
+from the previous step (:func:`column_plan_from_scores`), with no read of G.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ __all__ = [
     "static_block_rank",
     "effective_cfg",
     "column_plan",
+    "column_plan_from_scores",
     "column_gate",
     "sketch_dense",
 ]
@@ -41,10 +44,11 @@ class SketchConfig:
       method: one of :data:`ALL_METHODS`.
       budget: fraction ``p ∈ (0, 1]`` of coordinates kept.
       exact_r: correlated exact-r sampling (Lemma 3.1) vs independent gates.
-      backend: ``mask`` | ``compact`` | ``pallas``, or any estimator registered
-        with ``repro_torch.core.estimators.register_estimator``. ``pallas``
-        keeps the JAX package's name: on the card it runs the hand-written
-        Hopper kernels that replace the Pallas ones.
+      backend: ``mask`` | ``compact`` | ``pallas`` | ``onepass`` | ``stale``,
+        or any estimator registered with
+        ``repro_torch.core.estimators.register_estimator``. ``pallas`` keeps
+        the JAX package's name: on the card it runs the hand-written Hopper
+        kernels that replace the Pallas ones.
       round_to: round the static keep-count ``r`` up to a multiple.
       block: column-block granularity; 0/1 = per-column, >1 samples whole
         contiguous column blocks (the kernels' layout).
@@ -204,6 +208,63 @@ def _block_plan(cfg: SketchConfig, G2d, W, gen, *, want_compact: bool) -> Column
     gate_blk[idx] = inv_p_sel
     return ColumnPlan(indices=idx, scales=inv_p_sel,
                       gate=gate_blk.repeat_interleave(bs), probs=probs_cols)
+
+
+def _weights_from_scores(scores: torch.Tensor) -> torch.Tensor:
+    """Convex-program weights from precomputed proxy scores: ``w = s²``, with
+    an all-zero guard (uniform), so the sampler's marginals stay well defined
+    for any carried state. ``optimal_probabilities`` adds its own relative
+    floor, keeping every ``p_i`` strictly positive: that is what keeps a plan
+    sampled from STALE scores conditionally unbiased (staleness can inflate
+    the variance, never zero out a coordinate's probability)."""
+    w = scores.to(torch.float32).square()
+    return torch.where(w.sum() > 0, w, torch.ones_like(w))
+
+
+def column_plan_from_scores(cfg: SketchConfig, scores: torch.Tensor, gen: torch.Generator,
+                            *, want_compact: bool = True) -> ColumnPlan:
+    """Sample a column sketch from PRECOMPUTED per-column proxy scores, with
+    no read of G: the planning half of the one-pass backward paths, fed the
+    previous step's scores by the plan-carry estimators.
+
+    ``scores`` ([n] f32, non-negative) follow :func:`column_scores` semantics
+    for ``cfg.method``. Requires ``exact_r`` (static compact shapes). The
+    sample is drawn from the site's generator ``gen``.
+    """
+    n = scores.shape[-1]
+    dev = scores.device
+    cfg = effective_cfg(cfg, n)
+    if not cfg.exact_r:
+        raise ValueError("column_plan_from_scores requires exact_r=True")
+    if cfg.block > 1:
+        bs = cfg.block
+        nb = n // bs
+        rb = static_block_rank(cfg, n)
+        w_blk = _weights_from_scores(scores).reshape(nb, bs).sum(-1)
+        w_blk = torch.where(w_blk.sum() > 0, w_blk, torch.ones_like(w_blk))
+        if rb >= nb:
+            return _ones_plan(n, nb, dev)
+        p = solver.optimal_probabilities(w_blk, rb)
+        idx = solver.sample_exact_r(gen, p, rb)
+        inv_p_sel = 1.0 / p[idx].clamp_min(1e-20)
+        probs_cols = p.repeat_interleave(bs)
+        if want_compact:
+            return ColumnPlan(indices=idx, scales=inv_p_sel, gate=None, probs=probs_cols)
+        gate_blk = torch.zeros(nb, dtype=torch.float32, device=dev)
+        gate_blk[idx] = inv_p_sel
+        return ColumnPlan(indices=idx, scales=inv_p_sel,
+                          gate=gate_blk.repeat_interleave(bs), probs=probs_cols)
+    r = static_rank(cfg, n)
+    if r >= n:
+        return _ones_plan(n, n, dev)
+    p = solver.optimal_probabilities(_weights_from_scores(scores), r)
+    idx = solver.sample_exact_r(gen, p, r)
+    inv_p_sel = 1.0 / p[idx].clamp_min(1e-20)
+    if want_compact:
+        return ColumnPlan(indices=idx, scales=inv_p_sel, gate=None, probs=p)
+    gate = torch.zeros(n, dtype=torch.float32, device=dev)
+    gate[idx] = inv_p_sel
+    return ColumnPlan(indices=idx, scales=inv_p_sel, gate=gate, probs=p)
 
 
 def column_gate(cfg: SketchConfig, G2d, W, gen) -> torch.Tensor:

@@ -4,7 +4,10 @@
 numpy arrays) into this package's parameters. The JAX tree stacks each
 segment's layers on a leading ``[n_rep]`` axis; the port keeps one dict per
 layer, so the function unstacks it. Both packages then compute the same
-function. Any tree of the same structure works (a gradient tree too).
+function. Any tree of the same structure works (a gradient tree too), and so
+does the tree of a JAX ``init_state`` with a plan-carry policy: each site's
+``"sslot"`` carry leaf ``[n_layers, n]`` is unstacked with the weights into
+one ``[n]`` leaf per layer.
 """
 from __future__ import annotations
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/repro_torch_kernels/lib<name>-<hash>.so`` under
 the checkout's root (a directory ``.gitignore`` lists), then loaded with
-``ctypes``. The file name carries a hash of the source and flags, so an
-edited source is rebuilt and a current one is reused. :func:`build_all`
-starts one ``nvcc`` per source, all at once.
+``ctypes``. The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+a current one is reused. :func:`build_all` starts one ``nvcc`` per source,
+all at once.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("block_gather_matmul_fused",)
+SOURCES = ("block_gather_matmul_fused", "block_stream_matmul_fused")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +43,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

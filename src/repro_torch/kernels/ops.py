@@ -14,14 +14,17 @@ import torch
 
 from repro_torch.kernels import col_scores, ref as kref, sketch_matmul
 
-__all__ = ["block_gather_matmul_fused", "col_l1_scores", "gather_cols_matmul",
-           "gather_cols_matmul_dw", "launch_counts", "reset_launch_counts",
-           "KERNELS"]
+__all__ = ["block_gather_matmul", "block_gather_matmul_dw", "block_gather_matmul_fused",
+           "block_stream_matmul_fused", "col_l1_scores", "gather_cols_matmul",
+           "gather_cols_matmul_dw", "launch_counts", "reset_launch_counts", "KERNELS"]
 
 # name -> the wrapper that launches the kernel (and counts its launches)
 KERNELS = {
     "col_l1_scores": col_scores.col_l1_scores,
+    "block_gather_matmul": sketch_matmul.block_gather_matmul,
+    "block_gather_matmul_dw": sketch_matmul.block_gather_matmul_dw,
     "block_gather_matmul_fused": sketch_matmul.block_gather_matmul_fused,
+    "block_stream_matmul_fused": sketch_matmul.block_stream_matmul_fused,
 }
 
 
@@ -54,6 +57,28 @@ def col_l1_scores(G, *, mode: str = "l1"):
     return col_scores.col_l1_scores(G.contiguous(), mode=mode)
 
 
+def _plan(block_idx, scales):
+    """The kept block ids and scales as the kernels take them (on the device:
+    no host sync)."""
+    return block_idx.to(torch.int32).contiguous(), scales.to(torch.float32).contiguous()
+
+
+def block_gather_matmul(G, block_idx, scales, W, *, block: int = 128):
+    """Unfused dX = Σ_k s_k G[:, blk_k] W[blk_k, :]."""
+    if _on_cpu(G, block_idx, scales, W):
+        return kref.block_gather_matmul_ref(G, block_idx, scales, W, block=block)
+    return sketch_matmul.block_gather_matmul(G.contiguous(), *_plan(block_idx, scales),
+                                             W.contiguous(), block=block)
+
+
+def block_gather_matmul_dw(G, block_idx, scales, X, *, block: int = 128):
+    """Unfused compact dWc[k] = s_k G[:, blk_k]ᵀ X, ``[rb, block, d_in]``."""
+    if _on_cpu(G, block_idx, scales, X):
+        return kref.block_gather_matmul_dw_ref(G, block_idx, scales, X, block=block)
+    return sketch_matmul.block_gather_matmul_dw(G.contiguous(), *_plan(block_idx, scales),
+                                                X.contiguous(), block=block)
+
+
 def block_gather_matmul_fused(G, block_idx, scales, W, X, *, block: int = 128,
                               with_scores: bool = False, score_mode: str = "l1"):
     """Fused backward (dX, compact dW, compact db[, kept raw scores]); see
@@ -63,9 +88,23 @@ def block_gather_matmul_fused(G, block_idx, scales, W, X, *, block: int = 128,
             G, block_idx, scales, W, X, block=block,
             with_scores=with_scores, score_mode=score_mode)
     return sketch_matmul.block_gather_matmul_fused(
-        G.contiguous(), block_idx.to(torch.int32).contiguous(),
-        scales.to(torch.float32).contiguous(), W.contiguous(), X.contiguous(),
+        G.contiguous(), *_plan(block_idx, scales), W.contiguous(), X.contiguous(),
         block=block, with_scores=with_scores, score_mode=score_mode)
+
+
+def block_stream_matmul_fused(G, block_idx, scales, W, X, *, block: int = 128,
+                              score_mode: str = "l1"):
+    """Streaming one-pass backward over all of G: (dX, compact dW, compact db,
+    fresh raw scores [n]); see ``sketch_matmul.block_stream_matmul_fused``.
+    The plan (kept block ids and 1/p scales, sampled from carried scores)
+    goes to the kernel as it is: the TPU kernel's per-block gates and slot
+    map exist for its BlockSpec index maps and have no counterpart here."""
+    if _on_cpu(G, block_idx, scales, W, X):
+        return kref.block_stream_matmul_onepass_ref(G, block_idx, scales, W, X, block=block,
+                                                    score_mode=score_mode)
+    return sketch_matmul.block_stream_matmul_fused(
+        G.contiguous(), *_plan(block_idx, scales), W.contiguous(), X.contiguous(),
+        block=block, score_mode=score_mode)
 
 
 def gather_cols_matmul(G, idx, scales, W):

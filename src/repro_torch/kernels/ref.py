@@ -10,8 +10,9 @@ import torch
 
 __all__ = ["COL_SCORE_MODES", "col_scores_ref", "col_l1_scores_ref",
            "block_gather_matmul_ref", "block_gather_matmul_dw_ref",
-           "block_gather_matmul_fused_ref", "gather_cols_matmul_ref",
-           "gather_cols_matmul_dw_ref"]
+           "block_gather_matmul_fused_ref", "block_stream_matmul_onepass_ref",
+           "gather_cols_matmul_ref", "gather_cols_matmul_dw_ref",
+           "gather_cols_onepass_ref", "gather_cols_fused_scores_ref"]
 
 # The one table mapping a score mode to its elementwise column reduction.
 COL_SCORE_MODES = {"l1": torch.abs, "l2": torch.square}
@@ -61,6 +62,38 @@ def block_gather_matmul_fused_ref(G, block_idx, scales, W, X, *, block: int,
     if with_scores:
         return out + (COL_SCORE_MODES[score_mode](Gc0).sum(0).reshape(rb, block),)
     return out
+
+
+def block_stream_matmul_onepass_ref(G, block_idx, scales, W, X, *, block: int,
+                                    score_mode: str = "l1"):
+    """Streaming one-pass backward oracle: (dX, dWc, db_c, scores). The first
+    three are the fused oracle's; scores [n] f32 is the raw column reduction
+    (Σ|G| for "l1", ΣG² for "l2") of every column of G, kept or dropped.
+
+    The JAX oracle gathers all of G once through a permutation behind an
+    optimization barrier, so that XLA has one reader of G; that is an XLA
+    device with no meaning here, and the outputs are the same."""
+    dX, dWc, db = block_gather_matmul_fused_ref(G, block_idx, scales, W, X, block=block)
+    return dX, dWc, db, col_scores_ref(G, mode=score_mode)
+
+
+def gather_cols_fused_scores_ref(G, idx, scales, W, X, *, score_mode: str = "l1"):
+    """Per-column compact backward with the kept columns' raw scores: (dX
+    [N, d], dW rows [r, d_in], db rows [r] f32, kept scores [r] f32)."""
+    Gc0 = G[:, idx].to(torch.float32)
+    kept = COL_SCORE_MODES[score_mode](Gc0).sum(0)
+    Gc = Gc0 * scales[None, :].to(torch.float32)
+    dX = (Gc @ W[idx].to(torch.float32)).to(G.dtype)
+    rows = (Gc.T @ X.to(torch.float32)).to(G.dtype)
+    return dX, rows, Gc.sum(0), kept
+
+
+def gather_cols_onepass_ref(G, idx, scales, W, X, *, score_mode: str = "l1"):
+    """Per-column one-pass backward: (dX, dW rows, db rows, scores [n] f32),
+    the scores those of every column of G."""
+    dX, rows, db, _ = gather_cols_fused_scores_ref(G, idx, scales, W, X,
+                                                   score_mode=score_mode)
+    return dX, rows, db, col_scores_ref(G, mode=score_mode)
 
 
 def gather_cols_matmul_ref(G, idx, scales, W):

@@ -5,8 +5,13 @@ A step takes ``(state, batch, key)``: the batch as numpy or tensors, and the
 step's integer seed, from which every sketched site derives its own
 generator (step → layer → role). Gradients come from one backward through
 the sketched sites' autograd Function; the optimizer updates in place.
-Gradient accumulation, compact gradients, telemetry probes, plan carry and
-resilience are not ported yet.
+
+Plan carry (``onepass``, ``stale``): the carry leaves are parameters, so the
+backward returns their refreshed scores among the gradients. The step takes
+them out (zeroing those gradients) before the gradient norm, the clipping and
+the optimizer, and writes them over the carry after the update
+(``core/plan_state.py``). Gradient accumulation, compact gradients, telemetry
+probes and resilience are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from repro_torch.api.execution import ExecutionConfig
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import SketchPolicy
+from repro_torch.core import plan_state as pstate
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import Optimizer, global_grad_norm
@@ -40,11 +46,16 @@ def _trainable(params) -> None:
 
 
 def init_state(seed: int, cfg: ArchConfig, opt: Optimizer, *, params=None,
-               device="cuda") -> TrainState:
+               device="cuda", policy: Optional[SketchPolicy] = None) -> TrainState:
     """Fresh train state: random parameters from ``seed`` (or the given
-    ``params``), the optimizer's initial state, step 0."""
+    ``params``), the optimizer's initial state, step 0. With a plan-carry
+    ``policy`` every carry-capable site gets its carry leaf (the uniform
+    prior); without it a carry policy still runs, but every step samples
+    from the uniform prior."""
     if params is None:
         params = lm.init_params(seed, cfg, device=device)
+    if pstate.policy_uses_carry(policy):
+        params = pstate.with_plan_state(params, policy, n_layers=cfg.n_layers)
     _trainable(params)
     return TrainState(params=params, opt_state=opt.init(params), step=0)
 
@@ -67,6 +78,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     ex = execution or ExecutionConfig()
     dev = resolve_device(device)
     lm.check_supported(cfg)
+    carry_on = pstate.policy_uses_carry(policy)
 
     def step_fn(state: TrainState, batch, key: int):
         batch = batch_to_device(batch, dev)
@@ -76,8 +88,15 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
         loss, _ = lm.lm_loss(state.params, batch, ctx, cfg, key)
         flat = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(flat), state.params)
+        fresh = {}
+        if carry_on:
+            # the carry leaves' gradients ARE the refreshed scores: take them
+            # out before the norm, the clipping and the moments see them
+            grads, fresh = pstate.collect_plan_state(grads)
         gn = global_grad_norm(grads)
         params, opt_state = opt.update(grads, state.opt_state, state.params, state.step)
+        # after the update: the optimizer saw zero gradients on the carry
+        params = pstate.write_plan_state(params, fresh)
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
         return new_state, {"loss": loss.detach(), "grad_norm": gn}
 

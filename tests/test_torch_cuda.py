@@ -72,14 +72,76 @@ def test_cuda_block_gather_matmul_fused_matches_plain(cuda, N, n, d, rb, dtype, 
         _close(a, b, TOL[dtype] if i < 2 else 1e-5)
 
 
+def _problem(cuda, N, n, d, rb, dtype, seed):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    G = torch.randn((N, n), generator=g, device=cuda).to(dtype)
+    W = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    X = torch.randn((N, d), generator=g, device=cuda).to(dtype)
+    idx = torch.sort(torch.randperm(n // 128, generator=g, device=cuda)[:rb]).values.int()
+    scales = 1.0 + torch.rand(rb, generator=g, device=cuda)
+    return G, idx, scales, W, X
+
+
+@pytest.mark.parametrize("N,n,d,rb", [(2048, 768, 768, 1), (2048, 2048, 768, 3),
+                                      (100, 512, 80, 2), (33, 256, 130, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["l1", "l2"])
+def test_cuda_block_stream_matmul_fused_matches_plain_and_fused(cuda, N, n, d, rb, dtype,
+                                                                 mode):
+    """Against the plain version; dX, dWc and db bit-identical to the fused
+    kernel's for the same keeps, the kept columns' scores too; every
+    column's score deterministic."""
+    G, idx, scales, W, X = _problem(cuda, N, n, d, rb, dtype, 2)
+    before = sketch_matmul.block_stream_matmul_fused.launches
+    got = sketch_matmul.block_stream_matmul_fused(G, idx, scales, W, X, block=128,
+                                                  score_mode=mode)
+    assert sketch_matmul.block_stream_matmul_fused.launches == before + 1
+    want = sketch_matmul.block_stream_matmul_fused_plain(G, idx, scales, W, X, block=128,
+                                                         score_mode=mode)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close(a, b, TOL[dtype] if i < 2 else 1e-5)
+    fused = sketch_matmul.block_gather_matmul_fused(G, idx, scales, W, X, block=128,
+                                                    with_scores=True, score_mode=mode)
+    for a, b in zip(got[:3], fused[:3]):
+        assert torch.equal(a, b)
+    kept = (idx.long()[:, None] * 128 + torch.arange(128, device=cuda)[None, :]).reshape(-1)
+    assert torch.equal(got[3][kept], fused[3].reshape(-1))
+    again = sketch_matmul.block_stream_matmul_fused(G, idx, scales, W, X, block=128,
+                                                    score_mode=mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("N,n,d,rb", [(2048, 768, 768, 1), (100, 512, 80, 2),
+                                      (33, 256, 130, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unfused_pair_matches_plain_and_fused(cuda, N, n, d, rb, dtype):
+    G, idx, scales, W, X = _problem(cuda, N, n, d, rb, dtype, 3)
+    dX = sketch_matmul.block_gather_matmul(G, idx, scales, W, block=128)
+    dWc = sketch_matmul.block_gather_matmul_dw(G, idx, scales, X, block=128)
+    _close(dX, sketch_matmul.block_gather_matmul_plain(G, idx, scales, W, block=128),
+           TOL[dtype])
+    _close(dWc, sketch_matmul.block_gather_matmul_dw_plain(G, idx, scales, X, block=128),
+           TOL[dtype])
+    fused = sketch_matmul.block_gather_matmul_fused(G, idx, scales, W, X, block=128)
+    assert torch.equal(dX, fused[0]) and torch.equal(dWc, fused[1])
+
+
 def test_cuda_dispatcher_launches_and_counts(cuda):
     G = torch.randn((64, 256), device=cuda)
     W = torch.randn((256, 32), device=cuda)
     X = torch.randn((64, 32), device=cuda)
+    idx, scales = torch.tensor([1], device=cuda), torch.ones(1, device=cuda)
     ops.reset_launch_counts()
     ops.col_l1_scores(G)
-    ops.block_gather_matmul_fused(G, torch.tensor([1], device=cuda), torch.ones(1, device=cuda),
-                                  W, X, block=128)
-    assert ops.launch_counts() == {"col_l1_scores": 1, "block_gather_matmul_fused": 1}
+    ops.block_gather_matmul(G, idx, scales, W, block=128)
+    ops.block_gather_matmul_dw(G, idx, scales, X, block=128)
+    ops.block_gather_matmul_fused(G, idx, scales, W, X, block=128)
+    ops.block_stream_matmul_fused(G, idx, scales, W, X, block=128)
+    assert ops.launch_counts() == {name: 1 for name in (
+        "col_l1_scores", "block_gather_matmul", "block_gather_matmul_dw",
+        "block_gather_matmul_fused", "block_stream_matmul_fused")}
     with pytest.raises(ValueError):
         ops.block_gather_matmul_fused(G, torch.tensor([0]), torch.ones(1), W, X, block=128)

@@ -106,6 +106,46 @@ def test_fused_ref_agrees_with_unfused_refs():
     np.testing.assert_allclose(db.numpy(), Gb.sum(0), rtol=RTOL, atol=1e-5)
 
 
+@pytest.mark.parametrize("score_mode", ["l1", "l2"])
+@pytest.mark.parametrize("n,d,rb", [(512, 80, 2), (384, 128, 3), (256, 64, 2)])
+def test_onepass_refs_match_jax(score_mode, n, d, rb):
+    """The streaming oracle and the per-column one-pass and fused-scores
+    oracles against JAX's (``repro/kernels/ref.py:151-236``)."""
+    G, idx, scales, W, X = _problem(n, d, rb)
+    got = ref.block_stream_matmul_onepass_ref(_t(G), _t(idx).long(), _t(scales), _t(W),
+                                              _t(X), block=BLOCK, score_mode=score_mode)
+    want = jref.block_stream_matmul_onepass_ref(jnp.asarray(G), jnp.asarray(idx),
+                                                jnp.asarray(scales), jnp.asarray(W),
+                                                jnp.asarray(X), block=BLOCK,
+                                                score_mode=score_mode)
+    cols = np.array([3, 17, 100, 200, n - 1])
+    cs = np.linspace(1.0, 3.0, len(cols)).astype(np.float32)
+    for fn in ("gather_cols_onepass_ref", "gather_cols_fused_scores_ref"):
+        got += getattr(ref, fn)(_t(G), _t(cols), _t(cs), _t(W), _t(X), score_mode=score_mode)
+        want += getattr(jref, fn)(jnp.asarray(G), jnp.asarray(cols), jnp.asarray(cs),
+                                  jnp.asarray(W), jnp.asarray(X), score_mode=score_mode)
+    assert len(got) == len(want) == 12
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=MM_ATOL)
+
+
+@pytest.mark.parametrize("score_mode", ["l1", "l2"])
+def test_stream_ref_equals_fused_ref_with_every_column_scored(score_mode):
+    """For the same keeps the streaming oracle's dX, dWc and db are the fused
+    oracle's, and its scores are the score oracle's over all of G."""
+    G, idx, scales, W, X = _problem(n=512, d=64, rb=2)
+    args = (_t(G), _t(idx).long(), _t(scales), _t(W), _t(X))
+    got = ref.block_stream_matmul_onepass_ref(*args, block=BLOCK, score_mode=score_mode)
+    fused = ref.block_gather_matmul_fused_ref(*args, block=BLOCK, with_scores=True,
+                                              score_mode=score_mode)
+    for a, b in zip(got[:3], fused[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3], ref.col_scores_ref(_t(G), mode=score_mode))
+    kept = (idx[:, None] * BLOCK + np.arange(BLOCK)[None, :]).reshape(-1)
+    np.testing.assert_allclose(got[3].numpy()[kept], fused[3].reshape(-1).numpy(), rtol=RTOL)
+
+
 def test_dispatcher_uses_plain_versions_on_cpu_without_launching():
     ops.reset_launch_counts()
     G, idx, scales, W, X = _problem()
@@ -117,7 +157,19 @@ def test_dispatcher_uses_plain_versions_on_cpu_without_launching():
                                              _t(X), block=BLOCK, with_scores=True)
     for a, b in zip(out, want):
         assert torch.equal(a, b)
-    assert ops.launch_counts() == {"col_l1_scores": 0, "block_gather_matmul_fused": 0}
+    args = (_t(G), _t(idx).long(), _t(scales))
+    assert torch.equal(ops.block_gather_matmul(*args, _t(W), block=BLOCK),
+                       ref.block_gather_matmul_ref(*args, _t(W), block=BLOCK))
+    assert torch.equal(ops.block_gather_matmul_dw(*args, _t(X), block=BLOCK),
+                       ref.block_gather_matmul_dw_ref(*args, _t(X), block=BLOCK))
+    out = ops.block_stream_matmul_fused(*args, _t(W), _t(X), block=BLOCK, score_mode="l2")
+    want = ref.block_stream_matmul_onepass_ref(*args, _t(W), _t(X), block=BLOCK,
+                                               score_mode="l2")
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert ops.launch_counts() == {name: 0 for name in (
+        "col_l1_scores", "block_gather_matmul", "block_gather_matmul_dw",
+        "block_gather_matmul_fused", "block_stream_matmul_fused")}
     with pytest.raises(ValueError, match="score mode"):
         ops.col_l1_scores(_t(G), mode="l3")
 
@@ -139,5 +191,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="block"):
         sketch_matmul.block_gather_matmul_fused(_t(G), _t(idx), _t(scales), _t(W), _t(X),
                                                 block=100)
+    for call in (lambda: sketch_matmul.block_gather_matmul(_t(G), _t(idx), _t(scales), _t(W)),
+                 lambda: sketch_matmul.block_gather_matmul_dw(_t(G), _t(idx), _t(scales),
+                                                              _t(X)),
+                 lambda: sketch_matmul.block_stream_matmul_fused(_t(G), _t(idx), _t(scales),
+                                                                 _t(W), _t(X))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     assert col_scores.col_l1_scores_plain is ref.col_scores_ref
     assert sketch_matmul.block_gather_matmul_fused_plain is ref.block_gather_matmul_fused_ref
+    assert sketch_matmul.block_gather_matmul_plain is ref.block_gather_matmul_ref
+    assert sketch_matmul.block_gather_matmul_dw_plain is ref.block_gather_matmul_dw_ref
+    assert sketch_matmul.block_stream_matmul_fused_plain is ref.block_stream_matmul_onepass_ref
