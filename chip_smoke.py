@@ -16,7 +16,8 @@ toolkit and Triton. Phases, each of which raises on failure:
    its score output; the unfused dX / dW pair, which must equal the fused
    kernel's dX and dWc bit for bit; the streaming kernel, whose dX, dWc and db
    must equal the fused kernel's bit for bit and whose scores must be the same
-   on two calls;
+   on two calls; the flash-attention kernel at the serving path's prefill
+   shapes and at GQA, window and dh-128 sets, the same on two calls;
 4. wiring check: one lm-100m step at budget 0.999 under each of the
    ``pallas``, ``onepass`` and ``stale`` policies keeps every block of every
    sketched site with scale 1, launches each path's kernels at every site and
@@ -30,7 +31,15 @@ toolkit and Triton. Phases, each of which raises on failure:
 6. a step breakdown: exact-backprop steps beside the three sketched ones, and
    a profiler trace of one step of each (device busy time, top device and
    host ops);
-7. one JSON line listing the ported kernels, then the last line
+7. the serving main path: ``Runtime.prefill_step`` / ``decode_step`` of
+   lm-100m with ``attn_impl="pallas"``, two waves of same-length prompts
+   (8 x 1024, then 4 x 1000 tokens) and 32 greedy decode steps each, with the
+   launch counts set to 0 just before it and read after each prefill and
+   decode; the prefill logits held against the plain-attention forward, and
+   every decode step's logits against the same generation with the plain
+   attention, teacher-forced on the kernel run's tokens;
+8. a serving breakdown: a profiler trace of one prefill and one decode step;
+9. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
@@ -46,6 +55,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # lm-100m, the repo's end-to-end trainer config (examples/train_lm.py)
@@ -71,6 +81,21 @@ PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # (dX, dWc) round the float32 result to 8 bits: one ulp is 2^-8 of the value.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 GRAD_RTOL = 2e-4  # lm-100m gradients: 12 layers of float32 reorderings
+# the serving main path: (prompts, tokens per prompt) per wave, and the decode
+# steps after each prefill (each gives one greedy token per prompt)
+SERVE_WAVES = ((8, 1024), (4, 1000))
+DECODE_STEPS = 32
+SERVE_SEED = 5
+# lm-100m logits, flash kernel against plain attention: 12 layers of float32
+# sums in another order (~1e-6 relative each), compared to the largest logit
+LOGIT_RTOL = 1e-4
+# flash attention, (B, Sq, Skv, H, Kv, dh, causal, window) -> calls per
+# prefill of its wave (one per layer); the last three are off the path
+FLASH_SHAPES = {(8, 1024, 1024, 12, 12, 64, True, None): 12,
+                (4, 1000, 1000, 12, 12, 64, True, None): 12,
+                (2, 512, 1024, 12, 4, 64, True, None): 0,  # GQA, right-aligned
+                (2, 1000, 1000, 12, 12, 64, True, 256): 0,  # window, ragged
+                (2, 1024, 1024, 8, 8, 128, True, None): 0}  # dh 128
 
 
 def smi_line() -> str:
@@ -275,6 +300,58 @@ def check_stream(gen, dev):
                            **bound(n_bytes, n_ops, dtype))
                 print(f"[kernel] block_stream_matmul_fused {row}")
                 rows.append(row)
+    return rows
+
+
+def unmasked_pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs one head of one prompt attends, as the kernel
+    masks them."""
+    if not causal:
+        return Sq * Skv
+    qpos = torch.arange(Sq)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv)[None, :]
+    mask = qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return int(mask.sum())
+
+
+def check_flash(gen, dev):
+    """The flash kernel against its plain version; the same on a second call;
+    SDPA beside it where it computes the same function (causal, Sq = Skv)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for (B, Sq, Skv, H, Kv, dh, causal, window), calls in FLASH_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Sq, H, dh), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, Skv, Kv, dh), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, Skv, Kv, dh), generator=gen, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            again = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("flash_attention is not deterministic")
+            err, tol = max_err(got, want, TOL[dtype])
+            lib = None
+            if causal and window is None and Sq == Skv:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            n_ops = 4 * dh * B * H * unmasked_pairs(Sq, Skv, causal, window)
+            row = dict(shape=[B, Sq, Skv, H, Kv, dh], causal=causal, window=window,
+                       dtype=str(dtype).split(".")[-1], calls=calls, max_abs_err=err, tol=tol,
+                       deterministic=True, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                       plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
+                       library_ms=lib, **bound(n_bytes, n_ops, dtype))
+            print(f"[kernel] flash_attention {row}")
+            rows.append(row)
+            del q, k, v, got, want, again
     return rows
 
 
@@ -509,6 +586,169 @@ def step_breakdown(dev, reps=3):
         del state
 
 
+def serve_path(dev):
+    """The serving main path: lm-100m with attn_impl="pallas" through
+    Runtime.prefill_step / decode_step, two waves, the launch counts read
+    after every prefill and every decode; then the checks against plain
+    attention. Returns the launch counts of the run."""
+    from repro_torch.api import Runtime
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+    from repro_torch.serve import greedy_sample
+
+    cfg = lm100m().replace(attn_impl="pallas")
+    params = lm.init_params(SERVE_SEED, cfg, device=dev)
+    runtime = Runtime(device=dev)
+    gen = np.random.default_rng(SERVE_SEED)
+    waves = [gen.integers(1, cfg.vocab, size=(B, S)) for B, S in SERVE_WAVES]
+    L = cfg.n_layers
+
+    def generate(prompts, forced=None):
+        """Prefill, then DECODE_STEPS greedy steps; ``forced``: feed these
+        tokens instead of the run's own. Returns (prefill logits, tokens
+        fed, step logits, launches after prefill and after decode, ms)."""
+        B, S = prompts.shape
+        prefill = runtime.prefill_step(cfg, S + DECODE_STEPS)
+        decode = runtime.decode_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after_prefill = ops.launch_counts()
+        cur = greedy_sample(logits[:, -1:])
+        fed, step_logits = [], []
+        for i in range(DECODE_STEPS):
+            if forced is not None:
+                cur = forced[i]
+            fed.append(cur)
+            lg, caches = decode(params, caches, cur, S + i)
+            step_logits.append(lg)
+            cur = greedy_sample(lg)
+        fed.append(cur)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for c in caches:
+            if tuple(c["k"].shape) != (B, S + DECODE_STEPS, cfg.n_kv, cfg.head_dim):
+                raise AssertionError(f"cache shape {tuple(c['k'].shape)}")
+        return (logits, fed, step_logits, after_prefill, ops.launch_counts(),
+                1e3 * (t1 - t0), 1e3 * (t2 - t1))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    runs = []
+    for w, prompts in enumerate(waves):
+        out = generate(prompts)
+        logits, fed, step_logits, after_prefill, after_decode = out[:5]
+        want = {name: 0 for name in ops.KERNELS}
+        want["flash_attention"] = L * (w + 1)
+        if after_prefill != want or after_decode != want:
+            raise AssertionError(f"wave {w + 1}: launches after prefill {after_prefill}, after "
+                                 f"decode {after_decode}, want {want} ({L} per prefill, 0 in "
+                                 f"decode)")
+        if not torch.isfinite(logits).all() or not all(torch.isfinite(x).all()
+                                                       for x in step_logits):
+            raise AssertionError(f"wave {w + 1}: non-finite logits")
+        runs.append(out)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # checks: the prefill against the plain-attention forward, and the
+    # generation against the plain attention, teacher-forced
+    plain_cfg = cfg.replace(attn_impl="chunked")
+    for w, (prompts, out) in enumerate(zip(waves, runs)):
+        B, S = prompts.shape
+        logits, fed, step_logits = out[:3]
+        toks = torch.as_tensor(prompts, device=dev).long()
+        if w == 0:
+            with torch.no_grad():
+                want = lm.forward(params, {"tokens": toks}, Ctx(), plain_cfg)
+            fwd_err, fwd_tol = max_err(logits, want, LOGIT_RTOL)
+            del want
+        real = ops.flash_attention
+        ops.flash_attention = fa.flash_attention_plain
+        try:
+            p_logits, _, p_steps, _, _, _, _ = generate(prompts, forced=fed[:DECODE_STEPS])
+        finally:
+            ops.flash_attention = real
+        pre_err, _ = max_err(logits, p_logits, LOGIT_RTOL)
+        step_err = max(max_err(a, b, LOGIT_RTOL)[0] for a, b in zip(step_logits, p_steps))
+        differ = int((greedy_sample(p_logits[:, -1:]) != fed[0]).sum())
+        differ += sum(int((greedy_sample(b) != t).sum()) for b, t in zip(p_steps, fed[1:]))
+        prefill_ms, decode_ms = out[5], out[6]
+        print(f"[serve] wave {w + 1}: {B} prompts x {S} tokens, {DECODE_STEPS} greedy decode "
+              f"steps: prefill {prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} prompt "
+              f"tokens/s), decode {decode_ms / DECODE_STEPS:.2f} ms per step "
+              f"({B * DECODE_STEPS / decode_ms * 1e3:.0f} tokens/s); launches after prefill "
+              f"and decode {out[3]['flash_attention']}, {out[4]['flash_attention']} "
+              f"flash_attention and "
+              f"{sum(v for k, v in out[4].items() if k != 'flash_attention')} other")
+        print(f"[serve] wave {w + 1}: against plain attention: prefill logits max|err| "
+              f"{pre_err:.3e}, decode logits {step_err:.3e} (tol {LOGIT_RTOL} of the largest "
+              f"logit), greedy tokens differing {differ} of {B * (DECODE_STEPS + 1)}"
+              + (f"; prefill vs the plain forward {fwd_err:.3e} (tol {fwd_tol:.3e})"
+                 if w == 0 else ""))
+        print(f"[serve] wave {w + 1}: first tokens {[int(t[0, 0]) for t in fed[:8]]}")
+    print(f"[serve] peak memory {peak:.2f} GiB; launches {counts}")
+    del runs
+    return counts
+
+
+def serve_breakdown(dev, reps=3):
+    """Where a serving step's time goes: one wave-1 prefill and one decode
+    step, host clock around synced calls after a warm-up, and a profiler
+    trace of one of each (device busy share, top device and host ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Runtime
+    from repro_torch.models import lm
+    from repro_torch.serve import greedy_sample
+
+    cfg = lm100m().replace(attn_impl="pallas")
+    params = lm.init_params(SERVE_SEED, cfg, device=dev)
+    runtime = Runtime(device=dev)
+    B, S = SERVE_WAVES[0]
+    prompts = np.random.default_rng(SERVE_SEED + 1).integers(1, cfg.vocab, size=(B, S))
+    prefill = runtime.prefill_step(cfg, S + DECODE_STEPS)
+    decode = runtime.decode_step(cfg)
+    logits, caches = prefill(params, {"tokens": prompts})
+    cur = greedy_sample(logits[:, -1:])
+    del logits
+    calls = [(f"prefill {B}x{S}", lambda: prefill(params, {"tokens": prompts})),
+             (f"decode step (batch {B})", lambda: decode(params, caches, cur, S))]
+    for label, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        call_ms = 1e3 * (time.perf_counter() - t0) / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        evts = prof.key_averages()
+        kern = [e for e in evts if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(_device_us(e) for e in kern) / 1e3
+        host = [e for e in evts if e.device_type == DeviceType.CPU]
+        print(f"[serve-breakdown] {label}: {call_ms:.2f} ms per call over {reps} calls; "
+              f"profiled call: {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms in "
+              f"{sum(e.count for e in kern)} device ops, {sum(e.count for e in host)} host ops; "
+              f"busy share of an unprofiled call {100 * busy_ms / call_ms:.0f}%")
+        for e in sorted(kern, key=_device_us, reverse=True)[:6]:
+            print(f"[serve-breakdown]   device {_device_us(e) / 1e3:8.3f} ms x{e.count:<5d} "
+                  f"{e.key[:80]}")
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
+            print(f"[serve-breakdown]   host   {e.self_cpu_time_total / 1e3:8.3f} ms "
+                  f"x{e.count:<5d} {e.key[:80]}")
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -555,6 +795,7 @@ def main() -> int:
     fused_rows = check_fused(gen, dev)
     unfused_rows = check_unfused(gen, dev)
     stream_rows = check_stream(gen, dev)
+    flash_rows = check_flash(gen, dev)
     print(f"[kernel] checks and timings {time.perf_counter() - t0:.1f} s (first calls "
           f"include Triton's compile)")
 
@@ -563,6 +804,9 @@ def main() -> int:
     launches = {name: sum(c[name] for c in path_counts.values())
                 for name in path_counts["pallas"]}
     step_breakdown(dev)
+    serve_counts = serve_path(dev)
+    launches["flash_attention"] = serve_counts["flash_attention"]
+    serve_breakdown(dev)
 
     def f32(rows, **match):
         return [r for r in rows if r["dtype"] == "float32"
@@ -588,11 +832,16 @@ def main() -> int:
         kernel_entry("block_stream_matmul_fused", "cuda", csrc + "block_stream_matmul_fused.cu",
                      replaces + "381", launches["block_stream_matmul_fused"],
                      f32(stream_rows, mode="l1"), f32(stream_rows), library=False),
+        kernel_entry("flash_attention", "cuda", csrc + "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:76", launches["flash_attention"],
+                     f32(flash_rows, shape=[*SERVE_WAVES[0], SERVE_WAVES[0][1], 12, 12, 64]),
+                     f32(flash_rows), library=True),
     ]
     print(f"# launches: summed over the main paths' runs ({STEPS} steps each): "
-          f"{json.dumps(path_counts)}")
+          f"{json.dumps(path_counts)}; serving (two waves): {json.dumps(serve_counts)}")
     print("# kernels: times are float32, summed over one step's calls at the paths' shapes "
-          "(the unfused pair: the fused kernel's calls, which it would replace)")
+          "(the unfused pair: the fused kernel's calls, which it would replace); "
+          "flash_attention: over one wave-1 prefill's calls")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,11 @@
-"""The Runtime: the front door for sketched training (port of
-``repro/api/runtime.py``, training under a constant budget).
+"""The Runtime: the front door for sketched training and serving steps
+(port of ``repro/api/runtime.py``, training under a constant budget).
 
 ``Runtime(policy=..., device="cuda").train(cfg, opt, data, steps=...)`` runs
-the sketched training loop on the card. The device resolves when the Runtime
-is built: without a card, ``device="cuda"`` raises ``RuntimeError``.
-Budget schedules and serving are not ported yet.
+the sketched training loop on the card; ``prefill_step`` and ``decode_step``
+give the serving steps. The device resolves when the Runtime is built:
+without a card, ``device="cuda"`` raises ``RuntimeError``. Budget schedules
+and the serving engines (``Runtime.serve``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -59,3 +60,19 @@ class Runtime:
         return trainer.train_loop(self, cfg, opt, data, steps=steps,
                                   log_every=log_every, seed=seed, state=state,
                                   on_metrics=on_metrics)
+
+    # -- serving ------------------------------------------------------------
+
+    def prefill_step(self, cfg, max_len: int) -> Callable:
+        """``prefill_fn(params, batch) -> (logits, caches)`` on this runtime's
+        device."""
+        from repro_torch.serve.serve_step import make_prefill
+
+        return make_prefill(cfg, max_len, execution=self.execution, device=self.device)
+
+    def decode_step(self, cfg) -> Callable:
+        """``decode_fn(params, caches, tokens, pos) -> (logits, caches)`` on
+        this runtime's device."""
+        from repro_torch.serve.serve_step import make_decode_step
+
+        return make_decode_step(cfg, execution=self.execution, device=self.device)

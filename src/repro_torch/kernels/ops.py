@@ -13,10 +13,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import col_scores, ref as kref, sketch_matmul
+from repro_torch.kernels import flash_attention as flash
 
 __all__ = ["block_gather_matmul", "block_gather_matmul_dw", "block_gather_matmul_fused",
-           "block_stream_matmul_fused", "col_l1_scores", "gather_cols_matmul",
-           "gather_cols_matmul_dw", "launch_counts", "reset_launch_counts", "KERNELS"]
+           "block_stream_matmul_fused", "col_l1_scores", "flash_attention",
+           "gather_cols_matmul", "gather_cols_matmul_dw", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
 
 # name -> the wrapper that launches the kernel (and counts its launches)
 KERNELS = {
@@ -25,6 +27,7 @@ KERNELS = {
     "block_gather_matmul_dw": sketch_matmul.block_gather_matmul_dw,
     "block_gather_matmul_fused": sketch_matmul.block_gather_matmul_fused,
     "block_stream_matmul_fused": sketch_matmul.block_stream_matmul_fused,
+    "flash_attention": flash.flash_attention,
 }
 
 
@@ -116,3 +119,12 @@ def gather_cols_matmul(G, idx, scales, W):
 
 def gather_cols_matmul_dw(G, idx, scales, X):
     return kref.gather_cols_matmul_dw_ref(G, idx, scales, X)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """Attention forward, q [B, Sq, H, dh], k/v [B, Skv, Kv, dh] -> [B, Sq, H, dh]
+    (see ``kernels/flash_attention.py``). The plain version on the CPU is
+    differentiable; the kernel is forward-only."""
+    if _on_cpu(q, k, v):
+        return kref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash.flash_attention(q, k, v, causal=causal, window=window)

@@ -12,7 +12,8 @@ __all__ = ["COL_SCORE_MODES", "col_scores_ref", "col_l1_scores_ref",
            "block_gather_matmul_ref", "block_gather_matmul_dw_ref",
            "block_gather_matmul_fused_ref", "block_stream_matmul_onepass_ref",
            "gather_cols_matmul_ref", "gather_cols_matmul_dw_ref",
-           "gather_cols_onepass_ref", "gather_cols_fused_scores_ref"]
+           "gather_cols_onepass_ref", "gather_cols_fused_scores_ref",
+           "check_flash_causal", "flash_attention_ref"]
 
 # The one table mapping a score mode to its elementwise column reduction.
 COL_SCORE_MODES = {"l1": torch.abs, "l2": torch.square}
@@ -116,3 +117,35 @@ def col_scores_ref(G, *, mode: str = "l1"):
 def col_l1_scores_ref(G):
     """ℓ1 column scores in fp32: s_j = Σ_i |G[i, j]|."""
     return col_scores_ref(G, mode="l1")
+
+
+def check_flash_causal(Sq: int, Skv: int, causal: bool) -> None:
+    """Raise for a causal call with more queries than keys.
+
+    The JAX package gives two answers there: its TPU kernel returns zero rows
+    for the queries that see no key, its oracle the mean of V. No path of
+    either package reaches the case, so the port takes neither."""
+    if causal and Sq > Skv:
+        raise ValueError(f"causal flash attention needs Sq <= Skv, got Sq {Sq} > Skv {Skv}")
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None):
+    """q: [B, Sq, H, dh]; k/v: [B, Skv, Kv, dh] (GQA: query head h reads kv
+    head h // (H // Kv)) -> [B, Sq, H, dh] in q's dtype. float32 scores
+    scaled by dh**-0.5 and softmax; the causal mask is right-aligned (query
+    i sits at Skv - Sq + i) and the window applies only when causal."""
+    B, Sq, H, dh = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    check_flash_causal(Sq, Skv, causal)
+    qg = q.reshape(B, Sq, Kv, H // Kv, dh).to(torch.float32)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg, k.to(torch.float32)) * dh ** -0.5
+    if causal:
+        qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = qpos >= kpos
+        if window is not None:
+            mask &= (qpos - kpos) < window
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckh->bqkgh", p, v.to(torch.float32))
+    return o.reshape(B, Sq, H, dh).to(q.dtype)

@@ -1,10 +1,14 @@
-"""Decoder-only LM, dense family (port of ``repro/models/lm.py``).
+"""Decoder-only LM, dense family (port of ``repro/models/lm.py``): the
+training forward, prefill and decode.
 
 The JAX model scans stacked layers; the port keeps one parameter dict per
 layer in ``params["layers"]`` and runs a Python loop. Layer ``i`` has uid
 ``i``, the uid the JAX segment runner gives it, so per-site seeds follow the
-same step → layer → role structure. MoE, SSM, hybrid, encoder-decoder and
-local/global families are not ported yet.
+same step → layer → role structure. The decode caches follow the same
+layout: a list with one ``{"k", "v"}`` dict per layer, where JAX stacks them
+on a leading ``[n_layers]`` axis (``interop.caches_from_jax`` converts).
+MoE, SSM, hybrid, encoder-decoder and local/global families are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -14,12 +18,13 @@ from repro_torch import rng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
-from repro_torch.nn.attention import AttnCfg, attention, attn_init
+from repro_torch.nn.attention import AttnCfg, attention, attn_init, init_kv_cache
 from repro_torch.nn.common import Ctx, dense_init, rmsnorm, rmsnorm_init, trunc_normal
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.tree import tree_leaves
 
-__all__ = ["init_params", "forward", "lm_loss", "num_params", "check_supported"]
+__all__ = ["init_params", "forward", "lm_loss", "num_params", "check_supported", "init_cache",
+           "prefill", "decode_step"]
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -33,7 +38,8 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def _attn_cfg(cfg: ArchConfig) -> AttnCfg:
     return AttnCfg(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
-                   causal=True, window=cfg.window, rope=cfg.rope, theta=cfg.rope_theta)
+                   causal=True, window=cfg.window, rope=cfg.rope, theta=cfg.rope_theta,
+                   impl=cfg.attn_impl)
 
 
 def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
@@ -58,28 +64,100 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
     return params
 
 
-def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
-    """Training forward. ``batch["tokens"]``: int [B, S] on the params' device.
-    ``step_key``: the step's integer seed (None = no sketching). Returns logits."""
-    check_supported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+def _default_positions(B: int, S: int, device, offset=0):
+    """[B, S] positions from ``offset``: an int, or an int tensor [B] of
+    per-row start positions (decode)."""
+    pos = torch.arange(S, device=device)[None, :]
+    if isinstance(offset, torch.Tensor):
+        pos = offset.to(device=device, dtype=torch.long).reshape(-1, 1) + pos
+    else:
+        pos = pos + int(offset)
+    return pos.expand(B, S)
+
+
+def _embed(params, tokens, cfg: ArchConfig):
     x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
     if cfg.embed_scale:
         x = x * cfg.d_model ** 0.5
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    acfg = _attn_cfg(cfg)
-    for uid, p in enumerate(params["layers"]):
-        lctx = ctx.for_layer(step_key, uid)
-        x = x + attention(p["attn"], rmsnorm(p["norm1"], x), lctx, acfg, positions)
-        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), lctx, cfg.mlp_type)
+    return x
+
+
+def _head(params, x, ctx: Ctx, cfg: ArchConfig):
     x = rmsnorm(params["final_norm"], x)
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]["w"]
     hcfg = ctx.cfg_for("lm_head")
     key = ctx.site_key("lm_head", x.device) if hcfg is not None else None
     return linear(x, w, key=key, cfg=hcfg)
+
+
+def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, caches=None,
+                pos=None, segs=None):
+    acfg = _attn_cfg(cfg)
+    for uid, p in enumerate(params["layers"]):
+        lctx = ctx.for_layer(step_key, uid)
+        h = rmsnorm(p["norm1"], x)
+        if caches is None:
+            x = x + attention(p["attn"], h, lctx, acfg, positions, segs=segs)
+        else:
+            o, _ = attention(p["attn"], h, lctx, acfg, positions, cache=caches[uid], pos=pos,
+                             segs=segs)
+            x = x + o
+        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x), lctx, cfg.mlp_type)
+    return x
+
+
+def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
+    """Training forward. ``batch["tokens"]``: int [B, S] on the params' device;
+    optional ``"positions"`` [B, S] and ``"segments"`` (int [B, S], 0 =
+    padding: attention stays within a segment). ``step_key``: the step's
+    integer seed (None = no sketching). Returns logits."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(B, S, tokens.device)
+    x = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
+                    segs=batch.get("segments"))
+    return _head(params, x, ctx, cfg)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
+    """Zero decode caches, one ``{"k", "v"}`` dict of [batch, size, n_kv,
+    d_head] per layer (size = max_len, or the window when it is shorter)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    acfg = _attn_cfg(cfg)
+    return [init_kv_cache(batch, max_len, acfg, getattr(torch, cfg.dtype), dev)
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=None):
+    """Forward over the prompts and fill fresh caches: (logits [B, S, V],
+    caches). Optional ``batch["segments"]`` segment-masks self-attention, so
+    several packed prompts share one call."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(B, S, tokens.device)
+    caches = init_cache(cfg, B, max_len, device=tokens.device)
+    x = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
+                    caches=caches, segs=batch.get("segments"))
+    return _head(params, x, ctx, cfg), caches
+
+
+def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key=None):
+    """One decode step: tokens int [B, 1] at position ``pos`` (an int, or an
+    int tensor [B], one position per row). Writes the new keys and values
+    into ``caches`` in place. Returns (logits [B, 1, V], caches)."""
+    check_supported(cfg)
+    B = tokens.shape[0]
+    positions = _default_positions(B, 1, tokens.device, offset=pos)
+    x = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
+                    caches=caches, pos=pos)
+    return _head(params, x, ctx, cfg), caches
 
 
 def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):

@@ -1,10 +1,16 @@
-"""Causal GQA self-attention for the training path.
+"""Causal GQA self-attention: training, prefill and decode.
 
-Port of the training path of ``repro/nn/attention.py``: sketched q/k/v/o
-projections, RoPE, and the attention core as plain float32 matmul and
-softmax (the JAX ``einsum`` impl; the chunked impl computes the same
-function in another order). Flash attention, KV caches, segment masks,
-cross-attention and M-RoPE are not ported yet.
+Port of ``repro/nn/attention.py``: sketched q/k/v/o projections, RoPE, and
+the attention core. ``impl="pallas"`` sends a call without segment ids to
+the flash-attention kernel (``kernels/ops.py``), as JAX does; every other
+call, and every call with segments, takes the plain float32 matmul and
+softmax (the JAX ``einsum`` impl; its ``chunked`` impl computes the same
+function in another order). Decode attends one query per row against the
+KV cache with a masked einsum on the unrepeated cache. Cross-attention and
+M-RoPE are not ported yet.
+
+Caches are written in place (JAX returns new arrays): a decode step writes
+one position of each layer's cache instead of copying it.
 """
 from __future__ import annotations
 
@@ -13,10 +19,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.nn.common import Ctx, dense, dense_init
 from repro_torch.nn.rope import apply_rope
 
-__all__ = ["AttnCfg", "attn_init", "attention", "multi_head_attention"]
+__all__ = ["AttnCfg", "attn_init", "attention", "decode_attention", "init_kv_cache",
+           "multi_head_attention"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +36,7 @@ class AttnCfg:
     window: Optional[int] = None  # sliding window (None = full)
     rope: str = "default"  # default | none
     theta: float = 10000.0
+    impl: str = "chunked"  # chunked | einsum | pallas
 
     @property
     def groups(self) -> int:
@@ -44,29 +53,117 @@ def attn_init(gen, d_model: int, cfg: AttnCfg, dtype=torch.float32, device="cpu"
     }
 
 
-def multi_head_attention(q, k, v, cfg: AttnCfg):
-    """q [B, Sq, H, dh], k/v [B, Skv, Kv, dh] -> [B, Sq, H, dh]; float32 scores
-    and softmax; the causal mask is right-aligned when Skv > Sq."""
+def multi_head_attention(q, k, v, cfg: AttnCfg, *, segs=None):
+    """q [B, Sq, H, dh], k/v [B, Skv, Kv, dh] -> [B, Sq, H, dh].
+
+    ``impl="pallas"`` without ``segs`` launches the flash kernel. Otherwise:
+    float32 scores and softmax, the causal mask right-aligned when Skv > Sq,
+    and with ``segs`` (int [B, S], self-attention, 0 = padding) query i sees
+    key j only if ``segs[b, i] == segs[b, j] > 0``."""
+    if cfg.impl == "pallas" and segs is None:
+        return ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
     Sq, dh = q.shape[1], q.shape[3]
     Skv = k.shape[1]
     if cfg.groups > 1:
         k = k.repeat_interleave(cfg.groups, dim=2)
         v = v.repeat_interleave(cfg.groups, dim=2)
     s = torch.einsum("bqhd,bchd->bhqc", q.to(torch.float32), k.to(torch.float32)) * dh ** -0.5
+    mask = None
     if cfg.causal:
         qpos = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
         kpos = torch.arange(Skv, device=q.device)[None, :]
         mask = qpos >= kpos
         if cfg.window:
             mask &= (qpos - kpos) < cfg.window
-        s = s.masked_fill(~mask, -1e30)
+    if segs is not None:
+        smask = (segs[:, :, None] == segs[:, None, :]) & (segs[:, None, :] > 0)
+        mask = smask if mask is None else mask[None] & smask
+    if mask is not None:
+        s = s.masked_fill(~(mask if mask.dim() == 2 else mask[:, None]), -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqc,bchd->bqhd", p, v.to(torch.float32))
     return o.to(q.dtype)
 
 
-def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, role_prefix: str = "attn"):
-    """Attention sublayer: sketched projections + core + sketched out-proj."""
+def _rolling(cfg: AttnCfg, size: int) -> bool:
+    """A window cache no longer than the window is a ring: position p lives
+    at slot p % size."""
+    return cfg.window is not None and size <= cfg.window
+
+
+def decode_attention(q, k_cache, v_cache, pos, cfg: AttnCfg):
+    """q [B, 1, H, dh]; caches [B, Smax, Kv, dh]; ``pos``: the new token's
+    index, an int (the whole batch at one timestep) or an int tensor [B]
+    (each row at its own). GQA by a grouped einsum on the unrepeated cache,
+    float32 scores and softmax."""
+    B, _, H, dh = q.shape
+    Kv = k_cache.shape[2]
+    qg = q.reshape(B, 1, Kv, H // Kv, dh).to(torch.float32)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg, k_cache.to(torch.float32)) * dh ** -0.5
+    idx = torch.arange(k_cache.shape[1], device=q.device)
+    # [B, 1] per row, or an int that broadcasts over B
+    posv = pos.to(q.device).reshape(-1, 1) if isinstance(pos, torch.Tensor) else int(pos)
+    # a warm ring holds only valid entries; during warm-up only slots <= pos
+    # have been written
+    mask = idx[None, :] <= posv
+    # init_kv_cache makes every window cache a ring; this branch serves a
+    # longer window cache built by hand, as JAX's decode_attention does
+    if cfg.window is not None and not _rolling(cfg, k_cache.shape[1]):
+        mask &= idx[None, :] > posv - cfg.window
+    s = s.masked_fill(~mask[:, None, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bckh->bqkgh", p, v_cache.to(torch.float32))
+    return o.reshape(B, 1, H, dh).to(q.dtype)
+
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttnCfg, dtype, device):
+    size = min(max_len, cfg.window) if cfg.window is not None else max_len
+    shape = (batch, size, cfg.n_kv, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_decode(cache, k, v, pos, cfg: AttnCfg):
+    """Write the new token's k/v [B, 1, Kv, dh] at ``pos`` (mod the size for
+    a ring), in place."""
+    size = cache["k"].shape[1]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        at = pos.to(device=k.device, dtype=torch.long)
+        rows = torch.arange(k.shape[0], device=k.device)
+        if _rolling(cfg, size):
+            at = at % size
+        cache["k"][rows, at] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, at] = v[:, 0].to(cache["v"].dtype)
+    else:
+        at = int(pos) % size if _rolling(cfg, size) else int(pos)
+        cache["k"][:, at] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, at] = v[:, 0].to(cache["v"].dtype)
+
+
+def _fill_prefill(cache, k, v, cfg: AttnCfg):
+    """Fill the cache with the prompt's (window-truncated) tail, in place."""
+    size = cache["k"].shape[1]
+    ktail = k[:, -size:].to(cache["k"].dtype)
+    vtail = v[:, -size:].to(cache["v"].dtype)
+    if _rolling(cfg, size) and k.shape[1] >= size:
+        # ring convention: absolute position p lives at slot p % size
+        shift = k.shape[1] % size
+        ktail = torch.roll(ktail, shift, dims=1)
+        vtail = torch.roll(vtail, shift, dims=1)
+    n = ktail.shape[1]
+    cache["k"][:, :n] = ktail
+    cache["v"][:, :n] = vtail
+
+
+def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None,
+              role_prefix: str = "attn", segs=None):
+    """Attention sublayer: sketched projections + core + sketched out-proj.
+
+    * training: ``cache=None`` -> out;
+    * prefill: a ``cache`` dict to fill (``init_kv_cache``) -> (out, cache);
+    * decode: ``cache`` and ``pos`` (int, or int tensor [B]) -> (out, cache);
+    * packed prefill: ``segs`` (int [B, S], 0 = padding) segment-masks it.
+    """
     B, S, _ = x.shape
     q = dense(params["q"], x, ctx, f"{role_prefix}_q").reshape(B, S, cfg.n_heads, cfg.d_head)
     k = dense(params["k"], x, ctx, f"{role_prefix}_k").reshape(B, S, cfg.n_kv, cfg.d_head)
@@ -76,5 +173,13 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, role_prefix: str = "
         k = apply_rope(k, positions, cfg.theta)
     elif cfg.rope != "none":
         raise NotImplementedError(f"rope {cfg.rope!r} is not ported to repro_torch yet")
-    o = multi_head_attention(q, k, v, cfg)
-    return dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o")
+    if cache is not None and pos is not None:
+        _write_decode(cache, k, v, pos, cfg)
+        o = decode_attention(q, cache["k"], cache["v"], pos, cfg)
+        return dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o"), cache
+    o = multi_head_attention(q, k, v, cfg, segs=segs)
+    out = dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o")
+    if cache is not None:
+        _fill_prefill(cache, k, v, cfg)
+        return out, cache
+    return out

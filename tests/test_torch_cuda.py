@@ -19,6 +19,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
 
 from repro_torch.kernels import col_scores, ops, sketch_matmul  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -140,8 +141,79 @@ def test_cuda_dispatcher_launches_and_counts(cuda):
     ops.block_gather_matmul_dw(G, idx, scales, X, block=128)
     ops.block_gather_matmul_fused(G, idx, scales, W, X, block=128)
     ops.block_stream_matmul_fused(G, idx, scales, W, X, block=128)
+    q = torch.randn((1, 64, 2, 64), device=cuda)
+    ops.flash_attention(q, q, q)
     assert ops.launch_counts() == {name: 1 for name in (
         "col_l1_scores", "block_gather_matmul", "block_gather_matmul_dw",
-        "block_gather_matmul_fused", "block_stream_matmul_fused")}
+        "block_gather_matmul_fused", "block_stream_matmul_fused", "flash_attention")}
     with pytest.raises(ValueError):
         ops.block_gather_matmul_fused(G, torch.tensor([0]), torch.ones(1), W, X, block=128)
+
+
+# (B, Sq, Skv, H, Kv, dh, causal, window): tests/test_kernels.py's flash
+# shapes (GQA, window, Skv > Sq right-aligned, non-causal, ragged 100), a
+# windowed GQA set at dh 128, and the serving path's prefill shapes
+FLASH_SHAPES = [
+    (2, 128, 128, 4, 2, 64, True, None),
+    (1, 96, 96, 4, 4, 64, True, 32),
+    (2, 64, 192, 4, 1, 128, True, None),
+    (1, 128, 128, 2, 2, 64, False, None),
+    (1, 100, 100, 2, 2, 64, True, None),
+    (1, 96, 96, 4, 2, 128, True, 40),
+    (8, 1024, 1024, 12, 12, 64, True, None),
+    (4, 1000, 1000, 12, 12, 64, True, None),
+]
+
+
+def _qkv(cuda, B, Sq, Skv, H, Kv, dh, dtype, seed=4):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=cuda).to(dtype)
+                 for shape in ((B, Sq, H, dh), (B, Skv, Kv, dh), (B, Skv, Kv, dh)))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Kv,dh,causal,window", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda, B, Sq, Skv, H, Kv, dh, causal, window, dtype):
+    """Against the plain version; the same inputs twice give the same bits;
+    one launch counted."""
+    q, k, v = _qkv(cuda, B, Sq, Skv, H, Kv, dh, dtype)
+    before = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash.flash_attention.launches == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    _close(got, want, TOL[dtype])
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, window=window))
+
+
+def test_cuda_flash_attention_reads_strided_inputs(cuda):
+    """q, k and v as views into one packed [B, S, 3, H, dh] projection, as
+    the kernel reads them through their strides, with no copy."""
+    qkv = torch.randn((2, 130, 3, 4, 64), device=cuda)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    got = flash.flash_attention(q, k, v, causal=True, window=50)
+    want = flash.flash_attention_plain(q, k, v, causal=True, window=50)
+    _close(got, want, TOL[torch.float32])
+
+
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 32, 2, 64), device=cuda)
+    out = flash.flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        flash.flash_attention(q.detach(), k, k)
+    with pytest.raises(ValueError):  # a CUDA q with a CPU k
+        ops.flash_attention(q.detach(), k.cpu(), k.cpu())
+    with pytest.raises(ValueError):
+        flash.flash_attention(q.detach(), k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="dh"):
+        x = torch.randn((1, 64, 2, 32), device=cuda)
+        flash.flash_attention(x, x, x)
+    with pytest.raises(ValueError):
+        x = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.float16)
+        flash.flash_attention(x, x, x)

@@ -167,9 +167,11 @@ def test_dispatcher_uses_plain_versions_on_cpu_without_launching():
                                                score_mode="l2")
     for a, b in zip(out, want):
         assert torch.equal(a, b)
+    q = _t(G[:64, :256]).reshape(1, 64, 4, 64)
+    assert torch.equal(ops.flash_attention(q, q, q), ref.flash_attention_ref(q, q, q))
     assert ops.launch_counts() == {name: 0 for name in (
         "col_l1_scores", "block_gather_matmul", "block_gather_matmul_dw",
-        "block_gather_matmul_fused", "block_stream_matmul_fused")}
+        "block_gather_matmul_fused", "block_stream_matmul_fused", "flash_attention")}
     with pytest.raises(ValueError, match="score mode"):
         ops.col_l1_scores(_t(G), mode="l3")
 
