@@ -8,16 +8,20 @@ toolkit and Triton. Phases, each of which raises on failure:
 
 1. print the card (``nvidia-smi``) and the torch, CUDA and Triton versions;
 2. build the kernels from the checkout's sources (``nvcc`` per CUDA source,
-   all at once; Triton compiles at first launch) and print the build time;
+   all at once; Triton compiles at first launch), print the build time and
+   each kernel's registers, static shared memory and spills (``-Xptxas -v``);
 3. hold each kernel against its plain PyTorch version at every shape of the
    slices' paths, in float32 and bfloat16, printing the error against the
    stated tolerance and the kernel's, the plain version's, the bound's and the
    library call's times: the score kernel; the fused kernel with and without
    its score output; the unfused dX / dW pair, which must equal the fused
-   kernel's dX and dWc bit for bit; the streaming kernel, whose dX, dWc and db
-   must equal the fused kernel's bit for bit and whose scores must be the same
-   on two calls; the flash-attention kernel at the serving path's prefill
-   shapes and at GQA, window and dh-128 sets, the same on two calls;
+   kernel's dX and dWc bit for bit; the streaming kernel (its own pipelined
+   dW, dX and score roles), whose dX, dWc, db and kept scores must equal the
+   fused kernel's bit for bit, every output the same on a second call, and
+   whose time is printed beside the fused kernel's; the flash-attention
+   kernel (128-row query tiles, 8 x 8 register microtiles, cp.async K/V) at
+   the serving path's prefill shapes and at GQA, window and dh-128 sets, the
+   same on two calls, beside SDPA;
 4. wiring check: one lm-100m step at budget 0.999 under each of the
    ``pallas``, ``onepass`` and ``stale`` policies keeps every block of every
    sketched site with scale 1, launches each path's kernels at every site and

@@ -1,6 +1,10 @@
-// Block roles shared by the block-sketched backward kernels for Hopper
-// (sm_90a): block_gather_matmul_fused.cu (the fused kernel and the unfused
-// dX / dW pair) and block_stream_matmul_fused.cu (the streaming kernel).
+// Block roles of the block-gather backward kernels for Hopper (sm_90a):
+// block_gather_matmul_fused.cu runs dx_role and dw_role, for the fused kernel
+// and the unfused dX / dW pair. The streaming kernel
+// (block_stream_matmul_fused.cu) runs roles of its own, which keep these
+// roles' accumulation orders, so its dX, dWc, db and kept scores are these
+// roles' bit for bit; it uses only this header's Args, kept_block, type
+// conversions, add_score and check_shapes.
 //
 // With G [N, n], kept block ids idx [rb] (block width `block`, ascending),
 // scales s [rb], W [n, d] and X [N, d], float32 or bfloat16 inputs with
@@ -13,13 +17,10 @@
 //     all N rows; the blocks of the first d-tile also reduce
 //     db[k] = s_k sum_rows G[:, blk_k] and, on request, the raw column
 //     reduction sum_rows |G| ("l1", mode 0) or sum_rows G^2 ("l2", mode 1)
-//     of their 64 columns in the same loop;
-//   * score_role: the raw column reduction of one 64-column strip of G over
-//     all N rows, for strips of DROPPED blocks only (kept strips are reduced
-//     by dw_role).
+//     of their 64 columns in the same loop.
 // The G tile is scaled by s_k before both products and db; the raw scores use
-// the unscaled tile. Every kernel that launches these roles computes dX, dWc
-// and db with the same code in the same order, and the scaling and the
+// the unscaled tile. Every launch of these roles computes dX, dWc and db with
+// the same code in the same order, and the scaling and the
 // reductions use explicitly rounded intrinsics (__fmul_rn, __fadd_rn,
 // __fmaf_rn, fmaf), which the compiler never contracts or reorders, so the
 // kernels agree bit for bit for the same keeps. Ragged edges (N, d not
@@ -82,7 +83,6 @@ __host__ __device__ inline int dx_blocks(int N, int d) { return ((N + TM - 1) / 
 __host__ __device__ inline int dw_blocks(int d, int rb, int block) {
   return rb * (block / TM) * d_tiles(d);
 }
-__host__ __device__ inline int score_blocks(int n) { return n / TM; }
 
 // The arguments every role reads. Output pointers a launch does not produce
 // are null.
@@ -219,31 +219,6 @@ __device__ __forceinline__ void dw_role(Smem& sm, const Args<T>& a, int b) {
         a.scores[o + ct * TM + tid] = q1;
       }
     }
-  }
-}
-
-// ---- score role: raw column reduction of one dropped 64-column strip ----
-template <typename T>
-__device__ __forceinline__ void score_role(Smem& sm, const Args<T>& a, int b) {
-  const int c0 = b * TM;
-  const int blk = c0 / a.block;
-  for (int k = 0; k < a.rb; ++k)
-    if (a.idx[k] == blk) return;  // kept (block-uniform): dw_role reduces it
-  const int tid = threadIdx.x;
-  const int c = tid % TM, part = tid / TM;
-  // PARTS independent accumulators per column, rows strided by PARTS; the
-  // loads of one warp cover 32 neighbouring columns of one row
-  float acc = 0.f;
-#pragma unroll 8
-  for (int row = part; row < a.N; row += PARTS)
-    acc = add_score(acc, to_f32(a.G[(size_t)row * a.n + c0 + c]), a.mode);
-  sm.red[0][part][c] = acc;
-  __syncthreads();
-  if (tid < TM) {
-    float q = 0.f;
-#pragma unroll
-    for (int p = 0; p < PARTS; ++p) q = __fadd_rn(q, sm.red[0][p][tid]);  // fixed order
-    a.scores[c0 + tid] = q;
   }
 }
 

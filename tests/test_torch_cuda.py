@@ -84,8 +84,13 @@ def _problem(cuda, N, n, d, rb, dtype, seed):
     return G, idx, scales, W, X
 
 
+# the training path's three shapes; N no multiple of the stream kernel's
+# 64-row stage (2000, 100, 33, 17); every block kept (rb = n / 128: 512 and
+# 256 wide); d that breaks 16-byte rows (130)
 @pytest.mark.parametrize("N,n,d,rb", [(2048, 768, 768, 1), (2048, 2048, 768, 3),
-                                      (100, 512, 80, 2), (33, 256, 130, 2)])
+                                      (100, 512, 80, 2), (33, 256, 130, 2),
+                                      (2048, 768, 2048, 1), (2000, 768, 768, 1),
+                                      (17, 256, 130, 2), (2000, 512, 80, 4), (100, 256, 64, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["l1", "l2"])
 def test_cuda_block_stream_matmul_fused_matches_plain_and_fused(cuda, N, n, d, rb, dtype,
@@ -162,6 +167,17 @@ FLASH_SHAPES = [
     (1, 96, 96, 4, 2, 128, True, 40),
     (8, 1024, 1024, 12, 12, 64, True, None),
     (4, 1000, 1000, 12, 12, 64, True, None),
+    # Sq and Skv no multiple of the query tile (128 rows at dh 64, 64 at
+    # dh 128) or of the 64-key tile; a window crossing tile borders; GQA
+    # 12/4 right-aligned; dh 128; non-causal with Skv > Sq
+    (1, 1, 1, 2, 2, 64, True, None),
+    (2, 1, 65, 2, 2, 64, True, None),
+    (1, 65, 65, 2, 1, 64, True, None),
+    (1, 65, 1023, 4, 2, 128, True, 100),
+    (1, 1000, 1023, 12, 4, 64, True, None),
+    (1, 1023, 1023, 2, 2, 64, True, 130),
+    (1, 1023, 1023, 2, 2, 128, True, None),
+    (1, 65, 1000, 2, 2, 64, False, None),
 ]
 
 
@@ -217,3 +233,39 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         x = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.float16)
         flash.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_reads_rows_that_are_not_16_byte_aligned(cuda, dh, dtype):
+    """q, k and v as views into a [B, S, 3 H dh + 1] projection: the row
+    stride breaks the 16-byte alignment of the asynchronous copies, so the
+    kernel fills its K/V ring with plain loads."""
+    B, S, H = 2, 200, 4
+    x = torch.randn((B, S, 3 * H * dh + 1), device=cuda).to(dtype)
+    q, k, v = (x[..., i * H * dh:(i + 1) * H * dh].unflatten(-1, (H, dh)) for i in range(3))
+    assert (k.stride(1) * k.element_size()) % 16 != 0
+    got = flash.flash_attention(q, k, v, causal=True, window=70)
+    want = flash.flash_attention_plain(q, k, v, causal=True, window=70)
+    torch.cuda.synchronize()
+    _close(got, want, TOL[dtype])
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=True, window=70))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_stream_matmul_fused_reads_g_that_is_not_16_byte_aligned(cuda, dtype):
+    """G one element into a flat buffer: the asynchronous copies need 16-byte
+    rows, so the kernel fills its G tiles with plain loads; the outputs stay
+    bit for bit the fused kernel's."""
+    G0, idx, scales, W, X = _problem(cuda, 100, 256, 64, 2, dtype, 5)
+    flat = torch.empty(G0.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:].copy_(G0.reshape(-1))
+    G = flat[1:].view(G0.shape)
+    assert G.data_ptr() % 16 != 0
+    args = (G, idx, scales, W, X)
+    got = sketch_matmul.block_stream_matmul_fused(*args, block=128)
+    fused = sketch_matmul.block_gather_matmul_fused(*args, block=128, with_scores=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], fused[:3]):
+        assert torch.equal(a, b)
+    _close(got[3], sketch_matmul.block_stream_matmul_fused_plain(*args, block=128)[3], 1e-5)
