@@ -3,25 +3,28 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout on a machine with one CUDA card, the CUDA
-toolkit and Triton. Phases, each of which raises on failure:
+Run from the root of a checkout on a machine with one CUDA card and the CUDA
+toolkit (every kernel is CUDA C++; Triton is not needed). Phases, each of
+which raises on failure:
 
-1. print the card (``nvidia-smi``) and the torch, CUDA and Triton versions;
+1. print the card (``nvidia-smi``) and the torch and CUDA versions;
 2. build the kernels from the checkout's sources (``nvcc`` per CUDA source,
-   all at once; Triton compiles at first launch), print the build time and
-   each kernel's registers, static shared memory and spills (``-Xptxas -v``);
+   all at once), print the build time and each kernel's registers, static
+   shared memory and spills (``-Xptxas -v``);
 3. hold each kernel against its plain PyTorch version at every shape of the
    slices' paths, in float32 and bfloat16, printing the error against the
    stated tolerance and the kernel's, the plain version's, the bound's and the
-   library call's times: the score kernel; the fused kernel with and without
-   its score output; the unfused dX / dW pair, which must equal the fused
-   kernel's dX and dWc bit for bit; the streaming kernel (its own pipelined
-   dW, dX and score roles), whose dX, dWc, db and kept scores must equal the
-   fused kernel's bit for bit, every output the same on a second call, and
-   whose time is printed beside the fused kernel's; the flash-attention
-   kernel (128-row query tiles, 8 x 8 register microtiles, cp.async K/V) at
-   the serving path's prefill shapes and at GQA, window and dh-128 sets, the
-   same on two calls, beside SDPA;
+   library call's times: the score kernel (one launch, the same on a second
+   call); the fused kernel with and without its score output, with the
+   streaming kernel's time at the same shape beside it; the unfused dX / dW
+   pair, which must equal the fused kernel's dX and dWc bit for bit; the
+   streaming kernel (the fused kernel's pipelined dW and dX roles, from
+   ``csrc/block_roles.cuh``, plus its own score role), whose dX, dWc, db and
+   kept scores must equal the fused kernel's bit for bit, every output the
+   same on a second call, and whose time is printed beside the fused
+   kernel's; the flash-attention kernel (128-row query tiles, 8 x 8 register
+   microtiles, cp.async K/V) at the serving path's prefill shapes and at
+   GQA, window and dh-128 sets, the same on two calls, beside SDPA;
 4. wiring check: one lm-100m step at budget 0.999 under each of the
    ``pallas``, ``onepass`` and ``stale`` policies keeps every block of every
    sketched site with scale 1, launches each path's kernels at every site and
@@ -34,7 +37,8 @@ toolkit and Triton. Phases, each of which raises on failure:
    the carry's refresh checked after the plan-carry runs;
 6. a step breakdown: exact-backprop steps beside the three sketched ones, and
    a profiler trace of one step of each (device busy time, top device and
-   host ops);
+   host ops, and each of the path's kernels' in-step device time per step
+   beside its warm-L2 replay time from phase 3);
 7. the serving main path: ``Runtime.prefill_step`` / ``decode_step`` of
    lm-100m with ``attn_impl="pallas"``, two waves of same-length prompts
    (8 x 1024, then 4 x 1000 tokens) and 32 greedy decode steps each, with the
@@ -100,6 +104,10 @@ FLASH_SHAPES = {(8, 1024, 1024, 12, 12, 64, True, None): 12,
                 (2, 512, 1024, 12, 4, 64, True, None): 0,  # GQA, right-aligned
                 (2, 1000, 1000, 12, 12, 64, True, 256): 0,  # window, ragged
                 (2, 1024, 1024, 8, 8, 128, True, None): 0}  # dh 128
+# the training paths' kernels by (part of) their device function's name, as
+# the profiler lists it
+KERNEL_SYMBOLS = {"col_l1_scores": "col_scores_kernel", "block_gather_matmul_fused": "bgm_kernel",
+                  "block_stream_matmul_fused": "stream_kernel"}
 
 
 def smi_line() -> str:
@@ -111,8 +119,8 @@ def smi_line() -> str:
 
 def cuda_ms(fn, iters=20, warmup=3) -> float:
     """Device time of one call: ``iters`` calls captured in a CUDA graph and
-    replayed between two events, so the host's launch cost (Triton's Python
-    launcher, ctypes) does not leave the card idle between calls. Inputs stay
+    replayed between two events, so the host's launch cost (ctypes, the
+    wrappers' checks) does not leave the card idle between calls. Inputs stay
     in the 50 MB L2 across calls, as the path's freshly written G largely does."""
     for _ in range(warmup):
         fn()
@@ -203,6 +211,8 @@ def check_fused(gen, dev):
                         raise AssertionError("with_scores changed dX, dWc or db")
                 ms = cuda_ms(lambda: sm.block_gather_matmul_fused(*args, **kw))
                 plain = cuda_ms(lambda: sm.block_gather_matmul_fused_plain(*args, **kw))
+                stream = cuda_ms(lambda: sm.block_stream_matmul_fused(*args, block=BLOCK,
+                                                                      score_mode="l1"))
                 isz = G.element_size()
                 kept = rb * BLOCK
                 n_bytes = (isz * (N_ROWS * kept + kept * d + 2 * N_ROWS * d + kept * d)
@@ -210,7 +220,8 @@ def check_fused(gen, dev):
                 n_ops = 4 * N_ROWS * kept * d + 2 * N_ROWS * kept * (2 if with_scores else 1)
                 row = dict(shape=[N_ROWS, n, d, rb], dtype=str(dtype).split(".")[-1],
                            with_scores=with_scores, calls=calls, max_abs_err=max(errs),
-                           ms=ms, plain_ms=plain, **bound(n_bytes, n_ops, dtype))
+                           ms=ms, stream_ms=stream, plain_ms=plain,
+                           **bound(n_bytes, n_ops, dtype))
                 print(f"[kernel] block_gather_matmul_fused {row}")
                 rows.append(row)
     return rows
@@ -536,11 +547,12 @@ def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
-def step_breakdown(dev, reps=3):
+def step_breakdown(dev, replay, reps=3):
     """Where a step's time goes: lm-100m steps with exact backprop beside the
     sketched steps of each backend (host clock around synchronised steps),
-    and a profiler trace of one step of each: device-busy share and top
-    kernels."""
+    and a profiler trace of one step of each: device-busy share, top kernels,
+    and each of the backend's kernels' device time in the step beside
+    ``replay[backend][kernel]``, its warm-L2 replay time per step (phase 3)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -552,8 +564,9 @@ def step_breakdown(dev, reps=3):
     cfg = lm100m()
     batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=3).batches(BATCH, SEQ),
                                  range(reps + 2))]
-    runs = [("exact", None)] + [(f"{b}-l1@0.2", slice_policy(0.2, b)) for b in BACKENDS]
-    for label, policy in runs:
+    runs = [("exact", None, None)] + [(f"{b}-l1@0.2", slice_policy(0.2, b), b)
+                                      for b in BACKENDS]
+    for label, policy, backend in runs:
         runtime = Runtime(policy=policy, device=dev)
         opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
         state = runtime.init_state(rng.fold_in(3, 0), cfg, opt)
@@ -587,6 +600,13 @@ def step_breakdown(dev, reps=3):
         for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
             print(f"[breakdown]   host   {e.self_cpu_time_total / 1e3:8.2f} ms x{e.count:<5d} "
                   f"{e.key[:80]}")
+        for name, replay_ms in replay.get(backend, {}).items():
+            evs = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
+            launched = sum(e.count for e in evs)
+            if launched != 7 * cfg.n_layers:
+                raise AssertionError(f"{label}: {launched} {name} launches in the traced step")
+            print(f"[breakdown]   kernel {name}: {sum(_device_us(e) for e in evs) / 1e3:.3f} ms "
+                  f"in the step ({launched} launches), warm-L2 replay {replay_ms:.3f} ms per step")
         del state
 
 
@@ -757,6 +777,11 @@ def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
 
+def f32(rows, **match):
+    return [r for r in rows if r["dtype"] == "float32"
+            and all(r[k] == v for k, v in match.items())]
+
+
 def kernel_entry(name, route, source, replaces, launches, rows, err_rows, library):
     """One kernel's JSON entry: float32 times summed over one step's calls."""
     return dict(name=name, route=route, source=source, replaces=replaces,
@@ -776,10 +801,7 @@ def main() -> int:
 
     smi = smi_line()
     print(smi)
-    import triton
-
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__} "
-          f"python {sys.version.split()[0]}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -800,26 +822,27 @@ def main() -> int:
     unfused_rows = check_unfused(gen, dev)
     stream_rows = check_stream(gen, dev)
     flash_rows = check_flash(gen, dev)
-    print(f"[kernel] checks and timings {time.perf_counter() - t0:.1f} s (first calls "
-          f"include Triton's compile)")
+    print(f"[kernel] checks and timings {time.perf_counter() - t0:.1f} s")
 
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
     launches = {name: sum(c[name] for c in path_counts.values())
                 for name in path_counts["pallas"]}
-    step_breakdown(dev)
+    step_breakdown(dev, {
+        "pallas": {"col_l1_scores": per_step(f32(score_rows, mode="l1"), "ms"),
+                   "block_gather_matmul_fused": per_step(f32(fused_rows, with_scores=False),
+                                                         "ms")},
+        "onepass": {"block_stream_matmul_fused": per_step(f32(stream_rows, mode="l1"), "ms")},
+        "stale": {"block_gather_matmul_fused": per_step(f32(fused_rows, with_scores=True),
+                                                        "ms")}})
     serve_counts = serve_path(dev)
     launches["flash_attention"] = serve_counts["flash_attention"]
     serve_breakdown(dev)
 
-    def f32(rows, **match):
-        return [r for r in rows if r["dtype"] == "float32"
-                and all(r[k] == v for k, v in match.items())]
-
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/sketch_matmul.py:"
     kernels = [
-        kernel_entry("col_l1_scores", "triton", "src/repro_torch/kernels/col_scores.py",
+        kernel_entry("col_l1_scores", "cuda", csrc + "col_scores.cu",
                      "src/repro/kernels/col_scores.py:42", launches["col_l1_scores"],
                      f32(score_rows, mode="l1"), f32(score_rows), library=True),
         kernel_entry("block_gather_matmul", "cuda", csrc + "block_gather_matmul_fused.cu",

@@ -22,7 +22,8 @@ __all__ = ["SOURCES", "build_all", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("block_gather_matmul_fused", "block_stream_matmul_fused", "flash_attention")
+SOURCES = ("block_gather_matmul_fused", "block_stream_matmul_fused", "col_scores",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -12,13 +12,16 @@ Replace the Pallas TPU kernels of ``repro/kernels/sketch_matmul.py``:
   estimator's backward).
 
 The sources are ``csrc/block_gather_matmul_fused.cu`` (the first three, by a
-role mask) and ``csrc/block_stream_matmul_fused.cu``, on the shared block
-roles of ``csrc/block_roles.cuh`` (sm_90a), built by ``kernels/build.py`` and
-bound with ``ctypes``. At the path's shapes they are bound by float32
-operations (67 TFLOP/s outside the tensor cores on an H100 SXM). The sources
-say how the block roles replace the TPU kernels' resident accumulators, and
-how many times each reads G. All four compute dX, dWc and db with the same
-role code, so they agree bit for bit for the same keeps.
+role mask) and ``csrc/block_stream_matmul_fused.cu``, built by
+``kernels/build.py`` for ``sm_90a`` and bound with ``ctypes``. Both run the one
+copy of the pipelined dW and dX block roles in ``csrc/block_roles.cuh``
+(32 x 32 dW tiles first in the grid, 64 x 32 dX tiles, a ``cp.async`` ring),
+so all four compute dX, dWc, db and the kept scores with the same code in the
+same order and agree bit for bit for the same keeps; the fused launch may pick
+shorter stages in a deeper ring, which changes no bits. At the path's
+shapes they are bound by float32 operations (67 TFLOP/s outside the tensor
+cores on an H100 SXM). The sources say how the block roles replace the TPU
+kernels' resident accumulators, and how many times each reads G.
 
 Each wrapper takes CUDA tensors only; the CPU path (``kernels/ops.py``) uses
 the plain versions, which this module names ``*_plain``.

@@ -39,7 +39,11 @@ def _close(got, want, rel):
     assert err <= rel * want.abs().max().item() + 1e-30, err
 
 
-@pytest.mark.parametrize("shape", [(2048, 768), (100, 300), (1, 7)])
+# the path's two shapes; N no multiple of a split (2000); n no multiple of
+# the 16-byte vector width (300 in bf16, 1030 and 7 in both), so masked
+# scalar loads
+@pytest.mark.parametrize("shape", [(2048, 768), (2048, 2048), (2000, 768), (100, 300), (1, 7),
+                                   (300, 1030)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["l1", "l2"])
 def test_cuda_col_l1_scores_matches_plain(cuda, shape, dtype, mode):
@@ -53,7 +57,17 @@ def test_cuda_col_l1_scores_matches_plain(cuda, shape, dtype, mode):
     assert torch.equal(got, col_scores.col_l1_scores(G, mode=mode))  # deterministic
 
 
-@pytest.mark.parametrize("N,n,d,rb", [(2048, 768, 768, 1), (100, 512, 80, 2), (33, 256, 130, 2)])
+# the block kernels' shapes: the training path's three; N no multiple of the
+# roles' 64-row stage (2000, 100, 33, 17); every block kept (rb = n / 128: 512,
+# 256 and 1024 wide); d that breaks 16-byte rows (130, 1030); at least two
+# fused dW blocks per SM of an H100, where the fused launch takes 32-row
+# stages (2048 x 2048 x 768 rb 3, and 100 x 1024 x 1030 rb 8)
+BLOCK_SHAPES = [(2048, 768, 768, 1), (2048, 2048, 768, 3), (100, 512, 80, 2), (33, 256, 130, 2),
+                (2048, 768, 2048, 1), (2000, 768, 768, 1), (17, 256, 130, 2), (2000, 512, 80, 4),
+                (100, 256, 64, 2), (100, 1024, 1030, 8)]
+
+
+@pytest.mark.parametrize("N,n,d,rb", BLOCK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_scores", [False, True])
 def test_cuda_block_gather_matmul_fused_matches_plain(cuda, N, n, d, rb, dtype, with_scores):
@@ -84,13 +98,7 @@ def _problem(cuda, N, n, d, rb, dtype, seed):
     return G, idx, scales, W, X
 
 
-# the training path's three shapes; N no multiple of the stream kernel's
-# 64-row stage (2000, 100, 33, 17); every block kept (rb = n / 128: 512 and
-# 256 wide); d that breaks 16-byte rows (130)
-@pytest.mark.parametrize("N,n,d,rb", [(2048, 768, 768, 1), (2048, 2048, 768, 3),
-                                      (100, 512, 80, 2), (33, 256, 130, 2),
-                                      (2048, 768, 2048, 1), (2000, 768, 768, 1),
-                                      (17, 256, 130, 2), (2000, 512, 80, 4), (100, 256, 64, 2)])
+@pytest.mark.parametrize("N,n,d,rb", BLOCK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["l1", "l2"])
 def test_cuda_block_stream_matmul_fused_matches_plain_and_fused(cuda, N, n, d, rb, dtype,
@@ -120,8 +128,7 @@ def test_cuda_block_stream_matmul_fused_matches_plain_and_fused(cuda, N, n, d, r
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("N,n,d,rb", [(2048, 768, 768, 1), (100, 512, 80, 2),
-                                      (33, 256, 130, 2)])
+@pytest.mark.parametrize("N,n,d,rb", BLOCK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_unfused_pair_matches_plain_and_fused(cuda, N, n, d, rb, dtype):
     G, idx, scales, W, X = _problem(cuda, N, n, d, rb, dtype, 3)
@@ -269,3 +276,79 @@ def test_cuda_block_stream_matmul_fused_reads_g_that_is_not_16_byte_aligned(cuda
     for a, b in zip(got[:3], fused[:3]):
         assert torch.equal(a, b)
     _close(got[3], sketch_matmul.block_stream_matmul_fused_plain(*args, block=128)[3], 1e-5)
+
+
+def _misaligned(t):
+    """t's values one element into a flat buffer: a pointer that breaks 16-byte
+    alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:].copy_(t.reshape(-1))
+    out = flat[1:].view(t.shape)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("N,n,d,rb", [(100, 256, 64, 2), (100, 1024, 264, 8)])
+@pytest.mark.parametrize("operand", ["G", "W", "X"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_block_gather_matmul_fused_reads_operands_that_are_not_16_byte_aligned(
+        cuda, N, n, d, rb, operand, dtype):
+    """G, W or X one element into a flat buffer: the kernel fills that
+    operand's tiles with plain loads instead of cp.async; every output keeps
+    the bits of the aligned call, and the streaming kernel's. The second
+    shape has enough dW blocks for the fused launch's 32-row stages."""
+    G, idx, scales, W, X = _problem(cuda, N, n, d, rb, dtype, 6)
+    args = {"G": G, "W": W, "X": X}
+    aligned = sketch_matmul.block_gather_matmul_fused(G, idx, scales, W, X, block=128,
+                                                      with_scores=True)
+    args[operand] = _misaligned(args[operand])
+    got = sketch_matmul.block_gather_matmul_fused(args["G"], idx, scales, args["W"], args["X"],
+                                                  block=128, with_scores=True)
+    stream = sketch_matmul.block_stream_matmul_fused(args["G"], idx, scales, args["W"],
+                                                     args["X"], block=128)
+    torch.cuda.synchronize()
+    for a, b in zip(got, aligned):
+        assert torch.equal(a, b)
+    for a, b in zip(got[:3], stream[:3]):
+        assert torch.equal(a, b)
+    want = sketch_matmul.block_gather_matmul_fused_plain(G, idx, scales, W, X, block=128,
+                                                         with_scores=True)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, TOL[dtype] if i < 2 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_col_l1_scores_reads_g_that_is_not_16_byte_aligned(cuda, dtype):
+    """G one element into a flat buffer: masked scalar loads, the same rows
+    in the same order, so the aligned call's bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    G = torch.randn((300, 768), generator=g, device=cuda).to(dtype)
+    got = col_scores.col_l1_scores(_misaligned(G))
+    assert torch.equal(got, col_scores.col_l1_scores(G))
+    _close(got, col_scores.col_l1_scores_plain(G), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_col_l1_scores_replays_in_a_cuda_graph(cuda, dtype):
+    """Captured in a CUDA graph and replayed twice, the kernel gives the eager
+    call's bits each time: its last block of each strip resets the ticket
+    counter, with no fill launch between calls."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+    G = torch.randn((2048, 768), generator=g, device=cuda).to(dtype)
+    eager = col_scores.col_l1_scores(G)
+    graph = torch.cuda.CUDAGraph()
+    before = col_scores.col_l1_scores.launches
+    with torch.cuda.graph(graph):
+        out = col_scores.col_l1_scores(G)
+        out2 = col_scores.col_l1_scores(G, mode="l2")
+    assert col_scores.col_l1_scores.launches == before + 2
+    for _ in range(2):
+        out.zero_()
+        out2.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert torch.equal(out2, col_scores.col_l1_scores(G, mode="l2"))
+    assert torch.equal(col_scores.col_l1_scores(G), eager)

@@ -5,13 +5,15 @@ The kernels themselves run only on a card: tests/test_torch_cuda.py holds
 them against their plain versions there. Tolerance: float32, rtol=1e-5,
 atol=1e-6 unless a test says why not.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
-from repro_torch.kernels import col_scores, ops, ref, sketch_matmul
+from repro_torch.kernels import build, col_scores, ops, ref, sketch_matmul
 
 RTOL, ATOL = 1e-5, 1e-6
 # matmul outputs: an element that cancels to ~0 keeps the absolute rounding
@@ -205,3 +207,33 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert sketch_matmul.block_gather_matmul_plain is ref.block_gather_matmul_ref
     assert sketch_matmul.block_gather_matmul_dw_plain is ref.block_gather_matmul_dw_ref
     assert sketch_matmul.block_stream_matmul_fused_plain is ref.block_stream_matmul_onepass_ref
+
+
+def test_build_names_every_cuda_source():
+    """Every kernel source in csrc/ is built (one nvcc each), and none is
+    built twice; no kernel of the port is left to Triton."""
+    assert sorted(build.SOURCES) == sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert len(set(build.SOURCES)) == len(build.SOURCES)
+    pat = re.compile(r"^\s*(import|from)\s+triton(\.|\s|$)", re.M)
+    files = sorted(build.CSRC.parent.glob("*.py"))
+    assert any(f.name == "col_scores.py" for f in files)
+    assert [str(f) for f in files if pat.search(f.read_text())] == []
+
+
+@pytest.mark.parametrize("N,n,dtype", [(2048, 768, torch.float32), (2048, 2048, torch.float32),
+                                       (2048, 768, torch.bfloat16), (2000, 768, torch.float32),
+                                       (1, 7, torch.float32), (100_000, 300, torch.bfloat16)])
+def test_col_scores_split_plan_covers_every_row(N, n, dtype):
+    """The score kernel's row splits: multiples of a block's step of rows
+    (128 float32 or 64 bf16), none empty, all of G covered, at most about
+    four blocks per SM of an H100 (132 SMs); at the path's [2048, 768]
+    float32, 16 splits of 128 rows."""
+    rows, splits = col_scores.split_plan(N, n, dtype, sms=132)
+    step = col_scores.split_step(dtype)
+    assert step == {torch.float32: 128, torch.bfloat16: 64}[dtype]
+    assert rows > 0 and rows % step == 0
+    assert (splits - 1) * rows < N <= splits * rows
+    strips = -(-n // col_scores.strip_width(dtype))
+    assert splits * strips < 4 * 132 + strips  # about four per SM, never far more
+    if (N, n, dtype) == (2048, 768, torch.float32):
+        assert (rows, splits, strips) == (128, 16, 6)
