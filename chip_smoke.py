@@ -22,9 +22,14 @@ which raises on failure:
    ``csrc/block_roles.cuh``, plus its own score role), whose dX, dWc, db and
    kept scores must equal the fused kernel's bit for bit, every output the
    same on a second call, and whose time is printed beside the fused
-   kernel's; the flash-attention kernel (128-row query tiles, 8 x 8 register
-   microtiles, cp.async K/V) at the serving path's prefill shapes and at
-   GQA, window and dh-128 sets, the same on two calls, beside SDPA;
+   kernel's; the flash-attention kernel (8 x 8 register microtiles, cp.async
+   K/V) at the serving path's prefill shapes, at GQA, window and dh-128 sets,
+   at the head widths it runs padded (dh 20, 24, 96) or at 256, and at one
+   gemma3_1b-shaped prefill (4096 tokens, dh 256, window 512, bf16), the same
+   on two calls, beside SDPA; the score kernel at vocabulary widths
+   ([2048, 262144] and [2048, 151936]: more strips than one counter slot),
+   against ``G.abs().sum(0)`` and bit for bit between eager and CUDA-graph
+   replay, and on more than 64 streams at once;
 4. wiring check: one lm-100m step at budget 0.999 under each of the
    ``pallas``, ``onepass`` and ``stale`` policies keeps every block of every
    sketched site with scale 1, launches each path's kernels at every site and
@@ -32,13 +37,20 @@ which raises on failure:
    (plan carry) returns every site's plain column reduction of G as its
    refreshed carry;
 5. the main paths: ``Runtime(...).train`` of lm-100m for 5 steps with the
-   block-128 l1@0.2 policy under ``pallas``, ``onepass`` and ``stale``, each
-   with the launch counts set to 0 just before it and read just after, and
-   the carry's refresh checked after the plan-carry runs;
-6. a step breakdown: exact-backprop steps beside the three sketched ones, and
-   a profiler trace of one step of each (device busy time, top device and
-   host ops, and each of the path's kernels' in-step device time per step
-   beside its warm-L2 replay time from phase 3);
+   block-128 l1@0.2 policy under ``pallas``, ``onepass`` and ``stale``, and
+   under ``pallas`` with compact gradients (``ExecutionConfig(compact_grads=
+   True)``) and lazy AdamW, each with the launch counts set to 0 just before
+   it and read just after; the carry's refresh checked after the plan-carry
+   runs, and no sketched site's weight given a dense gradient on the compact
+   path; then one lm-100m step with compact gradients on and off from the
+   same parameters, batch and seed (AdamW), under ``pallas`` and ``stale``,
+   whose parameters must agree;
+6. a step breakdown: exact-backprop steps beside the three sketched ones and
+   the compact-gradient ``pallas`` step (lazy AdamW), and a profiler trace of
+   one step of each (device busy time, device ops, peak memory and the
+   memory held when the optimizer starts, top device and host ops, and each
+   of the path's kernels' in-step device time per step beside its warm-L2
+   replay time from phase 3);
 7. the serving main path: ``Runtime.prefill_step`` / ``decode_step`` of
    lm-100m with ``attn_impl="pallas"``, two waves of same-length prompts
    (8 x 1024, then 4 x 1000 tokens) and 32 greedy decode steps each, with the
@@ -103,7 +115,29 @@ FLASH_SHAPES = {(8, 1024, 1024, 12, 12, 64, True, None): 12,
                 (4, 1000, 1000, 12, 12, 64, True, None): 12,
                 (2, 512, 1024, 12, 4, 64, True, None): 0,  # GQA, right-aligned
                 (2, 1000, 1000, 12, 12, 64, True, 256): 0,  # window, ragged
-                (2, 1024, 1024, 8, 8, 128, True, None): 0}  # dh 128
+                (2, 1024, 1024, 8, 8, 128, True, None): 0,  # dh 128
+                # head widths run in the next instantiated one (64, 128, 256)
+                # with zero-filled columns: gemma3_1b's smoke width 24, 96,
+                # 20 (rows of 40 bytes in bf16: plain loads), and 256
+                (2, 512, 512, 4, 2, 24, True, None): 0,
+                (2, 512, 512, 4, 4, 96, True, 128): 0,
+                (2, 384, 512, 4, 4, 96, False, None): 0,
+                (2, 300, 300, 4, 2, 20, True, None): 0,
+                (2, 512, 512, 4, 1, 256, True, None): 0,
+                (1, 500, 500, 4, 1, 256, True, 100): 0,
+                (1, 256, 512, 2, 2, 256, False, None): 0,
+                # gemma3_1b's prefill: 4096 tokens, H 4, Kv 1, dh 256, window 512
+                (1, 4096, 4096, 4, 1, 256, True, 512): 0}
+GEMMA_FLASH = (1, 4096, 4096, 4, 1, 256, True, 512)
+# the score kernel at vocabulary widths (a sketched lm_head): gemma3_1b's
+# 262,144 in float32 and bf16, qwen2_vl_2b's 151,936 in float32; wider than
+# the 1,024 strips of one counter slot in float32
+SCORE_WIDE = ((N_ROWS, 262_144, torch.float32), (N_ROWS, 262_144, torch.bfloat16),
+              (N_ROWS, 151_936, torch.float32))
+SCORE_STREAMS = 80  # streams launching the score kernel at once (one slot each)
+# compact against dense gradients, one lm-100m step: the JAX package's own
+# tolerance for the same equivalence (tests/test_compact_grad.py)
+COMPACT_RTOL, COMPACT_ATOL = 2e-5, 2e-6
 # the training paths' kernels by (part of) their device function's name, as
 # the profiler lists it
 KERNEL_SYMBOLS = {"col_l1_scores": "col_scores_kernel", "block_gather_matmul_fused": "bgm_kernel",
@@ -181,6 +215,87 @@ def check_scores(gen, dev):
                 print(f"[kernel] col_l1_scores {row}")
                 rows.append(row)
     return rows
+
+
+def check_scores_wide(gen, dev):
+    """The score kernel at vocabulary widths (more strips than one counter
+    slot holds, still one launch): against ``G.abs().sum(0)``, and bit for
+    bit between the eager call and a CUDA-graph replay."""
+    from repro_torch.kernels import col_scores
+
+    rows = []
+    for N, n, dtype in SCORE_WIDE:
+        G = torch.randn((N, n), generator=gen, device=dev).to(dtype)
+        before = col_scores.col_l1_scores.launches
+        eager = col_scores.col_l1_scores(G)
+        if col_scores.col_l1_scores.launches != before + 1:
+            raise AssertionError("col_l1_scores took more than one launch")
+        err, tol = max_err(eager, G.abs().sum(0, dtype=torch.float32), 1e-5)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = col_scores.col_l1_scores(G)
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(out, eager):
+                raise AssertionError(f"col_l1_scores at {[N, n]}: graph replay differs from "
+                                     "the eager call")
+        row = dict(shape=[N, n], dtype=str(dtype).split(".")[-1], mode="l1", calls=0,
+                   max_abs_err=err, tol=tol, replay_bit_identical=True,
+                   ms=cuda_ms(lambda: col_scores.col_l1_scores(G)),
+                   plain_ms=cuda_ms(lambda: col_scores.col_l1_scores_plain(G)),
+                   library_ms=cuda_ms(lambda: G.abs().sum(0, dtype=torch.float32)),
+                   **bound(N * n * G.element_size() + 4 * n, 2 * N * n, torch.float32))
+        print(f"[kernel] col_l1_scores wide {row}")
+        rows.append(row)
+        del G, eager, out, graph
+    return rows
+
+
+def check_score_streams(gen, dev):
+    """The score kernel launched on SCORE_STREAMS streams at once (each
+    stream's counters its own, allocated at its first launch), then captured
+    on one more stream, whose counters are allocated during the capture, and
+    replayed: every result the default stream's bits."""
+    import ctypes
+
+    from repro_torch.kernels import col_scores
+
+    def new_stream():
+        handle = ctypes.c_ulonglong(0)
+        if torch.cuda.cudart().cudaStreamCreate(ctypes.addressof(handle)) != 0:
+            raise RuntimeError("cudaStreamCreate failed")
+        return torch.cuda.ExternalStream(handle.value, device=dev)
+
+    Gs = [torch.randn((N_ROWS, 768), generator=gen, device=dev) for _ in range(4)]
+    want = [col_scores.col_l1_scores(G) for G in Gs]
+    torch.cuda.synchronize()
+    streams = [new_stream() for _ in range(SCORE_STREAMS + 1)]
+    try:
+        outs = []
+        for i, st in enumerate(streams[:-1]):
+            st.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(st):
+                outs.append(col_scores.col_l1_scores(Gs[i % 4]))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=streams[-1]):
+            out = col_scores.col_l1_scores(Gs[1])
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.synchronize()
+        for st in streams:
+            torch.cuda.cudart().cudaStreamDestroy(st.cuda_stream)
+    differ = sum(not torch.equal(o, want[i % 4]) for i, o in enumerate(outs))
+    if differ or not torch.equal(out, want[1]):
+        raise AssertionError(f"col_l1_scores on {SCORE_STREAMS} streams: {differ} results "
+                             "differ from the default stream's")
+    print(f"[kernel] col_l1_scores on {SCORE_STREAMS} streams at once and one more captured "
+          f"in a graph: every result the default stream's bits ({len(col_scores._slots)} "
+          f"counter slots in use)")
 
 
 def check_fused(gen, dev):
@@ -318,24 +433,42 @@ def check_stream(gen, dev):
     return rows
 
 
-def unmasked_pairs(Sq, Skv, causal, window) -> int:
-    """(query, key) pairs one head of one prompt attends, as the kernel
-    masks them."""
+def attend_mask(Sq, Skv, causal, window, device="cpu"):
+    """[Sq, Skv] bool, True where a query attends a key, as the kernel masks
+    them (causal right-aligned; the window only when causal)."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=device)[None, :]
     if not causal:
-        return Sq * Skv
-    qpos = torch.arange(Sq)[:, None] + (Skv - Sq)
-    kpos = torch.arange(Skv)[None, :]
+        return torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     mask = qpos >= kpos
     if window is not None:
         mask &= (qpos - kpos) < window
-    return int(mask.sum())
+    return mask
+
+
+def unmasked_pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs one head of one prompt attends."""
+    return int(attend_mask(Sq, Skv, causal, window).sum())
+
+
+def sdpa_call(q, k, v, causal, window):
+    """One ``scaled_dot_product_attention`` call computing what the kernel
+    computes on these inputs (is_causal where that is the mask, else an
+    explicit boolean mask), for its time beside the kernel's."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    Sq, Skv = q.shape[1], k.shape[1]
+    if causal and window is None and Sq == Skv:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+    mask = None if not causal else attend_mask(Sq, Skv, causal, window, q.device)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
 def check_flash(gen, dev):
     """The flash kernel against its plain version; the same on a second call;
-    SDPA beside it where it computes the same function (causal, Sq = Skv)."""
-    import torch.nn.functional as F
-
+    SDPA on the same inputs beside it."""
     from repro_torch.kernels import flash_attention as fa
 
     rows = []
@@ -352,11 +485,7 @@ def check_flash(gen, dev):
             if not torch.equal(got, again):
                 raise AssertionError("flash_attention is not deterministic")
             err, tol = max_err(got, want, TOL[dtype])
-            lib = None
-            if causal and window is None and Sq == Skv:
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            lib = cuda_ms(sdpa_call(q, k, v, causal, window))
             n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
             n_ops = 4 * dh * B * H * unmasked_pairs(Sq, Skv, causal, window)
             row = dict(shape=[B, Sq, Skv, H, Kv, dh], causal=causal, window=window,
@@ -488,29 +617,53 @@ def wiring_check(dev):
     del state, g_exact
 
 
-def main_path(dev, backend):
+def compact_sites(grads) -> tuple:
+    """(sketched sites whose w gradient is a CompactGrad without a dense
+    part, sketched sites) of an lm-100m gradient tree."""
+    from repro_torch.core.compact_grad import CompactGrad
+
+    sites = [site["w"] for layer in grads["layers"] for group in ("attn", "mlp")
+             for site in layer[group].values()]
+    return sum(isinstance(g, CompactGrad) and g.dense is None for g in sites), len(sites)
+
+
+def main_path(dev, backend, compact=False):
     """A slice's main path: Runtime.train of lm-100m for STEPS steps, l1@0.2
-    block 128 under ``backend``, with the launch counts read around it."""
-    from repro_torch.api import Runtime
+    block 128 under ``backend``, with the launch counts read around it; with
+    ``compact``, compact gradients and lazy AdamW, and every step's sketched
+    weight gradients checked to be compact."""
+    from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.core import plan_state as pstate
     from repro_torch.data.synthetic import LMStream
     from repro_torch.kernels import ops
     from repro_torch.models import lm
-    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.optim import Optimizer, adamw, cosine_warmup
     from repro_torch.tree import tree_leaves
 
     cfg = lm100m()
-    runtime = Runtime(policy=slice_policy(0.2, backend), device=dev)
-    opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
+    label = backend + ("-compact" if compact else "")
+    runtime = Runtime(policy=slice_policy(0.2, backend), device=dev,
+                      execution=ExecutionConfig(compact_grads=compact))
+    opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0, lazy=compact)
+    seen = []  # (compact sites, sketched sites) of each update's gradients
+
+    def update(grads, state, params, step):
+        seen.append(compact_sites(grads))
+        return opt.update(grads, state, params, step)
+
     data = LMStream(vocab=cfg.vocab, seed=0).batches(BATCH, SEQ)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    state, history = runtime.train(cfg, opt, data, steps=STEPS, log_every=1)
+    state, history = runtime.train(cfg, Optimizer(opt.init, update), data, steps=STEPS,
+                                   log_every=1)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     if counts != expected_counts(backend, STEPS):
-        raise AssertionError(f"{backend} main path launched {counts}, "
+        raise AssertionError(f"{label} main path launched {counts}, "
                              f"want {expected_counts(backend, STEPS)}")
+    n_sites = 7 * cfg.n_layers
+    if seen != [(n_sites if compact else 0, n_sites)] * STEPS:
+        raise AssertionError(f"{label}: compact sketched weight gradients per step {seen}")
     losses = [h["loss"] for h in history]
     if len(history) != STEPS or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite or missing losses: {losses}")
@@ -533,13 +686,63 @@ def main_path(dev, backend):
                                      f"{v.numel()} entries still hold the prior")
     n_params = lm.num_params(state.params)
     step_ms = [1e3 * h["step_s"] for h in history]
-    print(f"[train] {backend}: lm-100m ({n_params} params incl. "
+    print(f"[train] {label}: lm-100m ({n_params} params incl. "
           f"{sum(v.numel() for v in carry.values())} carried scores), batch {BATCH}x{SEQ}, "
-          f"l1@0.2 block {BLOCK}: losses {losses}")
-    print(f"[train] {backend}: step ms {step_ms} (first includes warm-up); peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {counts}")
+          f"l1@0.2 block {BLOCK}" + (", compact gradients, lazy AdamW" if compact else "")
+          + f": losses {losses}")
+    print(f"[train] {label}: step ms {step_ms} (first includes warm-up); peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches {counts}; "
+          f"sketched sites with a compact w gradient per step {[c for c, _ in seen]} "
+          f"of {n_sites}")
     del state
     return counts
+
+
+def compact_step_check(dev):
+    """One lm-100m step from the same parameters, batch and seed with compact
+    gradients on and off (AdamW, not lazy), under ``pallas`` and ``stale``:
+    the parameters (carry leaves included) must agree within COMPACT_RTOL /
+    COMPACT_ATOL, and the compact step must launch the dense step's kernels."""
+    from repro_torch import rng
+    from repro_torch.api import ExecutionConfig, Runtime
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = lm100m()
+    batch = next(LMStream(vocab=cfg.vocab, seed=21).batches(BATCH, SEQ))
+    for backend in ("pallas", "stale"):
+        out = {}
+        for compact in (False, True):
+            runtime = Runtime(policy=slice_policy(0.2, backend), device=dev,
+                              execution=ExecutionConfig(compact_grads=compact))
+            opt = adamw(3e-4, weight_decay=0.1, clip=1.0)
+            # the same parameters each time: the update writes them in place
+            params = lm.init_params(rng.fold_in(21, 0), cfg, device=dev)
+            state = runtime.init_state(0, cfg, opt, params=params)
+            ops.reset_launch_counts()
+            state, m = runtime.train_step(cfg, opt)(state, batch, 22)
+            torch.cuda.synchronize()
+            out[compact] = (float(m["loss"]), ops.launch_counts(),
+                            [p.detach() for p in tree_leaves(state.params)])
+            del state
+        (loss_d, counts_d, p_d), (loss_c, counts_c, p_c) = out[False], out[True]
+        if counts_c != counts_d or counts_c != expected_counts(backend, 1):
+            raise AssertionError(f"{backend}: compact step launched {counts_c}, dense {counts_d}")
+        worst = 0.0  # the largest |a - b| / (atol + rtol |b|)
+        for a, b in zip(p_c, p_d):
+            worst = max(worst, ((a - b).abs() / (COMPACT_ATOL + COMPACT_RTOL * b.abs()))
+                        .max().item())
+            if not worst <= 1.0 or not torch.isfinite(a).all():
+                raise AssertionError(f"{backend}: compact and dense steps disagree beyond "
+                                     f"rtol {COMPACT_RTOL}, atol {COMPACT_ATOL}")
+        print(f"[compact] {backend}: one lm-100m step, compact gradients on and off "
+              f"(AdamW): losses {loss_c:.6f} / {loss_d:.6f}, {len(p_c)} parameter leaves "
+              f"agree (largest error {worst:.3f} of the tolerance rtol {COMPACT_RTOL}, "
+              f"atol {COMPACT_ATOL}), launches {counts_c}")
+        del out, p_c, p_d
 
 
 def _device_us(evt) -> float:
@@ -549,26 +752,42 @@ def _device_us(evt) -> float:
 
 def step_breakdown(dev, replay, reps=3):
     """Where a step's time goes: lm-100m steps with exact backprop beside the
-    sketched steps of each backend (host clock around synchronised steps),
-    and a profiler trace of one step of each: device-busy share, top kernels,
-    and each of the backend's kernels' device time in the step beside
-    ``replay[backend][kernel]``, its warm-L2 replay time per step (phase 3)."""
+    sketched steps of each backend and the compact-gradient ``pallas`` step
+    with lazy AdamW, as its main path runs it (host clock around
+    synchronised steps), and a
+    profiler trace of one step of each: device-busy share, device ops, peak
+    memory, top kernels, and each of the backend's kernels' device time in
+    the step beside ``replay[backend][kernel]``, its warm-L2 replay time per
+    step (phase 3)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import rng
-    from repro_torch.api import Runtime
+    from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.data.synthetic import LMStream
-    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.optim import Optimizer, adamw, cosine_warmup
 
     cfg = lm100m()
     batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=3).batches(BATCH, SEQ),
                                  range(reps + 2))]
-    runs = [("exact", None, None)] + [(f"{b}-l1@0.2", slice_policy(0.2, b), b)
-                                      for b in BACKENDS]
-    for label, policy, backend in runs:
-        runtime = Runtime(policy=policy, device=dev)
-        opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
+    # (label, policy, backend, compact gradients, lazy AdamW)
+    runs = ([("exact", None, None, False, False)]
+            + [(f"{b}-l1@0.2", slice_policy(0.2, b), b, False, False) for b in BACKENDS]
+            + [("pallas-l1@0.2-compact-lazy", slice_policy(0.2), "pallas", True, True)])
+    for label, policy, backend, compact, lazy in runs:
+        runtime = Runtime(policy=policy, device=dev,
+                          execution=ExecutionConfig(compact_grads=compact))
+        opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0, lazy=lazy)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        at_update = []  # memory allocated when the optimizer update starts
+
+        def update(grads, st, params, step, opt=opt, at_update=at_update):
+            at_update.append(torch.cuda.memory_allocated(dev))
+            return opt.update(grads, st, params, step)
+
+        opt = Optimizer(opt.init, update)
         state = runtime.init_state(rng.fold_in(3, 0), cfg, opt)
         fn = runtime.train_step(cfg, opt)
         state, m = fn(state, batches[0], 1)  # warm-up
@@ -590,11 +809,15 @@ def step_breakdown(dev, replay, reps=3):
         kern = [e for e in evts if e.device_type == DeviceType.CUDA]
         busy_ms = sum(_device_us(e) for e in kern) / 1e3
         host = [e for e in evts if e.device_type == DeviceType.CPU]
+        peak = torch.cuda.max_memory_allocated(dev)
         print(f"[breakdown] {label}: {step_ms:.1f} ms/step over {reps} steps; profiled step: "
               f"{wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms in "
               f"{sum(e.count for e in kern)} device ops, "
               f"{sum(e.count for e in host)} host ops; busy share of an unprofiled step "
-              f"{100 * busy_ms / step_ms:.0f}%")
+              f"{100 * busy_ms / step_ms:.0f}%; peak memory {peak / 2**30:.3f} GiB "
+              f"({(peak - before) / 2**30:.3f} GiB above the {before / 2**30:.3f} GiB "
+              f"allocated before the run), {(at_update[-1] - before) / 2**30:.3f} GiB above it "
+              f"when the optimizer update starts")
         for e in sorted(kern, key=_device_us, reverse=True)[:6]:
             print(f"[breakdown]   device {_device_us(e) / 1e3:8.2f} ms x{e.count:<5d} {e.key[:80]}")
         for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
@@ -822,12 +1045,19 @@ def main() -> int:
     unfused_rows = check_unfused(gen, dev)
     stream_rows = check_stream(gen, dev)
     flash_rows = check_flash(gen, dev)
+    check_scores_wide(gen, dev)
+    check_score_streams(gen, dev)
     print(f"[kernel] checks and timings {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
+    path_counts["pallas-compact"] = main_path(dev, "pallas", compact=True)
+    compact_step_check(dev)
     launches = {name: sum(c[name] for c in path_counts.values())
                 for name in path_counts["pallas"]}
+    print(f"[time] wiring, main paths and the compact check {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     step_breakdown(dev, {
         "pallas": {"col_l1_scores": per_step(f32(score_rows, mode="l1"), "ms"),
                    "block_gather_matmul_fused": per_step(f32(fused_rows, with_scores=False),
@@ -835,9 +1065,12 @@ def main() -> int:
         "onepass": {"block_stream_matmul_fused": per_step(f32(stream_rows, mode="l1"), "ms")},
         "stale": {"block_gather_matmul_fused": per_step(f32(fused_rows, with_scores=True),
                                                         "ms")}})
+    print(f"[time] step breakdown {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     serve_counts = serve_path(dev)
     launches["flash_attention"] = serve_counts["flash_attention"]
     serve_breakdown(dev)
+    print(f"[time] serving and its breakdown {time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/sketch_matmul.py:"

@@ -2,8 +2,9 @@
 (port of ``repro/api/runtime.py``, training under a constant budget).
 
 ``Runtime(policy=..., device="cuda").train(cfg, opt, data, steps=...)`` runs
-the sketched training loop on the card; ``prefill_step`` and ``decode_step``
-give the serving steps. The device resolves when the Runtime is built:
+the sketched training loop on the card (with
+``execution=ExecutionConfig(compact_grads=True)``, on compact gradients);
+``prefill_step`` and ``decode_step`` give the serving steps. The device resolves when the Runtime is built:
 without a card, ``device="cuda"`` raises ``RuntimeError``. Budget schedules
 and the serving engines (``Runtime.serve``) are not ported yet.
 """

@@ -24,12 +24,11 @@ every keep probability strictly above zero, so given ANY carry
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.core import estimators
-from repro_torch.core.sketching import effective_cfg
 
 __all__ = ["PLAN_SLOT", "plan_carry_capable", "policy_uses_carry", "with_plan_state",
            "collect_plan_state", "write_plan_state"]
@@ -61,42 +60,26 @@ def policy_uses_carry(policy) -> bool:
         plan_carry_capable(cfg) for _, cfg in policy.overrides)
 
 
-def _site_role(path) -> Optional[str]:
-    """The role of the linear site at ``path`` (attn/cross q|k|v|o, mlp
-    in|gate|out), or None."""
-    if len(path) < 2:
-        return None
-    parent, leaf = path[-2], path[-1]
-    if parent in ("attn", "cross") and leaf in ("q", "k", "v", "o"):
-        return f"{parent}_{leaf}"
-    if parent == "mlp" and leaf in ("in", "gate", "out"):
-        return f"mlp_{leaf}"
-    return None
-
-
 def with_plan_state(params, policy, *, n_layers: int = 1):
     """``params`` with a uniform-prior carry leaf in every site whose config
-    carries a plan. Ones, not zeros: equal scores are the uniform sampling
-    prior for step 0.
+    carries a plan (``SiteSpec.carry_rows``, from ``core.site.
+    resolve_tree_site``, the resolution the site runs). Ones, not zeros:
+    equal scores are the uniform sampling prior for step 0.
 
     Only ``location="all"`` policies get leaves, as in JAX (whose stacked
     layers cannot tell layers apart). The result is a new tree of dicts
     holding the same tensors."""
     if policy is None or policy.location != "all":
         return params
+    from repro_torch.core.site import resolve_tree_site
 
     def walk(node, path):
         if isinstance(node, dict):
             out = {k: walk(v, path + (k,)) for k, v in node.items()}
-            role = _site_role(path)
-            w = node.get("w")
-            if role is not None and w is not None:
-                cfg = policy.config_for(role, 0, n_layers)
-                est = _estimator(cfg)
-                if est is not None:
-                    n = w.shape[0]
-                    out[PLAN_SLOT] = torch.ones(est.carry_size(effective_cfg(cfg, n), n),
-                                                dtype=torch.float32, device=w.device)
+            spec = resolve_tree_site(path, node, policy, n_layers=n_layers)
+            if spec is not None and spec.carry_rows is not None:
+                out[PLAN_SLOT] = torch.ones(spec.carry_rows, dtype=torch.float32,
+                                            device=node["w"].device)
             return out
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v, path) for v in node)

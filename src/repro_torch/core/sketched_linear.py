@@ -243,18 +243,20 @@ estimators.register_estimator(_StalePlanEstimator())
 
 def sketched_linear(x, w, b=None, *, key: Optional[torch.Generator] = None,
                     cfg: Optional[SketchConfig] = None,
-                    plan_state: Optional[torch.Tensor] = None):
+                    plan_state: Optional[torch.Tensor] = None, grad_slot=None):
     """``x @ w.T (+ b)`` whose backward is the ``cfg`` estimator.
 
     ``key`` is the site's ``torch.Generator``; ``cfg=None``, a no-op config or
     no generator give the exact linear (plain autograd). ``plan_state`` is the
     site's plan-carry leaf (previous step's column scores) for the ``onepass``
     and ``stale`` backends: the backward returns the refreshed scores as its
-    gradient (``core/site.py``).
+    gradient. ``grad_slot`` is the site's gradient slot under compact
+    gradients: the backward puts the kept dW rows there and gives ``w`` no
+    gradient (``core/site.py``, ``core/compact_grad.py``).
     """
     from repro_torch.core import site
 
-    return site.sketched_site(cfg, x, w, b, key, plan_state)
+    return site.sketched_site(cfg, x, w, b, key, plan_state, grad_slot)
 
 
 # Alias used across the nn substrate.

@@ -8,7 +8,9 @@ function. Any tree of the same structure works (a gradient tree too), and so
 does the tree of a JAX ``init_state`` with a plan-carry policy: each site's
 ``"sslot"`` carry leaf ``[n_layers, n]`` is unstacked with the weights into
 one ``[n]`` leaf per layer. ``caches_from_jax`` does the same for the
-decode caches of ``lm.init_cache`` / ``lm.prefill``.
+decode caches of ``lm.init_cache`` / ``lm.prefill``, and
+``compact_grad_from_jax`` turns a JAX ``CompactGrad`` (float32 indices) into
+the port's (int64 indices).
 """
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.compact_grad import CompactGrad
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import check_supported
 from repro_torch.tree import tree_map
 
-__all__ = ["caches_from_jax", "params_from_jax"]
+__all__ = ["caches_from_jax", "compact_grad_from_jax", "params_from_jax"]
 
 
 def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
@@ -62,3 +65,20 @@ def caches_from_jax(caches, cfg: ArchConfig, *, device="cuda"):
         raise ValueError(f"tree has {k.shape[0]} layers, config {cfg.n_layers}")
     return [{"k": torch.tensor(k[i], device=dev), "v": torch.tensor(v[i], device=dev)}
             for i in range(cfg.n_layers)]
+
+
+def compact_grad_from_jax(cg, *, device="cuda") -> CompactGrad:
+    """The port's :class:`~repro_torch.core.compact_grad.CompactGrad` for a JAX
+    ``CompactGrad`` of one 2-D weight (any object with ``rows``, ``idx`` and
+    ``dense``, leaves convertible with ``np.asarray``): float32 rows, the
+    float32 indices as int64 (they hold whole numbers exactly), the dense
+    part when there is one; on ``device``."""
+    dev = resolve_device(device)
+    rows, idx = np.asarray(cg.rows), np.asarray(cg.idx)
+    if rows.ndim != 2 or idx.shape != rows.shape[:1]:
+        raise ValueError(f"expected rows [r, d_in] and idx [r], got {rows.shape} and {idx.shape}")
+    if not np.array_equal(idx, np.round(idx)):
+        raise ValueError("indices must be whole numbers")
+    dense = None if cg.dense is None else torch.tensor(np.asarray(cg.dense), device=dev)
+    return CompactGrad(rows=torch.tensor(rows, dtype=torch.float32, device=dev),
+                       idx=torch.tensor(idx.astype(np.int64), device=dev), dense=dense)

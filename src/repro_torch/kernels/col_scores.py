@@ -6,7 +6,8 @@ operations per element against four (or two) bytes read, so it is bound by
 device-memory bytes on an H100 (3.35 TB/s). The source,
 ``csrc/col_scores.cu``, is one launch: blocks reduce a strip of columns over
 a split of the rows into float32 partial rows, and the last block of each
-strip (an integer ticket counter) sums them in split order. No float atomics:
+strip (an integer ticket counter) sums them in split order, at any width n and
+on any number of streams. No float atomics:
 the same G always gives bit-identical scores, hence the same plan. bf16 input
 is widened to fp32 before it is accumulated.
 
@@ -28,11 +29,8 @@ __all__ = ["col_l1_scores", "col_l1_scores_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"l1": 0, "l2": 1}
-# as csrc/col_scores.cu: each (device, stream) takes one of _SLOTS counter
-# slots of _MAX_STRIPS strips
-_SLOTS, _MAX_STRIPS = 64, 1024
 _BLOCKS_PER_SM = 4  # at most about this many blocks per SM
-_slots: dict = {}  # (device index, stream) -> counter slot
+_slots: dict = {}  # (device index, stream) -> counter slot (csrc/col_scores.cu)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -68,11 +66,10 @@ def _sms(index: int) -> int:
 
 
 def _slot(device: torch.device, stream: int) -> int:
-    """This (device, stream)'s counter slot: no two streams share one."""
+    """This (device, stream)'s counter slot: no two streams share one, and
+    there is no cap on their number."""
     key = (device.index, stream)
     if key not in _slots:
-        if len(_slots) == _SLOTS:
-            raise RuntimeError(f"col_l1_scores: more than {_SLOTS} streams")
         _slots[key] = len(_slots)
     return _slots[key]
 
@@ -103,9 +100,6 @@ def col_l1_scores(G: torch.Tensor, *, mode: str = "l1") -> torch.Tensor:
     N, n = G.shape
     if N == 0 or n == 0:
         raise ValueError(f"col_l1_scores kernel needs a non-empty G, got {tuple(G.shape)}")
-    if _cdiv(n, strip_width(G.dtype)) > _MAX_STRIPS:
-        raise ValueError(f"col_l1_scores kernel takes n up to "
-                         f"{_MAX_STRIPS * strip_width(G.dtype)}, got {n}")
     rows, splits = split_plan(N, n, G.dtype, _sms(G.device.index))
     part = torch.empty((splits, n), dtype=torch.float32, device=G.device)
     out = torch.empty((n,), dtype=torch.float32, device=G.device)

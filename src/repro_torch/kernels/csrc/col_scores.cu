@@ -26,12 +26,19 @@
 // Every sum has a fixed order (a thread's rows ascending, warps, splits), so
 // the result is the same bits whatever order the blocks run or finish in.
 //
-// The counters are this library's own zero-initialised device array (one per
-// device: a module's globals are made with its context), in SLOTS slots of
-// MAX_STRIPS: the wrapper gives each (device, stream) it launches on a slot of
-// its own, so concurrent launches never share a counter, and the kernel
-// leaves them at 0. So there is no fill launch per call, and a launch inside a
-// CUDA graph capture works (a graph replays on its capture stream's slot).
+// The counters. A launch takes MAX_STRIPS counters; strip s ticks counter
+// s % MAX_STRIPS, so a G wider than MAX_STRIPS strips (131,072 float32 or
+// 262,144 bf16 columns) shares a counter among the k strips s, s + MAX_STRIPS,
+// ...: the last of their k * splits tickets finishes all k strips, each in
+// split order, and the launch stays one launch at any width. Each (device,
+// stream) the wrapper launches on has a slot of counters of its own, so
+// concurrent launches never share one, and the kernel leaves them at 0: no
+// fill launch per call, and a launch inside a CUDA graph capture works (a
+// graph replays on its capture stream's slot). A slot is allocated and
+// zeroed once, at its first launch on a device, through a private stream
+// and with the thread's capture mode relaxed for that moment, so it can be
+// made while a capture is under way (as PyTorch's allocator does); there is
+// no cap on the streams.
 // Where n is not a multiple of V, or G's pointer is not 16-byte aligned, the
 // launcher clears `vec` and every element goes through a masked scalar load;
 // a ragged last split or strip is masked either way.
@@ -40,15 +47,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int FIN = 32;  // partial rows whose loads the finish has in flight together
-constexpr int SLOTS = 64;
-constexpr int MAX_STRIPS = 1024;
-
-__device__ unsigned int tickets[SLOTS * MAX_STRIPS];  // zero at module load
+constexpr int MAX_STRIPS = 1024;  // counters per slot
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -82,7 +90,8 @@ __host__ __device__ constexpr int split_rows_of() { return WARPS * rows_in_fligh
 template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
     col_scores_kernel(const T* __restrict__ G, float* __restrict__ part, float* __restrict__ out,
-                      int N, int n, int split_rows, int splits, int slot, int vec) {
+                      unsigned int* __restrict__ counters, int N, int n, int split_rows,
+                      int splits, int vec) {
   constexpr int V = vec_of<T>();
   constexpr int U = rows_in_flight<T>();
   constexpr int SW = 32 * V;  // strip width
@@ -139,27 +148,70 @@ __global__ void __launch_bounds__(THREADS)
   }
   __threadfence();  // this block's partial row is visible before its ticket
   __syncthreads();
-  unsigned int* counter = tickets + slot * MAX_STRIPS + strip;
+  // strips strip % MAX_STRIPS + MAX_STRIPS j share this counter
+  const int cidx = strip % MAX_STRIPS;
+  const unsigned int sharing = (unsigned int)((gridDim.x - 1 - cidx) / MAX_STRIPS + 1);
+  unsigned int* counter = counters + cidx;
   if (threadIdx.x == 0) ticket = atomicAdd(counter, 1u);
   __syncthreads();
-  if (ticket != (unsigned int)(splits - 1)) return;
+  if (ticket != sharing * (unsigned int)splits - 1u) return;
 
-  // the strip's last block: every other split's partial row is written
+  // the counter's last block: every split's partial row of its strips is written
   __threadfence();
-  if (mine) {
+  for (int s = cidx; s < (int)gridDim.x; s += MAX_STRIPS) {
+    const int fcol = s * SW + threadIdx.x;
+    if (threadIdx.x >= SW || fcol >= n) continue;
     float q = 0.f;
     for (int s0 = 0; s0 < splits; s0 += FIN) {
       float v[FIN];
 #pragma unroll
       for (int i = 0; i < FIN; ++i)
-        v[i] = s0 + i < splits ? __ldcg(part + (size_t)(s0 + i) * n + col) : 0.f;
+        v[i] = s0 + i < splits ? __ldcg(part + (size_t)(s0 + i) * n + fcol) : 0.f;
 #pragma unroll
       for (int i = 0; i < FIN; ++i)
         if (s0 + i < splits) q += v[i];  // split order
     }
-    out[col] = q;
+    out[fcol] = q;
   }
-  if (threadIdx.x == 0) *counter = 0u;  // every block of the strip has taken its ticket
+  if (threadIdx.x == 0) *counter = 0u;  // every block of its strips has taken its ticket
+}
+
+std::mutex slots_mu;
+std::map<std::pair<int, int>, unsigned int*> slots;  // (device, slot) -> counters
+
+// The counters of `slot` on the current device, allocated and zeroed at its
+// first launch.
+int slot_counters(int slot, unsigned int** out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(slots_mu);
+  const auto key = std::make_pair(dev, slot);
+  const auto it = slots.find(key);
+  if (it != slots.end()) {
+    *out = it->second;
+    return 0;
+  }
+  // allowed while a capture is under way on this thread: the allocation and
+  // the zeroing run now, on a stream of their own, and are not captured
+  cudaStreamCaptureMode mode = cudaStreamCaptureModeRelaxed;
+  err = cudaThreadExchangeStreamCaptureMode(&mode);
+  if (err != cudaSuccess) return (int)err;
+  void* p = nullptr;
+  cudaStream_t init = nullptr;
+  err = cudaMalloc(&p, sizeof(unsigned int) * MAX_STRIPS);
+  if (err == cudaSuccess) err = cudaStreamCreateWithFlags(&init, cudaStreamNonBlocking);
+  if (err == cudaSuccess) err = cudaMemsetAsync(p, 0, sizeof(unsigned int) * MAX_STRIPS, init);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(init);
+  if (init != nullptr) cudaStreamDestroy(init);
+  cudaThreadExchangeStreamCaptureMode(&mode);  // the caller's mode again
+  if (err != cudaSuccess) {
+    if (p != nullptr) cudaFree(p);
+    return (int)err;
+  }
+  slots[key] = static_cast<unsigned int*>(p);  // kept for the process's life
+  *out = static_cast<unsigned int*>(p);
+  return 0;
 }
 
 template <typename T>
@@ -168,16 +220,21 @@ int launch(const void* G, void* part, void* out, int N, int n, int split_rows, i
   constexpr int SW = 32 * vec_of<T>();
   const int strips = (n + SW - 1) / SW;
   if (split_rows % split_rows_of<T>() != 0) return (int)cudaErrorInvalidValue;
-  if (strips > MAX_STRIPS || splits > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (splits > 65535) return (int)cudaErrorInvalidConfiguration;
+  unsigned int* counters = nullptr;
+  const int err = slot_counters(slot, &counters);
+  if (err != 0) return err;
   const int vec = (uintptr_t)G % 16 == 0 && n % vec_of<T>() == 0;
   const dim3 grid((unsigned)strips, (unsigned)splits);
   const T* g = static_cast<const T*>(G);
   float* p = static_cast<float*>(part);
   float* o = static_cast<float*>(out);
   if (mode == 0)
-    col_scores_kernel<T, 0><<<grid, THREADS, 0, s>>>(g, p, o, N, n, split_rows, splits, slot, vec);
+    col_scores_kernel<T, 0><<<grid, THREADS, 0, s>>>(g, p, o, counters, N, n, split_rows, splits,
+                                                     vec);
   else
-    col_scores_kernel<T, 1><<<grid, THREADS, 0, s>>>(g, p, o, N, n, split_rows, splits, slot, vec);
+    col_scores_kernel<T, 1><<<grid, THREADS, 0, s>>>(g, p, o, counters, N, n, split_rows, splits,
+                                                     vec);
   return (int)cudaGetLastError();
 }
 
@@ -186,13 +243,13 @@ int launch(const void* G, void* part, void* out, int N, int n, int split_rows, i
 // G [N, n] (dtype 0 = float32, 1 = bfloat16), part [splits, n] float32
 // scratch, out [n] float32; the rows are cut into `splits` splits of
 // `split_rows` (a positive multiple of 128 for float32, 64 for bf16; splits =
-// ceil(N / split_rows)); slot in [0, 64): the caller's counters (n up to 1024
-// strips). mode: 0 = "l1", 1 = "l2".
+// ceil(N / split_rows)); slot >= 0: the caller's counters, one slot per
+// (device, stream); any n. mode: 0 = "l1", 1 = "l2".
 // Launches on `stream` and returns cudaGetLastError() (0 = ok).
 extern "C" int cs_launch(int dtype, const void* G, void* part, void* out, int N, int n,
                          int split_rows, int splits, int slot, int mode, void* stream) {
   if (N <= 0 || n <= 0 || split_rows <= 0 ||
-      splits != (N + split_rows - 1) / split_rows || slot < 0 || slot >= SLOTS ||
+      splits != (N + split_rows - 1) / split_rows || slot < 0 ||
       (mode != 0 && mode != 1) || G == nullptr || part == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -17,16 +17,23 @@
 // H100 SXM), against 0.03 ms for the bytes. Float32 stays full float32 on the
 // FFMA pipes: no TF32.
 //
+// Head widths. The kernel is instantiated for dh 64, 128 and 256; any other
+// dh up to 256 runs in the next instantiated width (DH), its columns dh..DH
+// zero-filled in shared memory: a zero Q or K column adds nothing to a
+// score, and a zero V column only feeds output columns that are never
+// written. The scale stays the true dh^-1/2 (the caller passes it).
+//
 // Design. The TPU kernel walks the key tiles as the innermost, sequential grid
 // dimension and carries the running max m, the sum l and the accumulator in
 // VMEM scratch. Hopper blocks run in parallel and carry nothing over, so one
-// 128-thread block owns one query tile of one (b, h) (128 rows at dh 64, 64
-// at dh 128) and loops over the 64-key tiles itself; the causal tiles are
-// scheduled longest first. Two blocks fit an SM (100 KB of shared memory
-// each at dh 64 float32).
+// 128-thread block owns one query tile of one (b, h) (128 rows at DH 64, 64
+// at DH 128, 32 at DH 256) and loops over the 64-key tiles itself; the causal
+// tiles are scheduled longest first. Two blocks fit an SM at DH 64 and 128
+// (100 KB of shared memory each at DH 64 float32); at DH 256 a block takes
+// 171 KB in float32 (one per SM) and 91 KB in bf16 (two per SM).
 //   * Register blocking. A thread owns RQ = 8 query rows (rows ty + NR r)
-//     and, of the NC = dh / 8 threads that share them, 8 of the tile's keys
-//     (tx + NC c) for S = Q K^T and 8 of the dh columns (4 tx + 4 NC g + c)
+//     and, of the NC = DH / 8 threads that share them, 8 of the tile's keys
+//     (tx + NC c) for S = Q K^T and 8 of the DH columns (4 tx + 4 NC g + c)
 //     for O += P V: 16 FMAs per 16-byte shared load in both products. Shared
 //     memory hands a thread 32 floats per clock per SM against 128 FMAs, so
 //     4 FMAs per loaded float is what keeps the FFMA pipes fed at all: that
@@ -45,9 +52,10 @@
 //     next K tile, arrive by 16-byte cp.async in the input type (bf16 is
 //     widened when read from shared memory): V(t) is in flight during Q K^T,
 //     K(t + 1) during the softmax and P V, with two block barriers per tile.
-//     A cp.async needs 16-byte-aligned rows: when a base pointer or a stride
-//     breaks that, the launcher clears the operand's `vec` bit and the same
-//     buffers are filled by plain loads.
+//     A cp.async needs 16-byte-aligned rows: when a base pointer, a stride or
+//     the row width dh breaks that (in bf16 any dh not divisible by 8, in
+//     float32 any not divisible by 4), the launcher clears the operand's
+//     `vec` bit and the same buffers are filled by plain loads.
 // Rows past Sq and keys past Skv are zero-filled in shared memory and
 // masked. Key tiles past the causal frontier are skipped, as the TPU kernel
 // skips them, and so are tiles wholly left of the window; a skipped tile would
@@ -123,17 +131,18 @@ struct Args {
   T* o;
   Strides qs, ks, vs, os;
   int Sq, Skv, H, G;   // G = H / Kv query heads per kv head
+  int dh;              // true head width, <= DH; columns dh..DH are zero in shared memory
   int causal, window;  // window 0: none
   int vec;             // bit 0: q rows, bit 1: k and v rows 16-byte aligned (cp.async)
   float scale;
 };
 
-// Tiles per head width. A thread owns RQ = 8 query rows; the NC = dh / 8
+// Tiles per head width. A thread owns RQ = 8 query rows; the NC = DH / 8
 // threads that share them split the tile's keys (CK each, keys tx + NC c)
-// and the output's dh columns (8 each: two float4 groups 4 tx + 4 NC g).
+// and the output's DH columns (8 each: two float4 groups 4 tx + 4 NC g).
 template <typename T, int DH>
 struct Cfg {
-  static constexpr int TQ = DH == 64 ? 128 : 64;    // query rows per block
+  static constexpr int TQ = DH == 64 ? 128 : DH == 128 ? 64 : 32;  // query rows per block
   static constexpr int TKV = 64;                     // keys per tile
   static constexpr int NC = DH / 8;                  // threads per row
   static constexpr int NR = TQ / RQ;                 // row groups
@@ -149,26 +158,30 @@ struct Cfg {
   static constexpr size_t v_off = k_off + k_bytes;
   static constexpr size_t p_off = v_off + v_bytes;
   static constexpr size_t bytes = p_off + (size_t)TKV * PS * 4;
+  static_assert(NC <= 32 && 32 % NC == 0, "a row's threads lie in one warp");
+  static_assert(THREADS == 128, "the launch and the copies assume 128 threads");
 };
 
-// Copy rows [r0, r0 + ROWS) of one head (global row stride ss) into shared
-// memory (row stride rs); rows at or past `rows` are zero-filled.
+// Copy rows [r0, r0 + ROWS) of one head (global row stride ss, dh elements a
+// row) into shared memory (row stride rs, DH elements a row); rows at or past
+// `rows` and columns at or past dh are zero-filled. `vec` needs dh to be a
+// multiple of a 16-byte copy.
 template <typename T, int DH, int ROWS, int THREADS>
 __device__ __forceinline__ void fill_tile(T* dst, int rs, const T* src, long long ss, int r0,
-                                          int rows, bool vec) {
+                                          int rows, int dh, bool vec) {
   constexpr int CH = 16 / (int)sizeof(T);
   constexpr int CPR = DH / CH;  // copies per row
   if (vec) {
 #pragma unroll
     for (int e = threadIdx.x; e < ROWS * CPR; e += THREADS) {
       const int j = e / CPR, c = (e % CPR) * CH;
-      const bool in = r0 + j < rows;
+      const bool in = r0 + j < rows && c < dh;
       cp_async16(dst + j * rs + c, in ? src + (r0 + j) * ss + c : src, in);
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * DH; e += THREADS) {
       const int j = e / DH, d = e % DH;
-      dst[j * rs + d] = r0 + j < rows ? src[(r0 + j) * ss + d] : from_f32<T>(0.f);
+      dst[j * rs + d] = r0 + j < rows && d < dh ? src[(r0 + j) * ss + d] : from_f32<T>(0.f);
     }
   }
 }
@@ -204,8 +217,8 @@ __global__ void __launch_bounds__(Cfg<T, DH>::THREADS, 2) flash_fwd(const Args<T
     if (a.window > 0) t_lo = max(0, (off + q0 - a.window + 1) / TKV);
   }
 
-  fill_tile<T, DH, TQ, THREADS>(Qs, C::KS, qp, a.qs.s, q0, a.Sq, vec_q);
-  fill_tile<T, DH, TKV, THREADS>(Ks, C::KS, kp, a.ks.s, t_lo * TKV, a.Skv, vec);
+  fill_tile<T, DH, TQ, THREADS>(Qs, C::KS, qp, a.qs.s, q0, a.Sq, a.dh, vec_q);
+  fill_tile<T, DH, TKV, THREADS>(Ks, C::KS, kp, a.ks.s, t_lo * TKV, a.Skv, a.dh, vec);
   cp_async_commit();
 
   const float sl2 = a.scale * LOG2E;
@@ -222,7 +235,7 @@ __global__ void __launch_bounds__(Cfg<T, DH>::THREADS, 2) flash_fwd(const Args<T
     const int k0 = t * TKV;
     cp_async_wait<0>();  // this tile's K (and, first, Q)
     __syncthreads();     // K visible; the previous tile's P V is done, so V is free
-    fill_tile<T, DH, TKV, THREADS>(Vs, DH, vp, a.vs.s, k0, a.Skv, vec);
+    fill_tile<T, DH, TKV, THREADS>(Vs, DH, vp, a.vs.s, k0, a.Skv, a.dh, vec);
     cp_async_commit();   // lands while Q K^T and the softmax run
 
     float s[RQ][CK];
@@ -254,7 +267,8 @@ __global__ void __launch_bounds__(Cfg<T, DH>::THREADS, 2) flash_fwd(const Args<T
     }
     cp_async_wait<0>();  // this tile's V
     __syncthreads();     // every thread is done with K; V is visible
-    if (t < t_hi) fill_tile<T, DH, TKV, THREADS>(Ks, C::KS, kp, a.ks.s, k0 + TKV, a.Skv, vec);
+    if (t < t_hi)
+      fill_tile<T, DH, TKV, THREADS>(Ks, C::KS, kp, a.ks.s, k0 + TKV, a.Skv, a.dh, vec);
     cp_async_commit();  // lands while the softmax and P V run
 
     // block-uniform: no row of this tile needs a mask
@@ -328,10 +342,19 @@ __global__ void __launch_bounds__(Cfg<T, DH>::THREADS, 2) flash_fwd(const Args<T
     if (row >= a.Sq) continue;
     const float inv = 1.f / fmaxf(lr, 1e-30f);
 #pragma unroll
-    for (int g = 0; g < 2; ++g)
-      st4(op + row * a.os.s + 4 * NC * g + 4 * tx,
-          make_float4(acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv, acc[r][4 * g + 2] * inv,
-                      acc[r][4 * g + 3] * inv));
+    for (int g = 0; g < 2; ++g) {
+      const int col = 4 * NC * g + 4 * tx;  // padded columns are not written
+      T* dst = op + row * a.os.s + col;
+      if ((a.dh & 3) == 0) {  // o's rows are dh wide, so 4-aligned: vector stores
+        if (col < a.dh)
+          st4(dst, make_float4(acc[r][4 * g] * inv, acc[r][4 * g + 1] * inv,
+                               acc[r][4 * g + 2] * inv, acc[r][4 * g + 3] * inv));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < a.dh) dst[e] = from_f32<T>(acc[r][4 * g + e] * inv);
+      }
+    }
   }
 }
 
@@ -368,21 +391,24 @@ int dispatch(int dh, const void* q, const void* k, const void* v, void* o, int B
     for (int i = first; i < first + 3; ++i) ok = ok && (st[i] * (long long)sizeof(T)) % 16 == 0;
     return ok;
   };
-  const int vec = (aligned(q, 0) ? 1 : 0) | (aligned(k, 3) && aligned(v, 6) ? 2 : 0);
+  const bool rows16 = (dh * (int)sizeof(T)) % 16 == 0;  // whole 16-byte copies per row
+  const int vec = (rows16 && aligned(q, 0) ? 1 : 0) |
+                  (rows16 && aligned(k, 3) && aligned(v, 6) ? 2 : 0);
   const Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                   static_cast<T*>(o),
                   Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                   Strides{st[6], st[7], st[8]},
                   Strides{(long long)Sq * H * dh, (long long)H * dh, (long long)dh},
-                  Sq, Skv, H, H / Kv, causal, window, vec, scale};
-  if (dh == 64) return launch<T, 64>(a, B, s);
-  if (dh == 128) return launch<T, 128>(a, B, s);
-  return (int)cudaErrorInvalidValue;
+                  Sq, Skv, H, H / Kv, dh, causal, window, vec, scale};
+  // the next instantiated width; the columns past dh are zero-filled
+  if (dh <= 64) return launch<T, 64>(a, B, s);
+  if (dh <= 128) return launch<T, 128>(a, B, s);
+  return launch<T, 256>(a, B, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; dh: 64 or 128. q, k and v are read through
+// dtype: 0 = float32, 1 = bfloat16; dh: 1 to 256. q, k and v are read through
 // their batch, sequence and head strides (elements; the dh axis contiguous);
 // o is a contiguous [B, Sq, H, dh] of q's type. window: 0 = none (ignored
 // unless causal). Launches on `stream` and returns cudaGetLastError()
@@ -393,7 +419,8 @@ extern "C" int flash_attention_launch(int dtype, int dh, const void* q, const vo
                                       long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh, int causal,
                                       int window, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 || window < 0 ||
+  if (dh <= 0 || dh > 256 || B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || Kv <= 0 ||
+      H % Kv != 0 || window < 0 ||
       (causal && Sq > Skv) || (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};

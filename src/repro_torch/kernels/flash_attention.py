@@ -3,9 +3,11 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``: causal or sliding-window GQA attention, online softmax in
 float32, q ``[B, Sq, H, dh]`` and k/v ``[B, Skv, Kv, dh]`` in float32 or
-bfloat16, output in q's type. The source is ``csrc/flash_attention.cu``
-(sm_90a), built by ``kernels/build.py`` and bound with ``ctypes``; it says
-what bounds the kernel and how its work is split.
+bfloat16, output in q's type, any head width dh up to 256 (instantiated at
+64, 128 and 256; a width between runs in the next one with zero-filled
+columns, at the true scale ``dh ** -0.5``). The source is
+``csrc/flash_attention.cu`` (sm_90a), built by ``kernels/build.py`` and bound
+with ``ctypes``; it says what bounds the kernel and how its work is split.
 
 The kernel is forward-only, like the TPU kernel: JAX trains through the
 chunked attention path, and so does the port. :func:`flash_attention` runs
@@ -26,7 +28,7 @@ from repro_torch.kernels.ref import flash_attention_ref as flash_attention_plain
 __all__ = ["flash_attention", "flash_attention_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
+_MAX_DH = 256  # the widest instantiation; narrower widths run padded to 64, 128 or 256
 
 
 def _fn():
@@ -58,8 +60,9 @@ def _check(q, k, v, causal, window):
     if tuple(k.shape) != (B, Skv, Kv, dh) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k and v must be [B, Skv, Kv, dh] = [{B}, Skv, Kv, {dh}], got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel is built for dh in {_HEAD_DIMS}, got {dh}")
+    if not 1 <= dh <= _MAX_DH:
+        raise ValueError(f"flash_attention kernel takes head widths dh from 1 to {_MAX_DH}, "
+                         f"got {dh}")
     if min(B, Sq, Skv, H, Kv) == 0 or H % Kv != 0:
         raise ValueError(f"need non-empty q, k, v and Kv dividing H, got H {H}, Kv {Kv}")
     if window is not None and window <= 0:
@@ -100,7 +103,7 @@ class _FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None):
     """Launch the kernel on CUDA tensors: q [B, Sq, H, dh], k/v [B, Skv, Kv, dh]
-    (float32 or bfloat16, one dtype, the dh axis contiguous; any batch,
+    (float32 or bfloat16, one dtype, dh from 1 to 256, the dh axis contiguous; any batch,
     sequence and head strides) -> a contiguous [B, Sq, H, dh] in q's dtype.
     ``window`` applies only when ``causal``. Raises on anything the kernel does
     not take, a causal call with Sq > Skv among them. Adds one to

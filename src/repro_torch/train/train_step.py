@@ -6,12 +6,21 @@ step's integer seed, from which every sketched site derives its own
 generator (step → layer → role). Gradients come from one backward through
 the sketched sites' autograd Function; the optimizer updates in place.
 
+Compact gradients (``ExecutionConfig(compact_grads=True)``): before the loss,
+every compact site gets a gradient slot (``core/compact_grad.py``), whose
+backward fills it with the kept dW rows and their indices instead of a dense
+dW. The step differentiates every leaf but the slotted weights and folds the
+slots back into the gradient tree as ``CompactGrad`` leaves, which the
+gradient norm, the clipping and the optimizer take as they are. Slots are
+made per step and never reach ``opt.init`` or the optimizer's moments.
+
 Plan carry (``onepass``, ``stale``): the carry leaves are parameters, so the
 backward returns their refreshed scores among the gradients. The step takes
 them out (zeroing those gradients) before the gradient norm, the clipping and
 the optimizer, and writes them over the carry after the update
-(``core/plan_state.py``). Gradient accumulation, compact gradients, telemetry
-probes and resilience are not ported yet.
+(``core/plan_state.py``). A site can hold both a gradient slot and a carry
+leaf. Gradient accumulation, telemetry probes and resilience are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 from repro_torch.api.execution import ExecutionConfig
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import SketchPolicy
+from repro_torch.core import compact_grad as cgrad
 from repro_torch.core import plan_state as pstate
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -83,11 +93,19 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     def step_fn(state: TrainState, batch, key: int):
         batch = batch_to_device(batch, dev)
         _trainable(state.params)
-        leaves = tree_leaves(state.params)
+        params_in = state.params
+        if ex.compact_grads:
+            # fresh slots for this step: host objects, nothing on the card
+            params_in = cgrad.with_grad_slots(state.params, policy, n_layers=cfg.n_layers)
         ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
-        loss, _ = lm.lm_loss(state.params, batch, ctx, cfg, key)
+        loss, _ = lm.lm_loss(params_in, batch, ctx, cfg, key)
+        # a slotted weight's gradient leaves through its slot: it is not
+        # differentiated (its Function returns None for it)
+        targets = cgrad.grad_targets(params_in)
+        leaves = [t for t in tree_leaves(targets) if isinstance(t, torch.Tensor)]
         flat = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _: next(flat), state.params)
+        grads = cgrad.fold_slot_grads(
+            tree_map(lambda t: next(flat) if isinstance(t, torch.Tensor) else t, targets))
         fresh = {}
         if carry_on:
             # the carry leaves' gradients ARE the refreshed scores: take them

@@ -10,6 +10,7 @@ Tolerances: float32 outputs 1e-5 of the output's largest magnitude (the
 kernel and the plain version sum in different orders); bfloat16 outputs
 1e-2 of it (one bfloat16 ulp is 2^-8 of the value).
 """
+import ctypes
 import os
 import sys
 
@@ -211,6 +212,42 @@ def test_cuda_flash_attention_matches_plain(cuda, B, Sq, Skv, H, Kv, dh, causal,
     assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, window=window))
 
 
+# (B, Sq, Skv, H, Kv, dh, causal, window): head widths other than 64 and 128,
+# run in the next instantiated width (64, 128 or 256) with zero-filled
+# columns: dh 20 (16-byte rows in float32, not in bf16: plain loads), 24,
+# 96, 256 (gemma3_1b; its smoke config has 24), 7 (no 4-aligned output
+# rows: scalar stores), causal, windowed and not causal, GQA; the last is
+# gemma3_1b's prefill at 4096 tokens (H 4, Kv 1, window 512)
+FLASH_WIDTH_SHAPES = [
+    (1, 70, 70, 2, 2, 20, True, None),
+    (2, 100, 100, 2, 1, 20, True, 30),
+    (1, 65, 130, 2, 2, 20, False, None),
+    (1, 100, 100, 4, 2, 24, True, None),
+    (1, 130, 130, 4, 4, 96, True, 40),
+    (1, 65, 200, 2, 2, 96, False, None),
+    (1, 128, 128, 4, 1, 256, True, None),
+    (1, 200, 200, 4, 1, 256, True, 64),
+    (1, 65, 200, 2, 2, 256, False, None),
+    (1, 50, 50, 2, 2, 7, True, None),
+    (1, 4096, 4096, 4, 1, 256, True, 512),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Kv,dh,causal,window", FLASH_WIDTH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_at_other_head_widths(cuda, B, Sq, Skv, H, Kv, dh, causal, window,
+                                                   dtype):
+    """Against the plain version at the true scale dh^-1/2; the padded
+    columns are never written; the same bits on a second call."""
+    q, k, v = _qkv(cuda, B, Sq, Skv, H, Kv, dh, dtype, seed=dh)
+    got = flash.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Sq, H, dh) and got.dtype == dtype
+    _close(got, want, TOL[dtype])
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=causal, window=window))
+
+
 def test_cuda_flash_attention_reads_strided_inputs(cuda):
     """q, k and v as views into one packed [B, S, 3, H, dh] projection, as
     the kernel reads them through their strides, with no copy."""
@@ -234,8 +271,8 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
         ops.flash_attention(q.detach(), k.cpu(), k.cpu())
     with pytest.raises(ValueError):
         flash.flash_attention(q.detach(), k.cpu(), k.cpu())
-    with pytest.raises(ValueError, match="dh"):
-        x = torch.randn((1, 64, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="dh from 1 to 256"):
+        x = torch.randn((1, 64, 2, 264), device=cuda)
         flash.flash_attention(x, x, x)
     with pytest.raises(ValueError):
         x = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.float16)
@@ -352,3 +389,117 @@ def test_cuda_col_l1_scores_replays_in_a_cuda_graph(cuda, dtype):
         assert torch.equal(out, eager)
         assert torch.equal(out2, col_scores.col_l1_scores(G, mode="l2"))
     assert torch.equal(col_scores.col_l1_scores(G), eager)
+
+
+# wider than the 1,024 strips of one counter slot: qwen2_vl_2b's vocab in
+# float32 (1,187 strips) and gemma3_1b's (2,048 float32 strips, 1,024 bf16)
+@pytest.mark.parametrize("n,dtype", [(151_936, torch.float32), (262_144, torch.float32),
+                                     (262_144, torch.bfloat16)])
+def test_cuda_col_l1_scores_at_vocabulary_widths(cuda, n, dtype):
+    """One launch at any width; against the plain version; captured in a
+    CUDA graph and replayed, the eager call's bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    G = torch.randn((2048, n), generator=g, device=cuda).to(dtype)
+    before = col_scores.col_l1_scores.launches
+    eager = col_scores.col_l1_scores(G)
+    assert col_scores.col_l1_scores.launches == before + 1
+    _close(eager, col_scores.col_l1_scores_plain(G), 1e-5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = col_scores.col_l1_scores(G)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(col_scores.col_l1_scores(G), eager)
+
+
+def _new_stream(cuda):
+    """A CUDA stream of its own (PyTorch's stream pool recycles 32 per
+    priority), made through the CUDA runtime that PyTorch binds."""
+    handle = ctypes.c_ulonglong(0)
+    with torch.cuda.device(cuda):
+        assert torch.cuda.cudart().cudaStreamCreate(ctypes.addressof(handle)) == 0
+    return torch.cuda.ExternalStream(handle.value, device=cuda)
+
+
+def test_cuda_col_l1_scores_on_more_than_64_streams(cuda):
+    """80 streams launch at once, each with counters of its own (allocated at
+    its first launch), and a graph captured on an 81st stream, whose
+    counters are allocated during the capture, replays: every result is the
+    default stream's bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(10)
+    Gs = [torch.randn((2048, 768), generator=g, device=cuda) for _ in range(4)]
+    want = [col_scores.col_l1_scores(G) for G in Gs]
+    torch.cuda.synchronize()
+    streams = [_new_stream(cuda) for _ in range(81)]
+    try:
+        outs = []
+        for i, st in enumerate(streams[:80]):
+            st.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(st):
+                outs.append(col_scores.col_l1_scores(Gs[i % 4]))
+        torch.cuda.synchronize()
+        assert len(col_scores._slots) > 80
+        for i, out in enumerate(outs):
+            assert torch.equal(out, want[i % 4])
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=streams[80]):
+            out = col_scores.col_l1_scores(Gs[1])
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want[1])
+    finally:
+        torch.cuda.synchronize()
+        for st in streams:
+            torch.cuda.cudart().cudaStreamDestroy(st.cuda_stream)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "stale"])
+def test_cuda_compact_step_equals_dense_step(cuda, backend):
+    """One step of a 2-layer LM whose sites are whole 128-column blocks, from
+    the same parameters, batch and seed, with compact gradients on and off
+    (non-lazy AdamW): the same kernel launches, every sketched site's w
+    gradient compact, and the parameters within float32 tolerance (rtol 2e-5,
+    atol 2e-6, as the JAX package's own test of the same equivalence)."""
+    from repro_torch.api import ExecutionConfig, Runtime, SketchConfig, SketchPolicy
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.core.compact_grad import CompactGrad
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = ArchConfig(name="lm-cuda-compact", family="dense", n_layers=2, d_model=256,
+                     n_heads=4, n_kv=4, d_ff=512, vocab=512, q_chunk=64, kv_chunk=64)
+    policy = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend=backend,
+                                            block=128))
+    toks = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks, "labels": toks}
+    out = {}
+    for compact in (False, True):
+        seen, base = [], adamw(1e-3, weight_decay=0.1, clip=1.0)
+
+        def update(grads, st, params, step, seen=seen, base=base):
+            seen.append(grads)  # the gradients the optimizer is given
+            return base.update(grads, st, params, step)
+
+        opt = Optimizer(base.init, update)
+        rt = Runtime(policy=policy, execution=ExecutionConfig(compact_grads=compact),
+                     device=cuda)
+        state = rt.init_state(0, cfg, opt)
+        ops.reset_launch_counts()
+        state, m = rt.train_step(cfg, opt)(state, batch, 1)
+        torch.cuda.synchronize()
+        n_compact = sum(isinstance(g, CompactGrad) for g in tree_leaves(seen[0]))
+        assert n_compact == (7 * cfg.n_layers if compact else 0)
+        out[compact] = (float(m["loss"]), ops.launch_counts(),
+                        [p.detach() for p in tree_leaves(state.params)])
+    (loss_d, counts_d, p_d), (loss_c, counts_c, p_c) = out[False], out[True]
+    assert counts_c == counts_d and counts_c["block_gather_matmul_fused"] == 7 * cfg.n_layers
+    assert loss_c == pytest.approx(loss_d, rel=1e-6)
+    assert len(p_c) == len(p_d)
+    for a, b in zip(p_c, p_d):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
