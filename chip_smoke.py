@@ -59,7 +59,20 @@ which raises on failure:
    every decode step's logits against the same generation with the plain
    attention, teacher-forced on the kernel run's tokens;
 8. a serving breakdown: a profiler trace of one prefill and one decode step;
-9. one JSON line listing the ported kernels, then the last line
+9. the paper's §5 models at App. B.2's widths (the 784-64-64-10 MLP at batch
+   128, ViT d 192 depth 9 at batch 64, BagNet width 64 at batch 64): the
+   score and fused kernels against their plain versions at every shape the
+   models give them (N up to 65,536 rows, float32 tolerance by the sqrt(K)
+   rule of ``sum_tol``); per model, one gradient at budget 0.999 equal to
+   exact backprop's with exactly its listed launches and kernel shapes (MLP
+   3 score / 0 fused, ViT 54 / 9, BagNet 12 / 9), and an exact-context
+   evaluation that launches nothing; each model's main path, 5 training
+   steps with its optimizer and the l1@0.2 block-128 pallas policy (the MLP
+   through ``Runtime.train``), launch counts set to 0 just before and read
+   just after, every loss finite; ``benchmarks/torch/quickstart.py``'s exact
+   and sketched runs on seed 0; and a step breakdown per model, exact against
+   sketched;
+10. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
@@ -73,6 +86,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)  # benchmarks/torch (the quickstart)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
@@ -996,6 +1010,393 @@ def serve_breakdown(dev, reps=3):
                   f"x{e.count:<5d} {e.key[:80]}")
 
 
+# ---------------------------------------------------------------------------
+# The paper's §5 models (phase 9): the MLP, ViT and BagNet at App. B.2 widths
+# ---------------------------------------------------------------------------
+
+# each model's batch and its sketched sites' kernel shapes with their calls
+# per step under the block-128 l1 pallas policy: the score kernel at every
+# site (N, n), the fused kernel at the block-granular ones (N, n, d, rb).
+# Widths below or no multiple of 128 run per column: the score kernel, then a
+# plain gather and matmul. A site with one 128-wide block keeps it with
+# scale 1 and still launches both kernels. ViT's patch projection and the
+# ViT and BagNet classifiers stay exact (SketchPolicy's default exclusions);
+# the MLP sketches every layer, its head included (exclude_roles=(), §5).
+PAPER = {
+    "mlp": dict(batch=128, score={(128, 64): 2, (128, 10): 1}, fused={}),
+    "vit": dict(batch=64, score={(4160, 192): 45, (4160, 1024): 9},
+                fused={(4160, 1024, 192, 2): 9}),
+    "bagnet": dict(batch=64,
+                   score={(65536, 64): 3, (65536, 128): 1, (16384, 128): 3, (16384, 256): 1,
+                          (4096, 256): 4},
+                   fused={(65536, 128, 64, 1): 1, (16384, 128, 128, 1): 3,
+                          (16384, 256, 128, 1): 1, (4096, 256, 256, 1): 4}),
+}
+PAPER_SEED = 17
+# budget 0.999 against exact backprop, every gradient of the model: float32
+# reorderings through up to nine layers, as GRAD_RTOL for lm-100m
+PAPER_GRAD_RTOL = 2e-4
+
+
+def sum_tol(K: int) -> float:
+    """float32 tolerance, relative to the output's largest magnitude, of sums
+    of K terms taken in another order: the rule behind TOL, sqrt(K)*2^-24,
+    with TOL's 1e-5 as its floor. The rule passes the floor above K = 28,147:
+    of the models' shapes only at K = 65,536, where it gives 1.53e-5."""
+    return max(TOL[torch.float32], math.sqrt(K) * 2.0 ** -24)
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|: what max_err holds
+    against its relative tolerance."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def paper_kernels(gen, dev):
+    """The score and fused kernels at the §5 models' shapes, float32 and
+    bf16, against their plain versions; their times beside the bound, the
+    plain version and (score kernel) ``G.abs().sum(0)``. Returns
+    {model: {kernel: rows}}."""
+    from repro_torch.kernels import col_scores
+    from repro_torch.kernels import sketch_matmul as sm
+
+    out = {}
+    for model, spec in PAPER.items():
+        rows = {"col_l1_scores": [], "block_gather_matmul_fused": []}
+        for (N, n), calls in spec["score"].items():
+            for dtype in (torch.float32, torch.bfloat16):
+                G = torch.randn((N, n), generator=gen, device=dev).to(dtype)
+                got = col_scores.col_l1_scores(G)
+                if not torch.equal(got, col_scores.col_l1_scores(G)):
+                    raise AssertionError("col_l1_scores is not deterministic")
+                err, tol = max_err(got, col_scores.col_l1_scores_plain(G), sum_tol(N))
+                row = dict(model=model, shape=[N, n], dtype=str(dtype).split(".")[-1],
+                           calls=calls, max_abs_err=err, tol=tol,
+                           rel_err=rel_err(got, col_scores.col_l1_scores_plain(G)),
+                           rel_tol=sum_tol(N),
+                           ms=cuda_ms(lambda: col_scores.col_l1_scores(G)),
+                           plain_ms=cuda_ms(lambda: col_scores.col_l1_scores_plain(G)),
+                           library_ms=cuda_ms(lambda: G.abs().sum(0, dtype=torch.float32)),
+                           **bound(N * n * G.element_size() + 4 * n, 2 * N * n, torch.float32))
+                print(f"[paper-kernel] col_l1_scores {row}")
+                rows["col_l1_scores"].append(row)
+        for (N, n, d, rb), calls in spec["fused"].items():
+            idx = torch.sort(torch.randperm(n // BLOCK, generator=gen, device=dev)[:rb]).values
+            idx = idx.to(torch.int32)
+            scales = 1.0 + 4.0 * torch.rand(rb, generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                G = torch.randn((N, n), generator=gen, device=dev).to(dtype)
+                W = (torch.randn((n, d), generator=gen, device=dev) * d ** -0.5).to(dtype)
+                X = torch.randn((N, d), generator=gen, device=dev).to(dtype)
+                args = (G, idx, scales, W, X)
+                got = sm.block_gather_matmul_fused(*args, block=BLOCK)
+                want = sm.block_gather_matmul_fused_plain(*args, block=BLOCK)
+                torch.cuda.synchronize()
+                kept = rb * BLOCK
+                # dX sums the kept columns, dWc and db the N rows; bf16 dX and
+                # dWc round to 8 bits (TOL), db stays float32
+                bf16 = dtype == torch.bfloat16
+                tols = (TOL[dtype] if bf16 else sum_tol(kept),
+                        TOL[dtype] if bf16 else sum_tol(N), sum_tol(N))
+                err = max(max_err(g, w, t)[0] for g, w, t in zip(got, want, tols))
+                n_bytes = (G.element_size() * (N * kept + kept * d + 2 * N * d + kept * d)
+                           + 8 * rb + 4 * kept)
+                row = dict(model=model, shape=[N, n, d, rb], dtype=str(dtype).split(".")[-1],
+                           calls=calls, max_abs_err=err,
+                           rel_err=[rel_err(g, w) for g, w in zip(got, want)],
+                           rel_tol=list(tols),
+                           ms=cuda_ms(lambda: sm.block_gather_matmul_fused(*args, block=BLOCK)),
+                           plain_ms=cuda_ms(lambda: sm.block_gather_matmul_fused_plain(
+                               *args, block=BLOCK)),
+                           library_ms=None,
+                           **bound(n_bytes, 4 * N * kept * d + 2 * N * kept, dtype))
+                print(f"[paper-kernel] block_gather_matmul_fused {row}")
+                rows["block_gather_matmul_fused"].append(row)
+                del G, W, X, got, want
+        out[model] = rows
+    return out
+
+
+def paper_policy(model, budget):
+    from repro_torch.api import SketchConfig, SketchPolicy
+
+    base = SketchConfig(method="l1", budget=budget, backend="pallas", block=BLOCK)
+    return SketchPolicy(base=base, exclude_roles=()) if model == "mlp" else SketchPolicy(base=base)
+
+
+def paper_setup(model, dev, n_batches):
+    """(random parameters from PAPER_SEED, loss_fn(params, batch, ctx), the
+    model's optimizer, n_batches batches on the card) at App. B.2's widths:
+    the MLP 784-64-64-10 (SGD, constant lr 0.2, clip 1.0); ViT img 32, patch
+    4, d 192, depth 9, heads 12, d_ff 1024 (AdamW, cosine 3e-4 with 20 warm-up
+    of 400 steps, weight decay 0.05, clip 1.0); BagNet width 64, blocks (2, 2,
+    2) (SGD momentum 0.9, cosine 0.03 with 10 warm-up of 400 steps, clip
+    1.0); 10 classes each, data from ``data/synthetic.classification``."""
+    import functools
+
+    from repro_torch.data.synthetic import classification
+    from repro_torch.models import mlp, vision
+    from repro_torch.optim import adamw, constant, cosine_warmup, sgd
+
+    B = PAPER[model]["batch"]
+    if model == "mlp":
+        x, y = classification(B * n_batches, 784, 10, seed=PAPER_SEED)
+        params = mlp.mlp_init(PAPER_SEED, device=dev)
+        loss_fn, opt = mlp.mlp_loss, sgd(constant(0.2), clip=1.0)
+    else:
+        x, y = classification(B * n_batches, (32, 32, 3), 10, seed=PAPER_SEED, noise=0.8,
+                              flatten=False)
+        if model == "vit":
+            params = vision.vit_init(PAPER_SEED, device=dev)
+            apply_fn = functools.partial(vision.vit_apply, heads=12)
+            opt = adamw(cosine_warmup(3e-4, 20, 400), weight_decay=0.05, clip=1.0)
+        else:
+            params = vision.bagnet_init(PAPER_SEED, device=dev)
+            apply_fn = vision.bagnet_apply
+            opt = sgd(cosine_warmup(0.03, 10, 400), momentum=0.9, clip=1.0)
+        loss_fn = functools.partial(vision.cls_loss, apply_fn)
+    batches = [{"x": torch.as_tensor(x[i * B:(i + 1) * B], device=dev),
+                "y": torch.as_tensor(y[i * B:(i + 1) * B], device=dev).long()}
+               for i in range(n_batches)]
+    return params, loss_fn, opt, batches
+
+
+def paper_grads(params, loss_fn, batch, ctx):
+    """(loss, the gradient of every parameter leaf, in tree_leaves order)."""
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(params, batch, ctx)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def paper_step_fn(model, runtime, params, loss_fn, opt):
+    """``step(i, batch) -> loss``: one training step of the model under
+    ``runtime``. The MLP takes ``Runtime.train_step`` (the step of
+    ``Runtime.train``: the ``family="mlp"`` dispatch of ``lm``); ViT and
+    BagNet, which have no ArchConfig family, are driven by hand as
+    ``benchmarks/torch/fig3_larger_archs.py`` drives them:
+    ``runtime.ctx(key)``, ``torch.autograd.grad``, ``opt.update``."""
+    from repro_torch import rng
+    from repro_torch.models.mlp import mlp_arch
+    from repro_torch.tree import tree_map
+
+    if model == "mlp":
+        fn = runtime.train_step(mlp_arch(), opt)
+        box = [runtime.init_state(0, mlp_arch(), opt, params=params)]
+
+        def step(i, batch):
+            box[0], m = fn(box[0], batch, rng.fold_in(PAPER_SEED, i + 1))
+            return m["loss"]
+
+        return step
+    state = [opt.init(params)]
+
+    def step(i, batch):
+        loss, grads = paper_grads(params, loss_fn, batch,
+                                  runtime.ctx(rng.fold_in(PAPER_SEED, i + 1)))
+        it = iter(grads)
+        _, state[0] = opt.update(tree_map(lambda _: next(it), params), state[0], params, i)
+        return loss
+
+    return step
+
+
+def paper_counts(model, steps):
+    from repro_torch.kernels import ops
+
+    want = {name: 0 for name in ops.KERNELS}
+    want["col_l1_scores"] = steps * sum(PAPER[model]["score"].values())
+    want["block_gather_matmul_fused"] = steps * sum(PAPER[model]["fused"].values())
+    return want
+
+
+def paper_wiring(dev):
+    """Per model, one gradient at budget 0.999 (block 128, pallas): every
+    block and column kept with scale 1, the launches per step exactly as
+    PAPER lists them (and at its shapes), every parameter's gradient equal to
+    exact backprop's within PAPER_GRAD_RTOL; then an exact-context evaluation
+    (``runtime.ctx(budget=None)``) that launches no kernel."""
+    from collections import Counter
+
+    from repro_torch import rng
+    from repro_torch.api import Runtime
+    from repro_torch.kernels import ops
+
+    for model in PAPER:
+        params, loss_fn, _, (batch,) = paper_setup(model, dev, 1)
+        key = rng.fold_in(PAPER_SEED, 1)
+        loss_e, g_exact = paper_grads(params, loss_fn, batch, Runtime(device=dev).ctx(key))
+        seen = {"score": Counter(), "fused": Counter()}
+        real_s, real_f = ops.col_l1_scores, ops.block_gather_matmul_fused
+
+        def spy_s(G, **kw):
+            seen["score"][tuple(G.shape)] += 1
+            return real_s(G, **kw)
+
+        def spy_f(G, block_idx, scales, W, X, **kw):
+            if not torch.all(scales == 1.0) or block_idx.numel() != G.shape[1] // kw["block"]:
+                raise AssertionError(f"{model}: budget 0.999 dropped or rescaled a block")
+            seen["fused"][(*G.shape, W.shape[1], block_idx.numel())] += 1
+            return real_f(G, block_idx, scales, W, X, **kw)
+
+        runtime = Runtime(policy=paper_policy(model, 0.999), device=dev)
+        ops.reset_launch_counts()
+        ops.col_l1_scores, ops.block_gather_matmul_fused = spy_s, spy_f
+        try:
+            loss_s, g_sk = paper_grads(params, loss_fn, batch, runtime.ctx(key))
+        finally:
+            ops.col_l1_scores, ops.block_gather_matmul_fused = real_s, real_f
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts != paper_counts(model, 1):
+            raise AssertionError(f"{model} budget-0.999 step launched {counts}, "
+                                 f"want {paper_counts(model, 1)}")
+        # at 0.999 every block is kept: rb is the block count
+        want_fused = Counter({(N, n, d, n // BLOCK): c
+                              for (N, n, d, _), c in PAPER[model]["fused"].items()})
+        if seen["score"] != Counter(PAPER[model]["score"]) or seen["fused"] != want_fused:
+            raise AssertionError(f"{model}: kernel shapes {dict(seen['score'])} "
+                                 f"{dict(seen['fused'])}")
+        worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                    for a, b in zip(g_sk, g_exact))
+        if not worst <= PAPER_GRAD_RTOL or not torch.isfinite(loss_s):
+            raise AssertionError(f"{model}@0.999 vs exact gradients: max rel err {worst:.3e} "
+                                 f"> {PAPER_GRAD_RTOL}")
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            loss_v, acc_v = loss_fn(params, batch, runtime.ctx(key, budget=None))
+        torch.cuda.synchronize()
+        if any(ops.launch_counts().values()) or not torch.allclose(loss_v, loss_e, rtol=1e-6):
+            raise AssertionError(f"{model}: the exact-context evaluation launched "
+                                 f"{ops.launch_counts()} or changed the loss")
+        print(f"[paper-wiring] {model} budget 0.999: launches {counts}, score shapes "
+              f"{dict(seen['score'])}, fused shapes {dict(seen['fused'])}, every block kept "
+              f"with scale 1, {len(g_exact)} gradients, max rel err {worst:.3e} (tol "
+              f"{PAPER_GRAD_RTOL}); exact evaluation: 0 launches, loss {loss_v.item():.6f} "
+              f"acc {acc_v.item():.4f}")
+        del params, g_exact, g_sk
+
+
+def paper_train(dev, model):
+    """A model's main path: STEPS training steps with its optimizer and
+    l1@0.2 block-128 pallas policy, launch counts set to 0 just before and
+    read just after; the MLP through ``Runtime.train``. Returns the counts."""
+    from repro_torch import rng
+    from repro_torch.api import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp import mlp_arch
+    from repro_torch.tree import tree_leaves
+
+    params, loss_fn, opt, batches = paper_setup(model, dev, STEPS)
+    runtime = Runtime(policy=paper_policy(model, 0.2), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    if model == "mlp":
+        state = runtime.init_state(rng.fold_in(PAPER_SEED, 0), mlp_arch(), opt, params=params)
+        state, hist = runtime.train(mlp_arch(), opt, batches, steps=STEPS, log_every=1,
+                                    seed=PAPER_SEED, state=state, on_metrics=lambda m: None)
+        losses = [h["loss"] for h in hist]
+    else:
+        step = paper_step_fn(model, runtime, params, loss_fn, opt)
+        losses = [float(step(i, b)) for i, b in enumerate(batches)]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wall = time.perf_counter() - t0
+    if counts != paper_counts(model, STEPS):
+        raise AssertionError(f"{model} main path launched {counts}, "
+                             f"want {paper_counts(model, STEPS)}")
+    if len(losses) != STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{model}: non-finite or missing losses {losses}")
+    if not all(torch.isfinite(p).all() for p in tree_leaves(params)):
+        raise AssertionError(f"{model}: non-finite parameters after training")
+    print(f"[paper-train] {model}: {sum(p.numel() for p in tree_leaves(params))} params, "
+          f"batch {PAPER[model]['batch']}, l1@0.2 block {BLOCK} pallas, {STEPS} steps in "
+          f"{wall:.2f} s: losses {losses}; launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return counts
+
+
+def paper_quickstart(dev):
+    """``benchmarks/torch/quickstart.py`` on one seed: the exact and the
+    sketched (l1 @ 0.2, every layer) 10-epoch runs, exact evaluation."""
+    from benchmarks.torch.quickstart import run
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    res = run(0, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # the exact run launches nothing; the sketched one 3 per step
+    if counts["col_l1_scores"] != 3 * res["sketched"]["steps"] or sum(counts.values()) != \
+            counts["col_l1_scores"]:
+        raise AssertionError(f"quickstart launched {counts}")
+    for run_ in ("exact", "sketched"):
+        if not all(0.0 <= a <= 1.0 for a in res[run_]["test_acc_per_epoch"]):
+            raise AssertionError(f"quickstart {run_}: accuracies {res[run_]}")
+    print(f"[quickstart] seed 0, 10 epochs: test accuracy exact {res['exact']['test_acc']:.4f}, "
+          f"sketched l1@0.2 {res['sketched']['test_acc']:.4f} (gap {res['gap']:.4f}); "
+          f"train s exact {res['exact']['train_s']:.2f}, sketched "
+          f"{res['sketched']['train_s']:.2f}; launches {counts}")
+
+
+def paper_breakdown(dev, replay, reps=3):
+    """Per model, exact backprop beside the sketched step (l1@0.2 block 128
+    pallas): ms/step (host clock around synchronised steps after a warm-up),
+    and a profiler trace of one step: device busy time, device ops, peak
+    memory, and each kernel's in-step device time beside
+    ``replay[model][kernel]``, its warm-L2 replay time per step (this phase's
+    kernel rows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Runtime
+
+    for model in PAPER:
+        for label, policy in (("exact", None), ("l1@0.2", paper_policy(model, 0.2))):
+            params, loss_fn, opt, batches = paper_setup(model, dev, reps + 2)
+            step = paper_step_fn(model, Runtime(policy=policy, device=dev), params, loss_fn,
+                                 opt)
+            float(step(0, batches[0]))  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            for i in range(reps):
+                loss = step(1 + i, batches[1 + i])
+            float(loss)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / reps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                float(step(reps + 1, batches[-1]))
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            busy_ms = sum(_device_us(e) for e in kern) / 1e3
+            print(f"[paper-breakdown] {model} {label}: {step_ms:.2f} ms/step over {reps} steps; "
+                  f"profiled step: device busy {busy_ms:.2f} ms in "
+                  f"{sum(e.count for e in kern)} device ops; busy share "
+                  f"{100 * busy_ms / step_ms:.0f}%; peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+            for e in sorted(kern, key=_device_us, reverse=True)[:5]:
+                print(f"[paper-breakdown]   device {_device_us(e) / 1e3:8.3f} ms x{e.count:<5d} "
+                      f"{e.key[:80]}")
+            if policy is not None:
+                for name, replay_ms in replay[model].items():
+                    evs = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
+                    want = paper_counts(model, 1)[name]
+                    if sum(e.count for e in evs) != want:
+                        raise AssertionError(f"{model}: {sum(e.count for e in evs)} {name} "
+                                             f"launches in the traced step, want {want}")
+                    print(f"[paper-breakdown]   kernel {name}: "
+                          f"{sum(_device_us(e) for e in evs) / 1e3:.3f} ms in the step "
+                          f"({want} launches), warm-L2 replay {replay_ms:.3f} ms per step")
+            del params, batches
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -1071,13 +1472,26 @@ def main() -> int:
     launches["flash_attention"] = serve_counts["flash_attention"]
     serve_breakdown(dev)
     print(f"[time] serving and its breakdown {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paper_rows = paper_kernels(gen, dev)
+    paper_wiring(dev)
+    paper_path = {model: paper_train(dev, model) for model in PAPER}
+    for name in ("col_l1_scores", "block_gather_matmul_fused"):
+        launches[name] += sum(c[name] for c in paper_path.values())
+    paper_quickstart(dev)
+    paper_breakdown(dev, {model: {name: per_step(f32(r), "ms") for name, r in rows.items() if r}
+                          for model, rows in paper_rows.items()})
+    print(f"[time] the paper's models {time.perf_counter() - t0:.1f} s")
+    paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
+                 for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = "src/repro/kernels/sketch_matmul.py:"
     kernels = [
         kernel_entry("col_l1_scores", "cuda", csrc + "col_scores.cu",
                      "src/repro/kernels/col_scores.py:42", launches["col_l1_scores"],
-                     f32(score_rows, mode="l1"), f32(score_rows), library=True),
+                     f32(score_rows, mode="l1"), f32(score_rows) + paper_f32["col_l1_scores"],
+                     library=True),
         kernel_entry("block_gather_matmul", "cuda", csrc + "block_gather_matmul_fused.cu",
                      replaces + "47", launches["block_gather_matmul"],
                      f32(unfused_rows["block_gather_matmul"]),
@@ -1088,7 +1502,8 @@ def main() -> int:
                      f32(unfused_rows["block_gather_matmul_dw"]), library=False),
         kernel_entry("block_gather_matmul_fused", "cuda", csrc + "block_gather_matmul_fused.cu",
                      replaces + "210", launches["block_gather_matmul_fused"],
-                     f32(fused_rows, with_scores=False), f32(fused_rows), library=False),
+                     f32(fused_rows, with_scores=False),
+                     f32(fused_rows) + paper_f32["block_gather_matmul_fused"], library=False),
         kernel_entry("block_stream_matmul_fused", "cuda", csrc + "block_stream_matmul_fused.cu",
                      replaces + "381", launches["block_stream_matmul_fused"],
                      f32(stream_rows, mode="l1"), f32(stream_rows), library=False),
@@ -1098,10 +1513,12 @@ def main() -> int:
                      f32(flash_rows), library=True),
     ]
     print(f"# launches: summed over the main paths' runs ({STEPS} steps each): "
-          f"{json.dumps(path_counts)}; serving (two waves): {json.dumps(serve_counts)}")
-    print("# kernels: times are float32, summed over one step's calls at the paths' shapes "
-          "(the unfused pair: the fused kernel's calls, which it would replace); "
-          "flash_attention: over one wave-1 prefill's calls")
+          f"{json.dumps(path_counts)}; serving (two waves): {json.dumps(serve_counts)}; "
+          f"the paper's models ({STEPS} steps each): {json.dumps(paper_path)}")
+    print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
+          "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
+          "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "
+          "in the [paper-kernel] lines; max_abs_err over every float32 shape")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -36,9 +36,9 @@ class ExecutionConfig:
         if self.accum != 1:
             raise NotImplementedError("gradient accumulation (accum > 1) is not ported yet")
 
-    def make_ctx(self, *, policy=None, key=None, n_layers: int = 1):
+    def make_ctx(self, *, policy=None, key=None, layer_index: int = 0, n_layers: int = 1):
         """The per-call :class:`~repro_torch.nn.common.Ctx` (``key``: the
         integer seed sketched sites derive their generators from)."""
         from repro_torch.nn.common import Ctx
 
-        return Ctx(policy=policy, key=key, n_layers=n_layers)
+        return Ctx(policy=policy, key=key, layer_index=layer_index, n_layers=n_layers)

@@ -5,8 +5,10 @@
 the sketched training loop on the card (with
 ``execution=ExecutionConfig(compact_grads=True)``, on compact gradients);
 ``prefill_step`` and ``decode_step`` give the serving steps. The device resolves when the Runtime is built:
-without a card, ``device="cuda"`` raises ``RuntimeError``. Budget schedules
-and the serving engines (``Runtime.serve``) are not ported yet.
+without a card, ``device="cuda"`` raises ``RuntimeError``. ``ctx`` gives a
+hand-driven loop its context (``budget=None``: exact, for evaluation), as the
+paper's vision models take it. Budget schedules and the serving engines
+(``Runtime.serve``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,10 +36,22 @@ class Runtime:
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
 
-    def ctx(self, key=None, *, n_layers: int = 1):
+    def policy_at(self, budget: Optional[float] = 1.0) -> Optional[SketchPolicy]:
+        """The effective policy at one budget: None is exact backprop, 1.0 the
+        policy as configured, anything else the policy at that budget."""
+        if budget is None or self.policy is None:
+            return None
+        if budget >= 1.0:
+            return self.policy
+        return self.policy.with_budget(budget)
+
+    def ctx(self, key=None, *, budget: Optional[float] = 1.0, layer_index: int = 0,
+            n_layers: int = 1):
         """A :class:`~repro_torch.nn.common.Ctx` for hand-driven model calls
-        (``key``: the step's integer seed)."""
-        return self.execution.make_ctx(policy=self.policy, key=key, n_layers=n_layers)
+        (``key``: the step's integer seed; ``budget=None``: exact, as for
+        evaluation)."""
+        return self.execution.make_ctx(policy=self.policy_at(budget), key=key,
+                                       layer_index=layer_index, n_layers=n_layers)
 
     def init_state(self, seed: int, cfg, opt, *, params=None):
         from repro_torch.train.train_step import init_state

@@ -7,6 +7,9 @@ materialises ``Ĝ``; the ``compact`` and ``pallas`` backends use the plan's
 kept indices and ``1/p`` scales directly (``core/sketched_linear.py``). The
 plan-carry backends (``onepass``, ``stale``) sample from scores carried over
 from the previous step (:func:`column_plan_from_scores`), with no read of G.
+The ``rcs`` method (Prop. 3.3) sketches spectral directions instead of
+columns: :func:`rcs_plan` builds its directions and probabilities and
+:func:`apply_rcs_directions` applies a sampled set of them.
 """
 from __future__ import annotations
 
@@ -30,6 +33,10 @@ __all__ = [
     "column_plan_from_scores",
     "column_gate",
     "sketch_dense",
+    "RcsPlan",
+    "rcs_plan",
+    "apply_rcs_directions",
+    "apply_rcs",
 ]
 
 COLUMN_METHODS = ("per_column",) + SCORE_METHODS
@@ -272,12 +279,76 @@ def column_gate(cfg: SketchConfig, G2d, W, gen) -> torch.Tensor:
     return column_plan(cfg, G2d, W, gen, want_compact=False).gate
 
 
+# ---------------------------------------------------------------------------
+# RCS — Rank-Constrained Sketch (Prop. 3.3), factored low-rank application.
+# ---------------------------------------------------------------------------
+
+
+def _sym_sqrt_invsqrt(gamma: torch.Tensor, ridge: float):
+    """``Γ^{1/2}`` and ``Γ^{-1/2}`` of a symmetric PSD ``gamma``, eigenvalues
+    floored at ``ridge`` times their mean."""
+    evals, evecs = torch.linalg.eigh(gamma)
+    floor = ridge * evals.mean().clamp_min(1e-30)
+    s = torch.sqrt(torch.maximum(evals, floor))
+    return (evecs * s) @ evecs.T, (evecs / s) @ evecs.T
+
+
+@dataclasses.dataclass
+class RcsPlan:
+    """The sampling problem of one rcs sketch: the eigenvectors ``U`` ([n,
+    n], columns are the directions), their probabilities ``probs`` ([n],
+    summing to ``r``) and ``Γ^{±1/2}`` of G's column covariance."""
+
+    U: torch.Tensor
+    probs: torch.Tensor
+    half: torch.Tensor
+    inv_half: torch.Tensor
+    r: int
+
+
+def rcs_plan(cfg: SketchConfig, G2d: torch.Tensor, W: torch.Tensor) -> RcsPlan:
+    """Directions and probabilities of the minimal-distortion rank-r sketch
+    (Prop. 3.3): the eigenvectors of ``A = Γ^{1/2} W Wᵀ Γ^{1/2}`` with ``Γ =
+    GᵀG / N``, sampled with the optimal probabilities for their eigenvalues.
+    ``eigh`` is a library call here as in JAX (``jnp.linalg.eigh``)."""
+    N, n = G2d.shape
+    Gf = G2d.to(torch.float32)
+    half, inv_half = _sym_sqrt_invsqrt((Gf.T @ Gf) / N, cfg.ridge)
+    Wf = W.to(torch.float32)
+    # JᵀJ = W Wᵀ in the row convention
+    evals, U = torch.linalg.eigh(half @ (Wf @ Wf.T) @ half)  # ascending
+    r = static_rank(cfg, n)
+    probs = solver.optimal_probabilities(evals.clamp_min(0.0), r)
+    return RcsPlan(U=U, probs=probs, half=half, inv_half=inv_half, r=r)
+
+
+def apply_rcs_directions(G2d: torch.Tensor, plan: RcsPlan, idx: torch.Tensor) -> torch.Tensor:
+    """``Ĝ = ((G Γ^{-1/2}) U_sel ⊙ 1/p_sel) (U_selᵀ Γ^{1/2})`` for the sampled
+    directions ``idx`` ([r] int): O(N n r + n² r), never the n × n
+    operator."""
+    d_sel = 1.0 / plan.probs[idx].clamp_min(1e-20)  # z/p on the kept directions
+    U_sel = plan.U[:, idx]
+    Ghat = ((G2d.to(torch.float32) @ (plan.inv_half @ U_sel)) * d_sel[None, :]) \
+        @ (U_sel.T @ plan.half)
+    return Ghat.to(G2d.dtype)
+
+
+def apply_rcs(cfg: SketchConfig, G2d: torch.Tensor, W: torch.Tensor,
+              gen: torch.Generator) -> torch.Tensor:
+    """``Ĝ = G R*ᵀ`` with ``R*`` from Prop. 3.3, directions drawn from ``gen``
+    (exact-r)."""
+    plan = rcs_plan(cfg, G2d, W)
+    if plan.r >= G2d.shape[1]:
+        return G2d
+    return apply_rcs_directions(G2d, plan, solver.sample_exact_r(gen, plan.probs, plan.r))
+
+
 def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
                  gen: torch.Generator) -> torch.Tensor:
     """The full-size unbiased surrogate ``Ĝ`` (``E[Ĝ|G] = G``).
 
     ``per_element`` masks W and X, not G, and is handled by the mask
-    estimator. ``rcs`` (the rank-constrained sketch) is not ported yet.
+    estimator.
     """
     if cfg.is_noop:
         return G2d
@@ -287,6 +358,8 @@ def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor]
         z = torch.bernoulli(torch.full((N,), cfg.budget, device=G2d.device), generator=gen)
         return G2d * (z / cfg.budget).to(G2d.dtype)[:, None]
     if cfg.method == "rcs":
-        raise NotImplementedError("the rcs sketch (apply_rcs) is not ported to repro_torch yet")
+        if W is None:
+            raise ValueError("RCS requires the layer weight W")
+        return apply_rcs(cfg, G2d, W, gen)
     gate = column_gate(cfg, G2d, W, gen)
     return G2d * gate[None, :].to(G2d.dtype)

@@ -10,7 +10,12 @@ does the tree of a JAX ``init_state`` with a plan-carry policy: each site's
 one ``[n]`` leaf per layer. ``caches_from_jax`` does the same for the
 decode caches of ``lm.init_cache`` / ``lm.prefill``, and
 ``compact_grad_from_jax`` turns a JAX ``CompactGrad`` (float32 indices) into
-the port's (int64 indices).
+the port's (int64 indices). For the paper's §5 models: an ``mlp_arch``
+config's tree is a list of ``{"w", "b"}`` dicts and comes across as it is;
+``vit_params_from_jax`` and ``bagnet_params_from_jax`` take the trees of
+``vit_init`` and ``bagnet_init``, whose layout the port keeps except for
+BagNet's 3×3 convolutions: HWIO ``[k, k, cin, cout]`` in JAX, OIHW ``[cout,
+cin, k, k]`` (PyTorch's ``conv2d`` layout) in the port.
 """
 from __future__ import annotations
 
@@ -20,10 +25,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compact_grad import CompactGrad
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import check_supported
+from repro_torch.models.lm import check_decoder, check_supported
 from repro_torch.tree import tree_map
 
-__all__ = ["caches_from_jax", "compact_grad_from_jax", "params_from_jax"]
+__all__ = ["bagnet_params_from_jax", "caches_from_jax", "compact_grad_from_jax",
+           "params_from_jax", "vit_params_from_jax"]
 
 
 def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
@@ -35,6 +41,10 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
     def t(a):
         return torch.tensor(np.asarray(a), device=dev)
 
+    if cfg.family == "mlp":
+        if len(tree) != cfg.n_layers:
+            raise ValueError(f"tree has {len(tree)} layers, config {cfg.n_layers}")
+        return [tree_map(t, layer) for layer in tree]
     segments = tree["segments"]
     if len(segments) != 1 or len(segments[0]) != 1:
         raise ValueError("expected one segment with one sub-block (the dense family)")
@@ -55,7 +65,7 @@ def caches_from_jax(caches, cfg: ArchConfig, *, device="cuda"):
     """The port's per-layer cache list for the JAX ``lm.init_cache`` /
     ``lm.prefill`` cache tree ``caches``: segments -> sub-blocks ->
     ``{"kv": {"k", "v"}}`` stacked on ``[n_layers]``; on ``device``."""
-    check_supported(cfg)
+    check_decoder(cfg)
     dev = resolve_device(device)
     if len(caches) != 1 or len(caches[0]) != 1:
         raise ValueError("expected one segment with one sub-block (the dense family)")
@@ -82,3 +92,33 @@ def compact_grad_from_jax(cg, *, device="cuda") -> CompactGrad:
     dense = None if cg.dense is None else torch.tensor(np.asarray(cg.dense), device=dev)
     return CompactGrad(rows=torch.tensor(rows, dtype=torch.float32, device=dev),
                        idx=torch.tensor(idx.astype(np.int64), device=dev), dense=dense)
+
+
+def vit_params_from_jax(tree, *, device="cuda"):
+    """The port's ViT parameters for the JAX ``vision.vit_init`` tree (the
+    same layout), on ``device``."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+
+
+def bagnet_params_from_jax(tree, *, device="cuda"):
+    """The port's BagNet parameters for the JAX ``vision.bagnet_init`` tree, on
+    ``device``: the 3×3 convolutions (the stem and every block's ``c2``) go
+    from HWIO to OIHW; the 1×1 sites and the head keep their ``[d_out,
+    d_in]`` weights."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=dev)
+
+    def conv(p):
+        w = np.asarray(p["w"])
+        if w.ndim != 4:
+            raise ValueError(f"expected an HWIO conv weight, got shape {w.shape}")
+        return {"w": t(np.ascontiguousarray(w.transpose(3, 2, 0, 1))), "b": t(p["b"])}
+
+    return {"stem": conv(tree["stem"]),
+            "blocks": [[{"c1": tree_map(t, b["c1"]), "c2": conv(b["c2"]),
+                         "c3": tree_map(t, b["c3"])} for b in stage]
+                       for stage in tree["blocks"]],
+            "head": tree_map(t, tree["head"])}

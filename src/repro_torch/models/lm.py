@@ -1,5 +1,6 @@
 """Decoder-only LM, dense family (port of ``repro/models/lm.py``): the
-training forward, prefill and decode.
+training forward, prefill and decode; ``init_params`` and ``lm_loss`` also
+dispatch the §5 MLP (``family="mlp"``), as in JAX.
 
 The JAX model scans stacked layers; the port keeps one parameter dict per
 layer in ``params["layers"]`` and runs a Python loop. Layer ``i`` has uid
@@ -23,12 +24,20 @@ from repro_torch.nn.common import Ctx, dense_init, rmsnorm, rmsnorm_init, trunc_
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.tree import tree_leaves
 
-__all__ = ["init_params", "forward", "lm_loss", "num_params", "check_supported", "init_cache",
-           "prefill", "decode_step"]
+__all__ = ["init_params", "forward", "lm_loss", "num_params", "check_supported",
+           "check_decoder", "init_cache", "prefill", "decode_step"]
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for configurations outside the ported dense family."""
+    """Raise for configurations outside the ported families: the dense
+    decoder and the §5 MLP (``family="mlp"``, :func:`models.mlp.mlp_arch`)."""
+    if cfg.family != "mlp":
+        check_decoder(cfg)
+
+
+def check_decoder(cfg: ArchConfig) -> None:
+    """Raise for configurations outside the ported dense decoder family (the
+    token forward, prefill and decode)."""
     if (cfg.family not in ("dense",) or cfg.block_kind != "attn" or cfg.n_experts
             or cfg.is_encdec or cfg.local_global or cfg.rope not in ("default", "none")
             or cfg.frontend is not None):
@@ -43,10 +52,15 @@ def _attn_cfg(cfg: ArchConfig) -> AttnCfg:
 
 
 def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
-    """Random parameters from ``seed``, on ``device`` (default the card)."""
+    """Random parameters from ``seed``, on ``device`` (default the card);
+    an ``mlp_arch`` config gives the §5 MLP's list of layers."""
     check_supported(cfg)
-    dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
+    if cfg.family == "mlp":
+        from repro_torch.models import mlp as mlpmod
+
+        return mlpmod.mlp_init(seed, mlpmod.mlp_sizes(cfg), dtype, device=device)
+    dev = resolve_device(device)
     gen = rng.generator(seed, dev)
     d = cfg.d_model
     params = {
@@ -111,7 +125,7 @@ def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     optional ``"positions"`` [B, S] and ``"segments"`` (int [B, S], 0 =
     padding: attention stays within a segment). ``step_key``: the step's
     integer seed (None = no sketching). Returns logits."""
-    check_supported(cfg)
+    check_decoder(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
@@ -125,7 +139,7 @@ def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
     """Zero decode caches, one ``{"k", "v"}`` dict of [batch, size, n_kv,
     d_head] per layer (size = max_len, or the window when it is shorter)."""
-    check_supported(cfg)
+    check_decoder(cfg)
     dev = resolve_device(device)
     acfg = _attn_cfg(cfg)
     return [init_kv_cache(batch, max_len, acfg, getattr(torch, cfg.dtype), dev)
@@ -136,7 +150,7 @@ def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=Non
     """Forward over the prompts and fill fresh caches: (logits [B, S, V],
     caches). Optional ``batch["segments"]`` segment-masks self-attention, so
     several packed prompts share one call."""
-    check_supported(cfg)
+    check_decoder(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = batch.get("positions")
@@ -152,7 +166,7 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
     """One decode step: tokens int [B, 1] at position ``pos`` (an int, or an
     int tensor [B], one position per row). Writes the new keys and values
     into ``caches`` in place. Returns (logits [B, 1, V], caches)."""
-    check_supported(cfg)
+    check_decoder(cfg)
     B = tokens.shape[0]
     positions = _default_positions(B, 1, tokens.device, offset=pos)
     x = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
@@ -161,7 +175,15 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
 
 
 def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
-    """Next-token cross-entropy. Returns (loss, metrics dict)."""
+    """Next-token cross-entropy. Returns (loss, metrics dict).
+
+    ``family="mlp"`` configs dispatch to the §5 classification MLP instead:
+    the batch is ``{"x", "y"}`` and the metrics gain ``acc``, as in JAX."""
+    if cfg.family == "mlp":
+        from repro_torch.models import mlp as mlpmod
+
+        loss, acc = mlpmod.mlp_loss(params, batch, ctx)
+        return loss, {"loss": loss, "acc": acc, "nll": loss}
     logits = forward(params, batch, ctx, cfg, step_key)
     lg32 = logits.to(torch.float32)
     lse = torch.logsumexp(lg32, dim=-1)

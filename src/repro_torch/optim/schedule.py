@@ -1,9 +1,14 @@
-"""LR schedule (port of ``repro/optim/schedule.py::cosine_warmup``); step -> float."""
+"""LR schedules (port of ``repro/optim/schedule.py``: constant for the MLP
+under SGD, cosine for BagNet and ViT); each maps a step to a float."""
 from __future__ import annotations
 
 import math
 
-__all__ = ["cosine_warmup"]
+__all__ = ["constant", "cosine_warmup"]
+
+
+def constant(lr: float):
+    return lambda step: float(lr)
 
 
 def cosine_warmup(peak: float, warmup: int, total: int, floor: float = 0.0):

@@ -71,11 +71,12 @@ def init_state(seed: int, cfg: ArchConfig, opt: Optimizer, *, params=None,
 
 
 def batch_to_device(batch, device) -> dict:
-    """Tensors on ``device``; token ids and labels as int64."""
+    """Tensors on ``device``; token ids and labels (``y`` for the MLP) as
+    int64."""
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
-        if k in ("tokens", "labels"):
+        if k in ("tokens", "labels", "y"):
             t = t.long()
         out[k] = t.to(device, non_blocking=True)
     return out
@@ -84,7 +85,8 @@ def batch_to_device(batch, device) -> dict:
 def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPolicy] = None,
                     *, execution: Optional[ExecutionConfig] = None, device="cuda"):
     """Returns ``step_fn(state, batch, key) -> (state, metrics)``; ``metrics``
-    holds tensors (``loss``, ``grad_norm``) that the caller may fetch."""
+    holds tensors that the caller may fetch: the loss's metrics (``acc`` for
+    the MLP) and ``grad_norm``."""
     ex = execution or ExecutionConfig()
     dev = resolve_device(device)
     lm.check_supported(cfg)
@@ -98,7 +100,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             # fresh slots for this step: host objects, nothing on the card
             params_in = cgrad.with_grad_slots(state.params, policy, n_layers=cfg.n_layers)
         ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
-        loss, _ = lm.lm_loss(params_in, batch, ctx, cfg, key)
+        loss, metrics = lm.lm_loss(params_in, batch, ctx, cfg, key)
         # a slotted weight's gradient leaves through its slot: it is not
         # differentiated (its Function returns None for it)
         targets = cgrad.grad_targets(params_in)
@@ -116,6 +118,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
         # after the update: the optimizer saw zero gradients on the carry
         params = pstate.write_plan_state(params, fresh)
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
-        return new_state, {"loss": loss.detach(), "grad_norm": gn}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return new_state, dict(metrics, loss=loss.detach(), grad_norm=gn)
 
     return step_fn

@@ -23,7 +23,9 @@ def train_loop(runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable, *,
     Seeds follow the JAX loop: the state from ``fold_in(seed, 0)``, step ``s``
     from ``fold_in(seed, s + 1)``. Every ``log_every`` steps (and at the last)
     the metrics are fetched to the host — which waits for the card — and one
-    record ``{step, loss, grad_norm, step_s}`` is appended to the history;
+    record of the step's metrics (``loss``, ``grad_norm``, the loss's own
+    such as the MLP's ``acc``) with ``step`` and ``step_s`` is appended to
+    the history;
     ``step_s`` is the wall time from that step's call to its fetched metrics.
     """
     if state is None:

@@ -213,8 +213,15 @@ def test_site_seeds_follow_step_layer_role_and_never_repeat():
 
 
 def test_port_imports_neither_jax_nor_repro():
+    """The package (the §5 models, rcs and variance included), its
+    benchmarks and chip_smoke.py import no JAX and nothing of repro."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+             + sorted((ROOT / "benchmarks" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/models/mlp.py", "src/repro_torch/models/vision.py",
+            "src/repro_torch/core/variance.py", "benchmarks/torch/quickstart.py",
+            "benchmarks/torch/fig3_larger_archs.py"} <= names
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
