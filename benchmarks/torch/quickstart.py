@@ -31,6 +31,7 @@ from repro_torch.api import Runtime, SketchConfig, SketchPolicy
 from repro_torch.data.synthetic import classification
 from repro_torch.models.mlp import mlp_arch, mlp_loss
 from repro_torch.optim import constant, sgd
+from repro_torch.train.trainer import TrainerConfig
 
 
 def quickstart_data():
@@ -58,8 +59,9 @@ def train(runtime: Runtime, data, *, lr=0.2, epochs=10, batch=128, seed=0) -> di
         batches = [{"x": xtr[idx], "y": ytr[idx]}
                    for idx in (perm[i * batch:(i + 1) * batch] for i in range(spe))]
         t0 = time.perf_counter()
-        state, hist = runtime.train(cfg, opt, batches, steps=(ep + 1) * spe, log_every=spe,
-                                    seed=seed, state=state, on_metrics=lambda m: None)
+        state, hist = runtime.train(
+            cfg, opt, batches, TrainerConfig(steps=(ep + 1) * spe, log_every=spe, seed=seed),
+            state=state, on_metrics=lambda m: None)
         train_s += time.perf_counter() - t0
         loss = hist[-1]["loss"]
         # evaluate exactly, whatever the training-time estimator

@@ -72,7 +72,23 @@ which raises on failure:
    just after, every loss finite; ``benchmarks/torch/quickstart.py``'s exact
    and sketched runs on seed 0; and a step breakdown per model, exact against
    sketched;
-10. one JSON line listing the ported kernels, then the last line
+10. the trainer loop (``examples/train_lm.py``'s features) on lm-100m at
+   batch 8 x 256 with AdamW and cosine warm-up: ``Runtime.train`` for 12
+   steps under ``BudgetSchedule.adaptive`` (buckets exact, 1.0, 0.5, 0.1)
+   with the ``pallas`` policy and a JSONL sink, launch counts read after
+   every step: every budget one of the controller's buckets, two or more
+   sketched buckets, 84 score and 84 fused launches per sketched step and
+   none per exact step, a finite ``probe_snr`` at every sketched step, one
+   record per step with the same ``probe_sites`` keys; the controller's
+   per-step fetch against a constant schedule; one step of each backend
+   with probes on and off from the same state (bit for bit, the same
+   launches; device ops, busy and wall time, interleaved); a ``stale`` step
+   at accum 2 (168 fused launches) against the mean of its two
+   microbatches; and ``warmup_exact(2)`` for 6 steps straight against the
+   same run stopped at step 3 and resumed by a fresh Runtime (losses, both
+   checkpoints verified, a corrupted one refused with ``restore`` falling
+   back, bytes and seconds per checkpoint);
+11. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
@@ -652,6 +668,7 @@ def main_path(dev, backend, compact=False):
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.optim import Optimizer, adamw, cosine_warmup
+    from repro_torch.train.trainer import TrainerConfig
     from repro_torch.tree import tree_leaves
 
     cfg = lm100m()
@@ -668,8 +685,8 @@ def main_path(dev, backend, compact=False):
     data = LMStream(vocab=cfg.vocab, seed=0).batches(BATCH, SEQ)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
-    state, history = runtime.train(cfg, Optimizer(opt.init, update), data, steps=STEPS,
-                                   log_every=1)
+    state, history = runtime.train(cfg, Optimizer(opt.init, update), data,
+                                   TrainerConfig(steps=STEPS, log_every=1))
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     if counts != expected_counts(backend, STEPS):
@@ -1289,6 +1306,7 @@ def paper_train(dev, model):
     from repro_torch.api import Runtime
     from repro_torch.kernels import ops
     from repro_torch.models.mlp import mlp_arch
+    from repro_torch.train.trainer import TrainerConfig
     from repro_torch.tree import tree_leaves
 
     params, loss_fn, opt, batches = paper_setup(model, dev, STEPS)
@@ -1299,8 +1317,9 @@ def paper_train(dev, model):
     ops.reset_launch_counts()
     if model == "mlp":
         state = runtime.init_state(rng.fold_in(PAPER_SEED, 0), mlp_arch(), opt, params=params)
-        state, hist = runtime.train(mlp_arch(), opt, batches, steps=STEPS, log_every=1,
-                                    seed=PAPER_SEED, state=state, on_metrics=lambda m: None)
+        state, hist = runtime.train(mlp_arch(), opt, batches,
+                                    TrainerConfig(steps=STEPS, log_every=1, seed=PAPER_SEED),
+                                    state=state, on_metrics=lambda m: None)
         losses = [h["loss"] for h in hist]
     else:
         step = paper_step_fn(model, runtime, params, loss_fn, opt)
@@ -1397,6 +1416,459 @@ def paper_breakdown(dev, replay, reps=3):
             del params, batches
 
 
+# ---------------------------------------------------------------------------
+# The trainer loop (phase 10): examples/train_lm.py's features on lm-100m
+# ---------------------------------------------------------------------------
+
+# the adaptive run: the controller's buckets (exact first: it starts there
+# and must step down) and the target SNR, low enough that it leaves the
+# exact bucket and walks down to the cheaper ones
+ADAPTIVE_BUDGETS = (None, 1.0, 0.5, 0.1)
+ADAPTIVE_SNR = 0.02
+LOOP_STEPS = 12
+COST_STEPS = 6  # each run of the controller's per-step fetch against a constant schedule
+CKPT_STEPS, CKPT_EVERY = 6, 3
+RESUME_RTOL = 1e-5  # resumed losses against the straight run's
+# accumulation against the hand-averaged microbatches: the same operations
+# in the same order; float32 tolerances, should a library reduction on the
+# card (the embedding's gradient) sum in another order
+ACCUM_RTOL, ACCUM_ATOL = 1e-5, 1e-6
+ACCUM_CARRY_RTOL = 1e-6  # of the site's largest score
+LOOP_SEED = 31
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def loop_opt(steps):
+    """examples/train_lm.py's optimizer: AdamW, cosine warm-up, clip 1.0."""
+    from repro_torch.optim import adamw, cosine_warmup
+
+    return adamw(cosine_warmup(3e-4, max(10, steps // 20), steps), weight_decay=0.1, clip=1.0)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def adaptive_loop(dev, total):
+    """The trainer loop's main path: Runtime.train with the adaptive
+    schedule and a JSONL sink, LOOP_STEPS steps; every step's budget one of
+    the controller's buckets, two or more sketched buckets, per step 84 score
+    and 84 fused launches when sketched and none when exact, a finite
+    probe_snr at every sketched step, one JSONL record per step. Then the
+    controller's per-step fetch against a constant schedule, interleaved."""
+    import tempfile
+
+    from repro_torch import rng
+    from repro_torch.api import BudgetSchedule, ExecutionConfig, Runtime, TelemetryConfig
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = lm100m()
+    schedule = BudgetSchedule.adaptive(target_snr=ADAPTIVE_SNR, budgets=ADAPTIVE_BUDGETS,
+                                       window=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = os.path.join(tmp, "telemetry.jsonl")
+        runtime = Runtime(policy=slice_policy(0.2), schedule=schedule, device=dev,
+                          execution=ExecutionConfig(telemetry=TelemetryConfig(jsonl=jsonl)))
+        buckets = schedule.make_controller(runtime.policy).budgets
+        seen = []  # (history entry, launch counts after its step)
+
+        data = LMStream(vocab=cfg.vocab, seed=0).batches(BATCH, SEQ)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, hist = runtime.train(cfg, loop_opt(LOOP_STEPS), data,
+                                TrainerConfig(steps=LOOP_STEPS, log_every=1),
+                                on_metrics=lambda m: seen.append((m, ops.launch_counts())))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        with open(jsonl) as f:
+            records = [json.loads(line) for line in f]
+    add_counts(total, counts)
+    sketched = [h for h in hist if h["budget"] is not None]
+    if len(hist) != LOOP_STEPS or not all(h["budget"] in buckets for h in hist):
+        raise AssertionError(f"budgets {[h['budget'] for h in hist]} outside {buckets}")
+    if len({h["budget"] for h in sketched}) < 2:
+        raise AssertionError(f"fewer than two sketched buckets ran: {[h['budget'] for h in hist]}")
+    prev = {k: 0 for k in counts}
+    for h, c in seen:
+        delta = {k: c[k] - prev[k] for k in c}
+        prev = c
+        want = (expected_counts("pallas", 1)
+                if h["budget"] is not None else expected_counts("pallas", 0))
+        if delta != want:
+            raise AssertionError(f"step {h['step']} (budget {h['budget']}) launched {delta}, "
+                                 f"want {want}")
+    if counts != expected_counts("pallas", len(sketched)):
+        raise AssertionError(f"the adaptive run launched {counts} over {len(sketched)} "
+                             "sketched steps")
+    if not all(math.isfinite(h.get("probe_snr", math.nan)) for h in sketched):
+        raise AssertionError(f"probe_snr not finite: {[h.get('probe_snr') for h in sketched]}")
+    if [r["step"] for r in records] != list(range(LOOP_STEPS)):
+        raise AssertionError(f"JSONL records for steps {[r['step'] for r in records]}")
+    keys = [sorted(r["probe_sites"]) for r in records if r["budget"] is not None]
+    if any(k != keys[0] for k in keys) or len(keys[0]) != 7 or \
+            any("probe_sites" in r for r in records if r["budget"] is None):
+        raise AssertionError(f"JSONL probe_sites keys differ: {keys}")
+    print(f"[loop] adaptive lm-100m, batch {BATCH}x{SEQ}, pallas l1@0.2 block {BLOCK}, target "
+          f"SNR {ADAPTIVE_SNR}, buckets {list(ADAPTIVE_BUDGETS)} (controller order "
+          f"{list(buckets)}), {LOOP_STEPS} steps in {wall:.2f} s: budgets "
+          f"{[h['budget'] for h in hist]}")
+    snr = [round(h.get("probe_snr", math.nan), 4) for h in hist]
+    var = [float("%.4g" % h.get("probe_var", math.nan)) for h in hist]
+    print(f"[loop]   probe_snr {snr}; probe_var {var}; losses "
+          f"{[round(h['loss'], 4) for h in hist]}")
+    print(f"[loop]   step ms {[round(1e3 * h['step_s'], 1) for h in hist]}; launches {counts} "
+          f"({len(sketched)} sketched steps x {7 * cfg.n_layers} each); {len(records)} JSONL "
+          f"records, probe_sites keys {keys[0]}")
+
+    # the adaptive controller fetches the scalars after every step (a host
+    # sync); a constant schedule does not. One bucket (0.1) in both, probes on
+    # in both, histories only at the first and last step; three interleaved
+    # pairs, and the controller's fetches timed (the host waiting for the card)
+    from repro_torch.train import trainer as trainer_mod
+
+    runs = {"adaptive": BudgetSchedule.adaptive(target_snr=ADAPTIVE_SNR, budgets=(0.1,)),
+            "constant": BudgetSchedule.constant(0.1)}
+    ms, waits = {k: [] for k in runs}, []
+    real_fetch = trainer_mod._host_metrics
+
+    def timed_fetch(metrics, *, scalars_only=False):
+        t0 = time.perf_counter()
+        out = real_fetch(metrics, scalars_only=scalars_only)
+        if scalars_only:
+            waits.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    trainer_mod._host_metrics = timed_fetch
+    try:
+        for name in ("adaptive", "constant", "constant", "adaptive", "adaptive", "constant"):
+            runtime = Runtime(policy=slice_policy(0.2), schedule=runs[name], device=dev,
+                              execution=ExecutionConfig(telemetry=TelemetryConfig(
+                                  per_site=False)))
+            state = runtime.init_state(rng.fold_in(LOOP_SEED, 0), cfg, loop_opt(COST_STEPS))
+            data = LMStream(vocab=cfg.vocab, seed=1).batches(BATCH, SEQ)
+            ops.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            runtime.train(cfg, loop_opt(COST_STEPS), data,
+                          TrainerConfig(steps=COST_STEPS, log_every=10 * COST_STEPS),
+                          state=state, on_metrics=lambda m: None)
+            sync(dev)
+            ms[name].append(1e3 * (time.perf_counter() - t0) / COST_STEPS)
+            add_counts(total, ops.launch_counts())
+            del state
+    finally:
+        trainer_mod._host_metrics = real_fetch
+    if len(waits) != 3 * COST_STEPS:
+        raise AssertionError(f"{len(waits)} per-step fetches in 3 adaptive runs")
+    print(f"[loop] the adaptive controller's per-step fetch (budget 0.1, probes on, "
+          f"{COST_STEPS} steps per run, order A C C A A C): ms/step adaptive "
+          f"{[round(v, 1) for v in ms['adaptive']]}, constant "
+          f"{[round(v, 1) for v in ms['constant']]}; the fetch waits {np.mean(waits):.2f} ms "
+          f"per step (median {np.median(waits):.2f}, max {max(waits):.2f})")
+
+
+def profiled_step(dev, fn, state, batch, key):
+    """One step under the profiler: (state, metrics, device ops, device busy
+    ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = fn(state, batch, key)
+        float(m["loss"])
+        sync(dev)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return state, m, sum(e.count for e in kern), sum(_device_us(e) for e in kern) / 1e3
+
+
+def probes_on_off(dev, total):
+    """Per backend, one lm-100m step with and without probes from the same
+    parameters, batch and seed: parameters, carry and optimizer state equal
+    bit for bit, the same launches; then paired, interleaved steps (off, on,
+    on, off): wall ms, and device ops and busy ms from a profiled step each."""
+    from repro_torch import rng
+    from repro_torch.api import ExecutionConfig, Runtime, TelemetryConfig
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = lm100m()
+    batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=LOOP_SEED).batches(BATCH, SEQ),
+                                 range(4))]
+    for backend in BACKENDS:
+        fns, states, counts, metrics = {}, {}, {}, {}
+        for probes in (False, True):
+            runtime = Runtime(policy=slice_policy(0.2, backend), device=dev,
+                              execution=ExecutionConfig(
+                                  telemetry=TelemetryConfig() if probes else None))
+            opt = loop_opt(LOOP_STEPS)
+            params = lm.init_params(rng.fold_in(LOOP_SEED, 0), cfg, device=dev)
+            states[probes] = runtime.init_state(0, cfg, opt, params=params)
+            fns[probes] = runtime.train_step(cfg, opt)
+        for probes in (False, True):
+            ops.reset_launch_counts()
+            states[probes], metrics[probes] = fns[probes](states[probes], batches[0], 32)
+            sync(dev)
+            counts[probes] = ops.launch_counts()
+            add_counts(total, counts[probes])
+        want = expected_counts(backend, 1)
+        if counts[False] != want or counts[True] != want:
+            raise AssertionError(f"{backend}: launches without / with probes {counts[False]} / "
+                                 f"{counts[True]}, want {want}")
+        pairs = list(zip(tree_leaves(states[False].params) + tree_leaves(states[False].opt_state),
+                         tree_leaves(states[True].params) + tree_leaves(states[True].opt_state)))
+        differ = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+        if differ or not torch.equal(metrics[False]["loss"], metrics[True]["loss"]):
+            worst = max((a - b).abs().max().item() for a, b in pairs)
+            raise AssertionError(f"{backend}: leaves {differ} of {len(pairs)} (params, then the "
+                                 f"AdamW moments) differ with probes on (largest |diff| "
+                                 f"{worst:.3e})")
+        m = metrics[True]
+        snr = float(m["probe_snr"])
+        if not math.isfinite(snr) or len(m["probe_sites"]) != 7:
+            raise AssertionError(f"{backend}: probe summary {snr}, {len(m['probe_sites'])} sites")
+        wall = {False: [], True: []}
+        ops.reset_launch_counts()
+        for i, probes in enumerate((False, True, True, False)):
+            sync(dev)
+            t0 = time.perf_counter()
+            states[probes], mm = fns[probes](states[probes], batches[1 + i % 2], 33 + i)
+            float(mm["loss"])
+            sync(dev)
+            wall[probes].append(1e3 * (time.perf_counter() - t0))
+        # the profiler, on the main path's backend only: each traced step
+        # takes seconds to summarise (~20,000 device ops)
+        prof = {}
+        for probes in (False, True):
+            if backend == "pallas":
+                states[probes], last, n_ops, busy = profiled_step(
+                    dev, fns[probes], states[probes], batches[3], 40)
+                prof[probes] = f"{n_ops} device ops, busy {busy:.2f} ms"
+            else:
+                states[probes], last = fns[probes](states[probes], batches[3], 40)
+                prof[probes] = "not traced"
+        add_counts(total, ops.launch_counts())
+        print(f"[probes] {backend}: one lm-100m step with probes on and off: {len(pairs)} leaves "
+              f"(params, carry, AdamW moments) equal bit for bit, loss "
+              f"{float(metrics[True]['loss']):.6f}, launches {counts[True]} both; probe_snr "
+              f"{snr:.4f}, probe_var {float(m['probe_var']):.6g}, probe_gsq "
+              f"{float(m['probe_gsq']):.6g}")
+        print(f"[probes]   wall ms off / on (order off, on, on, off): "
+              f"{[round(v, 1) for v in wall[False]]} / {[round(v, 1) for v in wall[True]]}; "
+              f"one more step off / on: {prof[False]} / {prof[True]}; at that step, the run's "
+              f"{states[True].step}th: probe_snr {float(last['probe_snr']):.4f}, "
+              f"probe_var {float(last['probe_var']):.6g}, probe_gsq "
+              f"{float(last['probe_gsq']):.6g}")
+        del states, fns
+
+
+def _capture_opt():
+    """An optimizer that leaves the parameters as they are and returns the
+    gradients it was given as its state (the carry is still written back)."""
+    from repro_torch.optim import Optimizer
+
+    return Optimizer(lambda p: {}, lambda grads, state, params, step: (params, grads))
+
+
+def accum_check(dev, total):
+    """One ``stale`` lm-100m step at accum=2 (two microbatches of 4): 168
+    fused launches; its gradients equal the mean of the two microbatches' run
+    alone under their seeds (``micro_seed``) from the same state, within
+    ACCUM_RTOL / ACCUM_ATOL, and its written-back carry the mean of their
+    refreshed scores within ACCUM_CARRY_RTOL of the largest score."""
+    from repro_torch import rng
+    from repro_torch.api import ExecutionConfig, Runtime
+    from repro_torch.core import plan_state as pstate
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import TrainState, micro_seed
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = lm100m()
+    opt = _capture_opt()
+    policy = slice_policy(0.2, "stale")
+    rt1 = Runtime(policy=policy, device=dev)
+    rt2 = Runtime(policy=policy, device=dev, execution=ExecutionConfig(accum=2))
+    step1, step2 = rt1.train_step(cfg, opt), rt2.train_step(cfg, opt)
+    batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=51).batches(BATCH, SEQ),
+                                 range(2))]
+    state0 = rt1.init_state(rng.fold_in(51, 0), cfg, opt)
+    state0, _ = step1(state0, batches[0], 50)  # a carry that is not the prior
+
+    def clone():
+        return TrainState(params=tree_map(lambda t: t.detach().clone(), state0.params),
+                          opt_state={}, step=state0.step)
+
+    key = 52
+    ops.reset_launch_counts()
+    s_acc, m_acc = step2(clone(), batches[1], key)
+    sync(dev)
+    counts = ops.launch_counts()
+    add_counts(total, counts)
+    if counts != expected_counts("stale", 2):
+        raise AssertionError(f"the accum=2 stale step launched {counts}")
+    grads = [tree_leaves(s_acc.opt_state)]
+    carries, losses = [], []
+    half = BATCH // 2
+    for m in range(2):
+        mb = {k: v[m * half:(m + 1) * half] for k, v in batches[1].items()}
+        ops.reset_launch_counts()
+        s_m, m_m = step1(clone(), mb, micro_seed(key, m))
+        add_counts(total, ops.launch_counts())
+        grads.append(tree_leaves(s_m.opt_state))
+        carries.append(pstate.collect_plan_state(s_m.params)[1])
+        losses.append(float(m_m["loss"]))
+    sync(dev)
+    worst_g = 0.0  # the largest |a - b| / (atol + rtol |b|)
+    for a, g0, g1 in zip(*grads):
+        want = g0 / 2 + g1 / 2
+        worst_g = max(worst_g, ((a - want).abs() / (ACCUM_ATOL + ACCUM_RTOL * want.abs()))
+                      .max().item())
+    got_carry = pstate.collect_plan_state(s_acc.params)[1]
+    worst_c = 0.0
+    for path, v in got_carry.items():
+        want = carries[0][path] / 2 + carries[1][path] / 2
+        worst_c = max(worst_c, ((v - want).abs().max() / want.abs().max()).item())
+    if not worst_g <= 1.0 or not worst_c <= ACCUM_CARRY_RTOL or len(got_carry) != 7 * cfg.n_layers:
+        raise AssertionError(f"accum=2 against the microbatches: gradients {worst_g:.3f} of the "
+                             f"tolerance, carry {worst_c:.3e} (tol {ACCUM_CARRY_RTOL})")
+    loss_err = abs(float(m_acc["loss"]) - (losses[0] + losses[1]) / 2)
+    # wall time: the accum=2 step against one batch-8 step (no update in
+    # either: the capture optimizer), interleaved
+    wall = {1: [], 2: []}
+    ops.reset_launch_counts()
+    for k in (2, 1, 1, 2):
+        st = clone()
+        sync(dev)
+        t0 = time.perf_counter()
+        _, mm = (step2 if k == 2 else step1)(st, batches[1], key)
+        float(mm["loss"])
+        sync(dev)
+        wall[k].append(1e3 * (time.perf_counter() - t0))
+        del st
+    add_counts(total, ops.launch_counts())
+    print(f"[accum] stale accum=2 (two microbatches of {half}): launches {counts}; "
+          f"{len(grads[0])} gradients equal the microbatches' mean (largest error {worst_g:.3f} "
+          f"of rtol {ACCUM_RTOL} / atol {ACCUM_ATOL}); {len(got_carry)} carries their mean "
+          f"(largest {worst_c:.3e} of the largest score, tol {ACCUM_CARRY_RTOL}); loss "
+          f"{float(m_acc['loss']):.6f}, |diff| from the microbatches' mean {loss_err:.3e}")
+    print(f"[accum]   wall ms per step (order accum 2, accum 1, accum 1, accum 2; batch "
+          f"{BATCH}x{SEQ}, no optimizer update): accum 2 {[round(v, 1) for v in wall[2]]}, "
+          f"accum 1 {[round(v, 1) for v in wall[1]]}")
+
+
+def ckpt_resume(dev, total):
+    """``warmup_exact(2)``, ``stale`` l1@0.2, CKPT_STEPS steps straight; then
+    the same run stopped at CKPT_EVERY (one checkpoint) and resumed by a fresh
+    Runtime to CKPT_STEPS (a second): the resumed losses equal the straight
+    run's within RESUME_RTOL; both checkpoints verify; one with a leaf
+    corrupted by hand is refused and ``restore`` falls back to the other."""
+    import tempfile
+    import warnings
+
+    from repro_torch.api import BudgetSchedule, Runtime
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint as ckmod
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = lm100m()
+    timings = []  # (what, step, seconds)
+    real_snap, real_write = ckmod._snapshot, ckmod._write
+
+    def snap(tree):
+        t0 = time.perf_counter()
+        out = real_snap(tree)
+        timings.append(("snapshot", None, time.perf_counter() - t0))
+        return out
+
+    def write(ckpt_dir, step, host_flat, keep):
+        t0 = time.perf_counter()
+        real_write(ckpt_dir, step, host_flat, keep)
+        timings.append(("write", step, time.perf_counter() - t0))
+
+    def run(steps, ckpt_dir=None, start=0):
+        runtime = Runtime(policy=slice_policy(0.2, "stale"),
+                          schedule=BudgetSchedule.warmup_exact(2), device=dev)
+        data = LMStream(vocab=cfg.vocab, seed=41).batches(BATCH, SEQ, start_step=start)
+        ops.reset_launch_counts()
+        state, hist = runtime.train(cfg, loop_opt(CKPT_STEPS), data,
+                                    TrainerConfig(steps=steps, log_every=1, ckpt_dir=ckpt_dir,
+                                                  ckpt_every=CKPT_EVERY),
+                                    on_metrics=lambda m: None)
+        sync(dev)
+        add_counts(total, ops.launch_counts())
+        return state, hist
+
+    _, straight = run(CKPT_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckmod._snapshot, ckmod._write = snap, write
+        try:
+            run(CKPT_EVERY, tmp)
+            state, resumed = run(CKPT_STEPS, tmp, start=CKPT_EVERY)
+        finally:
+            ckmod._snapshot, ckmod._write = real_snap, real_write
+        if [h["step"] for h in resumed] != list(range(CKPT_EVERY, CKPT_STEPS)):
+            raise AssertionError(f"the resumed run ran steps {[h['step'] for h in resumed]}")
+        worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(resumed, straight[CKPT_EVERY:]))
+        if not worst <= RESUME_RTOL:
+            raise AssertionError(f"resumed losses differ from the straight run's by {worst:.3e}")
+        steps = sorted(ckmod._all_steps(tmp))
+        if steps != [CKPT_EVERY, CKPT_STEPS] or not all(ckmod.verify(tmp, s) for s in steps):
+            raise AssertionError(f"checkpoints {steps} do not all verify")
+        sizes = {s: sum(os.path.getsize(os.path.join(tmp, f"step_{s:012d}", f))
+                        for f in os.listdir(os.path.join(tmp, f"step_{s:012d}"))) for s in steps}
+        last = os.path.join(tmp, f"step_{CKPT_STEPS:012d}")
+        leaf = sorted(f for f in os.listdir(last) if f.endswith(".npy"))[0]
+        with open(os.path.join(last, leaf), "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        if ckmod.verify(tmp, CKPT_STEPS) or ckmod.latest_verified_step(tmp) != CKPT_EVERY:
+            raise AssertionError("a corrupted checkpoint passed verification")
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            restored, got = ckmod.restore(tmp, state, device=dev)
+        if got != CKPT_EVERY or restored.step != CKPT_EVERY or \
+                not any("falling back" in str(w.message) for w in rec):
+            raise AssertionError(f"restore after corruption gave step {got}")
+        del restored
+    writes = [(s, t) for what, s, t in timings if what == "write"]
+    snaps = [t for what, _, t in timings if what == "snapshot"]
+    print(f"[ckpt] stale l1@0.2, warmup_exact(2), {CKPT_STEPS} steps straight and resumed at "
+          f"{CKPT_EVERY} by a fresh Runtime: budgets {[h['budget'] for h in straight]}; losses "
+          f"{[round(h['loss'], 6) for h in straight]}; resumed "
+          f"{[round(h['loss'], 6) for h in resumed]}, largest relative difference {worst:.3e} "
+          f"(tol {RESUME_RTOL})")
+    print(f"[ckpt]   checkpoints {steps} verify; step {CKPT_STEPS} with leaf {leaf} corrupted is "
+          f"refused and restore falls back to step {got}; written: "
+          + ", ".join(f"step {s}: {sizes[s] / 1e9:.3f} GB in {t:.2f} s ({sizes[s] / 1e9 / t:.2f} "
+                      f"GB/s)" for s, t in writes)
+          + f"; snapshots to host {[round(t, 3) for t in snaps]} s")
+
+
+def trainer_loop(dev):
+    """Phase 10: the trainer loop's features on lm-100m. Returns the launches
+    of all its runs."""
+    total = {}
+    for part in (adaptive_loop, probes_on_off, accum_check, ckpt_resume):
+        t0 = time.perf_counter()
+        part(dev, total)
+        print(f"[time]   {part.__name__} {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -1482,6 +1954,11 @@ def main() -> int:
     paper_breakdown(dev, {model: {name: per_step(f32(r), "ms") for name, r in rows.items() if r}
                           for model, rows in paper_rows.items()})
     print(f"[time] the paper's models {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loop_counts = trainer_loop(dev)
+    for name, n in loop_counts.items():
+        launches[name] += n
+    print(f"[time] the trainer loop {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -1514,7 +1991,8 @@ def main() -> int:
     ]
     print(f"# launches: summed over the main paths' runs ({STEPS} steps each): "
           f"{json.dumps(path_counts)}; serving (two waves): {json.dumps(serve_counts)}; "
-          f"the paper's models ({STEPS} steps each): {json.dumps(paper_path)}")
+          f"the paper's models ({STEPS} steps each): {json.dumps(paper_path)}; the trainer "
+          f"loop (all of phase 10's runs): {json.dumps(loop_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -1,6 +1,12 @@
-"""Front door of the port: Runtime, ExecutionConfig and the policy types."""
+"""Front door of the port: Runtime, ExecutionConfig, budget schedules,
+telemetry and the policy types."""
 from repro_torch.api.execution import ExecutionConfig
 from repro_torch.api.runtime import Runtime
+from repro_torch.api.schedule import BudgetSchedule, Controller, StragglerController
 from repro_torch.core import POLICY_PRESETS, SketchConfig, SketchPolicy
+from repro_torch.telemetry import TelemetryConfig
+from repro_torch.telemetry.controller import AdaptiveBudgetController
 
-__all__ = ["ExecutionConfig", "Runtime", "POLICY_PRESETS", "SketchConfig", "SketchPolicy"]
+__all__ = ["AdaptiveBudgetController", "BudgetSchedule", "Controller", "ExecutionConfig",
+           "POLICY_PRESETS", "Runtime", "SketchConfig", "SketchPolicy", "StragglerController",
+           "TelemetryConfig"]

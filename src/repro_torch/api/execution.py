@@ -1,13 +1,14 @@
 """Execution configuration (port of ``repro/api/execution.py``).
 
-The JAX config also carries the mesh, shardings, telemetry, resilience and
+The JAX config also carries the mesh, shardings, resilience and
 observability; none of those is ported yet. This one holds compact
-gradients and the accumulation count, and is the one factory for
+gradients, the accumulation count and telemetry, and is the one factory for
 :class:`~repro_torch.nn.common.Ctx` outside the nn substrate.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Optional
 
 __all__ = ["ExecutionConfig"]
 
@@ -20,12 +21,17 @@ class ExecutionConfig:
       compact_grads: keep sketched dW compact (rows + indices) from the
         backward through clipping into row-sparse optimizer updates
         (``core/compact_grad.py``; requires ``accum == 1``).
-      accum: gradient-accumulation microbatch count. Only 1 is ported;
-        above 1 raises ``NotImplementedError``.
+      accum: gradient-accumulation microbatch count: the step splits its
+        batch on axis 0 and averages the microbatches' losses, gradients and
+        refreshed plan carries (``train/train_step.py``).
+      telemetry: a :class:`repro_torch.telemetry.TelemetryConfig` turning on
+        the per-site probes and naming optional sinks; ``None`` (the
+        default) turns telemetry off. Probes require ``accum == 1``.
     """
 
     compact_grads: bool = False
     accum: int = 1
+    telemetry: Optional[Any] = None  # repro_torch.telemetry.TelemetryConfig
 
     def __post_init__(self):
         if self.accum < 1:
@@ -33,8 +39,13 @@ class ExecutionConfig:
         if self.compact_grads and self.accum != 1:
             raise ValueError("compact_grads requires accum == 1 (compact index "
                              "sets differ per microbatch; accumulate densely)")
-        if self.accum != 1:
-            raise NotImplementedError("gradient accumulation (accum > 1) is not ported yet")
+        if self.telemetry is not None and self.telemetry.probes and self.accum != 1:
+            raise ValueError("telemetry probes require accum == 1 (probe vectors would "
+                             "average across microbatch plans); use TelemetryConfig("
+                             "probes=False) with accumulation")
+
+    def replace(self, **kw) -> "ExecutionConfig":
+        return dataclasses.replace(self, **kw)
 
     def make_ctx(self, *, policy=None, key=None, layer_index: int = 0, n_layers: int = 1):
         """The per-call :class:`~repro_torch.nn.common.Ctx` (``key``: the

@@ -37,6 +37,11 @@ class EstimatorVJP:
     scores, ``[n]`` f32) emitted by :meth:`Estimator.apply_with_state`. The
     site returns it as the gradient of its carry input; the train step writes
     it back into the parameters for the next step (``core/plan_state.py``).
+
+    ``probe`` (telemetry): the site's ``[PROBE_WIDTH]`` f32 probe vector
+    (``telemetry/probes.py``), emitted by :meth:`Estimator.apply_with_probe`
+    or by ``apply_with_state(..., want_probe=True)``; the site returns it as
+    the gradient of its probe slot.
     """
 
     dx: torch.Tensor  # [N, d_in] flattened-input gradient
@@ -46,6 +51,7 @@ class EstimatorVJP:
     cols: Optional[torch.Tensor] = None
     db_c: Optional[torch.Tensor] = None
     state: Optional[torch.Tensor] = None
+    probe: Optional[torch.Tensor] = None
 
     @property
     def is_compact(self) -> bool:
@@ -64,17 +70,24 @@ class Estimator:
         ``SketchConfig.__post_init__`` for non-builtin backends.
       apply(cfg, G2d, X2d, w, gen, *, has_b): the backward; returns an
         :class:`EstimatorVJP`. ``gen`` is the site's ``torch.Generator``.
+      apply_with_probe(cfg, G2d, X2d, w, gen, *, has_b): the telemetry
+        spelling of ``apply``: the same backward (same draws, same
+        gradients), with ``EstimatorVJP.probe`` filled from the kept rows and
+        the plan's keep marginals. The default delegates to ``apply`` and
+        emits no probe; only estimators that override it get probe slots.
       compact_rank(cfg, n): number of compact rows ``apply`` emits.
       carry_size(cfg, n): size of the per-site plan-carry state of a site of
         width ``n`` (required when ``plan_carry``; read by
         ``core/plan_state.py`` to build the carry leaf).
-      apply_with_state(cfg, G2d, X2d, w, gen, state, *, has_b): the plan-carry
-        spelling of ``apply``: sample from the CARRIED ``state`` (previous
-        step's scores; ``None`` means no carry yet, the uniform prior), run
-        the one-pass backward, and return the :class:`EstimatorVJP` with
-        ``state`` set to the refreshed carry. The site calls it instead of
-        ``apply`` when ``plan_carry``. The default ignores ``state`` and
-        delegates to ``apply`` (no refresh).
+      apply_with_state(cfg, G2d, X2d, w, gen, state, *, has_b, want_probe):
+        the plan-carry spelling of ``apply``: sample from the CARRIED
+        ``state`` (previous step's scores; ``None`` means no carry yet, the
+        uniform prior), run the one-pass backward, and return the
+        :class:`EstimatorVJP` with ``state`` set to the refreshed carry. The
+        site calls it instead of ``apply`` when ``plan_carry``;
+        ``want_probe`` folds the probe into the same sweep. The default
+        ignores ``state`` and delegates to ``apply_with_probe`` or ``apply``
+        (no refresh).
 
     ``plan_carry``: the estimator samples the step-t sketch from state
     carried over from step t-1 instead of a score pass over G, so the
@@ -91,13 +104,19 @@ class Estimator:
     def apply(self, cfg, G2d, X2d, w, gen, *, has_b) -> EstimatorVJP:
         raise NotImplementedError
 
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b) -> EstimatorVJP:
+        return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b)
+
     def compact_rank(self, cfg, n: int) -> int:
         raise NotImplementedError(f"estimator {self.name!r} is not compact")
 
     def carry_size(self, cfg, n: int) -> int:
         raise NotImplementedError(f"estimator {self.name!r} carries no plan")
 
-    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b) -> EstimatorVJP:
+    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b,
+                         want_probe: bool = False) -> EstimatorVJP:
+        if want_probe:
+            return self.apply_with_probe(cfg, G2d, X2d, w, gen, has_b=has_b)
         return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b)
 
 

@@ -31,6 +31,15 @@ from repro_torch.core.sketching import (COLUMN_METHODS, SketchConfig, column_pla
 __all__ = ["sketched_linear", "linear", "block_cols"]
 
 
+def with_probe(out: EstimatorVJP, plan) -> EstimatorVJP:
+    """``out`` with its probe, from its compact rows and ``plan``'s keep
+    marginals at the kept columns."""
+    from repro_torch.telemetry.probes import probe_from_rows
+
+    out.probe = probe_from_rows(out.rows, plan.probs[out.cols])
+    return out
+
+
 def block_cols(idx: torch.Tensor, block: int) -> torch.Tensor:
     """Per-column indices ``[rb*block]`` of the kept column blocks ``idx``."""
     return (idx[:, None] * block
@@ -57,6 +66,20 @@ class _MaskEstimator(estimators.Estimator):
         return EstimatorVJP(dx=Ghat @ w, dw=Ghat.T @ X2d,
                             db=Ghat.sum(0) if has_b else None)
 
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b):
+        """Column-family methods expose the plan's marginals, so the probe is
+        a reduction over the sketched dW: the same gate from the same draws,
+        the gradients of ``apply``. Other methods emit no probe."""
+        if cfg.method not in COLUMN_METHODS or cfg.is_noop:
+            return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b)
+        from repro_torch.telemetry.probes import probe_from_rows
+
+        plan = column_plan(cfg, G2d, w, gen, want_compact=False)
+        Ghat = G2d * plan.gate[None, :].to(G2d.dtype)
+        dw = Ghat.T @ X2d
+        return EstimatorVJP(dx=Ghat @ w, dw=dw, db=Ghat.sum(0) if has_b else None,
+                            probe=probe_from_rows(dw, plan.probs))
+
 
 class _CompactEstimator(estimators.Estimator):
     """Exact-r compact backend: gather kept columns, reduced-shape matmuls
@@ -80,10 +103,19 @@ class _CompactEstimator(estimators.Estimator):
             return static_block_rank(lcfg, n) * lcfg.block
         return static_rank(lcfg, n)
 
-    def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
+    def _apply_planned(self, cfg, G2d, X2d, w, gen):
         cfg = effective_cfg(cfg, G2d.shape[-1])
         plan = column_plan(cfg, G2d, w, gen, want_compact=True)
-        return self.apply_plan(cfg, G2d, X2d, w, plan.indices, plan.scales)
+        return self.apply_plan(cfg, G2d, X2d, w, plan.indices, plan.scales), plan
+
+    def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
+        return self._apply_planned(cfg, G2d, X2d, w, gen)[0]
+
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b):
+        """The compact rows (the fused kernel's dWc on block-granular
+        configs) and the plan's marginals at the kept columns are all the
+        probe needs: one ``[r]`` reduction after the same backward."""
+        return with_probe(*self._apply_planned(cfg, G2d, X2d, w, gen))
 
     def apply_plan(self, cfg, G2d, X2d, w, indices, scales) -> EstimatorVJP:
         """The backward for a given plan (kept indices and ``1/p`` scales;
@@ -163,13 +195,19 @@ class _PlanCarryEstimator(_PallasEstimator):
     def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
         return self.apply_with_state(cfg, G2d, X2d, w, gen, None, has_b=has_b)
 
-    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b):
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b):
+        return self.apply_with_state(cfg, G2d, X2d, w, gen, None, has_b=has_b,
+                                     want_probe=True)
+
+    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b, want_probe=False):
         n = G2d.shape[-1]
         cfg = effective_cfg(cfg, n)
         if state is None:
             state = torch.ones(n, dtype=torch.float32, device=G2d.device)  # uniform prior
         plan = column_plan_from_scores(cfg, state, gen, want_compact=True)
-        return self._one_pass(cfg, G2d, plan, w, X2d, state)
+        out = self._one_pass(cfg, G2d, plan, w, X2d, state)
+        # the probe reads the one sweep's rows: no second kernel launch
+        return with_probe(out, plan) if want_probe else out
 
     def _one_pass(self, cfg, G2d, plan, w, X2d, state) -> EstimatorVJP:
         raise NotImplementedError
@@ -243,7 +281,8 @@ estimators.register_estimator(_StalePlanEstimator())
 
 def sketched_linear(x, w, b=None, *, key: Optional[torch.Generator] = None,
                     cfg: Optional[SketchConfig] = None,
-                    plan_state: Optional[torch.Tensor] = None, grad_slot=None):
+                    plan_state: Optional[torch.Tensor] = None, grad_slot=None,
+                    probe_slot: Optional[torch.Tensor] = None):
     """``x @ w.T (+ b)`` whose backward is the ``cfg`` estimator.
 
     ``key`` is the site's ``torch.Generator``; ``cfg=None``, a no-op config or
@@ -252,11 +291,13 @@ def sketched_linear(x, w, b=None, *, key: Optional[torch.Generator] = None,
     and ``stale`` backends: the backward returns the refreshed scores as its
     gradient. ``grad_slot`` is the site's gradient slot under compact
     gradients: the backward puts the kept dW rows there and gives ``w`` no
-    gradient (``core/site.py``, ``core/compact_grad.py``).
+    gradient (``core/site.py``, ``core/compact_grad.py``). ``probe_slot`` is
+    the site's telemetry probe slot: the backward returns the probe vector as
+    its gradient (``telemetry/probes.py``).
     """
     from repro_torch.core import site
 
-    return site.sketched_site(cfg, x, w, b, key, plan_state, grad_slot)
+    return site.sketched_site(cfg, x, w, b, key, plan_state, grad_slot, probe_slot)
 
 
 # Alias used across the nn substrate.

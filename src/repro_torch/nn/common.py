@@ -18,6 +18,7 @@ from repro_torch.core import SketchPolicy, linear
 from repro_torch.core.compact_grad import GRAD_SLOT
 from repro_torch.core.plan_state import PLAN_SLOT
 from repro_torch.core.policy import ROLES
+from repro_torch.telemetry.probes import PROBE_SLOT
 
 __all__ = ["Ctx", "dense", "dense_init", "rmsnorm", "rmsnorm_init", "layernorm",
            "layernorm_init", "ACTIVATIONS", "trunc_normal"]
@@ -85,12 +86,14 @@ def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32, *, device="cpu",
 
 def dense(params, x, ctx: Ctx, role: str):
     """Linear site; sketched iff the policy covers ``role``. A plan-carry
-    site's ``"sslot"`` leaf (``core/plan_state.py``) and a compact-gradient
-    site's ``"gslot"`` (``core/compact_grad.py``) go to the site."""
+    site's ``"sslot"`` leaf (``core/plan_state.py``), a compact-gradient
+    site's ``"gslot"`` (``core/compact_grad.py``) and a probed site's
+    ``"pslot"`` (``telemetry/probes.py``) go to the site."""
     cfg = ctx.cfg_for(role)
     key = ctx.site_key(role, x.device) if cfg is not None else None
     return linear(x, params["w"], params.get("b"), key=key, cfg=cfg,
-                  plan_state=params.get(PLAN_SLOT), grad_slot=params.get(GRAD_SLOT))
+                  plan_state=params.get(PLAN_SLOT), grad_slot=params.get(GRAD_SLOT),
+                  probe_slot=params.get(PROBE_SLOT))
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):

@@ -1,5 +1,4 @@
-"""Training step factory (port of the local, ``accum=1`` path of
-``repro/train/train_step.py``).
+"""Training step factory (port of the local path of ``repro/train/train_step.py``).
 
 A step takes ``(state, batch, key)``: the batch as numpy or tensors, and the
 step's integer seed, from which every sketched site derives its own
@@ -19,8 +18,23 @@ backward returns their refreshed scores among the gradients. The step takes
 them out (zeroing those gradients) before the gradient norm, the clipping and
 the optimizer, and writes them over the carry after the update
 (``core/plan_state.py``). A site can hold both a gradient slot and a carry
-leaf. Gradient accumulation, telemetry probes and resilience are not ported
-yet.
+leaf.
+
+Telemetry probes (``ExecutionConfig(telemetry=TelemetryConfig())`` with a
+policy and ``accum == 1``): every probe-capable site gets a fresh probe slot
+(``telemetry/probes.py``) before the loss; the step takes the slots'
+gradients, the probe vectors, out of the gradient tree and merges their
+summary into the metrics. Probes change no gradient: a step with them equals
+the step without them bit for bit.
+
+Gradient accumulation (``accum = k > 1``): the batch splits on axis 0 into k
+microbatches; microbatch ``m`` runs under the seed :func:`micro_seed` ``(key,
+m)`` = ``rng.fold_in(key, m)``, so no two microbatches share randomness. The
+loss and every gradient are averaged over the microbatches (``acc + g / k``
+from zeros, the order of JAX's scan), the refreshed plan carries with them,
+and every microbatch samples from the same carry, the state's. The metrics
+besides ``loss`` and ``grad_norm`` are the last microbatch's, as in JAX.
+Resilience is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import rng
 from repro_torch.api.execution import ExecutionConfig
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import SketchPolicy
@@ -37,9 +52,10 @@ from repro_torch.core import plan_state as pstate
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import Optimizer, global_grad_norm
+from repro_torch.telemetry import probes as tprobes
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["TrainState", "init_state", "make_train_step", "batch_to_device"]
+__all__ = ["TrainState", "init_state", "make_train_step", "batch_to_device", "micro_seed"]
 
 
 @dataclasses.dataclass
@@ -72,53 +88,103 @@ def init_state(seed: int, cfg: ArchConfig, opt: Optimizer, *, params=None,
 
 def batch_to_device(batch, device) -> dict:
     """Tensors on ``device``; token ids and labels (``y`` for the MLP) as
-    int64."""
+    int64. A host array bound for a CUDA device is pinned first, so its
+    ``non_blocking`` copy does not make the host wait."""
+    dev = torch.device(device)
     out = {}
     for k, v in batch.items():
         t = torch.as_tensor(v)
         if k in ("tokens", "labels", "y"):
             t = t.long()
-        out[k] = t.to(device, non_blocking=True)
+        if dev.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(dev, non_blocking=True)
     return out
+
+
+def micro_seed(key: int, m: int) -> int:
+    """The seed of microbatch ``m`` of an accumulated step whose seed is ``key``."""
+    return rng.fold_in(key, m)
+
+
+def _split_batch(batch: dict, accum: int) -> list:
+    """``accum`` microbatches of ``batch``: microbatch ``m`` holds rows
+    ``[m B/accum, (m+1) B/accum)`` of every entry (axis 0)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % accum:
+        raise ValueError(f"a batch of {B} rows does not split into {accum} microbatches")
+    b = B // accum
+    return [{k: v[m * b:(m + 1) * b] for k, v in batch.items()} for m in range(accum)]
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPolicy] = None,
                     *, execution: Optional[ExecutionConfig] = None, device="cuda"):
     """Returns ``step_fn(state, batch, key) -> (state, metrics)``; ``metrics``
     holds tensors that the caller may fetch: the loss's metrics (``acc`` for
-    the MLP) and ``grad_norm``."""
+    the MLP), ``loss``, ``grad_norm`` and, with probes on, the probe summary
+    (``probe_gsq``, ``probe_var``, ``probe_snr``, ``probe_align`` and, with
+    ``per_site``, the dict ``probe_sites``)."""
     ex = execution or ExecutionConfig()
     dev = resolve_device(device)
     lm.check_supported(cfg)
     carry_on = pstate.policy_uses_carry(policy)
+    tel = ex.telemetry
+    probes_on = tel is not None and tel.probes and policy is not None and ex.accum == 1
 
-    def step_fn(state: TrainState, batch, key: int):
-        batch = batch_to_device(batch, dev)
-        _trainable(state.params)
-        params_in = state.params
-        if ex.compact_grads:
-            # fresh slots for this step: host objects, nothing on the card
-            params_in = cgrad.with_grad_slots(state.params, policy, n_layers=cfg.n_layers)
+    def grads_of(params_in, batch, key):
         ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
         loss, metrics = lm.lm_loss(params_in, batch, ctx, cfg, key)
         # a slotted weight's gradient leaves through its slot: it is not
         # differentiated (its Function returns None for it)
         targets = cgrad.grad_targets(params_in)
         leaves = [t for t in tree_leaves(targets) if isinstance(t, torch.Tensor)]
-        flat = iter(torch.autograd.grad(loss, leaves))
-        grads = cgrad.fold_slot_grads(
-            tree_map(lambda t: next(flat) if isinstance(t, torch.Tensor) else t, targets))
+        # a leaf no site read (a carry leaf under an exact bucket) gets zeros,
+        # as JAX's gradient of an unused input
+        flat = iter(g if g is not None else torch.zeros_like(t) for g, t in
+                    zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves))
+        grads = tree_map(lambda t: next(flat) if isinstance(t, torch.Tensor) else t, targets)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def accumulated(params, batch, key):
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                       params)
+        for m, mb in enumerate(_split_batch(batch, ex.accum)):
+            mloss, metrics, grads = grads_of(params, mb, micro_seed(key, m))
+            loss = loss + mloss / ex.accum
+            for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
+                a.add_(g / ex.accum)
+        return loss, metrics, acc
+
+    def step_fn(state: TrainState, batch, key: int):
+        batch = batch_to_device(batch, dev)
+        _trainable(state.params)
+        probe_metrics = {}
+        if ex.accum == 1:
+            params_in = state.params
+            if ex.compact_grads:
+                # fresh slots for this step: host objects, nothing on the card
+                params_in = cgrad.with_grad_slots(params_in, policy, n_layers=cfg.n_layers)
+            if probes_on:
+                params_in = tprobes.with_probe_slots(params_in, policy, n_layers=cfg.n_layers)
+            loss, metrics, grads = grads_of(params_in, batch, key)
+            if probes_on:
+                grads, vecs = tprobes.collect_probes(grads)
+                probe_metrics = tprobes.summarize(vecs, per_site=tel.per_site)
+            grads = cgrad.fold_slot_grads(grads)
+        else:
+            loss, metrics, grads = accumulated(state.params, batch, key)
         fresh = {}
         if carry_on:
-            # the carry leaves' gradients ARE the refreshed scores: take them
-            # out before the norm, the clipping and the moments see them
+            # the carry leaves' gradients ARE the refreshed scores (averaged
+            # over the microbatches): take them out before the norm, the
+            # clipping and the moments see them
             grads, fresh = pstate.collect_plan_state(grads)
         gn = global_grad_norm(grads)
         params, opt_state = opt.update(grads, state.opt_state, state.params, state.step)
         # after the update: the optimizer saw zero gradients on the carry
         params = pstate.write_plan_state(params, fresh)
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return new_state, dict(metrics, loss=loss.detach(), grad_norm=gn)
+        return new_state, dict(metrics, loss=loss, grad_norm=gn, **probe_metrics)
 
     return step_fn

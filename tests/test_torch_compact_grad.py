@@ -38,6 +38,7 @@ from repro_torch.core.compact_grad import CompactGrad, GradSlot
 from repro_torch.data.synthetic import LMStream
 from repro_torch.interop import compact_grad_from_jax, params_from_jax
 from repro_torch.optim import Optimizer, adamw, clip_by_global_norm, global_grad_norm, sgd
+from repro_torch.train.trainer import TrainerConfig
 from repro_torch.tree import tree_leaves
 
 OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
@@ -457,7 +458,8 @@ def test_runtime_train_runs_the_compact_path():
                  execution=ExecutionConfig(compact_grads=True), device="cpu")
     opt = adamw(3e-2, weight_decay=0.1, clip=1.0, lazy=True)
     data = LMStream(vocab=cfg.vocab, seed=0).batches(4, 16)
-    state, hist = rt.train(cfg, opt, data, steps=6, log_every=1, on_metrics=lambda m: None)
+    state, hist = rt.train(cfg, opt, data, TrainerConfig(steps=6, log_every=1),
+                           on_metrics=lambda m: None)
     losses = [h["loss"] for h in hist]
     assert len(losses) == 6 and all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert all(torch.isfinite(p).all() for p in tree_leaves(state.params))
@@ -469,8 +471,7 @@ def test_compact_grads_rejects_accum():
         ExecutionConfig(compact_grads=True, accum=2)
     with pytest.raises(ValueError, match="accum"):
         ExecutionConfig(accum=0)
-    with pytest.raises(NotImplementedError, match="accum"):
-        ExecutionConfig(accum=2)
+    assert ExecutionConfig(accum=2).accum == 2  # dense accumulation is ported
     # JAX rejects the same configuration
     with pytest.raises(ValueError, match="accum"):
         JExecutionConfig(compact_grads=True, accum=2)

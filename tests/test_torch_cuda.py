@@ -537,6 +537,7 @@ def test_cuda_paper_models_train_with_their_launches(cuda, model):
     from repro_torch.api import Runtime, SketchConfig, SketchPolicy
     from repro_torch.models import mlp, vision
     from repro_torch.optim import adamw, constant, cosine_warmup, sgd
+    from repro_torch.train.trainer import TrainerConfig
     from repro_torch.tree import tree_leaves, tree_map
 
     base = SketchConfig(method="l1", budget=0.2, backend="pallas", block=128)
@@ -550,7 +551,8 @@ def test_cuda_paper_models_train_with_their_launches(cuda, model):
                    for _ in range(2)]
         ops.reset_launch_counts()
         state, hist = runtime.train(mlp.mlp_arch(), sgd(constant(0.2), clip=1.0), batches,
-                                    steps=2, log_every=1, on_metrics=lambda m: None)
+                                    TrainerConfig(steps=2, log_every=1),
+                                    on_metrics=lambda m: None)
         losses = [h["loss"] for h in hist]
         params, loss_fn = state.params, mlp.mlp_loss
     else:
@@ -588,3 +590,141 @@ def test_cuda_paper_models_train_with_their_launches(cuda, model):
         loss_fn(params, batches[0], runtime.ctx(rng.fold_in(0, 9), budget=None))
     torch.cuda.synchronize()
     assert not any(ops.launch_counts().values())
+
+
+# the trainer loop's card tests: 2-layer LMs whose sites are whole 128-column
+# blocks (d_model 256: q/k/v/o 256 wide, mlp 512), at two widths
+LOOP_CFGS = {"d256": dict(d_model=256, n_heads=4, n_kv=4, d_ff=512),
+             "d384": dict(d_model=384, n_heads=6, n_kv=2, d_ff=1024)}
+
+
+def _loop_cfg(name):
+    from repro_torch.configs.base import ArchConfig
+
+    return ArchConfig(name=f"lm-cuda-{name}", family="dense", n_layers=2, vocab=512,
+                      q_chunk=64, kv_chunk=64, **LOOP_CFGS[name])
+
+
+def _loop_batch(cfg, B=4, S=64, seed=0):
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=torch.Generator().manual_seed(seed))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@pytest.mark.parametrize("shape", sorted(LOOP_CFGS))
+@pytest.mark.parametrize("backend", ["pallas", "onepass", "stale"])
+def test_cuda_probes_do_not_change_training(cuda, backend, shape):
+    """Two steps with and without telemetry probes from the same parameters,
+    batches and seeds (AdamW): every parameter, carry and moment equal bit
+    for bit, the same launches (the probe reads the rows the kernels already
+    returned), and a finite probe summary."""
+    from repro_torch.api import ExecutionConfig, Runtime, SketchConfig, SketchPolicy
+    from repro_torch.api import TelemetryConfig
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    cfg = _loop_cfg(shape)
+    policy = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend=backend,
+                                            block=128))
+    out = {}
+    for probes in (False, True):
+        rt = Runtime(policy=policy, device=cuda, execution=ExecutionConfig(
+            telemetry=TelemetryConfig() if probes else None))
+        opt = adamw(1e-3, weight_decay=0.1, clip=1.0)
+        state = rt.init_state(0, cfg, opt)
+        step = rt.train_step(cfg, opt)
+        ops.reset_launch_counts()
+        for i in range(2):
+            state, m = step(state, _loop_batch(cfg, seed=i), 1 + i)
+        torch.cuda.synchronize()
+        out[probes] = (state, m, ops.launch_counts())
+    (s0, m0, c0), (s1, m1, c1) = out[False], out[True]
+    kernel = {"pallas": "block_gather_matmul_fused", "onepass": "block_stream_matmul_fused",
+              "stale": "block_gather_matmul_fused"}[backend]
+    assert c0 == c1 and c1[kernel] == 2 * 7 * cfg.n_layers
+    assert torch.equal(m0["loss"], m1["loss"])
+    leaves0 = tree_leaves(s0.params) + tree_leaves(s0.opt_state)
+    leaves1 = tree_leaves(s1.params) + tree_leaves(s1.opt_state)
+    assert len(leaves0) == len(leaves1)
+    for a, b in zip(leaves0, leaves1):
+        assert torch.equal(a, b)
+    assert math.isfinite(float(m1["probe_snr"])) and float(m1["probe_var"]) > 0
+    assert len(m1["probe_sites"]) == 7
+
+
+def test_cuda_accumulation_is_the_mean_of_its_microbatches(cuda):
+    """A ``stale`` step at accum=2 launches the fused kernel twice per site;
+    its gradients equal the mean of its two microbatches run alone under
+    their seeds from the same state (rtol 1e-5, atol 1e-6), and its carry the
+    mean of their refreshed scores (1e-6 of the largest score)."""
+    from repro_torch.api import ExecutionConfig, Runtime, SketchConfig, SketchPolicy
+    from repro_torch.core import plan_state
+    from repro_torch.optim import Optimizer
+    from repro_torch.train.train_step import TrainState, micro_seed
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = _loop_cfg("d256")
+    policy = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend="stale",
+                                            block=128))
+    # leaves the parameters as they are; its state is the gradients it saw
+    opt = Optimizer(lambda p: {}, lambda grads, state, params, step: (params, grads))
+    rt1 = Runtime(policy=policy, device=cuda)
+    rt2 = Runtime(policy=policy, device=cuda, execution=ExecutionConfig(accum=2))
+    state0 = rt1.init_state(0, cfg, opt)
+    state0, _ = rt1.train_step(cfg, opt)(state0, _loop_batch(cfg, seed=3), 9)
+
+    def clone():
+        return TrainState(params=tree_map(lambda t: t.detach().clone(), state0.params),
+                          opt_state={}, step=state0.step)
+
+    batch, key = _loop_batch(cfg, B=8), 11
+    ops.reset_launch_counts()
+    s_acc, _ = rt2.train_step(cfg, opt)(clone(), batch, key)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["block_gather_matmul_fused"] == 2 * 7 * cfg.n_layers
+    grads, carries = [], []
+    for m in range(2):
+        mb = {k: v[4 * m:4 * m + 4] for k, v in batch.items()}
+        s_m, _ = rt1.train_step(cfg, opt)(clone(), mb, micro_seed(key, m))
+        grads.append(tree_leaves(s_m.opt_state))
+        carries.append(plan_state.collect_plan_state(s_m.params)[1])
+    for a, g0, g1 in zip(tree_leaves(s_acc.opt_state), *grads):
+        torch.testing.assert_close(a, g0 / 2 + g1 / 2, rtol=1e-5, atol=1e-6)
+    got = plan_state.collect_plan_state(s_acc.params)[1]
+    assert len(got) == 7 * cfg.n_layers
+    for path, v in got.items():
+        want = carries[0][path] / 2 + carries[1][path] / 2
+        assert (v - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+def test_cuda_async_checkpoint_before_an_inplace_step(cuda, tmp_path):
+    """An async checkpoint of a CUDA train state taken before an in-place
+    AdamW step restores the values from before the step (the snapshot is an
+    owned pinned-host copy, synchronised before the writer starts), onto the
+    card."""
+    from repro_torch.api import Runtime, SketchConfig, SketchPolicy
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.tree import tree_leaves
+
+    cfg = _loop_cfg("d256")
+    rt = Runtime(policy=SketchPolicy(base=SketchConfig(method="l1", budget=0.5,
+                                                       backend="stale", block=128)),
+                 device=cuda)
+    opt = adamw(1e-2, weight_decay=0.1)
+    step = rt.train_step(cfg, opt)
+    state = rt.init_state(0, cfg, opt)
+    state, _ = step(state, _loop_batch(cfg, seed=1), 1)
+    before = [t.detach().clone() for t in tree_leaves(state.params) + tree_leaves(state.opt_state)]
+    mgr = ck.CheckpointManager(str(tmp_path), every=1)
+    mgr.maybe_save(1, state)
+    state, _ = step(state, _loop_batch(cfg, seed=2), 2)  # in place, while the writer runs
+    mgr.wait()
+    after = tree_leaves(state.params) + tree_leaves(state.opt_state)
+    assert not all(torch.equal(a, b) for a, b in zip(after, before))
+    assert ck.verify(str(tmp_path), 1)
+    restored, got = ck.restore(str(tmp_path), state, device=cuda)
+    assert got == 1 and restored.step == 1
+    leaves = tree_leaves(restored.params) + tree_leaves(restored.opt_state)
+    assert len(leaves) == len(before)
+    for a, b in zip(leaves, before):
+        assert a.device.type == "cuda" and torch.equal(a, b)

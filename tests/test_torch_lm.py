@@ -34,6 +34,7 @@ from repro_torch.interop import params_from_jax
 from repro_torch.models import lm
 from repro_torch.nn.common import Ctx
 from repro_torch.optim import adamw, cosine_warmup, sgd
+from repro_torch.train.trainer import TrainerConfig
 from repro_torch.tree import tree_leaves
 
 RTOL, ATOL, GRAD_ATOL = 1e-5, 1e-6, 1e-5
@@ -185,9 +186,10 @@ def test_runtime_train_on_cpu_and_default_device_raises(setup):
     opt = adamw(cosine_warmup(3e-4, 2, 4), weight_decay=0.1, clip=1.0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            Runtime(policy=_slice_policy("torch", 0.2)).train(cfg, opt, data, steps=2)
+            Runtime(policy=_slice_policy("torch", 0.2)).train(cfg, opt, data,
+                                                                 TrainerConfig(steps=2))
     state, hist = Runtime(policy=_slice_policy("torch", 0.2), device="cpu").train(
-        cfg, opt, data, steps=3, log_every=1, on_metrics=lambda m: None)
+        cfg, opt, data, TrainerConfig(steps=3, log_every=1), on_metrics=lambda m: None)
     assert state.step == 3 and [h["step"] for h in hist] == [0, 1, 2]
     assert all(np.isfinite(h["loss"]) and h["loss"] > 0 for h in hist)
 

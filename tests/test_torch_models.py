@@ -41,6 +41,7 @@ from repro_torch.models import mlp as tmlp
 from repro_torch.models import vision as tvision
 from repro_torch.nn.common import Ctx
 from repro_torch.optim import constant, sgd
+from repro_torch.train.trainer import TrainerConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 sketched_linear = importlib.import_module("repro_torch.core.sketched_linear")
@@ -262,8 +263,8 @@ def test_mlp_training_follows_jax():
     runtime = Runtime(device="cpu")
     opt = sgd(constant(0.2), clip=1.0)
     state = runtime.init_state(0, cfg, opt, params=_port_params("mlp"))
-    state, hist = runtime.train(cfg, opt, batches, steps=20, log_every=1, state=state,
-                                on_metrics=lambda m: None)
+    state, hist = runtime.train(cfg, opt, batches, TrainerConfig(steps=20, log_every=1),
+                                state=state, on_metrics=lambda m: None)
     assert state.step == 20
     np.testing.assert_allclose([h["loss"] for h in hist], jlosses, rtol=1e-4)
     assert [h["acc"] for h in hist] == pytest.approx(jaccs, abs=1e-6)
