@@ -88,7 +88,29 @@ which raises on failure:
    same run stopped at step 3 and resumed by a fresh Runtime (losses, both
    checkpoints verified, a corrupted one refused with ``restore`` falling
    back, bytes and seconds per checkpoint);
-11. one JSON line listing the ported kernels, then the last line
+11. the serving engines on lm-100m (``attn_impl="pallas"``, random weights
+   from a seed): 32 requests from numpy (prompts of 16-768 tokens, max_new
+   8-64) and one 1,100-token prompt that is left-truncated, no stop token,
+   through ``Runtime.serve(params, cfg, serve=ServeConfig(n_slots=8,
+   max_len=1024, page_size=16)).run`` (paged), the contiguous engine
+   (``page_size=None``) and ``RunToCompletionEngine(batch=8,
+   max_len=1024)``, each with the launch counts set to 0 just before ``run``
+   and read after: every kernel 0 (every prefill batch carries segments);
+   each engine's counters equal to what the scheduler's rules give for
+   these requests; one build per prefill bucket used and one decode and
+   insert; the telemetry printed (tokens/s, TTFT and latency percentiles,
+   wasted decode steps); a sequential reference of 8 requests; greedy
+   tokens equal in every run, or the first differing step a float32 near
+   tie of the reference's teacher-forced logits; paged runs with
+   ``ObsConfig`` on and off interleaved (identical tokens; a Chrome trace
+   with one ``request`` span per request and its queued, prefill and decode
+   children; ``serve.requests_done`` 33; the wall overhead); 3 ``pallas``
+   training steps with ``ObsConfig`` on (``train_loop`` and ``train_step``
+   spans, one compile-ledger entry per bucket, a memory-ledger peak above
+   0); and a profiler trace of one engine decode step (device ops, busy
+   time, exactly one device-to-host copy, the page gather's and scatter's
+   device time and bytes) beside phase 8's plain decode step;
+12. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
@@ -978,7 +1000,8 @@ def serve_path(dev):
 def serve_breakdown(dev, reps=3):
     """Where a serving step's time goes: one wave-1 prefill and one decode
     step, host clock around synced calls after a warm-up, and a profiler
-    trace of one of each (device busy share, top device and host ops)."""
+    trace of one of each (device busy share, top device and host ops).
+    Returns the decode step's device ops, busy ms and ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1015,6 +1038,7 @@ def serve_breakdown(dev, reps=3):
         kern = [e for e in evts if e.device_type == DeviceType.CUDA]
         busy_ms = sum(_device_us(e) for e in kern) / 1e3
         host = [e for e in evts if e.device_type == DeviceType.CPU]
+        stats = {"ops": sum(e.count for e in kern), "busy_ms": busy_ms, "call_ms": call_ms}
         print(f"[serve-breakdown] {label}: {call_ms:.2f} ms per call over {reps} calls; "
               f"profiled call: {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms in "
               f"{sum(e.count for e in kern)} device ops, {sum(e.count for e in host)} host ops; "
@@ -1025,6 +1049,7 @@ def serve_breakdown(dev, reps=3):
         for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
             print(f"[serve-breakdown]   host   {e.self_cpu_time_total / 1e3:8.3f} ms "
                   f"x{e.count:<5d} {e.key[:80]}")
+    return stats  # the last call's: the decode step
 
 
 # ---------------------------------------------------------------------------
@@ -1869,6 +1894,503 @@ def trainer_loop(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The serving engines (phase 11): continuous batching over a paged KV cache
+# and the run-to-completion engine, serving lm-100m
+# ---------------------------------------------------------------------------
+
+ENGINE_SLOTS = 8
+ENGINE_MAX_LEN = 1024
+ENGINE_PAGE = 16
+ENGINE_REQUESTS = 32  # plus one over-long prompt, which is left-truncated
+ENGINE_PROMPTS = (16, 768)  # prompt lengths, uniform, inclusive
+ENGINE_NEW = (8, 64)  # max_new, uniform, inclusive
+ENGINE_LONG = 1100
+ENGINE_SEED = 0  # the requests
+ENGINE_PARAM_SEED = 23
+ENGINE_REF = 8  # requests decoded one at a time as the reference
+ENGINE_TRAIN_STEPS = 3
+
+
+def engine_specs(vocab):
+    """The phase's requests, from numpy with ENGINE_SEED: (prompt, max_new)
+    pairs, the over-long prompt in the middle of the queue."""
+    rng = np.random.default_rng(ENGINE_SEED)
+    lens = rng.integers(ENGINE_PROMPTS[0], ENGINE_PROMPTS[1] + 1, size=ENGINE_REQUESTS)
+    news = rng.integers(ENGINE_NEW[0], ENGINE_NEW[1] + 1, size=ENGINE_REQUESTS)
+    specs = [(rng.integers(1, vocab, size=n).astype(np.int32), int(m)) for n, m in zip(lens, news)]
+    long = (rng.integers(1, vocab, size=ENGINE_LONG).astype(np.int32),
+            int(rng.integers(ENGINE_NEW[0], ENGINE_NEW[1] + 1)))
+    specs.insert(ENGINE_REQUESTS // 2, long)
+    return specs
+
+
+def engine_requests(specs):
+    from repro_torch.serve.engine import Request
+
+    return [Request(prompt=p.copy(), max_new=m) for p, m in specs]
+
+
+def engine_expected(specs, sv, *, paged, pack):
+    """The counters the scheduler's rules give for these requests with no
+    stop token (each request emits exactly max_new tokens, the first from
+    its prefill): strict FIFO, worst-case page reservation, prompts packed
+    page-aligned into one max_len row when ``pack``. A restatement of the
+    rules on the host, independent of the engine's code."""
+    items, trunc = [], 0
+    for p, m in specs:
+        n = min(len(p), sv.max_len - m)
+        trunc += len(p) - n
+        items.append((n, m))
+    P = sv.page_size
+    align = P if pack else 1
+    queue = list(items)
+    free_pages = sv.pool_pages - 1 if paged else 0
+    slots = []  # [emitted, max_new, pages] of the live requests
+    out = dict(prefill_calls=0, decode_steps=0, wasted_decode_steps=0,
+               tokens_out=sum(m for _, m in items), truncated_tokens=trunc,
+               requests_done=len(items))
+
+    def need(n, m):
+        return -(-(n + m) // P)
+
+    def admit(n, m):
+        nonlocal free_pages
+        pages = need(n, m) if paged else 0
+        free_pages -= pages
+        if m > 1:
+            slots.append([1, m, pages])
+        else:
+            free_pages += pages
+
+    while queue or slots:
+        while len(slots) < sv.n_slots and queue:
+            wave, used, left = [], 0, free_pages
+            while queue and len(wave) < sv.n_slots - len(slots):
+                n, m = queue[0]
+                aligned = -(-n // align) * align
+                if wave and (not pack or used + aligned > sv.max_len):
+                    break
+                if paged:
+                    if need(n, m) > left:
+                        break
+                    left -= need(n, m)
+                wave.append(queue.pop(0))
+                used += aligned
+            if not wave:
+                break
+            out["prefill_calls"] += 1
+            for n, m in wave:
+                admit(n, m)
+        if slots:
+            out["decode_steps"] += 1
+            out["wasted_decode_steps"] += sv.n_slots - len(slots)
+            for s in slots:
+                s[0] += 1
+            free_pages += sum(s[2] for s in slots if s[0] >= s[1])
+            slots = [s for s in slots if s[0] < s[1]]
+    return out
+
+
+def legacy_expected(specs, batch, max_len):
+    """The run-to-completion engine's counters: batches in arrival order, each
+    decoding max(max_new) - 1 steps on every lane."""
+    out = dict(prefill_calls=0, decode_steps=0, wasted_decode_steps=0, tokens_out=0,
+               truncated_tokens=0)
+    for i in range(0, len(specs), batch):
+        part = specs[i:i + batch]
+        M = max(m for _, m in part)
+        out["prefill_calls"] += 1
+        out["decode_steps"] += M - 1
+        out["tokens_out"] += sum(m for _, m in part)
+        out["truncated_tokens"] += sum(max(len(p) - (max_len - m), 0) for p, m in part)
+        out["wasted_decode_steps"] += (sum(sum(1 for _, m in part if t >= m) for t in range(1, M))
+                                       + (batch - len(part)) * (M - 1))
+    return out
+
+
+def run_engine(dev, params, cfg, make, specs, label):
+    """Build an engine with ``make()``, serve ``specs`` with the launch counts
+    set to 0 just before ``run`` and read just after (every kernel must stay
+    at 0: every prefill batch carries segments, decode runs the plain
+    attention). Returns (engine, requests, wall seconds, launches)."""
+    from repro_torch.kernels import ops
+
+    eng = make()
+    reqs = engine_requests(specs)
+    sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the engine launched kernels {counts}, want none")
+    if not all(r.out is not None and len(r.out) == r.max_new and r.stop == "length"
+               for r in reqs):
+        raise AssertionError(f"{label}: a request did not finish by length")
+    return eng, reqs, wall, counts
+
+
+def check_counters(label, got, want):
+    have = {k: got[k] for k in want}
+    print(f"[engine] {label}: counters {have}")
+    if have != want:
+        raise AssertionError(f"{label}: counters {have}, the scheduler's rules give {want}")
+
+
+def reference_tokens(dev, params, cfg, specs, idx):
+    """Sequential decoding of requests ``idx``, one at a time with plain
+    attention: the left-truncated prompt's prefill, then greedy decode steps
+    at batch 1."""
+    from repro_torch.api import Runtime
+    from repro_torch.serve import greedy_sample
+
+    runtime = Runtime(device=dev)
+    prefill = runtime.prefill_step(cfg, ENGINE_MAX_LEN)
+    decode = runtime.decode_step(cfg)
+    out = {}
+    for i in idx:
+        p, m = specs[i]
+        p = p[-(ENGINE_MAX_LEN - m):]
+        logits, caches = prefill(params, {"tokens": p[None]})
+        cur = greedy_sample(logits[:, -1:])
+        toks = []
+        for t in range(m):
+            toks.append(cur)
+            if t + 1 < m:
+                logits, caches = decode(params, caches, cur, len(p) + t)
+                cur = greedy_sample(logits)
+        out[i] = torch.cat(toks, dim=1)[0].cpu().tolist()
+        del caches
+    return out
+
+
+def near_tie(dev, params, cfg, prompt, prefix):
+    """The reference's teacher-forced logits for the token after ``prompt`` +
+    ``prefix`` (plain attention, one forward): (top-2 margin, tolerance
+    LOGIT_RTOL times the largest |logit|)."""
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+
+    toks = torch.as_tensor(np.concatenate([prompt, np.asarray(prefix, np.int32)]),
+                           device=dev).long()[None]
+    with torch.no_grad():
+        lg = lm.forward(params, {"tokens": toks}, Ctx(), cfg)[0, -1].float()
+    top = torch.topk(lg, 2).values
+    return float(top[0] - top[1]), LOGIT_RTOL * float(lg.abs().max())
+
+
+def compare_tokens(dev, params, cfg, specs, runs):
+    """Every request's greedy tokens in every run against the first run's.
+    Where two runs differ, the first differing step must be a float32 near
+    tie of the reference's teacher-forced logits. Returns the differences."""
+    base_label, base = runs[0]
+    diffs = []
+    for label, toks in runs[1:]:
+        for i, want in base.items():
+            got = toks.get(i)
+            if got is None or got == want:
+                continue
+            t = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+            p, m = specs[i]
+            margin, tol = near_tie(dev, params, cfg, p[-(ENGINE_MAX_LEN - m):], want[:t])
+            print(f"[engine]   request {i}: {label} differs from {base_label} first at step "
+                  f"{t} ({got[t]} vs {want[t]}); the reference's top-2 margin there {margin:.3e}"
+                  f", tol {tol:.3e}")
+            if margin >= tol:
+                raise AssertionError(f"request {i}: {label} and {base_label} differ at step {t} "
+                                     f"where the logits are no near tie ({margin:.3e} >= "
+                                     f"{tol:.3e})")
+            diffs.append((label, i, t))
+    return diffs
+
+
+def legacy_latencies(eng, batch):
+    """TTFT and latency of each request of the run-to-completion engine, from
+    its per-batch ring (every request is submitted when the run starts; a
+    batch starts when the one before it ends)."""
+    ttft, lat, t = [], [], 0.0
+    for rec in eng.ring.records:
+        ttft += [t + rec["prefill_s"]] * rec["batch"]
+        t += rec["prefill_s"] + rec["decode_s"]
+        lat += [t] * rec["batch"]
+    return {q: (float(np.percentile(ttft, q)), float(np.percentile(lat, q))) for q in (50, 99)}
+
+
+def print_telemetry(label, t, extra=None):
+    f = {k: t.get(k) for k in ("decode_tok_per_s", "prefill_tok_per_s", "ttft_p50_s", "ttft_p99_s",
+                               "latency_p50_s", "latency_p99_s", "wasted_decode_steps")}
+    if extra:
+        f.update(extra)
+    print(f"[engine] {label} telemetry: decode {f['decode_tok_per_s']:.1f} tok/s, prefill "
+          f"{f['prefill_tok_per_s']:.1f} tok/s, TTFT p50/p99 {f['ttft_p50_s']:.4f} / "
+          f"{f['ttft_p99_s']:.4f} s, latency p50/p99 {f['latency_p50_s']:.4f} / "
+          f"{f['latency_p99_s']:.4f} s, wasted decode steps {f['wasted_decode_steps']}; "
+          f"decode {t['decode_s']:.3f} s, prefill {t['prefill_s']:.3f} s, builds "
+          f"{t['trace_counts']}")
+
+
+def check_chrome(path, n_requests):
+    """The exported Chrome trace holds one ``request`` span per request, each
+    with its queued, prefill and decode children."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    reqs = [e for e in events if e["name"] == "request"]
+    kids = {}
+    for e in events:
+        if e["name"] in ("queued", "prefill", "decode"):
+            kids.setdefault(e["args"].get("parent_id"), set()).add(e["name"])
+    ok = all(kids.get(e["args"]["span_id"]) == {"queued", "prefill", "decode"} for e in reqs)
+    if len(reqs) != n_requests or not ok:
+        raise AssertionError(f"{path}: {len(reqs)} request spans (want {n_requests}), "
+                             f"children complete: {ok}")
+    return len(events)
+
+
+def engine_decode_trace(dev, params, cfg, specs, plain):
+    """A profiler trace of one paged engine decode step (all slots live):
+    device ops, busy ms, device-to-host copies (must be 1), the page gather's
+    and scatter's device time and bytes; beside phase 8's plain decode step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Runtime, ServeConfig
+    from repro_torch.obs import clock
+
+    sv = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, page_size=ENGINE_PAGE)
+    eng = Runtime(device=dev).serve(params, cfg, serve=sv)
+    eng.scheduler.submit(engine_requests([(p[:200], 64) for p, _ in specs[:ENGINE_SLOTS]]),
+                         clock.now())
+    eng._refill()
+    eng._decode_one_step()  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    eng._decode_one_step()
+    sync(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng._decode_one_step()
+        sync(dev)
+    evts = prof.key_averages()
+    kern = [e for e in evts if e.device_type == DeviceType.CUDA]
+    d2h = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
+    # every copy the profiler saw on the device, by kind (small pageable
+    # host-to-device copies need not show as device activity)
+    copies = {e.key: e.count for e in kern if e.key.startswith("Memcpy")}
+    n_ops = sum(e.count for e in kern)
+    busy = sum(_device_us(e) for e in kern) / 1e3
+    cpu = {e.key: e for e in evts if e.device_type == DeviceType.CPU}
+
+    def dev_ms(key):
+        e = cpu.get(key)
+        return (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) / 1e3 \
+            if e is not None else 0.0
+
+    # the gather reads each distinct page of the map once (the map's trash
+    # entries all name page 0) and writes every slot's max_len positions
+    L, kv = cfg.n_layers, cfg.n_kv * cfg.head_dim * 4
+    pages = len(np.unique(eng.scheduler.page_map))
+    read = 2 * L * pages * ENGINE_PAGE * kv
+    written = 2 * L * ENGINE_SLOTS * ENGINE_MAX_LEN * kv
+    scatter = 2 * L * ENGINE_SLOTS * kv
+    print(f"[engine-trace] one paged decode step, {ENGINE_SLOTS} live slots at max_len "
+          f"{ENGINE_MAX_LEN}: {wall_ms:.2f} ms wall (unprofiled), {n_ops} device ops, busy "
+          f"{busy:.2f} ms; device-to-host copies {d2h} (device copies by kind: {copies}); "
+          f"page gather (aten::index_select) {dev_ms('aten::index_select'):.3f} ms "
+          f"device, {read / 1e6:.1f} MB read ({pages} distinct pages) + {written / 1e6:.1f} MB "
+          f"written (bound {(read + written) / HBM_BYTES_PER_S * 1e3:.3f} ms); scatter "
+          f"(aten::index_put_) {dev_ms('aten::index_put_'):.3f} ms device, "
+          f"{scatter / 1e6:.3f} MB each way")
+    print(f"[engine-trace]   phase 8's plain decode step (batch {SERVE_WAVES[0][0]}, cache "
+          f"{SERVE_WAVES[0][1] + DECODE_STEPS}): {plain['ops']} device ops, busy "
+          f"{plain['busy_ms']:.2f} ms, {plain['call_ms']:.2f} ms per call")
+    for e in sorted(kern, key=_device_us, reverse=True)[:6]:
+        print(f"[engine-trace]   device {_device_us(e) / 1e3:8.3f} ms x{e.count:<5d} {e.key[:80]}")
+    if d2h != 1:
+        raise AssertionError(f"an engine decode step made {d2h} device-to-host copies, want 1")
+    del eng
+
+
+def engine_trainer(dev, tmp, total):
+    """Runtime.train of lm-100m for ENGINE_TRAIN_STEPS steps under the pallas
+    policy with ObsConfig on: the exported trace holds train_loop and
+    train_step for every step, the compile ledger one entry per bucket, the
+    memory ledger a peak above 0."""
+    from repro_torch.api import ExecutionConfig, ObsConfig, Runtime
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = lm100m()  # plain attention: the flash kernel is forward-only
+    chrome = os.path.join(tmp, "train_trace.json")
+    runtime = Runtime(policy=slice_policy(0.2), device=dev,
+                      execution=ExecutionConfig(obs=ObsConfig(chrome_trace=chrome,
+                                                              crash_dir=tmp)))
+    data = LMStream(vocab=cfg.vocab, seed=ENGINE_SEED).batches(BATCH, SEQ)
+    ops.reset_launch_counts()
+    _, hist = runtime.train(cfg, loop_opt(ENGINE_TRAIN_STEPS), data,
+                            TrainerConfig(steps=ENGINE_TRAIN_STEPS, log_every=1))
+    sync(dev)
+    counts = ops.launch_counts()
+    add_counts(total, counts)
+    if counts != expected_counts("pallas", ENGINE_TRAIN_STEPS):
+        raise AssertionError(f"trainer with obs on launched {counts}")
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    steps = sorted(e["args"]["step"] for e in events if e["name"] == "train_step")
+    if not {"train_loop", "build_buckets", "first_call"} <= names or \
+            steps != list(range(ENGINE_TRAIN_STEPS)):
+        raise AssertionError(f"trainer trace: names {sorted(names)}, train_step steps {steps}")
+    rep = runtime.observability().report()
+    entries = rep["compile"]["entries"]
+    mem = rep["memory"]["by_key"]
+    buckets = runtime.schedule.buckets()
+    if len(entries) != len(buckets) or set(mem) != {e["key"] for e in entries} or \
+            not all((v["peak_GB_per_dev"] or 0) > 0 for v in mem.values()):
+        raise AssertionError(f"ledgers: {len(entries)} compile entries for {len(buckets)} "
+                             f"buckets, memory {mem}")
+    first = {e["key"]: e["first_call_s"] for e in entries}
+    print(f"[engine-train] lm-100m pallas l1@0.2, {ENGINE_TRAIN_STEPS} steps with ObsConfig on: "
+          f"losses {[round(h['loss'], 6) for h in hist]}; trace {len(events)} spans "
+          f"(train_step steps {steps}); compile ledger {len(entries)} entry for "
+          f"{len(buckets)} bucket, first_call_s {first}; memory ledger "
+          + "; ".join(f"peak {v['peak_GB_per_dev']:.3f} GB (held before the call "
+                      f"{v['argument_GB_per_dev']:.3f}, left {v['output_GB_per_dev']:.3f}, "
+                      f"temp {v['temp_GB_per_dev']:.3f})" for v in mem.values())
+          + f"; metrics {rep['metrics']}; launches {counts}")
+
+
+def serving_engines(dev, plain_decode):
+    """Phase 11: the serving engines on lm-100m (see the module docstring).
+    Returns the launches of its runs."""
+    import tempfile
+
+    from repro_torch.api import ExecutionConfig, ObsConfig, Runtime, ServeConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.legacy import RunToCompletionEngine
+
+    cfg = lm100m().replace(attn_impl="pallas")
+    plain_cfg = cfg.replace(attn_impl="chunked")
+    params = lm.init_params(ENGINE_PARAM_SEED, cfg, device=dev)
+    specs = engine_specs(cfg.vocab)
+    sv = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, page_size=ENGINE_PAGE)
+    total = {}
+    runtime = Runtime(device=dev)
+    kv_bytes = sv.pool_pages * sv.page_size * 2 * cfg.n_layers * cfg.n_kv * cfg.head_dim * 4
+    print(f"[engine] lm-100m, attn_impl pallas, {len(specs)} requests (prompts "
+          f"{[len(p) for p, _ in specs]}, max_new {[m for _, m in specs]}), eos None; "
+          f"ServeConfig(n_slots={sv.n_slots}, max_len={sv.max_len}, page_size={sv.page_size}): "
+          f"{sv.pool_pages} pages, {kv_bytes / 1e9:.3f} GB of K/V")
+    t_phase = time.perf_counter()
+
+    def paged(rt=runtime):
+        return rt.serve(params, cfg, serve=sv)
+
+    eng, reqs, wall, counts = run_engine(dev, params, cfg, paged, specs, "paged")
+    add_counts(total, counts)
+    tele = eng.telemetry()
+    check_counters("paged", tele, engine_expected(specs, sv, paged=True, pack=True))
+    buckets = {k for k in tele["trace_counts"] if k.startswith("prefill[")}
+    if tele["trace_counts"].get("decode") != 1 or tele["trace_counts"].get("insert") != 1 or \
+            any(tele["trace_counts"][k] != 1 for k in buckets) or \
+            not all(int(k[8:-1]) in sv.buckets() for k in buckets):
+        raise AssertionError(f"builds {tele['trace_counts']}")
+    print_telemetry("paged", tele)
+    paged_tokens = {i: r.out.tolist() for i, r in enumerate(reqs)}
+    walls = {"off": [wall], "on": []}
+    del eng
+
+    eng, reqs, wall, counts = run_engine(
+        dev, params, cfg, lambda: runtime.serve(params, cfg, serve=sv.replace(page_size=None)),
+        specs, "contiguous")
+    add_counts(total, counts)
+    tele = eng.telemetry()
+    check_counters("contiguous", tele, engine_expected(specs, sv, paged=False, pack=False))
+    print_telemetry("contiguous", tele)
+    contig_tokens = {i: r.out.tolist() for i, r in enumerate(reqs)}
+    del eng
+
+    eng, reqs, wall_l, counts = run_engine(
+        dev, params, cfg,
+        lambda: RunToCompletionEngine(params, cfg, batch=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                                      runtime=runtime), specs, "run-to-completion")
+    add_counts(total, counts)
+    tele = eng.telemetry()
+    want = legacy_expected(specs, ENGINE_SLOTS, ENGINE_MAX_LEN)
+    check_counters("run-to-completion", tele, want)
+    lat = legacy_latencies(eng, ENGINE_SLOTS)
+    print_telemetry("run-to-completion", tele, {
+        "ttft_p50_s": lat[50][0], "ttft_p99_s": lat[99][0], "latency_p50_s": lat[50][1],
+        "latency_p99_s": lat[99][1]})
+    print("[engine]   (the run-to-completion TTFT and latency come from its per-batch ring: "
+          "every request submitted when the run starts)")
+    legacy_tokens = {i: r.out.tolist() for i, r in enumerate(reqs)}
+    del eng
+
+    t0 = time.perf_counter()
+    ref_idx = list(range(0, len(specs), len(specs) // ENGINE_REF))[:ENGINE_REF]
+    if ENGINE_REQUESTS // 2 not in ref_idx:
+        ref_idx[-1] = ENGINE_REQUESTS // 2  # the truncated request
+    ref = reference_tokens(dev, params, plain_cfg, specs, ref_idx)
+    print(f"[engine] sequential reference of requests {ref_idx}: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # obs on and off, interleaved after the first (off) run: off, on, on, off
+    obs_tokens = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, on in enumerate((True, True, False)):
+            obs = None
+            if on:
+                d = os.path.join(tmp, f"run{i}")
+                obs = ObsConfig(chrome_trace=os.path.join(d, "serve.json"),
+                                trace_jsonl=os.path.join(d, "serve.jsonl"), crash_dir=d)
+            rt = Runtime(device=dev, execution=ExecutionConfig(obs=obs))
+            eng, reqs, wall, counts = run_engine(dev, params, cfg, lambda rt=rt: paged(rt),
+                                                 specs, f"obs {'on' if on else 'off'}")
+            add_counts(total, counts)
+            walls["on" if on else "off"].append(wall)
+            obs_tokens.append((f"paged, obs {'on' if on else 'off'} (run {i + 2})",
+                               {j: r.out.tolist() for j, r in enumerate(reqs)}))
+            if on:
+                ob = rt.observability()
+                snap = ob.metrics_snapshot()
+                n_events = check_chrome(obs.chrome_trace, len(specs))
+                with open(obs.trace_jsonl) as f:
+                    n_lines = sum(1 for line in f if line.strip())
+                if snap.get("serve.requests_done") != len(specs) or n_lines != n_events:
+                    raise AssertionError(f"obs run {i}: requests_done "
+                                         f"{snap.get('serve.requests_done')}, JSONL {n_lines} "
+                                         f"lines for {n_events} Chrome events")
+                print(f"[engine] obs on (run {i + 2}): Chrome trace {n_events} spans, "
+                      f"{len(specs)} request spans with queued/prefill/decode children, "
+                      f"JSONL {n_lines} lines; serve.requests_done "
+                      f"{snap['serve.requests_done']:.0f}, serve.decode_steps "
+                      f"{snap['serve.decode_steps']:.0f}")
+            del eng
+        engine_trainer(dev, tmp, total)
+    off, on = walls["off"], walls["on"]
+    print(f"[engine] wall s per run, obs off {[round(w, 3) for w in off]} / on "
+          f"{[round(w, 3) for w in on]} (order off, on, on, off): mean on over mean off "
+          f"{100 * (sum(on) / len(on) / (sum(off) / len(off)) - 1):+.2f}%")
+
+    for label, toks in obs_tokens:
+        if toks != paged_tokens:
+            raise AssertionError(f"{label}: tokens differ from the first paged run's")
+    diffs = compare_tokens(dev, params, plain_cfg, specs, [
+        ("paged", paged_tokens), ("contiguous", contig_tokens),
+        ("run-to-completion", legacy_tokens), ("sequential reference", ref)])
+    print(f"[engine] greedy tokens: {len(specs)} requests equal in the paged runs with obs off "
+          f"and on; against the contiguous and run-to-completion engines and, for {len(ref)} of "
+          f"them, the sequential reference: {len(diffs)} differing (run, request, step)"
+          + (f" {diffs}, each a float32 near tie" if diffs else ""))
+    engine_decode_trace(dev, params, cfg, specs, plain_decode)
+    print(f"[time]   serving engines {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -1942,7 +2464,7 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_counts = serve_path(dev)
     launches["flash_attention"] = serve_counts["flash_attention"]
-    serve_breakdown(dev)
+    plain_decode = serve_breakdown(dev)
     print(f"[time] serving and its breakdown {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     paper_rows = paper_kernels(gen, dev)
@@ -1959,6 +2481,11 @@ def main() -> int:
     for name, n in loop_counts.items():
         launches[name] += n
     print(f"[time] the trainer loop {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    engine_counts = serving_engines(dev, plain_decode)
+    for name, n in engine_counts.items():
+        launches[name] += n
+    print(f"[time] the serving engines {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -1992,7 +2519,9 @@ def main() -> int:
     print(f"# launches: summed over the main paths' runs ({STEPS} steps each): "
           f"{json.dumps(path_counts)}; serving (two waves): {json.dumps(serve_counts)}; "
           f"the paper's models ({STEPS} steps each): {json.dumps(paper_path)}; the trainer "
-          f"loop (all of phase 10's runs): {json.dumps(loop_counts)}")
+          f"loop (all of phase 10's runs): {json.dumps(loop_counts)}; the serving engines "
+          f"(phase 11: every engine run 0, then {ENGINE_TRAIN_STEPS} traced training steps): "
+          f"{json.dumps(engine_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

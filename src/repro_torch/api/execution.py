@@ -1,8 +1,8 @@
 """Execution configuration (port of ``repro/api/execution.py``).
 
-The JAX config also carries the mesh, shardings, resilience and
-observability; none of those is ported yet. This one holds compact
-gradients, the accumulation count and telemetry, and is the one factory for
+The JAX config also carries the mesh, shardings and resilience; none of
+those is ported yet. This one holds compact gradients, the accumulation
+count, telemetry and observability, and is the one factory for
 :class:`~repro_torch.nn.common.Ctx` outside the nn substrate.
 """
 from __future__ import annotations
@@ -27,11 +27,16 @@ class ExecutionConfig:
       telemetry: a :class:`repro_torch.telemetry.TelemetryConfig` turning on
         the per-site probes and naming optional sinks; ``None`` (the
         default) turns telemetry off. Probes require ``accum == 1``.
+      obs: a :class:`repro_torch.obs.ObsConfig` turning on spans, the
+        metrics registry, the compile and memory ledgers and the flight
+        recorder (``Runtime.observability()``); ``None`` (the default)
+        turns them off.
     """
 
     compact_grads: bool = False
     accum: int = 1
     telemetry: Optional[Any] = None  # repro_torch.telemetry.TelemetryConfig
+    obs: Optional[Any] = None  # repro_torch.obs.ObsConfig
 
     def __post_init__(self):
         if self.accum < 1:
@@ -43,6 +48,8 @@ class ExecutionConfig:
             raise ValueError("telemetry probes require accum == 1 (probe vectors would "
                              "average across microbatch plans); use TelemetryConfig("
                              "probes=False) with accumulation")
+        if self.obs is not None and not hasattr(self.obs, "trace_capacity"):
+            raise ValueError(f"obs must be a repro_torch.obs.ObsConfig, got {self.obs!r}")
 
     def replace(self, **kw) -> "ExecutionConfig":
         return dataclasses.replace(self, **kw)

@@ -25,9 +25,10 @@ Budget values:
 from __future__ import annotations
 
 import dataclasses
-import time
 from collections import deque
 from typing import Optional, Sequence, Tuple
+
+from repro_torch.obs import clock
 
 __all__ = ["BudgetSchedule", "Controller", "StragglerController"]
 
@@ -305,12 +306,12 @@ class StragglerController(Controller):
         return self.budgets[self.level]
 
     def step_begin(self):
-        self._t0 = time.perf_counter()
+        self._t0 = clock.now()
 
     def step_end(self, metrics=None):
         if self._t0 is None:
             return self.budget
-        dt = time.perf_counter() - self._t0
+        dt = clock.now() - self._t0
         self._times.append(dt)
         if self.target is None and len(self._times) == self.window and self.level == 0:
             # calibrate the target from the first full window at full budget
@@ -328,5 +329,5 @@ class StragglerController(Controller):
 
     def observe(self, dt: float):
         """Test hook: feed an externally measured step time."""
-        self._t0 = time.perf_counter() - dt
+        self._t0 = clock.now() - dt
         return self.step_end()

@@ -8,7 +8,8 @@ function. Any tree of the same structure works (a gradient tree too), and so
 does the tree of a JAX ``init_state`` with a plan-carry policy: each site's
 ``"sslot"`` carry leaf ``[n_layers, n]`` is unstacked with the weights into
 one ``[n]`` leaf per layer. ``caches_from_jax`` does the same for the
-decode caches of ``lm.init_cache`` / ``lm.prefill``, and
+decode caches of ``lm.init_cache`` / ``lm.prefill``, ``pools_from_jax`` for
+the serving engine's page pools (``serve/kv_cache.init_pools``), and
 ``compact_grad_from_jax`` turns a JAX ``CompactGrad`` (float32 indices) into
 the port's (int64 indices). For the paper's §5 models: an ``mlp_arch``
 config's tree is a list of ``{"w", "b"}`` dicts and comes across as it is;
@@ -29,7 +30,7 @@ from repro_torch.models.lm import check_decoder, check_supported
 from repro_torch.tree import tree_map
 
 __all__ = ["bagnet_params_from_jax", "caches_from_jax", "compact_grad_from_jax",
-           "params_from_jax", "vit_params_from_jax"]
+           "params_from_jax", "pools_from_jax", "vit_params_from_jax"]
 
 
 def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
@@ -75,6 +76,14 @@ def caches_from_jax(caches, cfg: ArchConfig, *, device="cuda"):
         raise ValueError(f"tree has {k.shape[0]} layers, config {cfg.n_layers}")
     return [{"k": torch.tensor(k[i], device=dev), "v": torch.tensor(v[i], device=dev)}
             for i in range(cfg.n_layers)]
+
+
+def pools_from_jax(pools, cfg: ArchConfig, *, device="cuda"):
+    """The port's per-layer page pools for the JAX ``kv_cache.init_pools``
+    tree ``pools`` (the cache tree's structure, each K/V leaf ``[n_layers,
+    pool_pages, page_size, n_kv, d_head]``): one ``{"k", "v"}`` of
+    ``[pool_pages, page_size, n_kv, d_head]`` per layer, on ``device``."""
+    return caches_from_jax(pools, cfg, device=device)
 
 
 def compact_grad_from_jax(cg, *, device="cuda") -> CompactGrad:

@@ -24,7 +24,7 @@ from repro_torch.nn.common import Ctx, dense_init, rmsnorm, rmsnorm_init, trunc_
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.tree import tree_leaves
 
-__all__ = ["init_params", "forward", "lm_loss", "num_params", "check_supported",
+__all__ = ["init_params", "forward", "lm_loss", "num_params", "check_supported", "attn_cfg",
            "check_decoder", "init_cache", "prefill", "decode_step"]
 
 
@@ -45,7 +45,9 @@ def check_decoder(cfg: ArchConfig) -> None:
             f"{cfg.name}: only the dense decoder family is ported to repro_torch yet")
 
 
-def _attn_cfg(cfg: ArchConfig) -> AttnCfg:
+def attn_cfg(cfg: ArchConfig) -> AttnCfg:
+    """The attention config every layer of ``cfg`` runs (and its caches'
+    geometry: ``nn.attention.init_kv_cache``)."""
     return AttnCfg(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                    causal=True, window=cfg.window, rope=cfg.rope, theta=cfg.rope_theta,
                    impl=cfg.attn_impl)
@@ -68,7 +70,7 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
         "final_norm": rmsnorm_init(d, dtype, dev),
         "layers": [
             {"norm1": rmsnorm_init(d, dtype, dev),
-             "attn": attn_init(gen, d, _attn_cfg(cfg), dtype, dev),
+             "attn": attn_init(gen, d, attn_cfg(cfg), dtype, dev),
              "norm2": rmsnorm_init(d, dtype, dev),
              "mlp": mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype, dev)}
             for _ in range(cfg.n_layers)],
@@ -106,7 +108,7 @@ def _head(params, x, ctx: Ctx, cfg: ArchConfig):
 
 def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, caches=None,
                 pos=None, segs=None):
-    acfg = _attn_cfg(cfg)
+    acfg = attn_cfg(cfg)
     for uid, p in enumerate(params["layers"]):
         lctx = ctx.for_layer(step_key, uid)
         h = rmsnorm(p["norm1"], x)
@@ -141,7 +143,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
     d_head] per layer (size = max_len, or the window when it is shorter)."""
     check_decoder(cfg)
     dev = resolve_device(device)
-    acfg = _attn_cfg(cfg)
+    acfg = attn_cfg(cfg)
     return [init_kv_cache(batch, max_len, acfg, getattr(torch, cfg.dtype), dev)
             for _ in range(cfg.n_layers)]
 

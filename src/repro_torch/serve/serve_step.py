@@ -6,8 +6,7 @@
 without autograd on the runtime's device: inputs (token ids, segment ids,
 positions; numpy arrays or tensors) are moved there first. The decode step
 writes into the caches it is given (see ``nn/attention.py``). The engines
-built on them in JAX (``serve/engine.py``, ``serve/legacy.py``) are not
-ported yet.
+(``serve/engine.py``, ``serve/legacy.py``) are built on them.
 """
 from __future__ import annotations
 
@@ -19,7 +18,6 @@ from repro_torch.api.execution import ExecutionConfig
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.train.train_step import batch_to_device
 
 __all__ = ["greedy_sample", "make_decode_step", "make_prefill"]
 
@@ -33,6 +31,9 @@ def make_prefill(cfg: ArchConfig, max_len: int, *,
                  execution: Optional[ExecutionConfig] = None, device="cuda"):
     """``prefill_fn(params, batch) -> (logits [B, S, V], caches)``; caches hold
     ``max_len`` positions (or the window)."""
+    # imported here: train_step imports the api package, which imports this one
+    from repro_torch.train.train_step import batch_to_device
+
     ex = execution if execution is not None else ExecutionConfig()
     dev = resolve_device(device)
 

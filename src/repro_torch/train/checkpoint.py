@@ -150,25 +150,32 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3):
 class _Writer(threading.Thread):
     """Async checkpoint writer. A raised exception is kept on ``self.error``
     and re-raised as :class:`CheckpointError` by
-    :meth:`CheckpointManager.wait`."""
+    :meth:`CheckpointManager.wait`. With an enabled ``tracer`` the write runs
+    under a ``ckpt_io_write`` span on this thread (the tracer's nesting is
+    per thread; its ring is shared)."""
 
-    def __init__(self, ckpt_dir, step, host_flat, keep):
+    def __init__(self, ckpt_dir, step, host_flat, keep, tracer=None):
         super().__init__(daemon=True)
         self.error: BaseException | None = None
         self._job = (ckpt_dir, step, host_flat, keep)
+        self._tracer = tracer
 
     def run(self):
         try:
-            _write(*self._job)
+            if self._tracer is not None and self._tracer.enabled:
+                with self._tracer.span("ckpt_io_write", step=self._job[1]):
+                    _write(*self._job)
+            else:
+                _write(*self._job)
         except BaseException as e:  # kept for wait(); never swallowed
             self.error = e
 
 
-def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> _Writer:
+def save_async(ckpt_dir: str, step: int, tree, *, keep: int = 3, tracer=None) -> _Writer:
     """Snapshot to host, write in the background. Returns the writer thread;
     check ``.error`` after ``.join()`` (:class:`CheckpointManager` does
     both)."""
-    t = _Writer(ckpt_dir, step, _snapshot(tree), keep)
+    t = _Writer(ckpt_dir, step, _snapshot(tree), keep, tracer)
     t.start()
     return t
 
@@ -289,17 +296,18 @@ def restore(ckpt_dir: str, tree_like, *, step=None, device=None):
 class CheckpointManager:
     """Trainer-facing manager: periodic async saves and resume."""
 
-    def __init__(self, ckpt_dir: str, every: int = 100, keep: int = 3):
+    def __init__(self, ckpt_dir: str, every: int = 100, keep: int = 3, tracer=None):
         self.dir = ckpt_dir
         self.every = every
         self.keep = keep
+        self.tracer = tracer  # a repro_torch.obs tracer: async writes record I/O spans
         self._pending: Optional[_Writer] = None
 
     def maybe_save(self, step: int, tree):
         if step % self.every != 0:
             return False
         self.wait()
-        self._pending = save_async(self.dir, step, tree, keep=self.keep)
+        self._pending = save_async(self.dir, step, tree, keep=self.keep, tracer=self.tracer)
         return True
 
     def wait(self):

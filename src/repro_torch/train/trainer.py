@@ -3,14 +3,18 @@ checkpoints and auto-resume (port of ``repro/train/trainer.py``).
 
 :func:`train_loop` is the Runtime's loop (``Runtime.train`` delegates here);
 :func:`train` is the legacy keyword spelling, a shim that builds a Runtime
-and warns once. The JAX loop's resilience and observability hooks
-(``faults=``, ``seed_salt=``, ``on_event=``, spans and the flight recorder)
-come with the port's resilience slice; they are not here yet.
+and warns once. With ``ExecutionConfig(obs=ObsConfig(...))`` the loop records
+JAX's spans (``train_loop``, ``build_buckets``, ``train_step`` per step,
+``ckpt_wait``; the checkpoint writer's ``ckpt_io_write``), counts
+``train.steps``, sets the ``train.budget`` gauge and takes a flight-recorder
+snapshot at every logged step, and exports the configured traces at the end.
+The JAX loop's resilience hooks (``faults=``, ``seed_salt=``, ``on_event=``,
+the sentinel, and the synchronous retry of a failed checkpoint write with its
+``ckpt_save_sync`` span) come with the port's resilience slice.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Callable, Iterable, Optional
 
@@ -20,6 +24,7 @@ from repro_torch import rng
 from repro_torch.api import Runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import SketchPolicy
+from repro_torch.obs import clock, observability
 from repro_torch.optim import Optimizer
 from repro_torch.telemetry import sinks as tsinks
 from repro_torch.train.checkpoint import CheckpointManager
@@ -133,9 +138,13 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
                       "location-restricted policy, or no probe-capable site: a column-family "
                       "method and an estimator with the probe hook); the controller will "
                       "hold its first bucket", stacklevel=2)
+    ob = observability(runtime.execution.obs)
+    tracer = ob.tracer
+    traced = tracer.enabled
     if state is None:
         state = runtime.init_state(rng.fold_in(tcfg.seed, 0), cfg, opt)
-    ckpt = CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_every) if tcfg.ckpt_dir else None
+    ckpt = (CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_every, tracer=tracer)
+            if tcfg.ckpt_dir else None)
     if ckpt is not None:
         restored = ckpt.restore_or_none(state, device=runtime.device)
         if restored is not None:
@@ -143,49 +152,70 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
             print(f"[trainer] resumed from step {step0}")
 
     # one step function per bucket, all built before the first step
-    steps_by_budget = {b: runtime.train_step(cfg, opt, budget=b) for b in schedule.buckets()}
+    buckets = schedule.buckets()
+    with tracer.span("build_buckets", n_buckets=len(buckets)):
+        steps_by_budget = {b: runtime.train_step(cfg, opt, budget=b) for b in buckets}
     controller = schedule.make_controller(policy=runtime.policy)
     fetch_each_step = bool(controller is not None and getattr(controller, "wants_metrics", False))
     sink = tsinks.build_sinks(tel)
+    reg = ob.metrics
+    steps_counter = reg.counter("train.steps") if reg is not None else None
+    budget_gauge = reg.gauge("train.budget") if reg is not None else None
     history = []
     data_it = iter(data)
     try:
-        for step in range(state.step, tcfg.steps):
-            batch = next(data_it)
-            budget = controller.budget if controller else schedule.budget_at(step)
-            fn = steps_by_budget[budget]
-            if controller:
-                controller.step_begin()
-            t0 = time.perf_counter()
-            state, metrics = fn(state, batch, rng.fold_in(tcfg.seed, step + 1))
-            host_m = host_scalars = None
-            if controller:
-                # the scalars only: per-site vectors wait for the sink or log
-                if fetch_each_step:
-                    host_scalars = _host_metrics(metrics, scalars_only=True)
-                elif runtime.device.type == "cuda":
-                    torch.cuda.synchronize(runtime.device)  # the step's time
-                controller.step_end(host_scalars)
-            if sink is not None and step % tel.interval == 0:
-                host_m = _host_metrics(metrics)
-                sink.write(dict(host_m, step=step, budget=budget))
-            if step % tcfg.log_every == 0 or step == tcfg.steps - 1:
-                m = host_m if host_m is not None else _host_metrics(metrics)
-                m = dict(m, step=step, budget=budget, step_s=time.perf_counter() - t0)
-                history.append(m)
-                if on_metrics:
-                    on_metrics(m)
+        with tracer.span("train_loop", start_step=state.step, steps=tcfg.steps):
+            for step in range(state.step, tcfg.steps):
+                batch = next(data_it)
+                budget = controller.budget if controller else schedule.budget_at(step)
+                fn = steps_by_budget[budget]
+                if controller:
+                    controller.step_begin()
+                t0 = clock.now()
+                if traced:
+                    # the attrs are built on the traced path only
+                    with tracer.span("train_step", step=step,
+                                     budget=-1.0 if budget is None else budget):
+                        state, metrics = fn(state, batch, rng.fold_in(tcfg.seed, step + 1))
                 else:
-                    b = "exact" if budget is None else f"{budget:.2f}"
-                    print(f"[trainer] step {step:6d} loss {m['loss']:.4f} budget {b} "
-                          f"({m['step_s'] * 1e3:.1f} ms)")
+                    state, metrics = fn(state, batch, rng.fold_in(tcfg.seed, step + 1))
+                if steps_counter is not None:
+                    steps_counter.inc()
+                host_m = host_scalars = None
+                if controller:
+                    # the scalars only: per-site vectors wait for the sink or log
+                    if fetch_each_step:
+                        host_scalars = _host_metrics(metrics, scalars_only=True)
+                    elif runtime.device.type == "cuda":
+                        torch.cuda.synchronize(runtime.device)  # the step's time
+                    controller.step_end(host_scalars)
+                if sink is not None and step % tel.interval == 0:
+                    host_m = _host_metrics(metrics)
+                    sink.write(dict(host_m, step=step, budget=budget))
+                logged = step % tcfg.log_every == 0 or step == tcfg.steps - 1
+                if budget_gauge is not None and logged:
+                    budget_gauge.set(-1.0 if budget is None else budget)
+                    if ob.flight is not None:
+                        ob.flight.snapshot(step)
+                if logged:
+                    m = host_m if host_m is not None else _host_metrics(metrics)
+                    m = dict(m, step=step, budget=budget, step_s=clock.now() - t0)
+                    history.append(m)
+                    if on_metrics:
+                        on_metrics(m)
+                    else:
+                        b = "exact" if budget is None else f"{budget:.2f}"
+                        print(f"[trainer] step {step:6d} loss {m['loss']:.4f} budget {b} "
+                              f"({m['step_s'] * 1e3:.1f} ms)")
+                if ckpt is not None:
+                    ckpt.maybe_save(step + 1, state)
             if ckpt is not None:
-                ckpt.maybe_save(step + 1, state)
-        if ckpt is not None:
-            ckpt.wait()
+                with tracer.span("ckpt_wait"):
+                    ckpt.wait()
     finally:
         if sink is not None:
             sink.close()
+        ob.export()
     return state, history
 
 

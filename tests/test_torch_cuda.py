@@ -728,3 +728,119 @@ def test_cuda_async_checkpoint_before_an_inplace_step(cuda, tmp_path):
     assert len(leaves) == len(before)
     for a, b in zip(leaves, before):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# the serving engines (tests/test_torch_engine.py's config, which runs them
+# against JAX's on the CPU)
+SERVE_CFG = dict(name="serve-test", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv=2,
+                 d_ff=128, vocab=256, q_chunk=32, kv_chunk=32, attn_impl="pallas")
+
+
+def _serve_requests(seed=0, lens=(11, 5, 23, 3, 17, 9, 30, 7), news=(6, 3, 9, 2, 12, 4, 5, 8)):
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(1, 256, size=n).astype(np.int32), max_new=m)
+            for n, m in zip(lens, news)]
+
+
+def test_cuda_engines_give_the_cpu_engines_tokens(cuda):
+    """The paged, contiguous and run-to-completion engines on the card give
+    the CPU engine's greedy tokens and counters from the same weights, and
+    launch no kernel (every prefill batch carries segments; decode runs the
+    plain attention)."""
+    from repro_torch.api import Runtime, ServeConfig
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.legacy import RunToCompletionEngine
+    from repro_torch.tree import tree_map
+
+    cfg = ArchConfig(**SERVE_CFG)
+    cpu_params = lm.init_params(0, cfg, device="cpu")
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    want = None
+    for page_size in (16, None):
+        sv = ServeConfig(n_slots=4, max_len=64, page_size=page_size)
+        cpu_eng = Engine(cpu_params, cfg, serve=sv, runtime=Runtime(device="cpu"))
+        expect = cpu_eng.run(_serve_requests())
+        ops.reset_launch_counts()
+        eng = Engine(params, cfg, serve=sv, runtime=Runtime(device=cuda))
+        got = eng.run(_serve_requests())
+        assert all(n == 0 for n in ops.launch_counts().values()), ops.launch_counts()
+        assert [r.out.tolist() for r in got] == [r.out.tolist() for r in expect]
+        for k in ("decode_steps", "tokens_out", "wasted_decode_steps", "prefill_calls"):
+            assert eng.counters[k] == cpu_eng.counters[k], k
+        want = want or [r.out.tolist() for r in expect]
+    legacy = _serve_requests()
+    ops.reset_launch_counts()
+    RunToCompletionEngine(params, cfg, batch=4, max_len=64, runtime=Runtime(device=cuda)).run(
+        legacy)
+    assert all(n == 0 for n in ops.launch_counts().values()), ops.launch_counts()
+    assert [r.out.tolist() for r in legacy] == want
+
+
+def test_cuda_dead_slots_trash_writes_spare_live_pages(cuda):
+    """On the card, freed slots' decode writes (all to trash page 0, several
+    at the same row) change no live slot's page: only each live slot's
+    (page, offset) and the trash page differ after a scatter."""
+    import numpy as np
+
+    from repro_torch.api import ServeConfig
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.serve import kv_cache
+
+    cfg = ArchConfig(**SERVE_CFG)
+    sv = ServeConfig(n_slots=6, max_len=64, page_size=16)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    pools = kv_cache.init_pools(cfg, sv, device=cuda)
+    for layer in pools:
+        for v in layer.values():
+            v.copy_(torch.randn(v.shape, generator=g, device=cuda))
+    pm = np.zeros((sv.n_slots, sv.pages_per_slot), np.int32)
+    pm[1] = [3, 7, 9, 0]
+    pm[4] = [2, 5, 0, 0]
+    pos = torch.tensor([0, 40, 0, 0, 17, 0], device=cuda)  # slots 0, 2, 3, 5 are free
+    page_map = torch.as_tensor(pm, device=cuda)
+    contig = kv_cache.gather_slots(pools, page_map, sv)
+    for layer in contig:
+        for v in layer.values():
+            v.copy_(torch.randn(v.shape, generator=g, device=cuda))
+    before = [{k: v.clone() for k, v in layer.items()} for layer in pools]
+    kv_cache.scatter_token(pools, contig, page_map, pos, sv)
+    torch.cuda.synchronize()
+    for a, b, c in zip(pools, before, contig):
+        for k in a:
+            changed = {tuple(x) for x in (a[k] != b[k]).flatten(2).any(-1).nonzero().tolist()}
+            assert changed <= {(9, 40 % 16), (5, 17 % 16), (0, 0)}, changed
+            assert torch.equal(a[k][9, 8], c[k][1, 40]) and torch.equal(a[k][5, 1], c[k][4, 17])
+
+
+def test_cuda_engine_decode_step_copies_to_the_host_once(cuda):
+    """One engine decode step on the card makes exactly one device-to-host
+    copy (the [n_slots] sampled tokens), seen by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Runtime, ServeConfig
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import lm
+    from repro_torch.obs import clock
+
+    cfg = ArchConfig(**SERVE_CFG)
+    params = lm.init_params(0, cfg, device=cuda)
+    for page_size in (16, None):
+        eng = Runtime(device=cuda).serve(
+            params, cfg, serve=ServeConfig(n_slots=4, max_len=64, page_size=page_size))
+        eng.scheduler.submit(_serve_requests(news=(20,) * 8), clock.now())
+        eng._refill()
+        eng._decode_one_step()  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng._decode_one_step()
+        d2h = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.key.startswith("Memcpy DtoH"))
+        assert d2h == 1, (page_size, d2h)
