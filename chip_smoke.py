@@ -110,7 +110,26 @@ which raises on failure:
    0); and a profiler trace of one engine decode step (device ops, busy
    time, exactly one device-to-host copy, the page gather's and scatter's
    device time and bytes) beside phase 8's plain decode step;
-12. one JSON line listing the ported kernels, then the last line
+12. resilience around the lm-100m trainer (batch 8 x 256, block-128 l1@0.2,
+   ``examples/train_lm.py``'s AdamW, ``ResilienceConfig(max_grad_norm=1e13)``:
+   the sketched estimator's own norm reaches ~1e9-1e11 at this budget): under
+   ``pallas`` and ``stale``, 4 steps with resilience off (``Runtime.train``)
+   and on with no fault (``Supervisor``), in the order off, on, on, off:
+   final states equal bit for bit, no trip, the same launches; under
+   ``pallas``, ``onepass``, ``stale`` and compact ``pallas``, a ``nonfinite``
+   and a ``spike`` fault through ``Supervisor``: each trips, the parameters,
+   moments and carry are bit-identical through each tripped step, the next
+   ``escalate_steps`` steps run exact with 0 launches, every leaf finite at
+   the end; then ``FaultPlan.drill(ckpt_every=3)`` over 18 ``pallas`` steps
+   with a checkpoint directory, a JSONL sink and ``ObsConfig`` on, against
+   the same run with no fault: every fault fired, the failed checkpoint write
+   retried synchronously and verified, one rollback to step 12 (3 steps
+   lost), the final loss within JAX's rule of the clean run's, the records in
+   the sink, the launches equal to what the sentinel's rules give on the host
+   (0 on the exact steps), one step build per bucket across both attempts,
+   the allocator back at the clean run's level; the synchronous save's and
+   the rollback's seconds and the wasted-work fraction printed;
+13. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
@@ -1467,11 +1486,13 @@ def sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def loop_opt(steps):
-    """examples/train_lm.py's optimizer: AdamW, cosine warm-up, clip 1.0."""
+def loop_opt(steps, lazy=False):
+    """examples/train_lm.py's optimizer: AdamW, cosine warm-up, clip 1.0
+    (``lazy``: LazyAdam, for compact gradients)."""
     from repro_torch.optim import adamw, cosine_warmup
 
-    return adamw(cosine_warmup(3e-4, max(10, steps // 20), steps), weight_decay=0.1, clip=1.0)
+    return adamw(cosine_warmup(3e-4, max(10, steps // 20), steps), weight_decay=0.1, clip=1.0,
+                 lazy=lazy)
 
 
 def add_counts(total, counts):
@@ -2391,6 +2412,348 @@ def serving_engines(dev, plain_decode):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Resilience (phase 12): the gradient sentinel, fault injection and the
+# supervisor's rollback around the lm-100m trainer
+# ---------------------------------------------------------------------------
+
+# the sentinel's norm threshold for lm-100m at l1@0.2: the sketched
+# estimator's own gradient norm spans ~4e3 (stale's first steps, sampled from
+# the uniform prior) to ~1e9-1e11 (1/p-scaled blocks, compounded over 84
+# sites), so JAX's default 1e3 would trip every sketched step; 1e13 sits two
+# orders above the largest, and a spike of RES_SPIKE lands four orders or
+# more beyond it, or overflows float32 (a non-finite norm: a trip too)
+RES_MAX_GRAD_NORM = 1e13
+RES_SPIKE = 1e14
+RES_STEPS = 4  # steps of each run of the on/off comparison
+RES_FAULT_AT = 1  # the nonfinite fault; the spike follows the escalation window
+DRILL_STEPS, DRILL_EVERY = 18, 3
+RES_SEED = 61
+# a failed attempt left alive would hold its state, ~1.6 GB. After a run whose
+# final state is deleted the allocator must be back where it started (to a
+# few blocks); holding it, the figure moves by the caching allocator's block
+# rounding (an allocation may take a cached block up to 1 MB larger)
+MEM_SLACK = 16 << 20
+HELD_SLACK = 256 << 20
+
+
+def res_config(**kw):
+    from repro_torch.api import ResilienceConfig
+
+    return ResilienceConfig(max_grad_norm=RES_MAX_GRAD_NORM, **kw)
+
+
+def state_leaves(state):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(state.params) + tree_leaves(state.opt_state)
+
+
+def res_on_off(dev, total):
+    """Per backend (pallas, stale): RES_STEPS lm-100m steps through
+    Runtime.train with resilience off and through Supervisor with it on and no
+    fault, in the order off, on, on, off: every final state equal bit for bit,
+    sentinel_trip 0 at every step, the same launches; ms per step."""
+    from repro_torch.api import ExecutionConfig, Runtime, Supervisor
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = lm100m()
+    tcfg = TrainerConfig(steps=RES_STEPS, log_every=1, seed=RES_SEED)
+    for backend in ("pallas", "stale"):
+        finals, ms, norms = {}, {False: [], True: []}, []
+        for on in (False, True, True, False):
+            runtime = Runtime(policy=slice_policy(0.2, backend), device=dev,
+                              execution=ExecutionConfig(resilience=res_config() if on else None))
+            data = LMStream(vocab=cfg.vocab, seed=RES_SEED).batches(BATCH, SEQ)
+            ops.reset_launch_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            if on:
+                state, hist = Supervisor(runtime, cfg, loop_opt(RES_STEPS), tcfg).run(
+                    data, on_metrics=lambda m: None)
+            else:
+                state, hist = runtime.train(cfg, loop_opt(RES_STEPS), data, tcfg,
+                                            on_metrics=lambda m: None)
+            sync(dev)
+            ms[on].append(1e3 * (time.perf_counter() - t0) / RES_STEPS)
+            counts = ops.launch_counts()
+            add_counts(total, counts)
+            if counts != expected_counts(backend, RES_STEPS):
+                raise AssertionError(f"{backend} resilience {on}: launched {counts}")
+            if on and any(h["sentinel_trip"] != 0.0 for h in hist):
+                raise AssertionError(f"{backend}: the sentinel tripped with no fault: "
+                                     f"{[(h['grad_norm'], h['sentinel_trip']) for h in hist]}")
+            norms += [h["grad_norm"] for h in hist]
+            if on not in finals:
+                finals[on] = state
+            del state
+        pairs = list(zip(state_leaves(finals[False]), state_leaves(finals[True])))
+        differ = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"{backend}: leaves {differ} of {len(pairs)} differ with "
+                                 "resilience on and no fault")
+        del finals, pairs
+        print(f"[res] {backend}: {RES_STEPS} lm-100m steps, resilience off (Runtime.train) and "
+              f"on (Supervisor, no fault, max_grad_norm {RES_MAX_GRAD_NORM:g}): final states "
+              f"equal bit for bit, sentinel_trip 0 at every step, launches "
+              f"{expected_counts(backend, RES_STEPS)} each; grad_norm "
+              f"{min(norms):.4g}..{max(norms):.4g}; ms per step (order off, on, on, off) off "
+              f"{[round(v, 1) for v in ms[False]]}, on {[round(v, 1) for v in ms[True]]}")
+
+
+def res_faults(dev, total):
+    """Per backend (pallas, onepass, stale, compact pallas): a nonfinite fault
+    at step RES_FAULT_AT and a spike (x RES_SPIKE) once its escalation window
+    has closed, through Supervisor: each trips (sentinel_trip 1); the
+    parameters, moments and carry are bit-identical through each tripped
+    step; the next escalate_steps steps run exact with 0 launches, every
+    sketched step its backend's; every leaf finite at the end."""
+    from repro_torch import rng
+    from repro_torch.api import ExecutionConfig, FaultPlan, FaultSpec, Runtime, Supervisor
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = lm100m()
+    rcfg = res_config()
+    k = rcfg.escalate_steps
+    spike_at = RES_FAULT_AT + 1 + k
+    steps = spike_at + k + 2
+    faulted = (RES_FAULT_AT, spike_at)
+    want_budgets = [None if (RES_FAULT_AT < s <= RES_FAULT_AT + k or spike_at < s <= spike_at + k)
+                    else 1.0 for s in range(steps)]
+    plan = FaultPlan(faults=(FaultSpec(step=RES_FAULT_AT, kind="nonfinite"),
+                             FaultSpec(step=spike_at, kind="spike", scale=RES_SPIKE)))
+    for label in ("pallas", "onepass", "stale", "pallas-compact"):
+        backend, compact = label.split("-")[0], label.endswith("compact")
+        runtime = Runtime(policy=slice_policy(0.2, backend), device=dev,
+                          execution=ExecutionConfig(resilience=rcfg, compact_grads=compact))
+        opt = loop_opt(steps, lazy=compact)
+        state = runtime.init_state(rng.fold_in(RES_SEED, 0), cfg, opt)
+        live = state_leaves(state)  # updated in place by the optimizer and the carry write
+        before, same, seen = {}, {}, []
+
+        def on_metrics(m, live=live, before=before, same=same, seen=seen):
+            seen.append((m, ops.launch_counts()))
+            if m["step"] + 1 in faulted:
+                before[m["step"] + 1] = [t.detach().clone() for t in live]
+            if m["step"] in faulted:
+                same[m["step"]] = all(torch.equal(a, b) for a, b in zip(before.pop(m["step"]),
+                                                                        live))
+
+        sup = Supervisor(runtime, cfg, opt, TrainerConfig(steps=steps, log_every=1,
+                                                          seed=RES_SEED), fault_plan=plan)
+        data = LMStream(vocab=cfg.vocab, seed=RES_SEED).batches(BATCH, SEQ)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = sup.run(data, on_metrics=on_metrics)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        add_counts(total, counts)
+        budgets = [h["budget"] for h in hist]
+        trips = [h["sentinel_trip"] for h in hist]
+        if budgets != want_budgets or [s for s, t in enumerate(trips) if t] != list(faulted):
+            raise AssertionError(f"{label}: budgets {budgets}, sentinel_trip {trips}")
+        if not (same.get(RES_FAULT_AT) and same.get(spike_at)):
+            raise AssertionError(f"{label}: a tripped step changed the state: {same}")
+        prev = {k2: 0 for k2 in counts}
+        for h, c in seen:
+            delta = {k2: c[k2] - prev[k2] for k2 in c}
+            prev = c
+            if delta != expected_counts(backend, 0 if h["budget"] is None else 1):
+                raise AssertionError(f"{label} step {h['step']} (budget {h['budget']}) "
+                                     f"launched {delta}")
+        if [e["event"] for e in sup.events] != ["fault_injected", "sentinel_trip"] * 2:
+            raise AssertionError(f"{label}: events {sup.events}")
+        if not all(torch.isfinite(t).all() for t in state_leaves(state)):
+            raise AssertionError(f"{label}: a non-finite leaf after the run")
+        n_leaves = len(live)
+        del state, live
+        causes = [e["cause"] for e in sup.events if e["event"] == "sentinel_trip"]
+        print(f"[res-fault] {label}: nonfinite at step {RES_FAULT_AT}, spike x{RES_SPIKE:g} at "
+              f"{spike_at}: both tripped ({causes}; loss, grad_norm at the spike "
+              f"{hist[spike_at]['loss']:.4g}, {hist[spike_at]['grad_norm']:.4g}); {n_leaves} "
+              f"leaves (params, carry, moments) bit-identical through each; budgets {budgets} "
+              f"(exact steps 0 launches); launches {counts}; every leaf finite; "
+              f"{steps} steps in {wall:.2f} s")
+
+
+def sentinel_budgets(rcfg, trip_steps, start, steps):
+    """The sentinel's rules on the host: ``[(step, budget)]`` of one attempt
+    that starts at ``start`` (a fresh sentinel, a policy at budget 1.0) when
+    the steps in ``trip_steps`` trip, and the step it rolls back at (or
+    None)."""
+    from repro_torch.api import GradSentinel
+
+    sent, out = GradSentinel(rcfg), []
+    for step in range(start, steps):
+        out.append((step, sent.override(1.0)))
+        sent.observe(step, {"loss": 1.0, "sentinel_trip": float(step in trip_steps)})
+        if sent.should_rollback:
+            return out, step
+    return out, None
+
+
+def res_drill(dev, total):
+    """FaultPlan.drill(ckpt_every=DRILL_EVERY) over DRILL_STEPS steps under
+    pallas with a checkpoint directory, a JSONL sink and ObsConfig on, through
+    Supervisor, against the same run with no fault (see the module
+    docstring)."""
+    import tempfile
+
+    from repro_torch.api import (ExecutionConfig, FaultPlan, ObsConfig, Runtime, Supervisor,
+                                 TelemetryConfig)
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.resilience.faults import SOFT_KINDS
+    from repro_torch.train import checkpoint as ckmod
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = lm100m()
+    rcfg = res_config()
+    plan = FaultPlan.drill(ckpt_every=DRILL_EVERY)
+    real_save = ckmod.save
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fault_plan in (("clean", None), ("drill", plan)):
+            jsonl = os.path.join(tmp, f"{name}.jsonl")
+            runtime = Runtime(policy=slice_policy(0.2), device=dev, execution=ExecutionConfig(
+                resilience=rcfg, telemetry=TelemetryConfig(jsonl=jsonl, probes=False),
+                obs=ObsConfig(crash_dir=os.path.join(tmp, f"{name}-crash"))))
+            ckpt_dir = os.path.join(tmp, name)
+            sup = Supervisor(runtime, cfg, loop_opt(DRILL_STEPS), TrainerConfig(
+                steps=DRILL_STEPS, log_every=1, ckpt_dir=ckpt_dir, ckpt_every=DRILL_EVERY,
+                seed=RES_SEED), fault_plan=fault_plan)
+            saves = []  # the synchronous saves: (step, seconds, verified)
+
+            def save(d, step, tree, keep=3, saves=saves):
+                t0 = time.perf_counter()
+                real_save(d, step, tree, keep=keep)
+                saves.append((step, time.perf_counter() - t0, ckmod.verify(d, step)))
+
+            seen = []
+            data = LMStream(vocab=cfg.vocab, seed=RES_SEED).batches(BATCH, SEQ)
+            sync(dev)
+            mem0 = torch.cuda.memory_allocated(dev)
+            ops.reset_launch_counts()
+            ckmod.save = save
+            t0 = time.perf_counter()
+            try:
+                state, hist = sup.run(data, on_metrics=lambda m, seen=seen: seen.append(
+                    (m["step"], m["budget"], ops.launch_counts())))
+            finally:
+                ckmod.save = real_save
+            sync(dev)
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            add_counts(total, counts)
+            held = torch.cuda.memory_allocated(dev)
+            final_step = state.step
+            del state
+            sync(dev)
+            after = torch.cuda.memory_allocated(dev)
+            with open(jsonl) as f:
+                records = [json.loads(line) for line in f if line.strip()]
+            ob = runtime.observability()
+            out[name] = dict(sup=sup, hist=hist, seen=seen, counts=counts, wall=wall,
+                             mem=(mem0, held, after), records=records, saves=saves,
+                             final_step=final_step, ob=ob,
+                             bundles=sorted(os.listdir(os.path.join(tmp, f"{name}-crash")))
+                             if os.path.isdir(os.path.join(tmp, f"{name}-crash")) else [])
+    clean, drill = out["clean"], out["drill"]
+    sup = drill["sup"]
+    events = sup.events
+    kinds = [e["event"] for e in events]
+    fired = sorted(e["step"] for e in events if e["event"] == "fault_injected")
+    if fired != sorted(f.step for f in plan.faults) or clean["sup"].events:
+        raise AssertionError(f"faults fired at {fired}; the clean run's events "
+                             f"{clean['sup'].events}")
+    rb = [e for e in events if e["event"] == "rollback"]
+    if len(rb) != 1 or rb[0]["resume_step"] != 12 or rb[0]["steps_lost"] != 3 or \
+            "ckpt_io_recovered" not in kinds or sup.recoveries != 1:
+        raise AssertionError(f"drill events {events}")
+    sync_saves = drill["saves"]
+    if len(sync_saves) != 1 or not sync_saves[0][2]:
+        raise AssertionError(f"synchronous checkpoint saves (step, s, verified) {sync_saves}")
+    loss_c, loss_d = clean["hist"][-1]["loss"], drill["hist"][-1]["loss"]
+    if not abs(loss_d - loss_c) < 0.5 * loss_c + 0.1 or drill["final_step"] != DRILL_STEPS:
+        raise AssertionError(f"final loss {loss_d} against the clean run's {loss_c}")
+    sunk = {r["event"] for r in drill["records"] if "event" in r}
+    if not {"fault_injected", "sentinel_trip", "ckpt_io_recovered", "rollback"} <= sunk:
+        raise AssertionError(f"JSONL sink events {sorted(sunk)}")
+    # the launches by the sentinel's rules, on the host: the soft faults trip
+    trip_steps = {f.step for f in plan.faults if f.kind in SOFT_KINDS}
+    got_trips = {e["step"] for e in events if e["event"] == "sentinel_trip"}
+    first, rolled_at = sentinel_budgets(rcfg, trip_steps, 0, DRILL_STEPS)
+    retry, again = sentinel_budgets(rcfg, set(), rb[0]["resume_step"], DRILL_STEPS)
+    want = [sb for sb in first if sb[0] != rolled_at] + retry
+    got = [(h["step"], h["budget"]) for h in drill["hist"]]
+    n_sketched = sum(b is not None for _, b in first + retry)
+    if got_trips != trip_steps or rolled_at != rb[0]["step"] or again is not None or \
+            got != want or drill["counts"] != expected_counts("pallas", n_sketched) or \
+            clean["counts"] != expected_counts("pallas", DRILL_STEPS):
+        raise AssertionError(f"trips {sorted(got_trips)} (faults {sorted(trip_steps)}), rollback "
+                             f"at {rolled_at}; budgets {got}, by the rules {want}; launches "
+                             f"{drill['counts']} for {n_sketched} sketched steps")
+    prev = {k: 0 for k in drill["counts"]}
+    for step, budget, c in drill["seen"]:
+        delta = {k: c[k] - prev[k] for k in c}
+        prev = c
+        if delta != expected_counts("pallas", 0 if budget is None else 1):
+            raise AssertionError(f"drill step {step} (budget {budget}) launched {delta}")
+    builds = drill["ob"].report()["compile"]["entries"]
+    if len(builds) != 2:
+        raise AssertionError(f"{len(builds)} step builds across the attempts, want 2 (1.0, exact)")
+    (m0c, heldc, afterc), (m0d, heldd, afterd) = clean["mem"], drill["mem"]
+    if abs(heldd - heldc) > HELD_SLACK or abs(afterd - m0d) > MEM_SLACK or \
+            abs(afterc - m0c) > MEM_SLACK:
+        raise AssertionError(f"memory allocated (before, holding the final state, after): clean "
+                             f"{clean['mem']}, drill {drill['mem']}")
+    if "crash_000_ckpt_io" not in drill["bundles"] or \
+            not any(b.endswith("_rollback") for b in drill["bundles"]):
+        raise AssertionError(f"crash bundles {drill['bundles']}")
+    [span] = drill["ob"].tracer.spans("recovery.rollback")
+    [sync_span] = drill["ob"].tracer.spans("ckpt_save_sync")
+    lost = sum(e["steps_lost"] for e in rb)
+    wasted = lost / (DRILL_STEPS + lost)
+    print(f"[drill] lm-100m pallas l1@0.2, FaultPlan.drill(ckpt_every={DRILL_EVERY}) "
+          f"{[(f.step, f.kind) for f in plan.faults]} over {DRILL_STEPS} steps, through "
+          f"Supervisor: events {kinds}")
+    print(f"[drill]   every fault fired; sentinel trips at {sorted(got_trips)} (causes "
+          f"{[e['cause'] for e in events if e['event'] == 'sentinel_trip']}); one rollback at "
+          f"step {rb[0]['step']} to step {rb[0]['resume_step']}, steps_lost "
+          f"{rb[0]['steps_lost']}; budgets {[b for _, b in got]}; launches {drill['counts']} = "
+          f"{n_sketched} sketched steps by the sentinel's rules, 0 on the exact ones; step builds "
+          f"{len(builds)} across both attempts")
+    print(f"[drill]   ckpt_save_sync of step {sync_saves[0][0]}: {sync_saves[0][1]:.3f} s "
+          f"(its span {sync_span.duration_s:.3f} s includes this check's CRC re-read), "
+          f"verified; the rollback's wall "
+          f"{rb[0]['wall_s']:.4f} s (recovery.rollback span {span.duration_s:.4f} s); "
+          f"wasted_work_frac {wasted:.4f} ({lost} of {DRILL_STEPS + lost} steps)")
+    print(f"[drill]   final loss {loss_d:.6f} against the clean run's {loss_c:.6f} "
+          f"(|diff| {abs(loss_d - loss_c):.4g} < {0.5 * loss_c + 0.1:.4g}); wall s clean "
+          f"{clean['wall']:.2f}, drill {drill['wall']:.2f}; memory allocated GB (before, holding "
+          f"the final state, after) clean {[round(v / 1e9, 6) for v in clean['mem']]}, drill "
+          f"{[round(v / 1e9, 6) for v in drill['mem']]}; crash bundles {drill['bundles']}; "
+          f"JSONL {len(drill['records'])} records with events {sorted(sunk)}")
+
+
+def resilience(dev):
+    """Phase 12: resilience around the lm-100m trainer. Returns the launches
+    of all its runs."""
+    total = {}
+    t_phase = time.perf_counter()
+    for part in (res_on_off, res_faults, res_drill):
+        t0 = time.perf_counter()
+        part(dev, total)
+        print(f"[time]   {part.__name__} {time.perf_counter() - t0:.1f} s")
+    print(f"[time]   resilience {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -2486,6 +2849,11 @@ def main() -> int:
     for name, n in engine_counts.items():
         launches[name] += n
     print(f"[time] the serving engines {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res_counts = resilience(dev)
+    for name, n in res_counts.items():
+        launches[name] += n
+    print(f"[time] resilience {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -2521,7 +2889,8 @@ def main() -> int:
           f"the paper's models ({STEPS} steps each): {json.dumps(paper_path)}; the trainer "
           f"loop (all of phase 10's runs): {json.dumps(loop_counts)}; the serving engines "
           f"(phase 11: every engine run 0, then {ENGINE_TRAIN_STEPS} traced training steps): "
-          f"{json.dumps(engine_counts)}")
+          f"{json.dumps(engine_counts)}; resilience (all of phase 12's runs): "
+          f"{json.dumps(res_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -1,8 +1,8 @@
 """Execution configuration (port of ``repro/api/execution.py``).
 
-The JAX config also carries the mesh, shardings and resilience; none of
-those is ported yet. This one holds compact gradients, the accumulation
-count, telemetry and observability, and is the one factory for
+The JAX config also carries the mesh and the shardings, which are not ported
+yet. This one holds compact gradients, the accumulation count, telemetry,
+resilience and observability, and is the one factory for
 :class:`~repro_torch.nn.common.Ctx` outside the nn substrate.
 """
 from __future__ import annotations
@@ -27,6 +27,13 @@ class ExecutionConfig:
       telemetry: a :class:`repro_torch.telemetry.TelemetryConfig` turning on
         the per-site probes and naming optional sinks; ``None`` (the
         default) turns telemetry off. Probes require ``accum == 1``.
+      resilience: a :class:`repro_torch.resilience.ResilienceConfig`
+        turning on the fault-handling plumbing: the step takes a
+        ``fault_scale`` argument (fault injection without another step
+        build) and, with ``sentinel=True``, skips the optimizer update when
+        the loss or the gradient norm is non-finite or the norm explodes; a
+        run where the sentinel never trips is bit for bit a resilience-off
+        run. ``None`` (the default) builds the three-argument step.
       obs: a :class:`repro_torch.obs.ObsConfig` turning on spans, the
         metrics registry, the compile and memory ledgers and the flight
         recorder (``Runtime.observability()``); ``None`` (the default)
@@ -36,6 +43,7 @@ class ExecutionConfig:
     compact_grads: bool = False
     accum: int = 1
     telemetry: Optional[Any] = None  # repro_torch.telemetry.TelemetryConfig
+    resilience: Optional[Any] = None  # repro_torch.resilience.ResilienceConfig
     obs: Optional[Any] = None  # repro_torch.obs.ObsConfig
 
     def __post_init__(self):
@@ -48,6 +56,9 @@ class ExecutionConfig:
             raise ValueError("telemetry probes require accum == 1 (probe vectors would "
                              "average across microbatch plans); use TelemetryConfig("
                              "probes=False) with accumulation")
+        if self.resilience is not None and not hasattr(self.resilience, "sentinel"):
+            raise ValueError("resilience must be a repro_torch.resilience.ResilienceConfig, "
+                             f"got {self.resilience!r}")
         if self.obs is not None and not hasattr(self.obs, "trace_capacity"):
             raise ValueError(f"obs must be a repro_torch.obs.ObsConfig, got {self.obs!r}")
 

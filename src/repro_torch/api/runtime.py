@@ -150,7 +150,8 @@ class Runtime:
 
     def train_step(self, cfg, opt, *, budget: Optional[float] = 1.0) -> Callable:
         """``step_fn(state, batch, key) -> (state, metrics)`` of one budget
-        bucket (see :class:`BudgetSchedule`).
+        bucket (see :class:`BudgetSchedule`); with ``execution.resilience``
+        set, ``step_fn(state, batch, key, fault_scale)``.
 
         Cached on ``(runtime, cfg, opt, budget)``: the same Runtime gives the
         same step function, one build per schedule bucket, as JAX gives one

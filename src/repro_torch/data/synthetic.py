@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["LMStream", "classification"]
+__all__ = ["ClassStream", "LMStream", "classification"]
 
 
 @dataclasses.dataclass
@@ -42,6 +42,27 @@ class LMStream:
                 rand = rng.choice(self.vocab, size=batch, p=self._p)
                 toks[:, t + 1] = np.where(follow, self._succ[toks[:, t]], rand)
             yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            step += 1
+
+
+@dataclasses.dataclass
+class ClassStream:
+    """Infinite ``{"x", "y"}`` batch iterator over :func:`classification`
+    blobs — the §5 MLP's data in the shape ``train_loop`` consumes (each
+    batch is a fresh seeded draw, deterministic in ``(seed, step)``)."""
+
+    dim: int = 784
+    n_classes: int = 10
+    seed: int = 0
+    noise: float = 1.0
+
+    def batches(self, batch: int, *, start_step: int = 0):
+        step = start_step
+        while True:
+            x, y = classification(batch, self.dim, self.n_classes,
+                                  seed=(self.seed * 100003 + step),
+                                  noise=self.noise)
+            yield {"x": x, "y": y}
             step += 1
 
 

@@ -13,9 +13,9 @@ JSON directory under the configured ``crash_dir``::
         events.json   # noted events, oldest first
 
 Bundle names are deterministic (a per-recorder sequence number, no
-timestamps in paths). The callers that dump in JAX (the resilience
-supervisor, the trainer's checkpoint-fault recovery) come with the port's
-resilience slice.
+timestamps in paths). The trainer dumps a ``ckpt_io`` bundle when a
+checkpoint write fails, the resilience supervisor ``rollback``,
+``device_loss`` and ``checkpoint_error`` bundles.
 """
 from __future__ import annotations
 

@@ -34,7 +34,20 @@ loss and every gradient are averaged over the microbatches (``acc + g / k``
 from zeros, the order of JAX's scan), the refreshed plan carries with them,
 and every microbatch samples from the same carry, the state's. The metrics
 besides ``loss`` and ``grad_norm`` are the last microbatch's, as in JAX.
-Resilience is not ported yet.
+
+Resilience (``ExecutionConfig(resilience=ResilienceConfig())``): the step
+takes a fourth argument, ``fault_scale``, a Python float that multiplies the
+loss (of every microbatch) before the backward: 1.0 in normal operation, a
+bitwise identity; NaN or a large value under fault injection. With
+``sentinel=True`` the step computes ``ok`` from the loss and the gradient
+norm (``resilience.sentinel.trip_flag``), reads it once on the host and,
+when it is false, skips the optimizer update and the plan-carry write: the
+parameters, the moments and the carry stay bit for bit as they were, the
+step counter advances, and ``metrics["sentinel_trip"]`` is 1.0. JAX computes
+the new state and selects old or new leaf by leaf; the port's optimizers
+update in place, so there is no old state left to select, and a copy to
+select from would add the parameters' and moments' footprint to the step's
+peak (docs/port.md, "Resilience").
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ from repro_torch.core import plan_state as pstate
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.optim import Optimizer, global_grad_norm
+from repro_torch.resilience.sentinel import trip_flag
 from repro_torch.telemetry import probes as tprobes
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -119,21 +133,26 @@ def _split_batch(batch: dict, accum: int) -> list:
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPolicy] = None,
                     *, execution: Optional[ExecutionConfig] = None, device="cuda"):
-    """Returns ``step_fn(state, batch, key) -> (state, metrics)``; ``metrics``
-    holds tensors that the caller may fetch: the loss's metrics (``acc`` for
-    the MLP), ``loss``, ``grad_norm`` and, with probes on, the probe summary
-    (``probe_gsq``, ``probe_var``, ``probe_snr``, ``probe_align`` and, with
-    ``per_site``, the dict ``probe_sites``)."""
+    """Returns ``step_fn(state, batch, key) -> (state, metrics)``, or with
+    ``execution.resilience`` set ``step_fn(state, batch, key, fault_scale)``;
+    ``metrics`` holds tensors that the caller may fetch: the loss's metrics
+    (``acc`` for the MLP), ``loss``, ``grad_norm``, with probes on the probe
+    summary (``probe_gsq``, ``probe_var``, ``probe_snr``, ``probe_align``
+    and, with ``per_site``, the dict ``probe_sites``) and with the sentinel
+    on ``sentinel_trip``."""
     ex = execution or ExecutionConfig()
     dev = resolve_device(device)
     lm.check_supported(cfg)
     carry_on = pstate.policy_uses_carry(policy)
     tel = ex.telemetry
     probes_on = tel is not None and tel.probes and policy is not None and ex.accum == 1
+    rcfg = ex.resilience
 
-    def grads_of(params_in, batch, key):
+    def grads_of(params_in, batch, key, fault_scale):
         ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
         loss, metrics = lm.lm_loss(params_in, batch, ctx, cfg, key)
+        if fault_scale is not None:
+            loss = loss * fault_scale  # 1.0: a bitwise identity
         # a slotted weight's gradient leaves through its slot: it is not
         # differentiated (its Function returns None for it)
         targets = cgrad.grad_targets(params_in)
@@ -145,18 +164,18 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
         grads = tree_map(lambda t: next(flat) if isinstance(t, torch.Tensor) else t, targets)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def accumulated(params, batch, key):
+    def accumulated(params, batch, key, fault_scale):
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                        params)
         for m, mb in enumerate(_split_batch(batch, ex.accum)):
-            mloss, metrics, grads = grads_of(params, mb, micro_seed(key, m))
+            mloss, metrics, grads = grads_of(params, mb, micro_seed(key, m), fault_scale)
             loss = loss + mloss / ex.accum
             for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
                 a.add_(g / ex.accum)
         return loss, metrics, acc
 
-    def step_fn(state: TrainState, batch, key: int):
+    def base_step(state: TrainState, batch, key: int, fault_scale):
         batch = batch_to_device(batch, dev)
         _trainable(state.params)
         probe_metrics = {}
@@ -167,13 +186,13 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
                 params_in = cgrad.with_grad_slots(params_in, policy, n_layers=cfg.n_layers)
             if probes_on:
                 params_in = tprobes.with_probe_slots(params_in, policy, n_layers=cfg.n_layers)
-            loss, metrics, grads = grads_of(params_in, batch, key)
+            loss, metrics, grads = grads_of(params_in, batch, key, fault_scale)
             if probes_on:
                 grads, vecs = tprobes.collect_probes(grads)
                 probe_metrics = tprobes.summarize(vecs, per_site=tel.per_site)
             grads = cgrad.fold_slot_grads(grads)
         else:
-            loss, metrics, grads = accumulated(state.params, batch, key)
+            loss, metrics, grads = accumulated(state.params, batch, key, fault_scale)
         fresh = {}
         if carry_on:
             # the carry leaves' gradients ARE the refreshed scores (averaged
@@ -181,10 +200,29 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             # clipping and the moments see them
             grads, fresh = pstate.collect_plan_state(grads)
         gn = global_grad_norm(grads)
-        params, opt_state = opt.update(grads, state.opt_state, state.params, state.step)
-        # after the update: the optimizer saw zero gradients on the carry
-        params = pstate.write_plan_state(params, fresh)
+        ok = True
+        if rcfg is not None and rcfg.sentinel:
+            ok_t, tripped = trip_flag(loss, gn, rcfg.max_grad_norm)
+            probe_metrics = dict(probe_metrics, sentinel_trip=tripped)
+            # the one host read of the gate: the loop fetches the step's
+            # scalars right after it anyway
+            ok = bool(ok_t)
+        if ok:
+            params, opt_state = opt.update(grads, state.opt_state, state.params, state.step)
+            # after the update: the optimizer saw zero gradients on the carry
+            params = pstate.write_plan_state(params, fresh)
+        else:
+            # tripped: the moments must not take in a poisoned gradient, nor
+            # the carry its scores; the step counter still advances
+            params, opt_state = state.params, state.opt_state
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
         return new_state, dict(metrics, loss=loss, grad_norm=gn, **probe_metrics)
+
+    if rcfg is None:
+        def step_fn(state: TrainState, batch, key: int):
+            return base_step(state, batch, key, None)
+    else:
+        def step_fn(state: TrainState, batch, key: int, fault_scale: float):
+            return base_step(state, batch, key, fault_scale)
 
     return step_fn

@@ -8,13 +8,18 @@ JAX's spans (``train_loop``, ``build_buckets``, ``train_step`` per step,
 ``ckpt_wait``; the checkpoint writer's ``ckpt_io_write``), counts
 ``train.steps``, sets the ``train.budget`` gauge and takes a flight-recorder
 snapshot at every logged step, and exports the configured traces at the end.
-The JAX loop's resilience hooks (``faults=``, ``seed_salt=``, ``on_event=``,
-the sentinel, and the synchronous retry of a failed checkpoint write with its
-``ckpt_save_sync`` span) come with the port's resilience slice.
+With ``ExecutionConfig(resilience=ResilienceConfig())`` it runs JAX's
+resilience hooks: injected faults (``faults=``, each under a
+``fault_injected`` span), the gradient sentinel with its exact-bucket
+escalation and ``RollbackRequired``, per-attempt seed salts
+(``seed_salt=``), event records (``on_event=``, the sinks and the flight
+recorder), and the synchronous retry of a failed checkpoint write under a
+``ckpt_save_sync`` span with a ``ckpt_io`` crash bundle.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Callable, Iterable, Optional
 
@@ -27,6 +32,7 @@ from repro_torch.core import SketchPolicy
 from repro_torch.obs import clock, observability
 from repro_torch.optim import Optimizer
 from repro_torch.telemetry import sinks as tsinks
+from repro_torch.train import checkpoint as ckptlib
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.train_step import TrainState
 
@@ -92,7 +98,8 @@ def _policy_can_probe(policy) -> bool:
 
 def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable,
                tcfg: Optional[TrainerConfig] = None, *, state: Optional[TrainState] = None,
-               on_metrics: Optional[Callable] = None):
+               on_metrics: Optional[Callable] = None, faults=None, seed_salt: int = 0,
+               on_event: Optional[Callable] = None):
     """Run the loop under ``runtime``; returns ``(final_state, history)``.
 
     In JAX's order: resume from the newest verified checkpoint in
@@ -116,6 +123,25 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
     ``per_site=False`` when the runtime has no telemetry) and the controller
     reads ``probe_snr`` after every step. It raises with ``accum != 1`` and
     warns when no site of the policy can probe.
+
+    Resilience (``runtime.execution.resilience`` set): the steps take a
+    ``fault_scale``, and a :class:`~repro_torch.resilience.GradSentinel`
+    reads the step's scalars after every step: a skipped update shows as
+    ``sentinel_trip``, a trip runs the exact bucket (built with the others
+    before the loop) for K steps, and M consecutive trips raise
+    :class:`~repro_torch.resilience.RollbackRequired` for the supervisor,
+    before the step's checkpoint. ``faults`` is a
+    :class:`~repro_torch.resilience.FaultPlan` (or a supervisor's
+    :class:`~repro_torch.resilience.FaultInjector`); it raises
+    ``ValueError`` without ``resilience``. ``seed_salt`` folds one more term
+    into every step seed, ``rng.fold_in(rng.fold_in(seed, step + 1),
+    seed_salt)``, so a retried trajectory resamples its sketches; salt 0
+    folds nothing, so the first attempt is bit for bit a resilience-off
+    run. ``on_event`` receives every fault, trip and checkpoint-recovery
+    record (they also go to the telemetry sinks and the flight recorder). A
+    failed async checkpoint write raises
+    :class:`~repro_torch.train.checkpoint.CheckpointError` without
+    resilience; with it, the write is recorded and retried synchronously.
     """
     tcfg = tcfg or TrainerConfig()
     schedule = runtime.schedule
@@ -138,6 +164,19 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
                       "location-restricted policy, or no probe-capable site: a column-family "
                       "method and an estimator with the probe hook); the controller will "
                       "hold its first bucket", stacklevel=2)
+    rcfg = runtime.execution.resilience
+    if faults is not None and rcfg is None:
+        raise ValueError("faults= requires runtime.execution.resilience (the step needs its "
+                         "fault_scale argument); set ExecutionConfig(resilience="
+                         "ResilienceConfig())")
+    injector = sentinel = None
+    if rcfg is not None:
+        from repro_torch.resilience.faults import DeviceLossFault, FaultInjector
+        from repro_torch.resilience.sentinel import GradSentinel, RollbackRequired
+
+        injector = FaultInjector.wrap(faults)
+        if rcfg.sentinel:
+            sentinel = GradSentinel(rcfg)
     ob = observability(runtime.execution.obs)
     tracer = ob.tracer
     traced = tracer.enabled
@@ -151,13 +190,47 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
             state, step0 = restored
             print(f"[trainer] resumed from step {step0}")
 
-    # one step function per bucket, all built before the first step
+    # one step function per bucket, all built before the first step; the
+    # sentinel's escalation target (exact, None) joins them when the
+    # schedule alone would not build it
     buckets = schedule.buckets()
+    if sentinel is not None and None not in buckets:
+        buckets = buckets + (None,)
     with tracer.span("build_buckets", n_buckets=len(buckets)):
         steps_by_budget = {b: runtime.train_step(cfg, opt, budget=b) for b in buckets}
     controller = schedule.make_controller(policy=runtime.policy)
     fetch_each_step = bool(controller is not None and getattr(controller, "wants_metrics", False))
     sink = tsinks.build_sinks(tel)
+
+    def emit(rec: dict):
+        if sink is not None:
+            sink.write(dict(rec))
+        if on_event is not None:
+            on_event(dict(rec))
+        if ob.flight is not None:
+            ob.flight.note(rec)
+
+    def ckpt_wait_safe():
+        # drain a pending async write before raising a recovery fault, so the
+        # supervisor sees a settled directory (a write error is recorded: the
+        # rollback target is the newest verified checkpoint anyway)
+        if ckpt is None:
+            return
+        try:
+            with tracer.span("ckpt_wait"):
+                ckpt.wait()
+        except ckptlib.CheckpointError as e:
+            emit({"event": "ckpt_io_error", "step": step, "error": str(e)})
+            ob.dump_crash("ckpt_io", {"step": step, "error": str(e)})
+
+    def save_sync(at_step: int, logged_step: int, err):
+        # a failed async write, retried synchronously: one recorded hiccup,
+        # no lost checkpoint
+        emit({"event": "ckpt_io_recovered", "step": logged_step, "error": str(err)})
+        ob.dump_crash("ckpt_io", {"step": logged_step, "error": str(err)})
+        with tracer.span("ckpt_save_sync", step=at_step):
+            ckptlib.save(ckpt.dir, at_step, state, keep=ckpt.keep)
+
     reg = ob.metrics
     steps_counter = reg.counter("train.steps") if reg is not None else None
     budget_gauge = reg.gauge("train.budget") if reg is not None else None
@@ -167,7 +240,33 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
         with tracer.span("train_loop", start_step=state.step, steps=tcfg.steps):
             for step in range(state.step, tcfg.steps):
                 batch = next(data_it)
+                fscale = 1.0
+                fault = injector.take(step) if injector is not None else None
+                if fault is not None:
+                    emit({"event": "fault_injected", "step": step, "kind": fault.kind})
+                    with tracer.span("fault_injected", step=step, kind=fault.kind):
+                        if fault.kind == "device_loss":
+                            ckpt_wait_safe()
+                            raise DeviceLossFault(step, fault.mesh_shape, history=history,
+                                                  state=state)
+                        if fault.kind == "slow":
+                            time.sleep(fault.sleep_s)
+                        elif fault.kind == "ckpt_io":
+                            if ckpt is not None:
+                                ckptlib.inject_fault_once()
+                        elif fault.kind == "nonfinite":
+                            fscale = float("nan")
+                        elif fault.kind == "spike":
+                            fscale = fault.scale
+                key = rng.fold_in(tcfg.seed, step + 1)
+                if seed_salt:
+                    # a retried trajectory resamples its sketches; salt 0 folds
+                    # nothing, so the first attempt is a resilience-off run
+                    key = rng.fold_in(key, seed_salt)
+                args = (state, batch, key) if rcfg is None else (state, batch, key, fscale)
                 budget = controller.budget if controller else schedule.budget_at(step)
+                if sentinel is not None:
+                    budget = sentinel.override(budget)
                 fn = steps_by_budget[budget]
                 if controller:
                     controller.step_begin()
@@ -176,19 +275,31 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
                     # the attrs are built on the traced path only
                     with tracer.span("train_step", step=step,
                                      budget=-1.0 if budget is None else budget):
-                        state, metrics = fn(state, batch, rng.fold_in(tcfg.seed, step + 1))
+                        state, metrics = fn(*args)
                 else:
-                    state, metrics = fn(state, batch, rng.fold_in(tcfg.seed, step + 1))
+                    state, metrics = fn(*args)
                 if steps_counter is not None:
                     steps_counter.inc()
                 host_m = host_scalars = None
-                if controller:
+                if fetch_each_step or sentinel is not None:
                     # the scalars only: per-site vectors wait for the sink or log
-                    if fetch_each_step:
-                        host_scalars = _host_metrics(metrics, scalars_only=True)
-                    elif runtime.device.type == "cuda":
-                        torch.cuda.synchronize(runtime.device)  # the step's time
-                    controller.step_end(host_scalars)
+                    host_scalars = _host_metrics(metrics, scalars_only=True)
+                elif controller and runtime.device.type == "cuda":
+                    torch.cuda.synchronize(runtime.device)  # the step's time
+                if controller:
+                    controller.step_end(host_scalars if fetch_each_step else None)
+                if sentinel is not None:
+                    cause = sentinel.observe(step, host_scalars)
+                    if cause is not None:
+                        emit(tsinks.recovery_record(
+                            "sentinel_trip", step=step, cause=cause,
+                            escalate_steps=rcfg.escalate_steps,
+                            consecutive=sentinel.consecutive))
+                    if sentinel.should_rollback:
+                        # before maybe_save: a state the sentinel cannot
+                        # stabilise must never reach a checkpoint
+                        ckpt_wait_safe()
+                        raise RollbackRequired(step, sentinel.last_cause, history=history)
                 if sink is not None and step % tel.interval == 0:
                     host_m = _host_metrics(metrics)
                     sink.write(dict(host_m, step=step, budget=budget))
@@ -208,10 +319,20 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
                         print(f"[trainer] step {step:6d} loss {m['loss']:.4f} budget {b} "
                               f"({m['step_s'] * 1e3:.1f} ms)")
                 if ckpt is not None:
-                    ckpt.maybe_save(step + 1, state)
+                    try:
+                        ckpt.maybe_save(step + 1, state)
+                    except ckptlib.CheckpointError as e:
+                        if rcfg is None:
+                            raise
+                        save_sync(step + 1, step, e)
             if ckpt is not None:
-                with tracer.span("ckpt_wait"):
-                    ckpt.wait()
+                try:
+                    with tracer.span("ckpt_wait"):
+                        ckpt.wait()
+                except ckptlib.CheckpointError as e:
+                    if rcfg is None:
+                        raise
+                    save_sync(tcfg.steps, tcfg.steps, e)
     finally:
         if sink is not None:
             sink.close()

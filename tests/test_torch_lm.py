@@ -215,20 +215,22 @@ def test_site_seeds_follow_step_layer_role_and_never_repeat():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """The package (the §5 models, rcs and variance, the serving engines and
-    the observability layer included), its benchmarks and chip_smoke.py
-    import no JAX and nothing of repro."""
+    """The package (the §5 models, rcs and variance, the serving engines, the
+    observability and resilience layers included), its benchmarks and
+    chip_smoke.py import no JAX and nothing of repro."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
              + sorted((ROOT / "benchmarks" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/models/mlp.py", "src/repro_torch/models/vision.py",
             "src/repro_torch/core/variance.py", "benchmarks/torch/quickstart.py",
-            "benchmarks/torch/fig3_larger_archs.py", "benchmarks/torch/serve_lm.py"} <= names
-    # the serving engines and the observability layer, pure-Python modules
-    # included: the port keeps its own copy of each
+            "benchmarks/torch/fig3_larger_archs.py", "benchmarks/torch/serve_lm.py",
+            "benchmarks/torch/bench_resilience.py"} <= names
+    # the serving engines, the observability and resilience layers,
+    # pure-Python modules included: the port keeps its own copy of each
     for sub, mods in (("obs", ("__init__", "clock", "metrics", "tracing", "ledgers", "flight")),
-                      ("serve", ("config", "scheduler", "kv_cache", "engine", "legacy"))):
+                      ("serve", ("config", "scheduler", "kv_cache", "engine", "legacy")),
+                      ("resilience", ("__init__", "faults", "sentinel", "supervisor"))):
         assert {f"src/repro_torch/{sub}/{m}.py" for m in mods} <= names
     assert len(files) > 20
     offenders = [str(f) for f in files if pat.search(f.read_text())]
