@@ -129,7 +129,31 @@ which raises on failure:
    (0 on the exact steps), one step build per bucket across both attempts,
    the allocator back at the clean run's level; the synchronous save's and
    the rollback's seconds and the wasted-work fraction printed;
-13. one JSON line listing the ported kernels, then the last line
+13. the model families from the named-config registry: every named config
+   resolves, the four unported families refused by name;
+   ``sample_independent`` on NaN probabilities on the card (nothing kept, no
+   assert); the score, fused and stream kernels at olmoe-1b-7b's and
+   gemma3-1b's l1@0.2 shapes (expert buckets of 320 rows, an all-zero bucket
+   among them) and flash at their prefills, against the plain versions;
+   olmoe-1b-7b (d 2048, 64 experts top-8, expert d_ff 1024, vocab 50,304;
+   cut to 4 of 16 layers and float32) and gemma3-1b (its full 26 layers,
+   vocab 262,144; float32), each at batch 4 x 512: one gradient at budget
+   0.999 equal to exact backprop's for every leaf (olmoe under ``pallas``,
+   ``onepass`` and ``stale``, gemma3 under ``pallas``), then
+   ``Runtime.train`` for 3 steps at l1@0.2 block 128 under each of those
+   backends with the launch counts set to 0 before and read after (olmoe
+   784 per kernel per step, 4 x (4 + 3 x 64) sites; gemma3 182), finite
+   losses and aux, the replicas dropped by the capacity printed; one exact
+   step beside one pallas step (ms, device-busy ms, device ops, idle share,
+   peak memory); serving through ``Runtime.prefill_step`` /
+   ``decode_step`` with ``attn_impl="pallas"``: olmoe at its full 16 layers
+   (4 x 512 prompts), gemma3 (2 x 2048 prompts, its local layers windowed at
+   512 with ring caches), 16 greedy decode steps each, one flash launch per
+   layer in prefill and none in decode, logits within LOGIT_RTOL of the same
+   calls under plain attention (teacher-forced), MoE prompts whose routing
+   swapped at a near tie (router margin below ROUTER_TIE) counted and left
+   out of the comparison;
+14. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
@@ -2754,6 +2778,572 @@ def resilience(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Model families (phase 13): the named-config registry, olmoe-1b-7b (64
+# experts top-8) and gemma3-1b (5 local : 1 global), trained and served
+# ---------------------------------------------------------------------------
+
+# training batch of both models: 2,048 token rows (olmoe's expert capacity is
+# then ceil(2048 * 8 * 1.25 / 64) = 320 rows per bucket)
+FAM_BATCH, FAM_SEQ = 4, 512
+FAM_STEPS = 3
+# olmoe trains at 4 of its 16 layers: float32 weights, gradients and AdamW's
+# two moments take 16 B per parameter, ~30 GB at 4 layers (~110 GB at 16)
+OLMOE_TRAIN_LAYERS = 4
+# serving (prompts, tokens per prompt): olmoe at full depth; gemma3 with
+# prompts four times its 512-token window
+FAM_SERVE = {"olmoe-1b-7b": (4, 512), "gemma3-1b": (2, 2048)}
+FAM_DECODE = 16
+FAM_SEED = 41
+# routing near ties (olmoe serving, flash against plain attention): float32
+# reorderings move the router's probabilities by ~1e-7 (inputs ~1e-6 relative,
+# probabilities ~1e-2); a token's k-th and (k+1)-th experts can swap only
+# when their probabilities are closer than that. A swap whose margin in the
+# plain run is below ROUTER_TIE is a near tie; a larger one fails the run
+ROUTER_TIE = 1e-5
+# the shapes of the families' kernels at l1@0.2, block 128, and their calls
+# per step: (N, n, d, rb) -> calls (olmoe: 4 layers, 4 attention and 3 x 64
+# expert sites each; gemma3: 26 layers of 7 sites)
+FAM_BLOCK_SHAPES = {
+    "olmoe-1b-7b": {(2048, 2048, 2048, 3): 16, (320, 1024, 2048, 2): 512,
+                    (320, 2048, 1024, 3): 256},
+    "gemma3-1b": {(2048, 1024, 1152, 2): 26, (2048, 256, 1152, 1): 52,
+                  (2048, 1152, 1024, 2): 26, (2048, 6912, 1152, 11): 52,
+                  (2048, 1152, 6912, 2): 26}}
+# flash per prefill: (B, Sq, Skv, H, Kv, dh, causal, window) -> calls
+FAM_FLASH_SHAPES = {
+    "olmoe-1b-7b": {(4, 512, 512, 16, 16, 128, True, None): 16},
+    "gemma3-1b": {(2, 2048, 2048, 4, 1, 256, True, 512): 22,
+                  (2, 2048, 2048, 4, 1, 256, True, None): 4}}
+
+
+def family_cfgs():
+    """(olmoe training, olmoe serving, gemma3) configs from the registry:
+    float32 (published bfloat16); olmoe's training depth cut to
+    OLMOE_TRAIN_LAYERS; gemma3 at its full config."""
+    from repro_torch.configs.registry import get_config
+
+    f32 = dict(dtype="float32", param_dtype="float32")
+    olmoe = get_config("olmoe-1b-7b").replace(**f32)
+    return (olmoe.replace(n_layers=OLMOE_TRAIN_LAYERS), olmoe,
+            get_config("gemma3-1b").replace(**f32))
+
+
+def family_registry():
+    """Every named config from the registry: the ported ones pass the
+    decoder check, the four unported families raise NotImplementedError."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    ported, refused = [], []
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch.replace("_", "-"))
+        try:
+            lm.check_decoder(cfg)
+            ported.append(cfg.name)
+        except NotImplementedError as e:
+            if cfg.name not in str(e):
+                raise AssertionError(f"the refusal does not name {cfg.name}: {e}")
+            refused.append(cfg.name)
+    if sorted(refused) != ["qwen2-vl-2b", "rwkv6-3b", "seamless-m4t-large-v2", "zamba2-7b"]:
+        raise AssertionError(f"refused {refused}")
+    print(f"[families] registry: {len(ported)} ported {ported}; refused {refused}")
+
+
+def sites_per_step(cfg) -> int:
+    """Sketched sites of one step of ``cfg`` (every linear but the head)."""
+    from repro_torch.models import lm
+
+    return sum(4 + (3 * cfg.n_experts if k.moe else 3) for k in lm.layer_kinds(cfg))
+
+
+def family_counts(cfg, backend, steps):
+    from repro_torch.kernels import ops
+
+    n = steps * sites_per_step(cfg)
+    return {name: n if name in SITE_KERNELS[backend] else 0 for name in ops.KERNELS}
+
+
+def family_kernels(gen, dev):
+    """The score, fused and stream kernels at the families' shapes (float32,
+    the paths' type), an all-zero expert bucket among them, and flash at
+    their prefills, against the plain versions. Returns rows per kernel."""
+    from repro_torch.kernels import col_scores
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import sketch_matmul as sm
+
+    f32 = torch.float32
+    rows = {"col_l1_scores": [], "block_gather_matmul_fused": [],
+            "block_stream_matmul_fused": [], "flash_attention": []}
+    for model, shapes in FAM_BLOCK_SHAPES.items():
+        for (N, n, d, rb), calls in shapes.items():
+            idx = torch.sort(torch.randperm(n // BLOCK, generator=gen,
+                                            device=dev)[:rb]).values.to(torch.int32)
+            scales = 1.0 + 4.0 * torch.rand(rb, generator=gen, device=dev)
+            W = torch.randn((n, d), generator=gen, device=dev) * d ** -0.5
+            for zero in ((False, True) if N == 320 else (False,)):
+                if zero:  # an expert no token chose: its bucket is zeros
+                    G, X = torch.zeros((N, n), device=dev), torch.zeros((N, d), device=dev)
+                else:
+                    G = torch.randn((N, n), generator=gen, device=dev)
+                    X = torch.randn((N, d), generator=gen, device=dev)
+                args = (G, idx, scales, W, X)
+                checks = [("col_l1_scores", col_scores.col_l1_scores(G),
+                           col_scores.col_l1_scores_plain(G))]
+                for name, kw in (("block_gather_matmul_fused", dict(with_scores=False)),
+                                 ("block_gather_matmul_fused", dict(with_scores=True)),
+                                 ("block_stream_matmul_fused", {})):
+                    outs = getattr(sm, name)(*args, block=BLOCK, **kw)
+                    want = getattr(sm, name + "_plain")(*args, block=BLOCK, **kw)
+                    checks.extend((name, a, b) for a, b in zip(outs, want))
+                torch.cuda.synchronize()
+                errs = {}
+                for name, a, b in checks:
+                    if zero:
+                        if a.any() or not torch.equal(a, b):
+                            raise AssertionError(f"{name} on an all-zero bucket: not zeros")
+                        e = 0.0
+                    else:
+                        e = max_err(a, b, 1e-5)[0]
+                    errs[name] = max(errs.get(name, 0.0), e)
+                if zero:
+                    print(f"[family-kernel] {model} all-zero bucket {[N, n, d, rb]}: every "
+                          "kernel gives its plain version's zeros")
+                    continue
+                tag = dict(model=model, shape=[N, n, d, rb], dtype="float32", calls=calls)
+                kept = rb * BLOCK
+                rows["col_l1_scores"].append(dict(
+                    tag, shape=[N, n], mode="l1", max_abs_err=errs["col_l1_scores"],
+                    ms=cuda_ms(lambda: col_scores.col_l1_scores(G)),
+                    plain_ms=cuda_ms(lambda: col_scores.col_l1_scores_plain(G)),
+                    library_ms=cuda_ms(lambda: G.abs().sum(0)),
+                    **bound(4 * N * n + 4 * n, 2 * N * n, f32)))
+                rows["block_gather_matmul_fused"].append(dict(
+                    tag, with_scores=False, max_abs_err=errs["block_gather_matmul_fused"],
+                    ms=cuda_ms(lambda: sm.block_gather_matmul_fused(*args, block=BLOCK)),
+                    plain_ms=cuda_ms(lambda: sm.block_gather_matmul_fused_plain(
+                        *args, block=BLOCK)),
+                    **bound(4 * (N * kept + 2 * kept * d + 2 * N * d) + 8 * rb + 4 * kept,
+                            4 * N * kept * d + 2 * N * kept, f32)))
+                rows["block_stream_matmul_fused"].append(dict(
+                    tag, mode="l1", max_abs_err=errs["block_stream_matmul_fused"],
+                    ms=cuda_ms(lambda: sm.block_stream_matmul_fused(*args, block=BLOCK)),
+                    plain_ms=cuda_ms(lambda: sm.block_stream_matmul_fused_plain(
+                        *args, block=BLOCK)),
+                    **bound(4 * (N * n + 2 * kept * d + 2 * N * d) + 8 * rb + 4 * kept + 4 * n,
+                            4 * N * kept * d + 2 * N * n, f32)))
+                for name in ("col_l1_scores", "block_gather_matmul_fused",
+                             "block_stream_matmul_fused"):
+                    print(f"[family-kernel] {name} {rows[name][-1]}")
+                del G, X, args
+    for model, shapes in FAM_FLASH_SHAPES.items():
+        for (B, Sq, Skv, H, Kv, dh, causal, window), calls in shapes.items():
+            q = torch.randn((B, Sq, H, dh), generator=gen, device=dev)
+            k = torch.randn((B, Skv, Kv, dh), generator=gen, device=dev)
+            v = torch.randn((B, Skv, Kv, dh), generator=gen, device=dev)
+            kw = dict(causal=causal, window=window)
+            got = fa.flash_attention(q, k, v, **kw)
+            err, tol = max_err(got, fa.flash_attention_plain(q, k, v, **kw), TOL[f32])
+            row = dict(model=model, shape=[B, Sq, Skv, H, Kv, dh], causal=causal,
+                       window=window, dtype="float32", calls=calls, max_abs_err=err, tol=tol,
+                       ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                       plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw)),
+                       library_ms=cuda_ms(sdpa_call(q, k, v, causal, window)),
+                       **bound(4 * (2 * q.numel() + k.numel() + v.numel()),
+                               4 * dh * B * H * unmasked_pairs(Sq, Skv, causal, window), f32))
+            print(f"[family-kernel] flash_attention {row}")
+            rows["flash_attention"].append(row)
+            del q, k, v, got
+    for name, rs in rows.items():
+        for model in FAM_BLOCK_SHAPES:
+            mine = [r for r in rs if r["model"] == model]
+            if mine:
+                print(f"[family-kernel] {name} {model}: {per_step(mine, 'ms'):.3f} ms per "
+                      f"{'prefill' if name == 'flash_attention' else 'step'} (bound "
+                      f"{per_step(mine, 'bound_ms'):.3f}, plain {per_step(mine, 'plain_ms'):.3f}"
+                      + (f", library {per_step(mine, 'library_ms'):.3f}"
+                         if "library_ms" in mine[0] else "") + ")")
+    return rows
+
+
+class RouteSpy:
+    """Wraps ``nn.moe._moe_local`` and records, per call, each token's top-k
+    expert set, its router margin (k-th against (k+1)-th probability), which
+    of its replicas the capacity keeps, and the replicas dropped. The
+    records are the router's own computation repeated; nothing of the
+    layer's output changes."""
+
+    def __init__(self):
+        from repro_torch.nn import moe
+
+        self.moe, self.real, self.calls = moe, moe._moe_local, []
+
+    def __enter__(self):
+        self.moe._moe_local = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._moe_local = self.real
+
+    def __call__(self, router_w, wi, wg, wo, x2d, ctx, cfg, e_offset, n_total, cap):
+        k = cfg.top_k
+        with torch.no_grad():
+            probs = torch.softmax(x2d.float() @ router_w.float().t(), dim=-1)
+            top = torch.topk(probs, k + 1, dim=-1)
+            ids = top.indices[:, :k]
+            flat = ids.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            starts = torch.searchsorted(flat[order], torch.arange(n_total, device=flat.device))
+            ranks = torch.empty_like(flat).scatter_(
+                0, order, torch.arange(flat.numel(), device=flat.device) - starts[flat[order]])
+            # each token's experts and their kept flags in expert order: the
+            # top-k order of two equal sets may differ
+            sets, by_expert = torch.sort(ids, dim=-1)
+            keep = (ranks < cap).reshape(ids.shape).gather(-1, by_expert)
+            self.calls.append(dict(sets=sets, keep=keep,
+                                   margin=top.values[:, k - 1] - top.values[:, k],
+                                   dropped=(~keep).sum()))
+        return self.real(router_w, wi, wg, wo, x2d, ctx, cfg, e_offset, n_total, cap)
+
+
+def family_grads(dev, cfg, backends, batch, seed):
+    """Budget 0.999 under each backend against exact backprop: the loss, every
+    gradient leaf (expert stacks and router included) within GRAD_RTOL of the
+    leaf's largest magnitude, and exactly the backend's kernels at every
+    site."""
+    from repro_torch.api import Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    params = lm.init_params(seed, cfg, device=dev)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(policy, key=7):
+        ctx = Runtime(policy=policy, device=dev).ctx(key, n_layers=cfg.n_layers)
+        loss, m = lm.lm_loss(params, batch, ctx, cfg, key if policy else None)
+        return loss.detach(), m["aux"].detach(), torch.autograd.grad(loss, leaves)
+
+    loss_e, aux_e, g_exact = grads(None)
+    for backend in backends:
+        ops.reset_launch_counts()
+        loss_s, aux_s, g_sk = grads(slice_policy(0.999, backend))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts != family_counts(cfg, backend, 1):
+            raise AssertionError(f"{cfg.name} {backend}@0.999 launched {counts}, want "
+                                 f"{family_counts(cfg, backend, 1)}")
+        if not (torch.equal(loss_s, loss_e) and torch.equal(aux_s, aux_e)):
+            raise AssertionError(f"{cfg.name}: the forward changed under sketching: loss "
+                                 f"{loss_s.item()} vs {loss_e.item()}")
+        worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                    for a, b in zip(g_sk, g_exact))
+        if not worst <= GRAD_RTOL:
+            raise AssertionError(f"{cfg.name} {backend}@0.999 vs exact gradients: max rel err "
+                                 f"{worst:.3e} > {GRAD_RTOL}")
+        print(f"[families] {cfg.name} ({cfg.n_layers} layers) {backend} budget 0.999: "
+              f"{len(leaves)} gradient leaves equal exact backprop's, max rel err {worst:.3e} "
+              f"(tol {GRAD_RTOL}); loss {loss_e.item():.6f} aux {aux_e.item():.6f}; "
+              f"launches {counts}")
+        del g_sk
+    del params, leaves, g_exact
+
+
+def family_train(dev, cfg, backend, data_seed):
+    """The main path of one family and backend: Runtime.train for FAM_STEPS
+    steps at l1@0.2, block 128, AdamW, the launch counts set to 0 just before
+    and read just after; losses and aux finite; the replicas dropped by the
+    capacity counted."""
+    from repro_torch.api import Runtime
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.trainer import TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    runtime = Runtime(policy=slice_policy(0.2, backend), device=dev)
+    opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
+    data = LMStream(vocab=cfg.vocab, seed=data_seed).batches(FAM_BATCH, FAM_SEQ)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with RouteSpy() as spy:
+        ops.reset_launch_counts()
+        state, history = runtime.train(cfg, opt, data, TrainerConfig(
+            steps=FAM_STEPS, log_every=1, seed=FAM_SEED))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    want = family_counts(cfg, backend, FAM_STEPS)
+    if counts != want:
+        raise AssertionError(f"{cfg.name} {backend} main path launched {counts}, want {want}")
+    losses = [h["loss"] for h in history]
+    auxes = [h["aux"] for h in history]
+    if len(history) != FAM_STEPS or not all(map(math.isfinite, losses + auxes)):
+        raise AssertionError(f"{cfg.name} {backend}: losses {losses}, aux {auxes}")
+    if not all(torch.isfinite(p).all() for p in tree_leaves(state.params)):
+        raise AssertionError(f"{cfg.name} {backend}: non-finite parameters")
+    replicas = sum(c["sets"].numel() for c in spy.calls)
+    print(f"[families] {cfg.name} train {backend} l1@0.2 block {BLOCK}, batch "
+          f"{FAM_BATCH}x{FAM_SEQ}, {cfg.n_layers} layers, {sites_per_step(cfg)} sketched "
+          f"sites per step: losses {losses}, aux {auxes}, step ms "
+          f"{[round(1e3 * h['step_s'], 1) for h in history]} (first includes warm-up), peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {counts}"
+          + (f", token replicas dropped by the capacity "
+             f"{sum(int(c['dropped']) for c in spy.calls)} of {replicas}"
+             if cfg.n_experts else ""))
+    del state
+    return counts
+
+
+def family_breakdown(dev, cfg, data_seed):
+    """One exact step beside one pallas l1@0.2 step (AdamW, after a warm-up
+    step each): synced ms per step, and under the profiler device-busy ms,
+    device ops and the device-idle share; peak memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Runtime
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.optim import adamw, cosine_warmup
+
+    batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=data_seed).batches(
+        FAM_BATCH, FAM_SEQ), range(3))]
+    for label, policy in (("exact", None), ("pallas-l1@0.2", slice_policy(0.2))):
+        runtime = Runtime(policy=policy, device=dev)
+        opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = runtime.init_state(FAM_SEED, cfg, opt)
+        fn = runtime.train_step(cfg, opt)
+        state, m = fn(state, batches[0], 1)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batches[1], 2)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = fn(state, batches[2], 3)
+            float(m["loss"])
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(_device_us(e) for e in kern) / 1e3
+        print(f"[families] {cfg.name} breakdown {label}: {step_ms:.1f} ms/step (synced, one "
+              f"step); profiled step: device busy {busy:.1f} ms in "
+              f"{sum(e.count for e in kern)} device ops, device idle "
+              f"{100 * max(0.0, 1 - busy / step_ms):.0f}% of the unprofiled step; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        for e in sorted(kern, key=_device_us, reverse=True)[:4]:
+            print(f"[families]   device {_device_us(e) / 1e3:8.2f} ms x{e.count:<6d} "
+                  f"{e.key[:80]}")
+        del state, fn, opt
+        torch.cuda.empty_cache()
+
+
+def _routing_divergence(ref_calls, run_calls, B, diverged):
+    """Walk the MoE calls of two runs (layer by layer, in order) and mark in
+    ``diverged`` the rows whose routing first differs. A row's first
+    difference must be a top-k swap whose margin in the reference is below
+    ROUTER_TIE, or a kept replica that differs in a call where some row's
+    top-k set differs (the capacity is shared across rows). Returns
+    (near-tie swaps, largest such margin)."""
+    swaps, worst = 0, 0.0
+    for ref, run in zip(ref_calls, run_calls, strict=True):
+        rows = torch.arange(ref["sets"].shape[0], device=ref["sets"].device) // (
+            ref["sets"].shape[0] // B)
+        live = ~diverged[rows]
+        differs = (ref["sets"] != run["sets"]).any(-1)
+        flip = differs & live
+        keepd = (ref["keep"] != run["keep"]).any(-1) & live & ~differs
+        if flip.any():
+            m = ref["margin"][flip]
+            if not bool((m < ROUTER_TIE).all()):
+                raise AssertionError(f"a top-k swap with router margin {m.max().item():.3e} "
+                                     f">= {ROUTER_TIE}: not a near tie")
+            swaps += int(flip.sum())
+            worst = max(worst, m.max().item())
+        if keepd.any() and not differs.any():
+            raise AssertionError("kept replicas differ in a call whose routing does not")
+        diverged[rows[flip | keepd]] = True
+    return swaps, worst
+
+
+def family_serve(dev, cfg):
+    """Serving of one family at its FAM_SERVE prompts: Runtime.prefill_step
+    with attn_impl="pallas" (one flash launch per layer, the local layers'
+    with their window) and FAM_DECODE greedy decode_steps (no launch), the
+    counts set to 0 before and read after each; then the same calls under
+    plain attention, teacher-forced on the kernel run's tokens. Logits must
+    agree within LOGIT_RTOL of the largest logit. For MoE, rows whose
+    routing diverged at a near tie (``_routing_divergence``) are counted and
+    left out of the comparison. Returns the launch counts."""
+    from repro_torch.api import Runtime
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    from repro_torch.serve import greedy_sample
+
+    def dropped(calls):
+        return sum(int(c["dropped"]) for c in calls)
+
+    decode_cap = moe.capacity(FAM_SERVE[cfg.name][0], moe.MoECfg(
+        cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.capacity_factor)) if cfg.n_experts else 0
+
+    cfg = cfg.replace(attn_impl="pallas")
+    B, S = FAM_SERVE[cfg.name]
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(FAM_SEED, cfg, device=dev)
+    n_params = lm.num_params(params)
+    prompts = np.random.default_rng(FAM_SEED).integers(1, cfg.vocab, size=(B, S))
+    runtime = Runtime(device=dev)
+    prefill = runtime.prefill_step(cfg, S + FAM_DECODE)
+    decode = runtime.decode_step(cfg)
+    want = {name: 0 for name in ops.KERNELS}
+
+    def generate(forced=None):
+        with RouteSpy() as spy:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after_prefill = ops.launch_counts()
+            ops.reset_launch_counts()
+            n_prefill = len(spy.calls)
+            cur = greedy_sample(logits[:, -1:])
+            fed, steps = [], []
+            for i in range(FAM_DECODE):
+                if forced is not None:
+                    cur = forced[i]
+                fed.append(cur)
+                lg, caches = decode(params, caches, cur, S + i)
+                steps.append(lg)
+                cur = greedy_sample(lg)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            after_decode = ops.launch_counts()
+        sizes = [c["k"].shape[1] for c in caches]
+        return dict(logits=logits, fed=fed, steps=steps, counts=(after_prefill, after_decode),
+                    calls=spy.calls, n_prefill=n_prefill, sizes=sizes,
+                    ms=(1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+
+    run = generate()
+    want["flash_attention"] = cfg.n_layers
+    if run["counts"] != (want, {name: 0 for name in ops.KERNELS}):
+        raise AssertionError(f"{cfg.name} serving launched {run['counts']} (prefill, decode); "
+                             f"want {cfg.n_layers} flash per prefill, 0 in decode")
+    want_sizes = [S + FAM_DECODE if k.window is None else min(k.window, S + FAM_DECODE)
+                  for k in lm.layer_kinds(cfg)]
+    if run["sizes"] != want_sizes:
+        raise AssertionError(f"cache sizes {run['sizes']}, want {want_sizes}")
+    real = ops.flash_attention
+    ops.flash_attention = fa.flash_attention_plain
+    try:
+        ref = generate(forced=run["fed"])
+    finally:
+        ops.flash_attention = real
+    diverged = torch.zeros(B, dtype=torch.bool, device=dev)
+    swaps, worst = 0, 0.0
+    if cfg.n_experts:
+        # the prefill's calls, then each decode step's, in order
+        swaps, worst = _routing_divergence(ref["calls"][:ref["n_prefill"]],
+                                           run["calls"][:run["n_prefill"]], B, diverged)
+    keep = ~diverged
+    errs = ([max_err(run["logits"][keep], ref["logits"][keep], LOGIT_RTOL)[0]]
+            if keep.any() else [])
+    per_step = (len(run["calls"]) - run["n_prefill"]) // FAM_DECODE
+    differ = 0
+    for i, (a, b) in enumerate(zip(run["steps"], ref["steps"])):
+        if cfg.n_experts:
+            lo = run["n_prefill"] + i * per_step
+            s, w = _routing_divergence(ref["calls"][lo:lo + per_step],
+                                       run["calls"][lo:lo + per_step], B, diverged)
+            swaps, worst = swaps + s, max(worst, w)
+        keep = ~diverged
+        if keep.any():
+            errs.append(max_err(a[keep], b[keep], LOGIT_RTOL)[0])
+        nxt = run["fed"][i + 1] if i + 1 < FAM_DECODE else greedy_sample(a)
+        differ += int((greedy_sample(b)[keep] != nxt[keep]).sum())
+    if not keep.any():
+        raise AssertionError(f"{cfg.name}: routing diverged in every prompt, none left to "
+                             "compare")
+    prefill_ms, decode_ms = run["ms"]
+    print(f"[families] {cfg.name} serve: {n_params} params ({cfg.n_layers} layers, "
+          f"{4 * n_params / 2**30:.1f} GiB float32), {B} prompts x {S} tokens, attn_impl "
+          f"pallas: prefill {prefill_ms:.1f} ms ({B * S / prefill_ms * 1e3:.0f} tokens/s), "
+          f"{FAM_DECODE} greedy decode steps {decode_ms / FAM_DECODE:.2f} ms each; launches "
+          f"prefill {run['counts'][0]['flash_attention']} flash, decode 0; cache slots per "
+          f"layer {sorted(set(run['sizes']))}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print(f"[families] {cfg.name} serve against plain attention (teacher-forced): logits max "
+          f"|err| {max(errs):.3e} (tol {LOGIT_RTOL} of the largest logit) over "
+          f"{int(keep.sum())} of {B} prompts; greedy tokens differing {differ}"
+          + (f"; routing swaps at near ties {swaps} (largest margin {worst:.3e}, threshold "
+             f"{ROUTER_TIE}), prompts left out {int((~keep).sum())}; replicas dropped by the "
+             f"capacity in the kernel run: prefill {dropped(run['calls'][:run['n_prefill']])} "
+             f"of {B * S * cfg.top_k * cfg.n_layers}, decode "
+             f"{dropped(run['calls'][run['n_prefill']:])} of "
+             f"{B * FAM_DECODE * cfg.top_k * cfg.n_layers} (capacity "
+             f"{decode_cap} per expert at N = {B})"
+             if cfg.n_experts else ""))
+    del params, run, ref
+    torch.cuda.empty_cache()
+    return {name: (cfg.n_layers if name == "flash_attention" else 0) for name in ops.KERNELS}
+
+
+def families(dev, gen):
+    """Phase 13. Returns (launches of its main paths, kernel rows)."""
+    from repro_torch.core import solver
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import batch_to_device
+
+    total = {name: 0 for name in ops.KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    t_phase = time.perf_counter()
+    family_registry()
+    # the sampler of exact_r=False sketches on a NaN probability: nothing kept,
+    # no device-side assert
+    p = torch.tensor([0.5, float("nan"), 1.0, 0.0] * 256, device=dev)
+    z = solver.sample_independent(gen, p)
+    torch.cuda.synchronize()
+    if z[1::4].any() or not z[2::4].all() or z[3::4].any():
+        raise AssertionError("sample_independent kept a NaN or 0 column, or dropped a 1")
+    print("[families] sample_independent on NaN probabilities: nothing kept, no assert")
+    t0 = time.perf_counter()
+    rows = family_kernels(gen, dev)
+    print(f"[time]   family kernels {time.perf_counter() - t0:.1f} s")
+    olmoe_train, olmoe_serve, gemma = family_cfgs()
+    for cfg, backends in ((olmoe_train, BACKENDS), (gemma, ("pallas",))):
+        t0 = time.perf_counter()
+        batch = batch_to_device(next(LMStream(vocab=cfg.vocab, seed=FAM_SEED).batches(
+            FAM_BATCH, FAM_SEQ)), dev)
+        family_grads(dev, cfg, backends, batch, FAM_SEED)
+        del batch
+        print(f"[time]   {cfg.name} budget-0.999 gradients {time.perf_counter() - t0:.1f} s")
+        for backend in backends:
+            t1 = time.perf_counter()
+            add(family_train(dev, cfg, backend, FAM_SEED + 1))
+            print(f"[time]   {cfg.name} train {backend} {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        family_breakdown(dev, cfg, FAM_SEED + 2)
+        torch.cuda.empty_cache()
+        print(f"[time]   {cfg.name} breakdown {time.perf_counter() - t1:.1f} s")
+        print(f"[time]   {cfg.name} training {time.perf_counter() - t0:.1f} s")
+    for cfg in (olmoe_serve, gemma):
+        t0 = time.perf_counter()
+        add(family_serve(dev, cfg))
+        print(f"[time]   {cfg.name} serving {time.perf_counter() - t0:.1f} s")
+    print(f"[time]   families {time.perf_counter() - t_phase:.1f} s")
+    return total, rows
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -2854,6 +3444,11 @@ def main() -> int:
     for name, n in res_counts.items():
         launches[name] += n
     print(f"[time] resilience {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fam_counts, fam_rows = families(dev, gen)
+    for name, n in fam_counts.items():
+        launches[name] += n
+    print(f"[time] the model families {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -2862,7 +3457,8 @@ def main() -> int:
     kernels = [
         kernel_entry("col_l1_scores", "cuda", csrc + "col_scores.cu",
                      "src/repro/kernels/col_scores.py:42", launches["col_l1_scores"],
-                     f32(score_rows, mode="l1"), f32(score_rows) + paper_f32["col_l1_scores"],
+                     f32(score_rows, mode="l1"),
+                     f32(score_rows) + paper_f32["col_l1_scores"] + fam_rows["col_l1_scores"],
                      library=True),
         kernel_entry("block_gather_matmul", "cuda", csrc + "block_gather_matmul_fused.cu",
                      replaces + "47", launches["block_gather_matmul"],
@@ -2875,14 +3471,16 @@ def main() -> int:
         kernel_entry("block_gather_matmul_fused", "cuda", csrc + "block_gather_matmul_fused.cu",
                      replaces + "210", launches["block_gather_matmul_fused"],
                      f32(fused_rows, with_scores=False),
-                     f32(fused_rows) + paper_f32["block_gather_matmul_fused"], library=False),
+                     f32(fused_rows) + paper_f32["block_gather_matmul_fused"]
+                     + fam_rows["block_gather_matmul_fused"], library=False),
         kernel_entry("block_stream_matmul_fused", "cuda", csrc + "block_stream_matmul_fused.cu",
                      replaces + "381", launches["block_stream_matmul_fused"],
-                     f32(stream_rows, mode="l1"), f32(stream_rows), library=False),
+                     f32(stream_rows, mode="l1"),
+                     f32(stream_rows) + fam_rows["block_stream_matmul_fused"], library=False),
         kernel_entry("flash_attention", "cuda", csrc + "flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:76", launches["flash_attention"],
                      f32(flash_rows, shape=[*SERVE_WAVES[0], SERVE_WAVES[0][1], 12, 12, 64]),
-                     f32(flash_rows), library=True),
+                     f32(flash_rows) + fam_rows["flash_attention"], library=True),
     ]
     print(f"# launches: summed over the main paths' runs ({STEPS} steps each): "
           f"{json.dumps(path_counts)}; serving (two waves): {json.dumps(serve_counts)}; "
@@ -2890,11 +3488,14 @@ def main() -> int:
           f"loop (all of phase 10's runs): {json.dumps(loop_counts)}; the serving engines "
           f"(phase 11: every engine run 0, then {ENGINE_TRAIN_STEPS} traced training steps): "
           f"{json.dumps(engine_counts)}; resilience (all of phase 12's runs): "
-          f"{json.dumps(res_counts)}")
+          f"{json.dumps(res_counts)}; the model families (phase 13's main paths: olmoe and "
+          f"gemma3 training, {FAM_STEPS} steps per backend, and one prefill each): "
+          f"{json.dumps(fam_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "
-          "in the [paper-kernel] lines; max_abs_err over every float32 shape")
+          "in the [paper-kernel] lines, the families' in the [family-kernel] lines; "
+          "max_abs_err over every float32 shape")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

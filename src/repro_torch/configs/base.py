@@ -1,10 +1,11 @@
-"""Architecture config schema (``ArchConfig``, copied from ``repro/configs/base.py``)."""
+"""Architecture config schema and shape cells (``ArchConfig``, ``ShapeCell``,
+``SHAPE_CELLS``, copied from ``repro/configs/base.py``)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "ShapeCell", "SHAPE_CELLS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +66,19 @@ class ArchConfig:
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}

@@ -82,8 +82,14 @@ def sample_exact_r(gen: torch.Generator, p: torch.Tensor, r: int) -> torch.Tenso
 
 
 def sample_independent(gen: torch.Generator, p: torch.Tensor) -> torch.Tensor:
-    """Independent Bernoulli gates ``z_i ~ B(p_i)`` as a float 0/1 mask."""
-    return torch.bernoulli(p.to(torch.float32), generator=gen)
+    """Independent Bernoulli gates ``z_i ~ B(p_i)`` as a float 0/1 mask.
+
+    ``uniform < p``, as JAX's ``jax.random.bernoulli``: a NaN probability
+    keeps nothing and raises nothing (``torch.bernoulli`` raises on the CPU
+    and is a device-side assert on CUDA)."""
+    p = p.to(torch.float32)
+    u = torch.rand(p.shape, generator=gen, dtype=torch.float32, device=p.device)
+    return (u < p).to(torch.float32)
 
 
 def expected_distortion(weights: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
 """Parameter and cache trees from the JAX package, for parity checks.
 
 ``params_from_jax`` turns the tree of ``repro.models.lm.init_params`` (as
-numpy arrays) into this package's parameters. The JAX tree stacks each
-segment's layers on a leading ``[n_rep]`` axis; the port keeps one dict per
-layer, so the function unstacks it. Both packages then compute the same
-function. Any tree of the same structure works (a gradient tree too), and so
-does the tree of a JAX ``init_state`` with a plan-carry policy: each site's
-``"sslot"`` carry leaf ``[n_layers, n]`` is unstacked with the weights into
-one ``[n]`` leaf per layer. ``caches_from_jax`` does the same for the
+numpy arrays) into this package's parameters. The JAX tree holds one list of
+sub-blocks per segment (``lm.plan_segments``: gemma3's period of 5 local and
+1 global layers, then its remainder), each stacked on a leading ``[n_rep]``
+axis; the port keeps one dict per layer in uid order, so the function
+unstacks them (an MoE layer's ``moe`` leaves keep their expert axis). Both
+packages then compute the same function. Any tree of the same structure
+works (a gradient tree too), and so does the tree of a JAX ``init_state``
+with a plan-carry policy: each site's ``"sslot"`` carry leaf ``[n_rep, n]``
+is unstacked with the weights into one ``[n]`` leaf per layer.
+``caches_from_jax`` does the same for the
 decode caches of ``lm.init_cache`` / ``lm.prefill``, ``pools_from_jax`` for
 the serving engine's page pools (``serve/kv_cache.init_pools``), and
 ``compact_grad_from_jax`` turns a JAX ``CompactGrad`` (float32 indices) into
@@ -26,7 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.compact_grad import CompactGrad
 from repro_torch.device import resolve_device
-from repro_torch.models.lm import check_decoder, check_supported
+from repro_torch.models.lm import check_decoder, check_supported, plan_segments
 from repro_torch.tree import tree_map
 
 __all__ = ["bagnet_params_from_jax", "caches_from_jax", "compact_grad_from_jax",
@@ -46,36 +49,46 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
         if len(tree) != cfg.n_layers:
             raise ValueError(f"tree has {len(tree)} layers, config {cfg.n_layers}")
         return [tree_map(t, layer) for layer in tree]
-    segments = tree["segments"]
-    if len(segments) != 1 or len(segments[0]) != 1:
-        raise ValueError("expected one segment with one sub-block (the dense family)")
-    stacked = segments[0][0]
-    n_rep = np.asarray(stacked["norm1"]["g"]).shape[0]
-    if n_rep != cfg.n_layers:
-        raise ValueError(f"tree has {n_rep} layers, config {cfg.n_layers}")
     out = {"embed": t(tree["embed"]),
            "final_norm": tree_map(t, tree["final_norm"]),
-           "layers": [tree_map(lambda a, i=i: t(np.asarray(a)[i]), stacked)
-                      for i in range(n_rep)]}
+           "layers": _unstack(tree["segments"], cfg, t)}
     if "lm_head" in tree:
         out["lm_head"] = tree_map(t, tree["lm_head"])
     return out
 
 
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return np.asarray(node)
+
+
+def _unstack(segments, cfg: ArchConfig, t):
+    """One dict per layer, in uid order, from JAX's per-segment stacks."""
+    plan = plan_segments(cfg)
+    if len(segments) != len(plan) or any(len(s) != len(period)
+                                         for s, (period, _) in zip(segments, plan)):
+        raise ValueError(f"tree's segments do not follow the plan of {cfg.name}")
+    layers = []
+    for si, (subs, (period, n_rep)) in enumerate(zip(segments, plan)):
+        n = _first_leaf(subs[0]).shape[0]
+        if n != n_rep:
+            raise ValueError(f"segment {si} of the tree stacks {n * len(period)} layers, the "
+                             f"plan of {cfg.name} {n_rep * len(period)}")
+        for rep in range(n_rep):
+            layers.extend(tree_map(lambda a, rep=rep: t(np.asarray(a)[rep]), sub) for sub in subs)
+    return layers
+
+
 def caches_from_jax(caches, cfg: ArchConfig, *, device="cuda"):
     """The port's per-layer cache list for the JAX ``lm.init_cache`` /
     ``lm.prefill`` cache tree ``caches``: segments -> sub-blocks ->
-    ``{"kv": {"k", "v"}}`` stacked on ``[n_layers]``; on ``device``."""
+    ``{"kv": {"k", "v"}}``, each stacked on its segment's periods; on
+    ``device``."""
     check_decoder(cfg)
     dev = resolve_device(device)
-    if len(caches) != 1 or len(caches[0]) != 1:
-        raise ValueError("expected one segment with one sub-block (the dense family)")
-    kv = caches[0][0]["kv"]
-    k, v = np.asarray(kv["k"]), np.asarray(kv["v"])
-    if k.shape[0] != cfg.n_layers:
-        raise ValueError(f"tree has {k.shape[0]} layers, config {cfg.n_layers}")
-    return [{"k": torch.tensor(k[i], device=dev), "v": torch.tensor(v[i], device=dev)}
-            for i in range(cfg.n_layers)]
+    kv = [[sub["kv"] for sub in seg] for seg in caches]
+    return _unstack(kv, cfg, lambda a: torch.tensor(np.asarray(a), device=dev))
 
 
 def pools_from_jax(pools, cfg: ArchConfig, *, device="cuda"):

@@ -68,8 +68,9 @@ def _meta_caches(cfg: ArchConfig, max_len: int):
     """``lm.init_cache(cfg, 1, max_len)`` as meta tensors: shapes and dtypes,
     no storage."""
     lm.check_decoder(cfg)
-    acfg, dtype = lm.attn_cfg(cfg), getattr(torch, cfg.dtype)
-    return [init_kv_cache(1, max_len, acfg, dtype, "meta") for _ in range(cfg.n_layers)]
+    dtype = getattr(torch, cfg.dtype)
+    return [init_kv_cache(1, max_len, lm.attn_cfg(cfg, kind), dtype, "meta")
+            for kind in lm.layer_kinds(cfg)]
 
 
 def plan_layout(cfg: ArchConfig, serve: ServeConfig) -> CacheLayout:

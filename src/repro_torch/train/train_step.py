@@ -147,6 +147,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     tel = ex.telemetry
     probes_on = tel is not None and tel.probes and policy is not None and ex.accum == 1
     rcfg = ex.resilience
+    layer_paths = lm.jax_layer_paths(cfg) if cfg.family != "mlp" else None
 
     def grads_of(params_in, batch, key, fault_scale):
         ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
@@ -189,7 +190,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             loss, metrics, grads = grads_of(params_in, batch, key, fault_scale)
             if probes_on:
                 grads, vecs = tprobes.collect_probes(grads)
-                probe_metrics = tprobes.summarize(vecs, per_site=tel.per_site)
+                probe_metrics = tprobes.summarize(vecs, per_site=tel.per_site,
+                                                  layer_paths=layer_paths)
             grads = cgrad.fold_slot_grads(grads)
         else:
             loss, metrics, grads = accumulated(state.params, batch, key, fault_scale)

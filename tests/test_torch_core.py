@@ -101,6 +101,42 @@ def test_sample_independent_marginals():
     assert np.all(np.abs(z.mean(0).numpy() - p.numpy()) < 6 * se)
 
 
+def test_sample_independent_on_non_finite_scores_keeps_nothing_and_raises_nothing():
+    """``uniform < p``, as JAX's Bernoulli: a NaN probability keeps nothing
+    (``torch.bernoulli`` raised here and is a device-side assert on CUDA), an
+    infinite one is kept, as in JAX. An infinite score column makes every
+    water-filling probability NaN in both packages, so the independent
+    sketch then keeps no column at all (its gate, 0 / NaN, is NaN in both, so
+    the step's non-finite gradient trips the sentinel); a NaN score column
+    falls back to the uniform probabilities in both. The float32 0/1 mask
+    stays."""
+    p = torch.tensor([0.5, float("nan"), 1.0, float("nan"), float("inf"), 0.0])
+    for i in range(50):
+        z = solver.sample_independent(rng.generator(i, "cpu"), p)
+        assert z.dtype == torch.float32
+        assert z[[1, 3, 5]].tolist() == [0.0, 0.0, 0.0] and z[[2, 4]].tolist() == [1.0, 1.0]
+        jz = jsolver.sample_independent(jax.random.key(i), jnp.asarray(p.numpy()))
+        assert np.asarray(jz)[[1, 2, 3, 4, 5]].tolist() == z[[1, 2, 3, 4, 5]].tolist()
+    r = np.random.default_rng(0)
+    for bad in (float("inf"), float("nan")):
+        G = r.normal(size=(16, 12)).astype(np.float32)
+        G[:, 3] = bad
+        cfg = SketchConfig(method="l1", budget=0.5, exact_r=False)
+        w = scores.column_scores("l1", _t(G))
+        p = solver.optimal_probabilities(w, 6)
+        jp = jsolver.optimal_probabilities(jnp.asarray(w.numpy()), 6)
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=1e-6)
+        for i in range(20):
+            plan = sketching.column_plan(cfg, _t(G), None, rng.generator(i, "cpu"),
+                                         want_compact=False)
+            if bad == float("inf"):  # every probability NaN: nothing kept
+                assert bool(torch.isnan(plan.probs).all())
+                z = solver.sample_independent(rng.generator(i, "cpu"), plan.probs)
+                assert float(z.sum()) == 0.0
+            else:  # the uniform fallback
+                assert torch.allclose(plan.probs, torch.full((12,), 0.5))
+
+
 def test_expected_distortion_matches_jax_and_decreases():
     w = np.random.default_rng(2).uniform(size=40).astype(np.float32)
     ds = []

@@ -57,7 +57,11 @@ def _close(got, want, rel):
 @pytest.mark.parametrize("shape", [(2048, 768), (2048, 2048), (2000, 768), (100, 300), (1, 7),
                                    (300, 1030), (65536, 64), (65536, 128), (16384, 128),
                                    (16384, 256), (4096, 256), (4160, 192), (4160, 1024),
-                                   (128, 64), (128, 10)])
+                                   (128, 64), (128, 10),
+                                   # olmoe's expert buckets (capacity 320 at N 2,048) and
+                                   # gemma3_1b's k/v, o and mlp widths
+                                   (320, 1024), (320, 2048), (2048, 256), (2048, 1152),
+                                   (2048, 6912)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["l1", "l2"])
 def test_cuda_col_l1_scores_matches_plain(cuda, shape, dtype, mode):
@@ -78,7 +82,15 @@ def test_cuda_col_l1_scores_matches_plain(cuda, shape, dtype, mode):
 # stages (2048 x 2048 x 768 rb 3, and 100 x 1024 x 1030 rb 8)
 BLOCK_SHAPES = [(2048, 768, 768, 1), (2048, 2048, 768, 3), (100, 512, 80, 2), (33, 256, 130, 2),
                 (2048, 768, 2048, 1), (2000, 768, 768, 1), (17, 256, 130, 2), (2000, 512, 80, 4),
-                (100, 256, 64, 2), (100, 1024, 1030, 8)]
+                (100, 256, 64, 2), (100, 1024, 1030, 8)] + [
+    # olmoe-1b-7b at l1@0.2: the expert buckets (capacity 320 at N 2,048),
+    # expert_in / expert_gate and expert_out
+    (320, 1024, 2048, 2), (320, 2048, 1024, 3),
+    # gemma3_1b at l1@0.2: k/v (one 256-wide head), q, o, mlp in/gate and out
+    (2048, 256, 1152, 1), (2048, 1024, 1152, 2), (2048, 1152, 1024, 2), (2048, 6912, 1152, 11),
+    (2048, 1152, 6912, 2)]
+# an MoE expert that no token chose: its bucket's G and X are all zeros
+EXPERT_SHAPES = [(320, 1024, 2048, 2), (320, 2048, 1024, 3)]
 # the fused kernel's shapes in the §5 models: BagNet's tall G (one 32 x 32
 # dW tile walks 65,536 rows) and ViT's mlp_in
 PAPER_BLOCK_SHAPES = [(65536, 128, 64, 1), (16384, 128, 128, 1), (16384, 256, 128, 1),
@@ -160,6 +172,31 @@ def test_cuda_unfused_pair_matches_plain_and_fused(cuda, N, n, d, rb, dtype):
            TOL[dtype])
     fused = sketch_matmul.block_gather_matmul_fused(G, idx, scales, W, X, block=128)
     assert torch.equal(dX, fused[0]) and torch.equal(dWc, fused[1])
+
+
+@pytest.mark.parametrize("N,n,d,rb", EXPERT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_on_an_all_zero_bucket(cuda, N, n, d, rb, dtype):
+    """An expert bucket no token filled: G and X are zeros. Every kernel of
+    the MoE path gives its plain version's zeros (scores, dX, dWc, db and
+    the stream kernel's fresh scores), nothing non-finite."""
+    _, idx, scales, W, _ = _problem(cuda, N, n, d, rb, dtype, 4)
+    G = torch.zeros((N, n), device=cuda, dtype=dtype)
+    X = torch.zeros((N, d), device=cuda, dtype=dtype)
+    outs = [(col_scores.col_l1_scores(G), col_scores.col_l1_scores_plain(G))]
+    for fn, plain, kw in (
+            (sketch_matmul.block_gather_matmul_fused,
+             sketch_matmul.block_gather_matmul_fused_plain, dict(with_scores=True)),
+            (sketch_matmul.block_gather_matmul_fused,
+             sketch_matmul.block_gather_matmul_fused_plain, {}),
+            (sketch_matmul.block_stream_matmul_fused,
+             sketch_matmul.block_stream_matmul_fused_plain, {})):
+        outs.extend(zip(fn(G, idx, scales, W, X, block=128, **kw),
+                        plain(G, idx, scales, W, X, block=128, **kw)))
+    torch.cuda.synchronize()
+    for got, want in outs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert torch.equal(got, want) and not bool(got.any())
 
 
 def test_cuda_dispatcher_launches_and_counts(cuda):
@@ -844,3 +881,77 @@ def test_cuda_engine_decode_step_copies_to_the_host_once(cuda):
         d2h = sum(e.count for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.key.startswith("Memcpy DtoH"))
         assert d2h == 1, (page_size, d2h)
+
+
+def test_cuda_sample_independent_on_nan_keeps_nothing_and_raises_nothing(cuda):
+    """``uniform < p`` on the card: a NaN probability keeps nothing and is no
+    device-side assert (``torch.bernoulli``'s); probability 1 always keeps,
+    0 never."""
+    from repro_torch.core import solver
+
+    p = torch.tensor([0.5, float("nan"), 1.0, 0.0] * 64, device=cuda)
+    g = torch.Generator(device=cuda)
+    for seed in range(20):
+        g.manual_seed(seed)
+        z = solver.sample_independent(g, p)
+        torch.cuda.synchronize()
+        assert z.dtype == torch.float32
+        assert not bool(z[1::4].any()) and bool(z[2::4].all()) and not bool(z[3::4].any())
+
+
+MOE_CFG = dict(name="moe-cuda", family="moe", n_layers=2, d_model=256, n_heads=2, n_kv=2,
+               d_ff=256, vocab=512, n_experts=4, top_k=2)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "onepass", "stale"])
+def test_cuda_moe_step_launches_per_expert_site(cuda, backend):
+    """One sketched step of a 2-layer MoE LM (4 experts, top-2, 128-wide
+    blocks): every sketched site launches its backend's kernels once, 4
+    attention + 3 x 4 expert sites per layer, the experts no token chose
+    included; at budget 0.999 every gradient equals exact backprop's (rtol
+    2e-4: float32 reorderings through 2 layers, as chip_smoke's GRAD_RTOL)."""
+    from repro_torch.api import Runtime, SketchConfig, SketchPolicy
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves
+
+    cfg = ArchConfig(**MOE_CFG)
+    kernels = {"pallas": ("col_l1_scores", "block_gather_matmul_fused"),
+               "onepass": ("block_stream_matmul_fused",),
+               "stale": ("block_gather_matmul_fused",)}[backend]
+    per_step = cfg.n_layers * (4 + 3 * cfg.n_experts)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks.to(cuda), "labels": toks.to(cuda)}
+    params = lm.init_params(0, cfg, device=cuda)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(policy):
+        ctx = Ctx(policy=policy, key=3 if policy else None, n_layers=cfg.n_layers)
+        loss, _ = lm.lm_loss(params, batch, ctx, cfg, 3 if policy else None)
+        return torch.autograd.grad(loss, leaves)
+
+    def policy(budget):
+        return SketchPolicy(base=SketchConfig(method="l1", budget=budget, backend=backend,
+                                              block=128))
+
+    exact = grads(None)
+    ops.reset_launch_counts()
+    full = grads(policy(0.999))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == dict.fromkeys(kernels,
+                                                                                 per_step)
+    for a, b in zip(full, exact):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4 * float(b.abs().max()) + 1e-30)
+    rt = Runtime(policy=policy(0.5), device=cuda)
+    opt = sgd(0.1)
+    state = rt.init_state(0, cfg, opt)
+    ops.reset_launch_counts()
+    state, m = rt.train_step(cfg, opt)(state, batch, 1)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == dict.fromkeys(kernels,
+                                                                                 per_step)
+    assert all(math.isfinite(float(m[k])) for k in ("loss", "aux", "grad_norm"))

@@ -238,7 +238,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_unported_configs_raise():
-    cfg = ArchConfig(**dict(TINY, n_experts=4, top_k=2))
+    cfg = ArchConfig(**dict(TINY, family="ssm", block_kind="rwkv"))
     with pytest.raises(NotImplementedError, match="dense decoder family"):
         lm.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
