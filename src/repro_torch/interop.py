@@ -5,13 +5,18 @@ numpy arrays) into this package's parameters. The JAX tree holds one list of
 sub-blocks per segment (``lm.plan_segments``: gemma3's period of 5 local and
 1 global layers, then its remainder), each stacked on a leading ``[n_rep]``
 axis; the port keeps one dict per layer in uid order, so the function
-unstacks them (an MoE layer's ``moe`` leaves keep their expert axis). Both
+unstacks them (an MoE layer's ``moe`` leaves keep their expert axis; a
+Mamba or RWKV layer's ``mu``, ``conv``, ``A_log`` and the rest keep their
+own shapes). A zamba ``shared_attn`` sub-block is ``None`` in JAX's
+segments and an empty dict in the port's layers; its one weight,
+``"shared"``, comes across as it is. Both
 packages then compute the same function. Any tree of the same structure
 works (a gradient tree too), and so does the tree of a JAX ``init_state``
 with a plan-carry policy: each site's ``"sslot"`` carry leaf ``[n_rep, n]``
 is unstacked with the weights into one ``[n]`` leaf per layer.
 ``caches_from_jax`` does the same for the
-decode caches of ``lm.init_cache`` / ``lm.prefill``, ``pools_from_jax`` for
+decode caches of ``lm.init_cache`` / ``lm.prefill`` (attention's K/V and
+the recurrent states), ``pools_from_jax`` for
 the serving engine's page pools (``serve/kv_cache.init_pools``), and
 ``compact_grad_from_jax`` turns a JAX ``CompactGrad`` (float32 indices) into
 the port's (int64 indices). For the paper's §5 models: an ``mlp_arch``
@@ -52,43 +57,48 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
     out = {"embed": t(tree["embed"]),
            "final_norm": tree_map(t, tree["final_norm"]),
            "layers": _unstack(tree["segments"], cfg, t)}
-    if "lm_head" in tree:
-        out["lm_head"] = tree_map(t, tree["lm_head"])
+    for name in ("shared", "lm_head"):
+        if name in tree:
+            out[name] = tree_map(t, tree[name])
     return out
 
 
-def _first_leaf(node):
+def _first_leaf(subs):
+    node = next(sub for sub in subs if sub is not None)
     while isinstance(node, dict):
         node = next(iter(node.values()))
     return np.asarray(node)
 
 
 def _unstack(segments, cfg: ArchConfig, t):
-    """One dict per layer, in uid order, from JAX's per-segment stacks."""
+    """One dict per layer, in uid order, from JAX's per-segment stacks (an
+    empty dict for a ``None`` sub-block: a shared one)."""
     plan = plan_segments(cfg)
     if len(segments) != len(plan) or any(len(s) != len(period)
                                          for s, (period, _) in zip(segments, plan)):
         raise ValueError(f"tree's segments do not follow the plan of {cfg.name}")
     layers = []
     for si, (subs, (period, n_rep)) in enumerate(zip(segments, plan)):
-        n = _first_leaf(subs[0]).shape[0]
+        n = _first_leaf(subs).shape[0]
         if n != n_rep:
             raise ValueError(f"segment {si} of the tree stacks {n * len(period)} layers, the "
                              f"plan of {cfg.name} {n_rep * len(period)}")
         for rep in range(n_rep):
-            layers.extend(tree_map(lambda a, rep=rep: t(np.asarray(a)[rep]), sub) for sub in subs)
+            layers.extend({} if sub is None else tree_map(lambda a, rep=rep: t(np.asarray(a)[rep]),
+                                                          sub) for sub in subs)
     return layers
 
 
 def caches_from_jax(caches, cfg: ArchConfig, *, device="cuda"):
     """The port's per-layer cache list for the JAX ``lm.init_cache`` /
     ``lm.prefill`` cache tree ``caches``: segments -> sub-blocks ->
-    ``{"kv": {"k", "v"}}``, each stacked on its segment's periods; on
-    ``device``."""
+    ``{"kv": {"k", "v"}}`` for attention, or a recurrent layer's state
+    (``{"ssm", "conv"}``, ``{"wkv", "shift_tm", "shift_cm"}``), each stacked
+    on its segment's periods; on ``device``."""
     check_decoder(cfg)
     dev = resolve_device(device)
-    kv = [[sub["kv"] for sub in seg] for seg in caches]
-    return _unstack(kv, cfg, lambda a: torch.tensor(np.asarray(a), device=dev))
+    per_sub = [[sub["kv"] if "kv" in sub else sub for sub in seg] for seg in caches]
+    return _unstack(per_sub, cfg, lambda a: torch.tensor(np.asarray(a), device=dev))
 
 
 def pools_from_jax(pools, cfg: ArchConfig, *, device="cuda"):

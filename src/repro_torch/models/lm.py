@@ -1,21 +1,28 @@
 """Decoder-only LM (port of ``repro/models/lm.py``): the dense decoder,
-gemma3's local/global interleave and the MoE family; the training forward,
-prefill and decode. ``init_params`` and ``lm_loss`` also dispatch the §5 MLP
-(``family="mlp"``), as in JAX.
+gemma3's local/global interleave, the MoE family, and the SSM (rwkv) and
+hybrid (zamba: Mamba2 layers with one shared attention block) families; the
+training forward, prefill and decode. ``init_params`` and ``lm_loss`` also
+dispatch the §5 MLP (``family="mlp"``), as in JAX.
 
 The JAX model compiles an architecture into segments of stacked, identical
 periods (:func:`plan_segments`: gemma3's 5 local + 1 global layers are one
-period) and scans them. The port keeps one parameter dict per layer in
-``params["layers"]`` and runs a Python loop over :func:`layer_kinds`, the
-plan flattened in uid order: layer ``i`` has uid ``i``, the uid JAX's
-segment runner gives it (``_layer_uid``), so per-site seeds follow the same
-step → layer → role structure. Each layer reads its :class:`LayerKind`: a
-window and a RoPE theta of its own (gemma3's local and global layers), and
-``{"moe": ...}`` in place of ``{"mlp": ...}`` for an MoE layer. The decode
-caches follow the same layout: a list with one ``{"k", "v"}`` dict per layer
-(a ring of the window's size for a windowed layer), where JAX stacks each
-segment's on a leading axis (``interop.caches_from_jax`` converts). SSM,
-hybrid, encoder-decoder, M-RoPE and frontend families are not ported yet
+period, zamba's 6 Mamba layers + the shared block another) and scans them.
+The port keeps one parameter dict per layer in ``params["layers"]`` and runs
+a Python loop over :func:`layer_kinds`, the plan flattened in uid order:
+layer ``i`` has uid ``i``, the uid JAX's segment runner gives it
+(``_layer_uid``), so per-site seeds follow the same step → layer → role
+structure. Each layer reads its :class:`LayerKind`: a window and a RoPE theta
+of its own (gemma3's local and global layers), ``{"moe": ...}`` in place of
+``{"mlp": ...}`` for an MoE layer, ``{"mamba": ...}`` or ``{"rwkv": ...}``
+for a recurrent one. A ``shared_attn`` layer's dict is empty: every one of
+them applies ``params["shared"]`` (JAX's ``params["shared"]``; its
+``segments`` hold ``None`` there) under its own uid, so each application
+draws its own seeds. The decode caches follow the same layout: a list with
+one dict per layer, ``{"k", "v"}`` for attention (a ring of the window's
+size for a windowed layer), the recurrent state for a Mamba (``{"ssm",
+"conv"}``) or RWKV (``{"wkv", "shift_tm", "shift_cm"}``) layer, where JAX
+stacks each segment's on a leading axis (``interop.caches_from_jax``
+converts). Encoder-decoder, M-RoPE and frontend families are not ported yet
 (:func:`check_decoder`).
 """
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch import rng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
+from repro_torch.nn import ssm
 from repro_torch.nn.attention import AttnCfg, attention, attn_init, init_kv_cache
 from repro_torch.nn.common import Ctx, dense_init, rmsnorm, rmsnorm_init, trunc_normal
 from repro_torch.nn.mlp import mlp, mlp_init
@@ -105,8 +113,10 @@ def layer_kinds(cfg: ArchConfig) -> list:
 
 def jax_layer_paths(cfg: ArchConfig) -> list:
     """The JAX tree path (``segments/<segment>/<sub-block>``) of each layer's
-    stacked parameters, in uid order."""
-    return [f"segments/{si}/{i}" for _, si, i, _ in _walk_plan(cfg)]
+    stacked parameters, in uid order; ``shared`` for a ``shared_attn`` layer,
+    whose weights JAX keeps once in ``params["shared"]``."""
+    return ["shared" if kind.kind == "shared_attn" else f"segments/{si}/{i}"
+            for _, si, i, kind in _walk_plan(cfg)]
 
 
 def attn_cfg(cfg: ArchConfig, kind: LayerKind) -> AttnCfg:
@@ -121,6 +131,16 @@ def _moe_cfg(cfg: ArchConfig) -> MoECfg:
     return MoECfg(cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.capacity_factor, cfg.mlp_type)
 
 
+def _mamba_cfg(cfg: ArchConfig) -> ssm.MambaCfg:
+    return ssm.MambaCfg(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                        head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+
+
+def _rwkv_cfg(cfg: ArchConfig) -> ssm.RWKVCfg:
+    return ssm.RWKVCfg(d_model=cfg.d_model, head_dim=cfg.ssm_head_dim, d_ff=cfg.d_ff,
+                       chunk=cfg.ssm_chunk)
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for configurations outside the ported families: the decoders of
     :func:`check_decoder` and the §5 MLP (``family="mlp"``,
@@ -132,12 +152,12 @@ def check_supported(cfg: ArchConfig) -> None:
 def check_decoder(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError``, naming the architecture, for a config
     outside the ported decoders: the dense decoder family, gemma3's
-    local/global interleave and the MoE family (the token forward, prefill
-    and decode)."""
+    local/global interleave, the MoE family, and the SSM (rwkv) and hybrid
+    (zamba) families (the token forward, prefill and decode)."""
     what = None
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         what = f"the {cfg.family} family"
-    elif cfg.block_kind != "attn":
+    elif cfg.block_kind not in ("attn", "rwkv", "zamba"):
         what = f"block kind {cfg.block_kind!r}"
     elif cfg.is_encdec:
         what = "the encoder-decoder stack"
@@ -148,14 +168,24 @@ def check_decoder(cfg: ArchConfig) -> None:
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported to repro_torch yet (ported: the dense decoder "
-            "family, gemma3's local/global interleave and the MoE family)")
+            "family, gemma3's local/global interleave, the MoE family, and the SSM and "
+            "hybrid families)")
 
 
 def _init_layer(gen, kind: LayerKind, cfg: ArchConfig, dtype, dev):
     d = cfg.d_model
-    p = {"norm1": rmsnorm_init(d, dtype, dev),
-         "attn": attn_init(gen, d, attn_cfg(cfg, kind), dtype, dev),
-         "norm2": rmsnorm_init(d, dtype, dev)}
+    if kind.kind == "shared_attn":
+        return {}  # the parameters live in params["shared"]
+    p = {"norm1": rmsnorm_init(d, dtype, dev)}
+    if kind.kind == "mamba":
+        p["mamba"] = ssm.mamba_init(gen, _mamba_cfg(cfg), dtype, dev)
+        return p
+    if kind.kind == "rwkv":
+        p["rwkv"] = ssm.rwkv_init(gen, _rwkv_cfg(cfg), dtype, dev)
+        p["norm2"] = rmsnorm_init(d, dtype, dev)
+        return p
+    p["attn"] = attn_init(gen, d, attn_cfg(cfg, kind), dtype, dev)
+    p["norm2"] = rmsnorm_init(d, dtype, dev)
     if kind.moe:
         p["moe"] = moe_init(gen, d, _moe_cfg(cfg), dtype, dev)
     else:
@@ -175,11 +205,14 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
     dev = resolve_device(device)
     gen = rng.generator(seed, dev)
     d = cfg.d_model
+    kinds = layer_kinds(cfg)
     params = {
         "embed": trunc_normal(gen, (cfg.vocab, d), d ** -0.5, dtype, dev),
         "final_norm": rmsnorm_init(d, dtype, dev),
-        "layers": [_init_layer(gen, kind, cfg, dtype, dev) for kind in layer_kinds(cfg)],
+        "layers": [_init_layer(gen, kind, cfg, dtype, dev) for kind in kinds],
     }
+    if any(kind.kind == "shared_attn" for kind in kinds):
+        params["shared"] = _init_layer(gen, LayerKind("attn"), cfg, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, cfg.vocab, dtype, device=dev, scale=d ** -0.5)
     return params
@@ -211,28 +244,77 @@ def _head(params, x, ctx: Ctx, cfg: ArchConfig):
     return linear(x, w, key=key, cfg=hcfg)
 
 
+def _attn_layer(p, kind: LayerKind, x, ctx: Ctx, cfg: ArchConfig, positions, cache, pos,
+                segs):
+    """A pre-norm attention layer (its MLP or MoE after it): (x, aux or None)."""
+    o = attention(p["attn"], rmsnorm(p["norm1"], x), ctx, attn_cfg(cfg, kind), positions,
+                  cache=cache, pos=pos, segs=segs)
+    x = x + (o if cache is None else o[0])  # with a cache: (out, cache)
+    h2 = rmsnorm(p["norm2"], x)
+    if kind.moe:
+        o, a = moe_ffn(p["moe"], h2, ctx, _moe_cfg(cfg))
+        return x + o, a
+    return x + mlp(p["mlp"], h2, ctx, cfg.mlp_type), None
+
+
+def _write_state(cache, state: dict) -> None:
+    """Write a recurrent layer's new state into its cache, in place."""
+    for k, v in state.items():
+        cache[k].copy_(v)
+
+
+def _mamba_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache, pos):
+    mcfg = _mamba_cfg(cfg)
+    h = rmsnorm(p["norm1"], x)
+    if cache is None:
+        return x + ssm.mamba_block(p["mamba"], h, ctx, mcfg)
+    if pos is None:
+        o, state = ssm.mamba_prefill(p["mamba"], h, ctx, mcfg)
+    else:
+        o, state = ssm.mamba_decode(p["mamba"], h, ctx, mcfg, cache)
+    _write_state(cache, state)
+    return x + o
+
+
+def _rwkv_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache):
+    rcfg = _rwkv_cfg(cfg)
+    tm = None if cache is None else {"wkv": cache["wkv"], "shift": cache["shift_tm"]}
+    o, new_tm = ssm.rwkv_time_mix(p["rwkv"], rmsnorm(p["norm1"], x), ctx, rcfg, tm)
+    x = x + o
+    o, new_cm = ssm.rwkv_channel_mix(p["rwkv"], rmsnorm(p["norm2"], x), ctx, rcfg,
+                                     None if cache is None else cache["shift_cm"])
+    if cache is not None:
+        _write_state(cache, {"wkv": new_tm["wkv"], "shift_tm": new_tm["shift"],
+                             "shift_cm": new_cm})
+    return x + o
+
+
 def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, caches=None,
                 pos=None, segs=None):
     """Run every layer; returns (x, aux): the MoE layers' aux losses summed
-    (float32 zero without MoE layers)."""
+    (float32 zero without MoE layers). With ``caches``, a prefill
+    (``pos=None``) or decode step writes each layer's new keys and values or
+    recurrent state into its cache."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for uid, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         lctx = ctx.for_layer(step_key, uid)
-        acfg = attn_cfg(cfg, kind)
-        h = rmsnorm(p["norm1"], x)
-        if caches is None:
-            x = x + attention(p["attn"], h, lctx, acfg, positions, segs=segs)
+        cache = caches[uid] if caches is not None else None
+        if kind.kind in ("attn", "shared_attn"):
+            if kind.kind == "shared_attn":
+                p = params["shared"]
+            x, a = _attn_layer(p, kind, x, lctx, cfg, positions, cache, pos, segs)
+            if a is not None:
+                aux = aux + a
+            continue
+        if segs is not None:
+            # JAX's recurrent layers ignore segments: packed prompts would
+            # leak state into each other
+            raise ValueError(f"{cfg.name}: a {kind.kind} layer carries state across the "
+                             "sequence and cannot run segment-packed prompts")
+        if kind.kind == "mamba":
+            x = _mamba_layer(p, x, lctx, cfg, cache, pos)
         else:
-            o, _ = attention(p["attn"], h, lctx, acfg, positions, cache=caches[uid], pos=pos,
-                             segs=segs)
-            x = x + o
-        h2 = rmsnorm(p["norm2"], x)
-        if kind.moe:
-            o, a = moe_ffn(p["moe"], h2, lctx, _moe_cfg(cfg))
-            aux = aux + a
-        else:
-            o = mlp(p["mlp"], h2, lctx, cfg.mlp_type)
-        x = x + o
+            x = _rwkv_layer(p, x, lctx, cfg, cache)
     return x, aux
 
 
@@ -260,14 +342,21 @@ def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
-    """Zero decode caches, one ``{"k", "v"}`` dict of [batch, size, n_kv,
-    d_head] per layer (size = max_len, or the layer's window when it is
-    shorter)."""
+    """Zero decode caches, one dict per layer: ``{"k", "v"}`` of [batch, size,
+    n_kv, d_head] for attention (size = max_len, or the layer's window when
+    it is shorter), the zero recurrent state for a Mamba or RWKV layer."""
     check_decoder(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    return [init_kv_cache(batch, max_len, attn_cfg(cfg, kind), dtype, dev)
-            for kind in layer_kinds(cfg)]
+
+    def one(kind):
+        if kind.kind == "mamba":
+            return ssm.mamba_state_init(batch, _mamba_cfg(cfg), dtype, dev)
+        if kind.kind == "rwkv":
+            return ssm.rwkv_state_init(batch, _rwkv_cfg(cfg), dtype, dev)
+        return init_kv_cache(batch, max_len, attn_cfg(cfg, kind), dtype, dev)
+
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=None):
@@ -288,8 +377,9 @@ def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=Non
 
 def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key=None):
     """One decode step: tokens int [B, 1] at position ``pos`` (an int, or an
-    int tensor [B], one position per row). Writes the new keys and values
-    into ``caches`` in place. Returns (logits [B, 1, V], caches)."""
+    int tensor [B], one position per row). Writes the new keys and values,
+    or the new recurrent state, into ``caches`` in place. Returns (logits
+    [B, 1, V], caches)."""
     check_decoder(cfg)
     B = tokens.shape[0]
     positions = _default_positions(B, 1, tokens.device, offset=pos)

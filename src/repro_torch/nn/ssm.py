@@ -1,0 +1,360 @@
+"""State-space sequence mixers: Mamba2 (SSD) and RWKV6 (Finch).
+
+Port of ``repro/nn/ssm.py``. Both keep the recurrence core exact (the paper
+sketches linear VJPs; the in/out projections, which dominate the FLOPs, are
+sketched sites). Training and prefill run the chunked forms: the outer loop
+over chunks is a Python loop whose every chunk is recomputed in the backward
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` around the chunk), so
+the backward holds one state per chunk, not one per token. Decode is a
+single-step state update.
+
+Three departures from the reference in ``_ssd_chunk``, all for the same
+function (see the comments there):
+
+* it masks the decay's exponent before the ``exp`` (JAX masks its result):
+  the same forward values, and a finite gradient at the full configs' chunk
+  of 256, where JAX's dt gradient is NaN;
+* it sums each intra-chunk decay's exponent over its own segment instead of
+  differencing two cumulative sums: at a chunk of 256 JAX's output keeps
+  ~1e-5 of relative accuracy, the port's ~1e-7 (against a float64
+  recurrence);
+* its four-operand einsums are contracted pairwise in a stated order, so no
+  ``[B, Q, Q, H, P]`` intermediate is built.
+
+JAX's ``cost_mode`` (python-unrolled loops for HLO cost artifacts) has no
+counterpart: the port's chunk loop is always a Python loop.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init
+
+__all__ = ["MambaCfg", "mamba_init", "mamba_block", "mamba_prefill", "mamba_decode",
+           "mamba_state_init", "RWKVCfg", "rwkv_init", "rwkv_time_mix", "rwkv_channel_mix",
+           "rwkv_state_init"]
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward when autograd records it.
+    The chunk functions draw no random numbers, so no RNG state is kept."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _pad_steps(t, n: int, value: float = 0.0):
+    """``t`` [B, S, ...] with ``n`` more steps of ``value`` on axis 1."""
+    if n == 0:
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, n), value=value)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) — arXiv:2405.21060, scalar-decay-per-head chunked form.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaCfg:
+    d_model: int
+    d_state: int = 64
+    expand: int = 2
+    head_dim: int = 64
+    d_conv: int = 4
+    chunk: int = 256
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def mamba_init(gen, cfg: MambaCfg, dtype=torch.float32, device="cpu"):
+    """Split projections (z/x/B/C/dt), as in JAX; the short causal conv runs
+    on x only."""
+    di, N, H = cfg.d_inner, cfg.d_state, cfg.n_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_z": dense_init(gen, cfg.d_model, di, dtype, device=device),
+        "in_x": dense_init(gen, cfg.d_model, di, dtype, device=device),
+        "in_B": dense_init(gen, cfg.d_model, N, dtype, device=device),
+        "in_C": dense_init(gen, cfg.d_model, N, dtype, device=device),
+        "in_dt": dense_init(gen, cfg.d_model, H, dtype, device=device),
+        "conv": (torch.randn((cfg.d_conv, di), generator=gen, **f32) * 0.1).to(dtype),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "D": torch.ones(H, **f32),
+        "dt_bias": torch.full((H,), -2.0, **f32),
+        "norm": rmsnorm_init(di, dtype, device),
+        "out": dense_init(gen, di, cfg.d_model, dtype, device=device, scale=di ** -0.5),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv. x: [B, S, C], w: [K, C], state: [B, K-1, C] or
+    None. Returns (silu(conv), the last K-1 inputs as the new state)."""
+    K, S = w.shape[0], x.shape[1]
+    if state is None:
+        pad = x.new_zeros(x.shape[:1] + (K - 1,) + x.shape[2:])
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    new_state = xp[:, -(K - 1):].clone() if K > 1 else None
+    return F.silu(out.to(torch.float32)).to(x.dtype), new_state
+
+
+def _ssd_chunk(state, xc, dtc, dAc, Bc, Cc):
+    """One SSD chunk. state: [B, H, P, N]; xc: [B, Q, H, P]; dtc, dAc: [B, Q,
+    H]; Bc, Cc: [B, Q, N]. Returns (new_state, yc [B, Q, H, P])."""
+    a = torch.log(torch.clamp_min(dAc, 1e-30))  # per-step log decay, [B,Q,H]
+    la = torch.cumsum(a, dim=1)  # cumulative within the chunk
+    # inter-chunk: y_i += exp(la_i) C_i · state
+    y_inter = torch.einsum("bqn,bhpn->bqhp", Cc, state) * torch.exp(la)[..., None]
+    # intra-chunk: y_i += Σ_{j<=i} exp(seg_ij) dt_j (C_i·B_j) x_j, where
+    # seg_ij = Σ_{j<k<=i} a_k is JAX's la_i - la_j. Two departures, the same
+    # function:
+    # * each seg_ij is summed over its own segment (a cumsum down column j of
+    #   the a_k below the diagonal), not taken as a difference of two
+    #   cumulative sums: |la| reaches ~500-5,000 at a chunk of 256, and the
+    #   difference of two such float32 sums near the diagonal carries an
+    #   absolute error of eps·|la|, a relative error of up to ~3e-4 in the
+    #   decay;
+    # * the exponent is masked to -inf above the diagonal before the exp,
+    #   where JAX masks the exp's result: there la_i - la_j > 0 reaches
+    #   hundreds, exp overflows to inf, and the backward's 0 · inf is a NaN
+    #   in the dt gradient. exp(-inf) = 0 gives the same forward values and
+    #   a zero gradient there.
+    Q = xc.shape[1]
+    ones = torch.ones((Q, Q), dtype=torch.bool, device=xc.device)
+    below = a[:, :, None, :].masked_fill(~ones.tril(-1)[None, :, :, None], 0.0)  # [B,k,j,H]
+    seg = torch.cumsum(below, dim=1)  # [B,i,j,H]: Σ_{j<k<=i} a_k on and below the diagonal
+    decay = torch.exp(seg.masked_fill(~ones.tril()[None, :, :, None], float("-inf")))
+    CB = torch.einsum("bqn,bkn->bqk", Cc, Bc)  # [B,Q,Q] (q = query, k = key step)
+    # contracted pairwise, (dt x) first: the four operands at once could build
+    # a [B,Q,Q,H,P] intermediate
+    y_intra = torch.einsum("bqkh,bkhp->bqhp", CB[..., None] * decay, dtc[..., None] * xc)
+    # state' = exp(la_Q) state + Σ_j exp(seg_Qj) dt_j x_j B_jᵀ
+    inject = (torch.exp(seg[:, -1]) * dtc)[..., None] * xc  # [B,Q,H,P]
+    state_new = state * torch.exp(la[:, -1])[..., None, None] + torch.einsum(
+        "bqhp,bqn->bhpn", inject, Bc)
+    return state_new, y_inter + y_intra
+
+
+def _ssd(x, dt, A, B, C, cfg: MambaCfg, state0):
+    """x: [B, S, H, P], dt: [B, S, H], A: [H], B, C: [B, S, N] -> (y, state).
+    A ragged S is padded with inert steps: dt = 0 gives a decay of 1 and no
+    state injection."""
+    S_in = x.shape[1]
+    Q = min(cfg.chunk, S_in)
+    pad = -S_in % Q
+    x, dt, B, C = (_pad_steps(t, pad) for t in (x, dt, B, C))
+    dA = torch.exp(-A[None, None, :] * dt)  # [B,S,H] decay per step
+    state, ys = state0, []
+    for xc, dtc, dAc, Bc, Cc in zip(*(torch.split(t, Q, dim=1) for t in (x, dt, dA, B, C))):
+        state, yc = _remat(_ssd_chunk, state, xc, dtc, dAc, Bc, Cc)
+        ys.append(yc)
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    return y[:, :S_in], state
+
+
+def _mamba_pre(params, x, ctx: Ctx, cfg: MambaCfg, conv_state=None):
+    z = dense(params["in_z"], x, ctx, "ssm_in")
+    xs = dense(params["in_x"], x, ctx, "ssm_in")
+    Bc = dense(params["in_B"], x, ctx, "ssm_small")
+    Cc = dense(params["in_C"], x, ctx, "ssm_small")
+    dt = dense(params["in_dt"], x, ctx, "ssm_small")
+    xs, new_conv = _causal_conv(xs, params["conv"], conv_state)
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+    return z, xs, Bc, Cc, dt, new_conv
+
+
+def _mamba_post(params, y, z, ctx: Ctx, dtype):
+    y = y.to(dtype) * F.silu(z.to(torch.float32)).to(dtype)
+    return dense(params["out"], rmsnorm(params["norm"], y), ctx, "ssm_out")
+
+
+def mamba_prefill(params, x, ctx: Ctx, cfg: MambaCfg):
+    """Training/prefill path. x: [B, S, d_model] -> (out [B, S, d_model],
+    the final ``{"ssm", "conv"}`` state; JAX's ``lm._mamba_prefill``)."""
+    Bsz, S, _ = x.shape
+    H, P = cfg.n_heads, cfg.head_dim
+    z, xs, Bc, Cc, dt, conv = _mamba_pre(params, x, ctx, cfg)
+    xh = xs.reshape(Bsz, S, H, P).to(torch.float32)
+    A = torch.exp(params["A_log"])
+    state0 = x.new_zeros((Bsz, H, P, cfg.d_state), dtype=torch.float32)
+    y, state = _ssd(xh, dt, A, Bc.to(torch.float32), Cc.to(torch.float32), cfg, state0)
+    y = y + params["D"][None, None, :, None] * xh
+    out = _mamba_post(params, y.reshape(Bsz, S, cfg.d_inner), z, ctx, x.dtype)
+    return out, {"ssm": state, "conv": conv}
+
+
+def mamba_block(params, x, ctx: Ctx, cfg: MambaCfg):
+    """Training path. x: [B, S, d_model] -> [B, S, d_model]."""
+    return mamba_prefill(params, x, ctx, cfg)[0]
+
+
+def mamba_state_init(batch: int, cfg: MambaCfg, dtype, device="cpu"):
+    return {
+        "ssm": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.d_state),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+    }
+
+
+def mamba_decode(params, x, ctx: Ctx, cfg: MambaCfg, state):
+    """Single-token step. x: [B, 1, d_model]; state: see mamba_state_init.
+    Returns (out [B, 1, d_model], new state)."""
+    Bsz = x.shape[0]
+    H, P = cfg.n_heads, cfg.head_dim
+    z, xs, Bc, Cc, dt, new_conv = _mamba_pre(params, x, ctx, cfg, state["conv"])
+    xh = xs.reshape(Bsz, H, P).to(torch.float32)
+    A = torch.exp(params["A_log"])
+    dt1 = dt[:, 0]  # [B,H]
+    dA = torch.exp(-A[None, :] * dt1)  # [B,H]
+    inject = (dt1[..., None] * xh)[..., None] * Bc[:, 0].to(torch.float32)[:, None, None, :]
+    s = state["ssm"] * dA[..., None, None] + inject
+    y = torch.einsum("bhpn,bn->bhp", s, Cc[:, 0].to(torch.float32))
+    y = y + params["D"][None, :, None] * xh
+    out = _mamba_post(params, y.reshape(Bsz, 1, cfg.d_inner), z, ctx, x.dtype)
+    return out, {"ssm": s, "conv": new_conv}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) — arXiv:2404.05892. Data-dependent per-channel decay.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVCfg:
+    d_model: int
+    head_dim: int = 64
+    d_ff: int = 0  # channel-mix hidden
+    chunk: int = 64
+    decay_lora: int = 64
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_model // self.head_dim
+
+
+def rwkv_init(gen, cfg: RWKVCfg, dtype=torch.float32, device="cpu"):
+    d = cfg.d_model
+    d_ff = cfg.d_ff or (7 * d // 2)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "mu": torch.full((5, d), 0.5, **f32),  # shift mixes for r, k, v, g, w
+        "r": dense_init(gen, d, d, dtype, device=device),
+        "k": dense_init(gen, d, d, dtype, device=device),
+        "v": dense_init(gen, d, d, dtype, device=device),
+        "g": dense_init(gen, d, d, dtype, device=device),
+        # data-dependent decay via a low-rank projection (Finch's LoRA form)
+        "w1": dense_init(gen, d, cfg.decay_lora, torch.float32, device=device),
+        "w2": dense_init(gen, cfg.decay_lora, d, torch.float32, device=device),
+        "w_bias": torch.full((d,), -6.0, **f32),
+        "u": torch.randn(d, generator=gen, **f32) * 0.1,
+        "out": dense_init(gen, d, d, dtype, device=device, scale=d ** -0.5),
+        "cm_k": dense_init(gen, d, d_ff, dtype, device=device),
+        "cm_v": dense_init(gen, d_ff, d, dtype, device=device, scale=d ** -0.5),
+        "cm_r": dense_init(gen, d, d, dtype, device=device),
+        "cm_mu": torch.full((2, d), 0.5, **f32),
+        "ln_x": rmsnorm_init(d, dtype, device),
+    }
+
+
+def _shift(x, prev=None):
+    """Token shift: x_{t-1} (zeros, or ``prev`` [B, 1, d], at t = 0)."""
+    if prev is None:
+        prev = torch.zeros_like(x[:, :1])
+    return torch.cat([prev.to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _wkv_chunk(state, r, k, v, w, u):
+    """WKV over one chunk. state: [B, H, P, P] (key dim × value dim); r, k,
+    v, w: [B, Q, H, P]; u: [H, P]. Returns (new_state, out [B, Q, H, P]).
+
+    JAX's step is out_t = r_t · (s + u k_t v_tᵀ), s = w_t s + k_t v_tᵀ. The
+    same function in fewer device ops per token: the sequential loop holds
+    only the state update (one ``addcmul``); the rank-1 terms k_t v_tᵀ are
+    formed for the whole chunk before it, and the read-out r_t · s_{t-1}
+    and the bonus (r_t · (u k_t)) v_t after it, each in one batched op."""
+    kv = k[..., :, None] * v[..., None, :]  # [B,Q,H,P,P]
+    before = []
+    for kvt, wt in zip(kv.unbind(1), w.unbind(1)):
+        before.append(state)
+        state = torch.addcmul(kvt, wt[..., None], state)
+    out = torch.einsum("bqhi,bqhij->bqhj", r, torch.stack(before, dim=1))
+    return state, out + (r * u * k).sum(-1, keepdim=True) * v
+
+
+def rwkv_time_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
+    """x: [B, S, d] -> (y, new_state); state = {"wkv": [B, H, P, P], "shift":
+    [B, 1, d]} or None (zeros)."""
+    Bsz, S, d = x.shape
+    H, P = cfg.n_heads, cfg.head_dim
+    xp = _shift(x, state["shift"] if state is not None else None)
+    mu = params["mu"]
+
+    def mix(i):
+        return x + mu[i].to(x.dtype) * (xp - x)
+
+    r = dense(params["r"], mix(0), ctx, "attn_q")
+    k = dense(params["k"], mix(1), ctx, "attn_k")
+    v = dense(params["v"], mix(2), ctx, "attn_v")
+    g = dense(params["g"], mix(3), ctx, "mlp_gate")
+    # data-dependent decay w in (0, 1): exp(-exp(lora(x))); a raw matmul, not a site
+    wlog = (mix(4).to(torch.float32) @ params["w1"]["w"].t()) @ params["w2"]["w"].t()
+    w = torch.exp(-torch.exp(wlog + params["w_bias"]))
+
+    shp = (Bsz, S, H, P)
+    rh, kh, vh = (t.to(torch.float32).reshape(shp) for t in (r, k, v))
+    wh = w.reshape(shp)
+    u = params["u"].reshape(H, P)
+    s = (state["wkv"] if state is not None
+         else x.new_zeros((Bsz, H, P, P), dtype=torch.float32))
+    Q = min(cfg.chunk, S)
+    pad = -S % Q
+    # inert padding: w = 1 (no decay), r = k = v = 0 (no state change, zero output)
+    rh, kh, vh = (_pad_steps(t, pad) for t in (rh, kh, vh))
+    wh = _pad_steps(wh, pad, 1.0)
+    ys = []
+    for rc, kc, vc, wc in zip(*(torch.split(t, Q, dim=1) for t in (rh, kh, vh, wh))):
+        s, o = _remat(_wkv_chunk, s, rc, kc, vc, wc, u)
+        ys.append(o)
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    y = y[:, :S].reshape(Bsz, S, d).to(x.dtype)
+    y = rmsnorm(params["ln_x"], y)
+    y = y * F.silu(g.to(torch.float32)).to(x.dtype)
+    y = dense(params["out"], y, ctx, "attn_o")
+    return y, {"wkv": s, "shift": x[:, -1:]}
+
+
+def rwkv_channel_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
+    """RWKV channel mix (squared-ReLU MLP with token shift). ``state``: the
+    previous token [B, 1, d] or None. Returns (y, new state)."""
+    xp = _shift(x, state)
+    mu = params["cm_mu"]
+    xk = x + mu[0].to(x.dtype) * (xp - x)
+    xr = x + mu[1].to(x.dtype) * (xp - x)
+    kk = dense(params["cm_k"], xk, ctx, "mlp_in")
+    kk = torch.square(F.relu(kk.to(torch.float32))).to(x.dtype)
+    rr = torch.sigmoid(dense(params["cm_r"], xr, ctx, "mlp_gate").to(torch.float32)).to(x.dtype)
+    return rr * dense(params["cm_v"], kk, ctx, "mlp_out"), x[:, -1:]
+
+
+def rwkv_state_init(batch: int, cfg: RWKVCfg, dtype, device="cpu"):
+    return {
+        "wkv": torch.zeros((batch, cfg.n_heads, cfg.head_dim, cfg.head_dim),
+                           dtype=torch.float32, device=device),
+        "shift_tm": torch.zeros((batch, 1, cfg.d_model), dtype=dtype, device=device),
+        "shift_cm": torch.zeros((batch, 1, cfg.d_model), dtype=dtype, device=device),
+    }

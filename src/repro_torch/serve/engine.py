@@ -32,10 +32,10 @@ Pallas kernel), whatever ``attn_impl`` says.
 
 What the port cannot serve is refused when the engine is built, before any
 device work: encoder-decoder configs, every config outside the ported dense
-decoder family (M-RoPE among them, ``lm.check_decoder``; the MoE family and
-gemma3's local/global interleave run through ``Runtime.prefill_step`` and
-``decode_step`` but not the engines yet), and parameters on another device
-than the Runtime's.
+decoder family (M-RoPE among them, ``lm.check_decoder``; the MoE family,
+gemma3's local/global interleave and the SSM and hybrid families run through
+``Runtime.prefill_step`` and ``decode_step`` but not the engines yet), and
+parameters on another device than the Runtime's.
 """
 from __future__ import annotations
 
@@ -70,11 +70,11 @@ def check_servable(params, cfg: ArchConfig, device: torch.device) -> None:
     if cfg.is_encdec:
         raise ValueError("the serving engine targets decoder-only archs")
     lm.check_decoder(cfg)
-    if cfg.n_experts or cfg.local_global:
+    if cfg.n_experts or cfg.local_global or cfg.block_kind != "attn":
         raise NotImplementedError(
             f"{cfg.name}: the port's serving engines serve the dense decoder family only; "
-            "serve the MoE family and gemma3's local/global interleave through "
-            "Runtime.prefill_step and decode_step")
+            "serve the MoE family, gemma3's local/global interleave and the SSM and hybrid "
+            "families through Runtime.prefill_step and decode_step")
     where = {t.device for t in tree_leaves(params) if isinstance(t, torch.Tensor)}
     if where != {device}:
         raise ValueError(f"parameters lie on {sorted(map(str, where))}, the Runtime serves on "

@@ -61,7 +61,11 @@ def _close(got, want, rel):
                                    # olmoe's expert buckets (capacity 320 at N 2,048) and
                                    # gemma3_1b's k/v, o and mlp widths
                                    (320, 1024), (320, 2048), (2048, 256), (2048, 1152),
-                                   (2048, 6912)])
+                                   (2048, 6912),
+                                   # rwkv6-3b's 2560 and 8960 widths, zamba2-7b's 7168
+                                   # (Mamba in), 3584 and 14336 (shared mlp in/gate)
+                                   (2048, 2560), (2048, 8960), (2048, 7168), (2048, 3584),
+                                   (2048, 14336)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["l1", "l2"])
 def test_cuda_col_l1_scores_matches_plain(cuda, shape, dtype, mode):
@@ -88,7 +92,13 @@ BLOCK_SHAPES = [(2048, 768, 768, 1), (2048, 2048, 768, 3), (100, 512, 80, 2), (3
     (320, 1024, 2048, 2), (320, 2048, 1024, 3),
     # gemma3_1b at l1@0.2: k/v (one 256-wide head), q, o, mlp in/gate and out
     (2048, 256, 1152, 1), (2048, 1024, 1152, 2), (2048, 1152, 1024, 2), (2048, 6912, 1152, 11),
-    (2048, 1152, 6912, 2)]
+    (2048, 1152, 6912, 2),
+    # rwkv6-3b at l1@0.2: r/k/v/g/o and cm_r, cm_k and cm_v
+    (2048, 2560, 2560, 4), (2048, 8960, 2560, 14), (2048, 2560, 8960, 4),
+    # zamba2-7b at l1@0.2: Mamba in_z/in_x and out; the shared block's
+    # q/k/v/o, mlp in/gate and out
+    (2048, 7168, 3584, 11), (2048, 3584, 7168, 6), (2048, 3584, 3584, 6),
+    (2048, 14336, 3584, 22), (2048, 3584, 14336, 6)]
 # an MoE expert that no token chose: its bucket's G and X are all zeros
 EXPERT_SHAPES = [(320, 1024, 2048, 2), (320, 2048, 1024, 3)]
 # the fused kernel's shapes in the §5 models: BagNet's tall G (one 32 x 32
@@ -286,6 +296,8 @@ FLASH_WIDTH_SHAPES = [
     (1, 65, 200, 2, 2, 256, False, None),
     (1, 50, 50, 2, 2, 7, True, None),
     (1, 4096, 4096, 4, 1, 256, True, 512),
+    # zamba2-7b's shared attention block at its prefill of 4 x 512 (dh 112)
+    (4, 512, 512, 32, 32, 112, True, None),
 ]
 
 
@@ -955,3 +967,35 @@ def test_cuda_moe_step_launches_per_expert_site(cuda, backend):
     assert {k: v for k, v in ops.launch_counts().items() if v} == dict.fromkeys(kernels,
                                                                                  per_step)
     assert all(math.isfinite(float(m[k])) for k in ("loss", "aux", "grad_norm"))
+
+
+def test_cuda_mamba_block_gradients_are_finite_at_chunk_256(cuda):
+    """A Mamba block at the full configs' chunk of 256 over 512 tokens with
+    ``mamba_init``'s dt_bias: every gradient finite (JAX's SSD chunk gives
+    NaN dt gradients here, ROADMAP Queue 3 item 8), and the chunked output
+    within 3e-5 of its largest magnitude of a token-by-token
+    ``mamba_decode`` run (float32; the cumulative log decay reaches ~-540
+    within a chunk)."""
+    from repro_torch import rng
+    from repro_torch.nn import ssm
+    from repro_torch.nn.common import Ctx
+    from repro_torch.tree import tree_leaves
+
+    cfg = ssm.MambaCfg(d_model=256, chunk=256)
+    params = ssm.mamba_init(rng.generator(0, cuda), cfg, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    x = torch.randn((2, 512, 256), generator=g, device=cuda, requires_grad=True)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    y = ssm.mamba_block(params, x, Ctx(), cfg)
+    grads = torch.autograd.grad((y * y).sum(), [x] + leaves)
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+    with torch.no_grad():
+        state = ssm.mamba_state_init(2, cfg, torch.float32, cuda)
+        steps = []
+        for t in range(512):
+            o, state = ssm.mamba_decode(params, x[:, t:t + 1], Ctx(), cfg, state)
+            steps.append(o)
+    _close(y.detach(), torch.cat(steps, dim=1), 3e-5)

@@ -25,6 +25,7 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import Request as JRequest
 from repro.serve.legacy import RunToCompletionEngine as JLegacy
 from repro_torch.api import Runtime, ServeConfig
+from repro_torch.configs import registry
 from repro_torch.configs.base import ArchConfig
 from repro_torch.interop import caches_from_jax, params_from_jax, pools_from_jax
 from repro_torch.models import lm
@@ -468,6 +469,9 @@ def test_engines_refuse_what_the_port_cannot_serve():
             engine_cls(params, ArchConfig(**dict(SERVE, enc_layers=2)), runtime=CPU)
         with pytest.raises(NotImplementedError, match="dense decoder"):
             engine_cls(params, ArchConfig(**dict(SERVE, rope="mrope")), runtime=CPU)
+        for arch in ("rwkv6-3b", "zamba2-7b"):  # Runtime.prefill_step/decode_step serve them
+            with pytest.raises(NotImplementedError, match="SSM and hybrid families"):
+                engine_cls(params, registry.smoke_config(arch), runtime=CPU)
         elsewhere = dict(params, embed=params["embed"].to("meta"))
         with pytest.raises(ValueError, match="lie on"):
             engine_cls(elsewhere, CFG, runtime=CPU)

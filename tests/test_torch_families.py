@@ -53,7 +53,8 @@ from repro_torch.tree import tree_leaves
 RTOL, ATOL, TOL = 1e-5, 1e-6, 1e-5
 PORTED = ("yi_6b", "llama3_405b", "nemotron_4_340b", "gemma3_1b", "olmoe_1b_7b",
           "mixtral_8x22b")
-UNPORTED = ("qwen2_vl_2b", "seamless_m4t_large_v2", "zamba2_7b", "rwkv6_3b")
+UNPORTED = ("qwen2_vl_2b", "seamless_m4t_large_v2")
+RECURRENT = ("zamba2_7b", "rwkv6_3b")  # refused until their port; tests/test_torch_ssm.py
 B, S = 2, 24
 
 
@@ -132,6 +133,23 @@ def test_unported_families_refuse_by_name(arch):
                  lambda: lm.check_decoder(cfg)):
         with pytest.raises(NotImplementedError, match=cfg.name):
             call()
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_ssm_and_hybrid_families_run(arch):
+    """The SSM and hybrid families, once refused here, now run: the decoder
+    check takes the full config, and the smoke config's weights, caches and
+    forward build on the CPU (their parity with JAX: test_torch_ssm.py)."""
+    cfg = registry.get_config(arch)
+    assert cfg.name == jreg.get_config(arch).name
+    lm.check_decoder(cfg)
+    smoke = registry.smoke_config(arch)
+    params = lm.init_params(0, smoke, device="cpu")
+    caches = lm.init_cache(smoke, 1, 8, device="cpu")
+    assert len(params["layers"]) == len(caches) == len(lm.layer_kinds(smoke))
+    toks = torch.randint(0, smoke.vocab, (1, 8), generator=torch.Generator().manual_seed(0))
+    logits = lm.forward(params, {"tokens": toks}, Ctx(), smoke)
+    assert logits.shape == (1, 8, smoke.vocab) and torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------

@@ -223,6 +223,7 @@ def test_port_imports_neither_jax_nor_repro():
              + sorted((ROOT / "benchmarks" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/models/mlp.py", "src/repro_torch/models/vision.py",
+            "src/repro_torch/nn/ssm.py",
             "src/repro_torch/core/variance.py", "benchmarks/torch/quickstart.py",
             "benchmarks/torch/fig3_larger_archs.py", "benchmarks/torch/serve_lm.py",
             "benchmarks/torch/bench_resilience.py"} <= names
@@ -238,8 +239,9 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_unported_configs_raise():
-    cfg = ArchConfig(**dict(TINY, family="ssm", block_kind="rwkv"))
-    with pytest.raises(NotImplementedError, match="dense decoder family"):
-        lm.init_params(0, cfg, device="cpu")
+    for family in ("vlm", "audio"):
+        cfg = ArchConfig(**dict(TINY, family=family))
+        with pytest.raises(NotImplementedError, match=f"the {family} family"):
+            lm.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         lm.check_supported(ArchConfig(**dict(TINY, rope="mrope")))
