@@ -129,8 +129,9 @@ which raises on failure:
    (0 on the exact steps), one step build per bucket across both attempts,
    the allocator back at the clean run's level; the synchronous save's and
    the rollback's seconds and the wasted-work fraction printed;
-13. the model families from the named-config registry: every named config
-   resolves, the two unported families (vlm, audio) refused by name;
+13. the model families from the named-config registry: all ten named configs
+   pass the decoder check and their smoke configs build on the card, an
+   unknown family refused by name;
    ``sample_independent`` on NaN probabilities on the card (nothing kept, no
    assert); the score, fused and stream kernels at olmoe-1b-7b's and
    gemma3-1b's l1@0.2 shapes (expert buckets of 320 rows, an all-zero bucket
@@ -171,8 +172,32 @@ which raises on failure:
    prefill and none in decode, logits against plain attention
    (teacher-forced), and prefill + one decode step against the full
    forward's last logits (JAX's prefill/decode consistency rule);
-15. one JSON line listing the ported kernels, then the last line
+15. the VLM and audio families at full width (float32): the score, fused
+   and stream kernels at qwen2-vl-2b's and seamless-m4t-large-v2's l1@0.2
+   shapes (seamless's encoder and cross k/v sites at N 3,072) and flash at
+   their prefills (qwen causal GQA 12:2 at dh 128; seamless's encoder
+   without the causal mask at 768 x 768, its decoder's causal 512 x 512 and
+   its cross-attention without the mask at Sq 512, Skv 768), against the
+   plain versions; qwen2-vl-2b (28 layers, d 1536, M-RoPE, the vision
+   stub's embeds and a 16 x 16 grid's positions [3, B, S]) and
+   seamless-m4t-large-v2 (24 encoder + 24 decoder layers, d 1024, the audio
+   stub's 768 frames) at batch 4 x 512, full depth: one gradient at budget
+   0.999 equal to exact backprop's for every leaf under each backend, every
+   exact gradient finite; ``Runtime.train`` for 3 steps per backend with the
+   launch counts set to 0 before and read after (qwen 196 sites per step,
+   seamless 384), and a qwen ``stale`` step at accum 2 whose split takes
+   the positions on axis 1 (2 x 196); one exact and one profiled ``pallas``
+   step each; serving of 4 x 512 prompts (seamless over its 768 frames) and
+   16 greedy decode steps: 28 (qwen) and 72 (seamless) flash launches per
+   prefill and none in decode, logits against plain attention
+   (teacher-forced), and prefill + one decode step against the forward;
+16. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Every profiled step whose kernels are counted is traced again (up to twice)
+when its trace misses a launch that the counters saw: the profiler can drop
+a kernel's event (``traced_step``; ``benchmarks/torch/trace_drops.py``
+counts how often). The counters stay exact assertions.
 
 Without a CUDA device, or without the rest of the checkout, it exits with a
 non-zero code before printing any result.
@@ -864,6 +889,36 @@ def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
+def traced_step(run, want, label, tries=3):
+    """Profile ``run(attempt)`` (one step, synchronised) and return its
+    device events, once the trace holds ``want[name]`` events of each
+    kernel. The launch counters count every launch; the profiler can drop a
+    kernel's event (a trace of the MLP's step once held 2 of its 3 score
+    launches), so a trace that misses one is retried, up to ``tries``
+    traces, each retry printed with what the trace's raw device events and
+    its aggregate saw. Fails only if every trace misses a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        # device activity alone: the same kernels and device time as with the
+        # host's ops recorded too, and a shorter post-processing (PERF.md §6)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(attempt)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = {name: sum(e.count for e in kern if KERNEL_SYMBOLS[name] in e.key)
+                for name in want}
+        if seen == want:
+            return kern
+        raw = {name: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and KERNEL_SYMBOLS[name] in e.name) for name in want}
+        print(f"[trace-retry] {label}: trace {attempt + 1} of {tries} holds {seen} kernel "
+              f"events (raw device events {raw}), the counters {want}")
+    raise AssertionError(f"{label}: every one of {tries} traces missed a launch the counters "
+                         f"saw ({want})")
+
+
 def step_breakdown(dev, replay, reps=3):
     """Where a step's time goes: lm-100m steps with exact backprop beside the
     sketched steps of each backend and the compact-gradient ``pallas`` step
@@ -1457,9 +1512,6 @@ def paper_breakdown(dev, replay, reps=3):
     memory, and each kernel's in-step device time beside
     ``replay[model][kernel]``, its warm-L2 replay time per step (this phase's
     kernel rows)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.api import Runtime
 
     for model in PAPER:
@@ -1476,10 +1528,10 @@ def paper_breakdown(dev, replay, reps=3):
             float(loss)
             torch.cuda.synchronize()
             step_ms = 1e3 * (time.perf_counter() - t0) / reps
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                float(step(reps + 1, batches[-1]))
-                torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            want = ({} if policy is None else
+                    {name: paper_counts(model, 1)[name] for name in replay[model]})
+            kern = traced_step(lambda a: float(step(reps + 1 + a, batches[-1])), want,
+                               f"{model} {label}")
             busy_ms = sum(_device_us(e) for e in kern) / 1e3
             print(f"[paper-breakdown] {model} {label}: {step_ms:.2f} ms/step over {reps} steps; "
                   f"profiled step: device busy {busy_ms:.2f} ms in "
@@ -1489,16 +1541,11 @@ def paper_breakdown(dev, replay, reps=3):
             for e in sorted(kern, key=_device_us, reverse=True)[:5]:
                 print(f"[paper-breakdown]   device {_device_us(e) / 1e3:8.3f} ms x{e.count:<5d} "
                       f"{e.key[:80]}")
-            if policy is not None:
-                for name, replay_ms in replay[model].items():
-                    evs = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
-                    want = paper_counts(model, 1)[name]
-                    if sum(e.count for e in evs) != want:
-                        raise AssertionError(f"{model}: {sum(e.count for e in evs)} {name} "
-                                             f"launches in the traced step, want {want}")
-                    print(f"[paper-breakdown]   kernel {name}: "
-                          f"{sum(_device_us(e) for e in evs) / 1e3:.3f} ms in the step "
-                          f"({want} launches), warm-L2 replay {replay_ms:.3f} ms per step")
+            for name, n in want.items():
+                evs = [e for e in kern if KERNEL_SYMBOLS[name] in e.key]
+                print(f"[paper-breakdown]   kernel {name}: "
+                      f"{sum(_device_us(e) for e in evs) / 1e3:.3f} ms in the step "
+                      f"({n} launches), warm-L2 replay {replay[model][name]:.3f} ms per step")
             del params, batches
 
 
@@ -2811,7 +2858,7 @@ OLMOE_TRAIN_LAYERS = 4
 # serving (prompts, tokens per prompt): olmoe at full depth; gemma3 with
 # prompts four times its 512-token window
 FAM_SERVE = {"olmoe-1b-7b": (4, 512), "gemma3-1b": (2, 2048), "rwkv6-3b": (4, 512),
-             "zamba2-7b": (4, 512)}
+             "zamba2-7b": (4, 512), "qwen2-vl-2b": (4, 512), "seamless-m4t-large-v2": (4, 512)}
 FAM_DECODE = 16
 FAM_SEED = 41
 # routing near ties (olmoe serving, flash against plain attention): float32
@@ -2848,37 +2895,44 @@ def family_cfgs():
             get_config("gemma3-1b").replace(**f32))
 
 
-def family_registry():
-    """Every named config from the registry: the ported ones pass the
-    decoder check, the two unported families raise NotImplementedError."""
+def family_registry(dev):
+    """Every named config from the registry passes the decoder check and its
+    smoke config builds on the card; an unknown family is refused by name."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
 
-    ported, refused = [], []
+    names = []
     for arch in registry.ARCH_IDS:
         cfg = registry.get_config(arch.replace("_", "-"))
-        try:
-            lm.check_decoder(cfg)
-            ported.append(cfg.name)
-        except NotImplementedError as e:
-            if cfg.name not in str(e):
-                raise AssertionError(f"the refusal does not name {cfg.name}: {e}")
-            refused.append(cfg.name)
-    if sorted(refused) != ["qwen2-vl-2b", "seamless-m4t-large-v2"]:
-        raise AssertionError(f"refused {refused}")
-    print(f"[families] registry: {len(ported)} ported {ported}; refused {refused}")
+        lm.check_decoder(cfg)
+        smoke = registry.smoke_config(arch)
+        n = lm.num_params(lm.init_params(0, smoke, device=dev))
+        names.append(f"{cfg.name} (smoke {n})")
+    if len(names) != 10:
+        raise AssertionError(f"{len(names)} named configs, want 10")
+    odd = registry.get_config("yi-6b").replace(name="odd", family="diffusion")
+    try:
+        lm.check_decoder(odd)
+    except NotImplementedError as e:
+        if "odd: the diffusion family" not in str(e):
+            raise AssertionError(f"the refusal does not name the config and family: {e}")
+    else:
+        raise AssertionError("an unknown family passed the decoder check")
+    print(f"[families] registry: all {len(names)} named configs pass the decoder check and "
+          f"their smoke configs build on the card: {names}; an unknown family refused by name")
 
 
 def sites_per_step(cfg) -> int:
     """Sketched sites of one step of ``cfg``: every linear but the head and
     Mamba's ``ssm_small`` in_B/in_C/in_dt (the default policy leaves them
-    exact); an RWKV layer's r, k, v, g, out, cm_k, cm_v and cm_r."""
+    exact); an RWKV layer's r, k, v, g, out, cm_k, cm_v and cm_r; an
+    encoder-decoder's encoder layers, and its decoder's cross q, k, v, o."""
     from repro_torch.models import lm
 
     ffn = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
     per = {"rwkv": 8, "mamba": 3}
-    return sum(per.get(k.kind, 4 + (3 * cfg.n_experts if k.moe else ffn))
-               for k in lm.layer_kinds(cfg))
+    return sum(per.get(k.kind, 4 + 4 * k.cross + (3 * cfg.n_experts if k.moe else ffn))
+               for k in lm.layer_kinds(cfg) + lm.encoder_kinds(cfg))
 
 
 def family_counts(cfg, backend, steps):
@@ -3046,18 +3100,30 @@ def family_grads(dev, cfg, backends, batch, seed):
     for p in leaves:
         p.requires_grad_(True)
 
+    # the one leaf the loss may leave unread: the embedding table of a model
+    # fed embeds and no tokens (the VLM), when no tied head reads it; every
+    # other leaf must get a gradient
+    unread = ([i for i, p in enumerate(leaves) if p is params["embed"]]
+              if "embeds" in batch and "tokens" not in batch and not cfg.tie_embeddings
+              else [])
+
     def grads(policy, key=7):
         ctx = Runtime(policy=policy, device=dev).ctx(key, n_layers=cfg.n_layers)
         loss, m = lm.lm_loss(params, batch, ctx, cfg, key if policy else None)
-        return loss.detach(), m["aux"].detach(), torch.autograd.grad(loss, leaves)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=bool(unread))
+        none = [i for i, g in enumerate(gs) if g is None]
+        if none != unread:
+            raise AssertionError(f"{cfg.name}: leaves {none} got no gradient, want {unread}")
+        return loss.detach(), m["aux"].detach(), [g for g in gs if g is not None]
 
     loss_e, aux_e, g_exact = grads(None)
     bad = sum(not bool(torch.isfinite(g).all()) for g in g_exact)
     if bad:
-        raise AssertionError(f"{cfg.name}: {bad} of {len(leaves)} exact gradient leaves are "
+        raise AssertionError(f"{cfg.name}: {bad} of {len(g_exact)} exact gradient leaves are "
                              "not finite")
-    print(f"[families] {cfg.name} ({cfg.n_layers} layers): all {len(leaves)} exact gradient "
-          "leaves finite" + (f" at SSM chunk {cfg.ssm_chunk}" if cfg.block_kind != "attn" else ""))
+    print(f"[families] {cfg.name} ({cfg.n_layers} layers): all {len(g_exact)} exact gradient "
+          "leaves finite" + (f" at SSM chunk {cfg.ssm_chunk}" if cfg.block_kind != "attn" else "")
+          + (" (the embedding table, fed embeds, is unread)" if unread else ""))
     for backend in backends:
         ops.reset_launch_counts()
         loss_s, aux_s, g_sk = grads(slice_policy(0.999, backend))
@@ -3075,47 +3141,90 @@ def family_grads(dev, cfg, backends, batch, seed):
             raise AssertionError(f"{cfg.name} {backend}@0.999 vs exact gradients: max rel err "
                                  f"{worst:.3e} > {GRAD_RTOL}")
         print(f"[families] {cfg.name} ({cfg.n_layers} layers) {backend} budget 0.999: "
-              f"{len(leaves)} gradient leaves equal exact backprop's, max rel err {worst:.3e} "
+              f"{len(g_sk)} gradient leaves equal exact backprop's, max rel err {worst:.3e} "
               f"(tol {GRAD_RTOL}); loss {loss_e.item():.6f} aux {aux_e.item():.6f}; "
               f"launches {counts}")
         del g_sk
     del params, leaves, g_exact
 
 
-def family_train(dev, cfg, backend, data_seed):
-    """The main path of one family and backend: Runtime.train for FAM_STEPS
-    steps at l1@0.2, block 128, AdamW, the launch counts set to 0 just before
-    and read just after; losses and aux finite; the replicas dropped by the
-    capacity counted."""
-    from repro_torch.api import Runtime
+def grid_positions(B, S, grid):
+    """[3, B, S] int64 M-RoPE positions in Qwen2-VL's layout for one grid x
+    grid image and then text: the image's tokens at (t 0, h the row, w the
+    column), text token i at grid + i in all three streams."""
+    n = grid * grid
+    pos = np.empty((3, S), np.int64)
+    cells = np.arange(n)
+    pos[0, :n], pos[1, :n], pos[2, :n] = 0, cells // grid, cells % grid
+    pos[:, n:] = grid + np.arange(S - n)
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, B, S)))
+
+
+def stub_inputs(cfg, rs, batch):
+    """``batch`` with a stub frontend's inputs drawn from the numpy generator
+    ``rs`` (the frontends themselves are not modelled, as in JAX): the VLM's
+    embeds (normal x 0.02) in place of its tokens, with the positions of one
+    VLM_GRID x VLM_GRID image and then text; an encoder-decoder's
+    src_embeds, AUDIO_FRAMES frames per row (normal x 0.02)."""
+    B, S = batch["labels"].shape
+    out = dict(batch)
+    if cfg.frontend == "vision":
+        out.pop("tokens", None)
+        out["embeds"] = rs.standard_normal((B, S, cfg.d_model), dtype=np.float32) * 0.02
+        out["positions"] = grid_positions(B, S, VLM_GRID)
+    if cfg.is_encdec:
+        out["src_embeds"] = rs.standard_normal((B, AUDIO_FRAMES, cfg.d_model),
+                                               dtype=np.float32) * 0.02
+    return out
+
+
+def family_batches(cfg, seed):
+    """The training batches of ``cfg``: LMStream's FAM_BATCH x FAM_SEQ tokens
+    and labels from ``seed``; a stub frontend's inputs from numpy with the
+    same seed (``stub_inputs``)."""
     from repro_torch.data.synthetic import LMStream
+
+    rs = np.random.default_rng(seed)
+    for batch in LMStream(vocab=cfg.vocab, seed=seed).batches(FAM_BATCH, FAM_SEQ):
+        yield stub_inputs(cfg, rs, batch)
+
+
+def family_train(dev, cfg, backend, data_seed, accum=1, steps=FAM_STEPS):
+    """The main path of one family and backend: Runtime.train for ``steps``
+    steps at l1@0.2, block 128, AdamW, accumulating over ``accum``
+    microbatches, the launch counts set to 0 just before and read just
+    after; losses and aux finite; the replicas dropped by the capacity
+    counted."""
+    from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw, cosine_warmup
     from repro_torch.train.trainer import TrainerConfig
     from repro_torch.tree import tree_leaves
 
-    runtime = Runtime(policy=slice_policy(0.2, backend), device=dev)
+    runtime = Runtime(policy=slice_policy(0.2, backend), execution=ExecutionConfig(accum=accum),
+                      device=dev)
     opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
-    data = LMStream(vocab=cfg.vocab, seed=data_seed).batches(FAM_BATCH, FAM_SEQ)
     torch.cuda.reset_peak_memory_stats(dev)
     with RouteSpy() as spy:
         ops.reset_launch_counts()
-        state, history = runtime.train(cfg, opt, data, TrainerConfig(
-            steps=FAM_STEPS, log_every=1, seed=FAM_SEED))
+        state, history = runtime.train(cfg, opt, family_batches(cfg, data_seed), TrainerConfig(
+            steps=steps, log_every=1, seed=FAM_SEED))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-    want = family_counts(cfg, backend, FAM_STEPS)
+    want = family_counts(cfg, backend, steps * accum)
     if counts != want:
-        raise AssertionError(f"{cfg.name} {backend} main path launched {counts}, want {want}")
+        raise AssertionError(f"{cfg.name} {backend} accum {accum} main path launched {counts}, "
+                             f"want {want}")
     losses = [h["loss"] for h in history]
     auxes = [h["aux"] for h in history]
-    if len(history) != FAM_STEPS or not all(map(math.isfinite, losses + auxes)):
+    if len(history) != steps or not all(map(math.isfinite, losses + auxes)):
         raise AssertionError(f"{cfg.name} {backend}: losses {losses}, aux {auxes}")
     if not all(torch.isfinite(p).all() for p in tree_leaves(state.params)):
         raise AssertionError(f"{cfg.name} {backend}: non-finite parameters")
     replicas = sum(c["sets"].numel() for c in spy.calls)
     print(f"[families] {cfg.name} train {backend} l1@0.2 block {BLOCK}, batch "
-          f"{FAM_BATCH}x{FAM_SEQ}, {cfg.n_layers} layers, {sites_per_step(cfg)} sketched "
+          f"{FAM_BATCH}x{FAM_SEQ}" + (f" in {accum} microbatches" if accum > 1 else "")
+          + f", {cfg.n_layers} layers, {sites_per_step(cfg)} sketched "
           f"sites per step: losses {losses}, aux {auxes}, step ms "
           f"{[round(1e3 * h['step_s'], 1) for h in history]} (first includes warm-up), peak "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {counts}"
@@ -3130,16 +3239,14 @@ def family_breakdown(dev, cfg, data_seed, exact=True, profile_sketched=True):
     """One exact step (unless ``exact`` is False) beside one pallas l1@0.2
     step (AdamW, after a warm-up step each): synced ms per step, and under
     the profiler (the sketched step only if ``profile_sketched``)
-    device-busy ms, device ops and the device-idle share; peak memory."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    device-busy ms, device ops and the device-idle share; peak memory. The
+    profiled sketched step's trace must hold every launch the counters
+    count (``traced_step``)."""
     from repro_torch.api import Runtime
-    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
     from repro_torch.optim import adamw, cosine_warmup
 
-    batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=data_seed).batches(
-        FAM_BATCH, FAM_SEQ), range(3))]
+    batches = [b for b, _ in zip(family_batches(cfg, data_seed), range(3))]
     runs = (("exact", None), ("pallas-l1@0.2", slice_policy(0.2)))
     for label, policy in runs if exact else runs[1:]:
         runtime = Runtime(policy=policy, device=dev)
@@ -3162,11 +3269,22 @@ def family_breakdown(dev, cfg, data_seed, exact=True, profile_sketched=True):
             del state, fn, opt
             torch.cuda.empty_cache()
             continue
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, m = fn(state, batches[2], 3)
+        want = {} if policy is None else {name: n for name, n in
+                                          family_counts(cfg, "pallas", 1).items() if n}
+        box = [state]
+
+        def run(attempt):
+            ops.reset_launch_counts()
+            box[0], m = fn(box[0], batches[2], 3 + attempt)
             float(m["loss"])
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            counts = {name: n for name, n in ops.launch_counts().items() if n}
+            if counts != want:
+                raise AssertionError(f"{cfg.name} {label}: the traced step launched {counts}, "
+                                     f"want {want}")
+
+        kern = traced_step(run, want, f"{cfg.name} {label}")
+        state = box.pop()  # the list must not keep this state alive past the label
         busy = sum(_device_us(e) for e in kern) / 1e3
         print(f"[families] {cfg.name} breakdown {label}: {step_ms:.1f} ms/step (synced, one "
               f"step); profiled step: device busy {busy:.1f} ms in "
@@ -3209,18 +3327,22 @@ def _routing_divergence(ref_calls, run_calls, B, diverged):
 
 
 def family_serve(dev, cfg, rtol=LOGIT_RTOL):
-    """Serving of one family at its FAM_SERVE prompts: Runtime.prefill_step
-    with attn_impl="pallas" (one flash launch per attention layer, the local
-    layers' with their window) and FAM_DECODE greedy decode_steps (no
-    launch), the counts set to 0 before and read after each; then, for a
-    model with attention, the same calls under plain attention,
-    teacher-forced on the kernel run's tokens. Logits must agree within
-    ``rtol`` of the largest logit. For MoE, rows whose routing diverged at a
-    near tie (``_routing_divergence``) are counted and left out of the
-    comparison. For a recurrent model (SSM or hybrid), prefill plus the
-    first decode step must also give the full forward's last logits within
-    ``rtol`` (JAX's prefill/decode consistency rule). Returns the launch
-    counts."""
+    """Serving of one family at its FAM_SERVE prompts (an encoder-decoder's
+    over AUDIO_FRAMES source frames): Runtime.prefill_step with
+    attn_impl="pallas" (one flash launch per attention: each layer's, the
+    local layers' with their window, an encoder layer's and a decoder
+    layer's cross-attention without the causal mask) and FAM_DECODE greedy
+    decode_steps (no launch), the counts set to 0 before and read after
+    each; then, for a model with attention, the same calls under plain
+    attention, teacher-forced on the kernel run's tokens. Logits must agree
+    within ``rtol`` of the largest logit, and a greedy token may differ only
+    at a near tie (the plain run's logits of the two tokens closer than
+    ``rtol`` of its largest). For MoE, rows whose routing diverged at a near
+    tie (``_routing_divergence``) are counted and left out of the
+    comparison. For a recurrent model (SSM or hybrid) and a stub-frontend
+    family (VLM, audio), prefill plus the first decode step must also give
+    the full forward's last logits within ``rtol`` (JAX's prefill/decode
+    consistency rule). Returns the launch counts."""
     from repro_torch.api import Runtime
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -3238,10 +3360,16 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
     cfg = cfg.replace(attn_impl="pallas")
     B, S = FAM_SERVE[cfg.name]
     attn = [k for k in lm.layer_kinds(cfg) if k.kind in ("attn", "shared_attn")]
+    n_flash = len(attn) + sum(k.cross for k in attn) + len(lm.encoder_kinds(cfg))
     torch.cuda.reset_peak_memory_stats(dev)
     params = lm.init_params(FAM_SEED, cfg, device=dev)
     n_params = lm.num_params(params)
-    prompts = np.random.default_rng(FAM_SEED).integers(1, cfg.vocab, size=(B, S))
+    rs = np.random.default_rng(FAM_SEED)
+    prompts = rs.integers(1, cfg.vocab, size=(B, S))
+    # the serving prompts are tokens at text positions; an encoder-decoder's
+    # come with its source frames
+    extra = {k: v for k, v in stub_inputs(cfg, rs, {"labels": prompts}).items()
+             if k == "src_embeds"}
     runtime = Runtime(device=dev)
     prefill = runtime.prefill_step(cfg, S + FAM_DECODE)
     decode = runtime.decode_step(cfg)
@@ -3252,7 +3380,7 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            logits, caches = prefill(params, {"tokens": prompts})
+            logits, caches = prefill(params, {"tokens": prompts, **extra})
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             after_prefill = ops.launch_counts()
@@ -3276,19 +3404,20 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
                     ms=(1e3 * (t1 - t0), 1e3 * (t2 - t1)))
 
     run = generate()
-    want["flash_attention"] = len(attn)
+    want["flash_attention"] = n_flash
     if run["counts"] != (want, {name: 0 for name in ops.KERNELS}):
         raise AssertionError(f"{cfg.name} serving launched {run['counts']} (prefill, decode); "
-                             f"want {len(attn)} flash per prefill, 0 in decode")
+                             f"want {n_flash} flash per prefill, 0 in decode")
     want_sizes = [S + FAM_DECODE if k.window is None else min(k.window, S + FAM_DECODE)
                   for k in attn]
     if run["sizes"] != want_sizes:
         raise AssertionError(f"cache sizes {run['sizes']}, want {want_sizes}")
     consistency = None
-    if cfg.block_kind != "attn":
+    if cfg.block_kind != "attn" or cfg.frontend is not None:
         with torch.no_grad():
             full = lm.forward(params, {"tokens": torch.cat(
-                [torch.as_tensor(prompts, device=dev), run["fed"][0].long()], dim=1)}, Ctx(), cfg)
+                [torch.as_tensor(prompts, device=dev), run["fed"][0].long()], dim=1),
+                **{k: torch.as_tensor(v, device=dev) for k, v in extra.items()}}, Ctx(), cfg)
         last = full[:, -1]
         consistency = ((run["steps"][0][:, 0] - last).abs().max() / last.abs().max()).item()
         del full, last
@@ -3322,7 +3451,7 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
     errs = ([max_err(run["logits"][keep], ref["logits"][keep], rtol)[0]]
             if keep.any() else [])
     per_step = (len(run["calls"]) - run["n_prefill"]) // FAM_DECODE
-    differ = 0
+    differ, worst_tie = 0, 0.0
     for i, (a, b) in enumerate(zip(run["steps"], ref["steps"])):
         if cfg.n_experts:
             lo = run["n_prefill"] + i * per_step
@@ -3333,7 +3462,19 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
         if keep.any():
             errs.append(max_err(a[keep], b[keep], rtol)[0])
         nxt = run["fed"][i + 1] if i + 1 < FAM_DECODE else greedy_sample(a)
-        differ += int((greedy_sample(b)[keep] != nxt[keep]).sum())
+        mine = greedy_sample(b)
+        off = (mine != nxt)[:, 0] & keep
+        if off.any():
+            # the plain run's logits of its own token and of the kernel run's
+            lg = b[:, 0].float()
+            gap = (lg.gather(-1, mine.long()) - lg.gather(-1, nxt.long()))[off, 0]
+            tie = rtol * lg[keep].abs().max()
+            if not bool((gap <= tie).all()):
+                raise AssertionError(f"{cfg.name} step {i}: a greedy token differs between "
+                                     f"flash and plain attention at a logit gap "
+                                     f"{gap.max().item():.3e} > {tie.item():.3e}: not a near tie")
+            differ += int(off.sum())
+            worst_tie = max(worst_tie, (gap / tie).max().item())
     if not keep.any():
         raise AssertionError(f"{cfg.name}: routing diverged in every prompt, none left to "
                              "compare")
@@ -3350,6 +3491,8 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
     print(f"[families] {cfg.name} serve against plain attention (teacher-forced): logits max "
           f"|err| {max(errs):.3e} (tol {rtol} of the largest logit) over "
           f"{int(keep.sum())} of {B} prompts; greedy tokens differing {differ}"
+          + (f" (each a near tie, largest gap {worst_tie:.2f} of the tie bound)" if differ
+             else "")
           + (f"; routing swaps at near ties {swaps} (largest margin {worst:.3e}, threshold "
              f"{ROUTER_TIE}), prompts left out {int((~keep).sum())}; replicas dropped by the "
              f"capacity in the kernel run: prefill {dropped(run['calls'][:run['n_prefill']])} "
@@ -3358,12 +3501,9 @@ def family_serve(dev, cfg, rtol=LOGIT_RTOL):
              f"{B * FAM_DECODE * cfg.top_k * cfg.n_layers} (capacity "
              f"{decode_cap} per expert at N = {B})"
              if cfg.n_experts else ""))
-    if differ and cfg.block_kind != "attn":
-        raise AssertionError(f"{cfg.name}: {differ} greedy tokens differ between flash and "
-                             "plain attention")
     del params, run, ref
     torch.cuda.empty_cache()
-    return {name: (len(attn) if name == "flash_attention" else 0) for name in ops.KERNELS}
+    return {name: (n_flash if name == "flash_attention" else 0) for name in ops.KERNELS}
 
 
 def families(dev, gen):
@@ -3380,7 +3520,7 @@ def families(dev, gen):
             total[name] += n
 
     t_phase = time.perf_counter()
-    family_registry()
+    family_registry(dev)
     # the sampler of exact_r=False sketches on a NaN probability: nothing kept,
     # no device-side assert
     p = torch.tensor([0.5, float("nan"), 1.0, 0.0] * 256, device=dev)
@@ -3452,8 +3592,9 @@ SSM_FLASH_SHAPES = {"zamba2-7b": {(4, 512, 512, 32, 32, 112, True, None): 13}}
 SSM_LOGIT_RTOL = 1e-3
 
 
-def ssm_cfg(name, layers=None):
-    """The registry's config, float32 (published bfloat16), cut to ``layers``."""
+def f32_cfg(name, layers=None):
+    """The registry's config, float32 (published bfloat16), cut to ``layers``
+    (phases 14 and 15)."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(name).replace(dtype="float32", param_dtype="float32")
@@ -3477,7 +3618,7 @@ def ssm_families(dev, gen):
     rows = family_kernels(gen, dev, SSM_BLOCK_SHAPES, SSM_FLASH_SHAPES)
     print(f"[time]   SSM family kernels {time.perf_counter() - t0:.1f} s")
     for name, layers in SSM_TRAIN_LAYERS.items():
-        cfg = ssm_cfg(name, layers)
+        cfg = f32_cfg(name, layers)
         t0 = time.perf_counter()
         batch = batch_to_device(next(LMStream(vocab=cfg.vocab, seed=FAM_SEED).batches(
             FAM_BATCH, FAM_SEQ)), dev)
@@ -3497,10 +3638,90 @@ def ssm_families(dev, gen):
         print(f"[time]   {name} training {time.perf_counter() - t0:.1f} s")
     for name in SSM_TRAIN_LAYERS:
         t0 = time.perf_counter()
-        add(family_serve(dev, ssm_cfg(name),
+        add(family_serve(dev, f32_cfg(name),
                          SSM_LOGIT_RTOL if name == "zamba2-7b" else LOGIT_RTOL))
         print(f"[time]   {name} serving {time.perf_counter() - t0:.1f} s")
     print(f"[time]   SSM families {time.perf_counter() - t_phase:.1f} s")
+    return total, rows
+
+
+# ---------------------------------------------------------------------------
+# The VLM and audio families (phase 15): qwen2-vl-2b (M-RoPE over the vision
+# stub) and seamless-m4t-large-v2 (encoder-decoder over the audio stub),
+# trained and served at full width and depth
+# ---------------------------------------------------------------------------
+
+# the VLM's image: a 16 x 16 patch grid takes the first 256 of the 512 tokens
+VLM_GRID = 16
+# the audio stub's source frames per row: the encoder's length, and the
+# cross-attention's keys
+AUDIO_FRAMES = 768
+VLM_AUDIO = ("qwen2-vl-2b", "seamless-m4t-large-v2")
+# the families' kernel shapes at l1@0.2, block 128, and their calls per step:
+# (N, n, d, rb) -> calls. qwen: 28 layers of q/o, k/v (GQA 12:2 of 128), mlp
+# in/gate and out. seamless: N 3,072 (4 x 768 frames) at the encoder's 24
+# layers of q/k/v/o and mlp in/out and at the decoder's cross k/v; N 2,048
+# at the decoder's 24 layers of self q/k/v/o, cross q/o and mlp in/out
+VLM_BLOCK_SHAPES = {
+    "qwen2-vl-2b": {(2048, 1536, 1536, 2): 56, (2048, 256, 1536, 1): 56,
+                    (2048, 8960, 1536, 14): 56, (2048, 1536, 8960, 2): 28},
+    "seamless-m4t-large-v2": {(3072, 1024, 1024, 2): 144, (3072, 8192, 1024, 13): 24,
+                              (3072, 1024, 8192, 2): 24, (2048, 1024, 1024, 2): 144,
+                              (2048, 8192, 1024, 13): 24, (2048, 1024, 8192, 2): 24}}
+# flash per prefill: qwen's 28 causal layers; seamless's 24 encoder layers
+# (no causal mask, 768 x 768), 24 decoder self-attentions (causal 512 x 512)
+# and 24 cross-attentions (no causal mask, 512 queries over 768 frames)
+VLM_FLASH_SHAPES = {
+    "qwen2-vl-2b": {(4, 512, 512, 12, 2, 128, True, None): 28},
+    "seamless-m4t-large-v2": {(4, 768, 768, 16, 16, 64, False, None): 24,
+                              (4, 512, 512, 16, 16, 64, True, None): 24,
+                              (4, 512, 768, 16, 16, 64, False, None): 24}}
+
+
+def vlm_audio(dev, gen):
+    """Phase 15. Returns (launches of its main paths, kernel rows)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import batch_to_device
+
+    total = {name: 0 for name in ops.KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rows = family_kernels(gen, dev, VLM_BLOCK_SHAPES, VLM_FLASH_SHAPES)
+    print(f"[time]   VLM and audio kernels {time.perf_counter() - t0:.1f} s")
+    for name in VLM_AUDIO:
+        cfg = f32_cfg(name)
+        t0 = time.perf_counter()
+        batch = batch_to_device(next(family_batches(cfg, FAM_SEED)), dev)
+        family_grads(dev, cfg, BACKENDS, batch, FAM_SEED)
+        del batch
+        torch.cuda.empty_cache()
+        print(f"[time]   {name} budget-0.999 gradients {time.perf_counter() - t0:.1f} s")
+        for backend in BACKENDS:
+            t1 = time.perf_counter()
+            add(family_train(dev, cfg, backend, FAM_SEED + 1))
+            torch.cuda.empty_cache()
+            print(f"[time]   {name} train {backend} {time.perf_counter() - t1:.1f} s")
+        if cfg.rope == "mrope":
+            # the [3, B, S] positions split on their batch axis (axis 1)
+            t1 = time.perf_counter()
+            add(family_train(dev, cfg, "stale", FAM_SEED + 1, accum=2, steps=1))
+            torch.cuda.empty_cache()
+            print(f"[time]   {name} train stale accum 2 {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        family_breakdown(dev, cfg, FAM_SEED + 2)
+        torch.cuda.empty_cache()
+        print(f"[time]   {name} breakdown {time.perf_counter() - t1:.1f} s")
+        print(f"[time]   {name} training {time.perf_counter() - t0:.1f} s")
+    for name in VLM_AUDIO:
+        t0 = time.perf_counter()
+        add(family_serve(dev, f32_cfg(name)))
+        print(f"[time]   {name} serving {time.perf_counter() - t0:.1f} s")
+    print(f"[time]   VLM and audio families {time.perf_counter() - t_phase:.1f} s")
     return total, rows
 
 
@@ -3544,7 +3765,6 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {name}: {line.strip()}")
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -3616,6 +3836,13 @@ def main() -> int:
     for name, rs in ssm_rows.items():
         fam_rows[name] += rs
     print(f"[time] the SSM and hybrid families {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vlm_counts, vlm_rows = vlm_audio(dev, gen)
+    for name, n in vlm_counts.items():
+        launches[name] += n
+    for name, rs in vlm_rows.items():
+        fam_rows[name] += rs
+    print(f"[time] the VLM and audio families {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -3659,11 +3886,14 @@ def main() -> int:
           f"gemma3 training, {FAM_STEPS} steps per backend, and one prefill each): "
           f"{json.dumps(fam_counts)}; the SSM and hybrid families (phase 14's main paths: "
           f"rwkv6-3b and zamba2-7b training, {FAM_STEPS} steps per backend, and one prefill "
-          f"each): {json.dumps(ssm_counts)}")
+          f"each): {json.dumps(ssm_counts)}; the VLM and audio families (phase 15's main "
+          f"paths: qwen2-vl-2b and seamless-m4t-large-v2 training, {FAM_STEPS} steps per "
+          f"backend, qwen's stale step at accum 2, and one prefill each): "
+          f"{json.dumps(vlm_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "
-          "in the [paper-kernel] lines, the families' (phases 13 and 14) in the "
+          "in the [paper-kernel] lines, the families' (phases 13 to 15) in the "
           "[family-kernel] lines; "
           "max_abs_err over every float32 shape")
     print(json.dumps({"kernels": kernels}))

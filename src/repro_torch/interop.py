@@ -9,14 +9,18 @@ unstacks them (an MoE layer's ``moe`` leaves keep their expert axis; a
 Mamba or RWKV layer's ``mu``, ``conv``, ``A_log`` and the rest keep their
 own shapes). A zamba ``shared_attn`` sub-block is ``None`` in JAX's
 segments and an empty dict in the port's layers; its one weight,
-``"shared"``, comes across as it is. Both
+``"shared"``, comes across as it is. An encoder-decoder's
+``encoder/segments`` are unstacked the same way into
+``encoder/layers`` (its ``final_norm`` beside them), and a decoder layer's
+``cross`` and ``norm_c`` leaves come with the rest of its sub-block. Both
 packages then compute the same function. Any tree of the same structure
 works (a gradient tree too), and so does the tree of a JAX ``init_state``
 with a plan-carry policy: each site's ``"sslot"`` carry leaf ``[n_rep, n]``
 is unstacked with the weights into one ``[n]`` leaf per layer.
 ``caches_from_jax`` does the same for the
-decode caches of ``lm.init_cache`` / ``lm.prefill`` (attention's K/V and
-the recurrent states), ``pools_from_jax`` for
+decode caches of ``lm.init_cache`` / ``lm.prefill`` (attention's K/V, an
+encoder-decoder's ``cross`` K/V, and the recurrent states),
+``pools_from_jax`` for
 the serving engine's page pools (``serve/kv_cache.init_pools``), and
 ``compact_grad_from_jax`` turns a JAX ``CompactGrad`` (float32 indices) into
 the port's (int64 indices). For the paper's §5 models: an ``mlp_arch``
@@ -60,6 +64,10 @@ def params_from_jax(tree, cfg: ArchConfig, *, device="cuda"):
     for name in ("shared", "lm_head"):
         if name in tree:
             out[name] = tree_map(t, tree[name])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": _unstack(enc["segments"], cfg, t, encoder=True),
+                          "final_norm": tree_map(t, enc["final_norm"])}
     return out
 
 
@@ -70,10 +78,11 @@ def _first_leaf(subs):
     return np.asarray(node)
 
 
-def _unstack(segments, cfg: ArchConfig, t):
+def _unstack(segments, cfg: ArchConfig, t, encoder: bool = False):
     """One dict per layer, in uid order, from JAX's per-segment stacks (an
-    empty dict for a ``None`` sub-block: a shared one)."""
-    plan = plan_segments(cfg)
+    empty dict for a ``None`` sub-block: a shared one); the encoder's with
+    ``encoder``."""
+    plan = plan_segments(cfg, encoder=encoder)
     if len(segments) != len(plan) or any(len(s) != len(period)
                                          for s, (period, _) in zip(segments, plan)):
         raise ValueError(f"tree's segments do not follow the plan of {cfg.name}")
@@ -92,12 +101,20 @@ def _unstack(segments, cfg: ArchConfig, t):
 def caches_from_jax(caches, cfg: ArchConfig, *, device="cuda"):
     """The port's per-layer cache list for the JAX ``lm.init_cache`` /
     ``lm.prefill`` cache tree ``caches``: segments -> sub-blocks ->
-    ``{"kv": {"k", "v"}}`` for attention, or a recurrent layer's state
-    (``{"ssm", "conv"}``, ``{"wkv", "shift_tm", "shift_cm"}``), each stacked
-    on its segment's periods; on ``device``."""
+    ``{"kv": {"k", "v"}}`` for attention (with ``"cross": {"k", "v"}`` in an
+    encoder-decoder's decoder, which the port keeps beside ``k`` and ``v``),
+    or a recurrent layer's state (``{"ssm", "conv"}``, ``{"wkv",
+    "shift_tm", "shift_cm"}``), each stacked on its segment's periods; on
+    ``device``."""
     check_decoder(cfg)
     dev = resolve_device(device)
-    per_sub = [[sub["kv"] if "kv" in sub else sub for sub in seg] for seg in caches]
+
+    def layer(sub):
+        if "kv" not in sub:
+            return sub
+        return dict(sub["kv"], cross=sub["cross"]) if "cross" in sub else sub["kv"]
+
+    per_sub = [[layer(sub) for sub in seg] for seg in caches]
     return _unstack(per_sub, cfg, lambda a: torch.tensor(np.asarray(a), device=dev))
 
 

@@ -1,8 +1,10 @@
-"""Decoder-only LM (port of ``repro/models/lm.py``): the dense decoder,
-gemma3's local/global interleave, the MoE family, and the SSM (rwkv) and
-hybrid (zamba: Mamba2 layers with one shared attention block) families; the
-training forward, prefill and decode. ``init_params`` and ``lm_loss`` also
-dispatch the §5 MLP (``family="mlp"``), as in JAX.
+"""The LM stack (port of ``repro/models/lm.py``): the dense decoder, gemma3's
+local/global interleave, the MoE family, the SSM (rwkv) and hybrid (zamba:
+Mamba2 layers with one shared attention block) families, the VLM (M-RoPE
+over a stub vision frontend) and the encoder-decoder audio family (a stub
+speech frontend); the training forward, prefill and decode.
+``init_params`` and ``lm_loss`` also dispatch the §5 MLP
+(``family="mlp"``), as in JAX.
 
 The JAX model compiles an architecture into segments of stacked, identical
 periods (:func:`plan_segments`: gemma3's 5 local + 1 global layers are one
@@ -22,8 +24,20 @@ one dict per layer, ``{"k", "v"}`` for attention (a ring of the window's
 size for a windowed layer), the recurrent state for a Mamba (``{"ssm",
 "conv"}``) or RWKV (``{"wkv", "shift_tm", "shift_cm"}``) layer, where JAX
 stacks each segment's on a leading axis (``interop.caches_from_jax``
-converts). Encoder-decoder, M-RoPE and frontend families are not ported yet
-(:func:`check_decoder`).
+converts).
+
+The stub frontends feed float ``embeds`` [B, S, d] in place of ``tokens``
+(the VLM's patch and text embeddings) or ``src_embeds`` [B, S_enc, d] to
+the encoder (the audio frames); neither frontend itself is modelled, as in
+JAX. M-RoPE's ``positions`` are [3, B, S] (t, h, w); without them every
+stream is the token index. An encoder-decoder config keeps its encoder in
+``params["encoder"] = {"layers": [...], "final_norm": ...}``: bidirectional
+attention layers under uids ``ENCODER_UID_BASE + i`` (JAX's ``seg_base``),
+JAX's ``encoder/segments/0/0`` stacked. Each decoder layer then has a
+``cross`` attention sub-block over the encoder's output after its
+self-attention (``norm_c`` before it). Its cache dict gains ``"cross":
+{"k", "v"}``, the memory's keys and values [B, S_enc, n_kv, d_head],
+written by prefill and read whole by every decode step.
 """
 from __future__ import annotations
 
@@ -37,16 +51,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
 from repro_torch.nn import ssm
-from repro_torch.nn.attention import AttnCfg, attention, attn_init, init_kv_cache
-from repro_torch.nn.common import Ctx, dense_init, rmsnorm, rmsnorm_init, trunc_normal
+from repro_torch.nn.attention import (AttnCfg, attention, attn_init, decode_attention,
+                                      init_kv_cache)
+from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init, trunc_normal
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.nn.moe import MoECfg, moe_ffn, moe_init
 from repro_torch.tree import tree_leaves
 
 __all__ = ["LayerKind", "plan_segments", "layer_kinds", "jax_layer_paths", "init_params",
            "forward", "forward_with_aux", "lm_loss", "num_params", "active_params_per_token",
-           "check_supported", "attn_cfg", "check_decoder", "init_cache", "prefill",
-           "decode_step"]
+           "check_supported", "attn_cfg", "cross_cfg", "check_decoder", "init_cache",
+           "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE"]
+
+# the encoder's layer uids start here (JAX's seg_base), so its sites never
+# share a seed with the decoder's
+ENCODER_UID_BASE = 10_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,10 +114,11 @@ def _layer_uid(seg_base: int, rep, period_len: int, sub_i: int):
     return seg_base + rep * period_len + sub_i
 
 
-def _walk_plan(cfg: ArchConfig):
-    """(uid, segment, sub-block, kind) of every layer, in uid order."""
+def _walk_plan(cfg: ArchConfig, encoder: bool = False):
+    """(uid, segment, sub-block, kind) of every layer, in uid order (the
+    encoder's uids counted from 0)."""
     base = 0
-    for si, (period, n_rep) in enumerate(plan_segments(cfg)):
+    for si, (period, n_rep) in enumerate(plan_segments(cfg, encoder=encoder)):
         for rep in range(n_rep):
             for i, kind in enumerate(period):
                 yield _layer_uid(base, rep, len(period), i), si, i, kind
@@ -111,12 +131,20 @@ def layer_kinds(cfg: ArchConfig) -> list:
     return [kind for _, _, _, kind in _walk_plan(cfg)]
 
 
-def jax_layer_paths(cfg: ArchConfig) -> list:
+def encoder_kinds(cfg: ArchConfig) -> list:
+    """The encoder's :class:`LayerKind` per layer (bidirectional attention);
+    empty for a decoder-only config."""
+    return [kind for _, _, _, kind in _walk_plan(cfg, encoder=True)]
+
+
+def jax_layer_paths(cfg: ArchConfig, encoder: bool = False) -> list:
     """The JAX tree path (``segments/<segment>/<sub-block>``) of each layer's
     stacked parameters, in uid order; ``shared`` for a ``shared_attn`` layer,
-    whose weights JAX keeps once in ``params["shared"]``."""
-    return ["shared" if kind.kind == "shared_attn" else f"segments/{si}/{i}"
-            for _, si, i, kind in _walk_plan(cfg)]
+    whose weights JAX keeps once in ``params["shared"]``. With ``encoder``,
+    the encoder's layers (``encoder/segments/0/0``)."""
+    head = "encoder/" if encoder else ""
+    return ["shared" if kind.kind == "shared_attn" else f"{head}segments/{si}/{i}"
+            for _, si, i, kind in _walk_plan(cfg, encoder)]
 
 
 def attn_cfg(cfg: ArchConfig, kind: LayerKind) -> AttnCfg:
@@ -125,6 +153,13 @@ def attn_cfg(cfg: ArchConfig, kind: LayerKind) -> AttnCfg:
     return AttnCfg(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                    causal=kind.causal, window=kind.window, rope=cfg.rope,
                    theta=kind.theta or cfg.rope_theta, impl=cfg.attn_impl)
+
+
+def cross_cfg(cfg: ArchConfig) -> AttnCfg:
+    """The decoder's cross-attention config (JAX's ``_cross_cfg``):
+    bidirectional, no rotation."""
+    return AttnCfg(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim, causal=False,
+                   rope="none", impl=cfg.attn_impl, cross=True)
 
 
 def _moe_cfg(cfg: ArchConfig) -> MoECfg:
@@ -151,25 +186,26 @@ def check_supported(cfg: ArchConfig) -> None:
 
 def check_decoder(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError``, naming the architecture, for a config
-    outside the ported decoders: the dense decoder family, gemma3's
-    local/global interleave, the MoE family, and the SSM (rwkv) and hybrid
-    (zamba) families (the token forward, prefill and decode)."""
+    outside the ported LM families: the dense decoder family, gemma3's
+    local/global interleave, the MoE family, the SSM (rwkv) and hybrid
+    (zamba) families, the VLM (M-RoPE, the vision stub) and the
+    encoder-decoder audio family (the audio stub)."""
     what = None
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
         what = f"the {cfg.family} family"
     elif cfg.block_kind not in ("attn", "rwkv", "zamba"):
         what = f"block kind {cfg.block_kind!r}"
-    elif cfg.is_encdec:
-        what = "the encoder-decoder stack"
-    elif cfg.rope not in ("default", "none"):
+    elif cfg.is_encdec and cfg.block_kind != "attn":
+        what = f"an encoder-decoder stack of block kind {cfg.block_kind!r}"
+    elif cfg.rope not in ("default", "none", "mrope"):
         what = f"rope {cfg.rope!r}"
-    elif cfg.frontend is not None:
+    elif cfg.frontend not in (None, "vision", "audio"):
         what = f"the {cfg.frontend} frontend"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported to repro_torch yet (ported: the dense decoder "
-            "family, gemma3's local/global interleave, the MoE family, and the SSM and "
-            "hybrid families)")
+            "family, gemma3's local/global interleave, the MoE family, the SSM and hybrid "
+            "families, the VLM and the encoder-decoder audio family)")
 
 
 def _init_layer(gen, kind: LayerKind, cfg: ArchConfig, dtype, dev):
@@ -190,6 +226,9 @@ def _init_layer(gen, kind: LayerKind, cfg: ArchConfig, dtype, dev):
         p["moe"] = moe_init(gen, d, _moe_cfg(cfg), dtype, dev)
     else:
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.mlp_type, dtype, dev)
+    if kind.cross:
+        p["cross"] = attn_init(gen, d, cross_cfg(cfg), dtype, dev)
+        p["norm_c"] = rmsnorm_init(d, dtype, dev)
     return p
 
 
@@ -215,25 +254,43 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
         params["shared"] = _init_layer(gen, LayerKind("attn"), cfg, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, d, cfg.vocab, dtype, device=dev, scale=d ** -0.5)
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": [_init_layer(gen, kind, cfg, dtype, dev) for kind in encoder_kinds(cfg)],
+            "final_norm": rmsnorm_init(d, dtype, dev)}
     return params
 
 
-def _default_positions(B: int, S: int, device, offset=0):
+def _default_positions(cfg: ArchConfig, B: int, S: int, device, offset=0):
     """[B, S] positions from ``offset``: an int, or an int tensor [B] of
-    per-row start positions (decode)."""
+    per-row start positions (decode); [3, B, S], the three streams equal,
+    for M-RoPE."""
     pos = torch.arange(S, device=device)[None, :]
     if isinstance(offset, torch.Tensor):
         pos = offset.to(device=device, dtype=torch.long).reshape(-1, 1) + pos
     else:
         pos = pos + int(offset)
-    return pos.expand(B, S)
+    pos = pos.expand(B, S)
+    return pos.expand(3, B, S) if cfg.rope == "mrope" else pos
 
 
-def _embed(params, tokens, cfg: ArchConfig):
-    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+def _embed(params, tokens_or_embeds, cfg: ArchConfig):
+    """Token ids [B, S] through the embedding table, or float embeddings
+    [B, S, d] (a stub frontend's) cast to the parameter type; then the
+    compute type, and gemma's sqrt(d) scale for either."""
+    if tokens_or_embeds.is_floating_point():
+        x = tokens_or_embeds.to(getattr(torch, cfg.param_dtype))
+    else:
+        x = params["embed"][tokens_or_embeds]
+    x = x.to(getattr(torch, cfg.dtype))
     if cfg.embed_scale:
         x = x * cfg.d_model ** 0.5
     return x
+
+
+def _inputs(batch):
+    """The batch's ``tokens``, else its ``embeds`` (JAX's lookup order)."""
+    return batch["tokens"] if "tokens" in batch else batch["embeds"]
 
 
 def _head(params, x, ctx: Ctx, cfg: ArchConfig):
@@ -244,12 +301,32 @@ def _head(params, x, ctx: Ctx, cfg: ArchConfig):
     return linear(x, w, key=key, cfg=hcfg)
 
 
+def _cross(p, x, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
+    """The decoder's cross-attention sub-block's output. Training and
+    prefill project the memory (prefill writes its keys and values into
+    ``cache["cross"]``); decode attends to the whole of that cache."""
+    ccfg = cross_cfg(cfg)
+    h = rmsnorm(p["norm_c"], x)
+    if cache is not None and pos is not None:
+        B, S, _ = h.shape
+        q = dense(p["cross"]["q"], h, ctx, "cross_q").reshape(B, S, ccfg.n_heads, ccfg.d_head)
+        kc, vc = cache["cross"]["k"], cache["cross"]["v"]
+        o = decode_attention(q, kc, vc, kc.shape[1] - 1, ccfg)
+        return dense(p["cross"]["o"], o.reshape(B, S, -1), ctx, "cross_o")
+    o = attention(p["cross"], h, ctx, ccfg, None, memory=memory, role_prefix="cross",
+                  cache=None if cache is None else cache["cross"])
+    return o if cache is None else o[0]
+
+
 def _attn_layer(p, kind: LayerKind, x, ctx: Ctx, cfg: ArchConfig, positions, cache, pos,
-                segs):
-    """A pre-norm attention layer (its MLP or MoE after it): (x, aux or None)."""
+                segs, memory=None):
+    """A pre-norm attention layer (a decoder's cross-attention and then its
+    MLP or MoE after it): (x, aux or None)."""
     o = attention(p["attn"], rmsnorm(p["norm1"], x), ctx, attn_cfg(cfg, kind), positions,
                   cache=cache, pos=pos, segs=segs)
     x = x + (o if cache is None else o[0])  # with a cache: (out, cache)
+    if kind.cross:
+        x = x + _cross(p, x, ctx, cfg, memory, cache, pos)
     h2 = rmsnorm(p["norm2"], x)
     if kind.moe:
         o, a = moe_ffn(p["moe"], h2, ctx, _moe_cfg(cfg))
@@ -290,19 +367,24 @@ def _rwkv_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache):
 
 
 def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, caches=None,
-                pos=None, segs=None):
+                pos=None, segs=None, memory=None, encoder=False):
     """Run every layer; returns (x, aux): the MoE layers' aux losses summed
     (float32 zero without MoE layers). With ``caches``, a prefill
     (``pos=None``) or decode step writes each layer's new keys and values or
-    recurrent state into its cache."""
+    recurrent state into its cache. ``memory``: the encoder's output, for
+    the decoder's cross-attention; ``encoder``: run the encoder's layers
+    (``params["encoder"]``) under their uids."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for uid, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
-        lctx = ctx.for_layer(step_key, uid)
-        cache = caches[uid] if caches is not None else None
+    kinds = encoder_kinds(cfg) if encoder else layer_kinds(cfg)
+    stack = params["encoder"]["layers"] if encoder else params["layers"]
+    base = ENCODER_UID_BASE if encoder else 0
+    for i, (kind, p) in enumerate(zip(kinds, stack)):
+        lctx = ctx.for_layer(step_key, base + i)
+        cache = caches[i] if caches is not None else None
         if kind.kind in ("attn", "shared_attn"):
             if kind.kind == "shared_attn":
                 p = params["shared"]
-            x, a = _attn_layer(p, kind, x, lctx, cfg, positions, cache, pos, segs)
+            x, a = _attn_layer(p, kind, x, lctx, cfg, positions, cache, pos, segs, memory)
             if a is not None:
                 aux = aux + a
             continue
@@ -318,21 +400,43 @@ def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, cache
     return x, aux
 
 
-def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
-    """Training forward: (logits, aux), JAX's ``lm.forward``.
-    ``batch["tokens"]``: int [B, S] on the params' device; optional
-    ``"positions"`` [B, S] and ``"segments"`` (int [B, S], 0 = padding:
-    attention stays within a segment). ``step_key``: the step's integer seed
-    (None = no sketching). ``aux``: the MoE layers' summed load-balance loss
-    (float32 zero without them)."""
+def encode(params, src_embeds, ctx: Ctx, cfg: ArchConfig, step_key=None):
+    """The encoder stack of an encoder-decoder config: ``src_embeds`` [B,
+    S_enc, d] (the stub frontend's frames) in the compute type, the
+    bidirectional layers, the encoder's final norm."""
+    B, S, _ = src_embeds.shape
+    x = src_embeds.to(getattr(torch, cfg.dtype))
+    x, _ = _run_layers(params, x, ctx, cfg, step_key,
+                       _default_positions(cfg, B, S, src_embeds.device), encoder=True)
+    return rmsnorm(params["encoder"]["final_norm"], x)
+
+
+def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
+    """(embedded inputs, positions, encoder memory or None) of a forward or
+    prefill batch."""
     check_decoder(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    inp = _inputs(batch)
+    B, S = inp.shape[0], inp.shape[1]
     positions = batch.get("positions")
     if positions is None:
-        positions = _default_positions(B, S, tokens.device)
-    x, aux = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
-                         segs=batch.get("segments"))
+        positions = _default_positions(cfg, B, S, inp.device)
+    memory = (encode(params, batch["src_embeds"], ctx, cfg, step_key) if cfg.is_encdec
+              else None)
+    return _embed(params, inp, cfg), positions, memory
+
+
+def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
+    """Training forward: (logits, aux), JAX's ``lm.forward``.
+    ``batch["tokens"]``: int [B, S] on the params' device, or ``"embeds"``:
+    float [B, S, d] (the VLM's stub frontend); optional ``"positions"`` [B,
+    S] ([3, B, S] for M-RoPE), ``"src_embeds"`` [B, S_enc, d] (required by
+    an encoder-decoder) and ``"segments"`` (int [B, S], 0 = padding:
+    self-attention stays within a segment). ``step_key``: the step's integer
+    seed (None = no sketching). ``aux``: the MoE layers' summed
+    load-balance loss (float32 zero without them)."""
+    x, positions, memory = _prologue(params, batch, ctx, cfg, step_key)
+    x, aux = _run_layers(params, x, ctx, cfg, step_key, positions,
+                         segs=batch.get("segments"), memory=memory)
     return _head(params, x, ctx, cfg), aux
 
 
@@ -341,10 +445,13 @@ def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     return forward_with_aux(params, batch, ctx, cfg, step_key)[0]
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, enc_len: int = 0,
+               device="cuda"):
     """Zero decode caches, one dict per layer: ``{"k", "v"}`` of [batch, size,
     n_kv, d_head] for attention (size = max_len, or the layer's window when
-    it is shorter), the zero recurrent state for a Mamba or RWKV layer."""
+    it is shorter), with ``"cross": {"k", "v"}`` of [batch, enc_len, n_kv,
+    d_head] in a decoder layer of an encoder-decoder; the zero recurrent
+    state for a Mamba or RWKV layer."""
     check_decoder(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
@@ -354,35 +461,37 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cuda"):
             return ssm.mamba_state_init(batch, _mamba_cfg(cfg), dtype, dev)
         if kind.kind == "rwkv":
             return ssm.rwkv_state_init(batch, _rwkv_cfg(cfg), dtype, dev)
-        return init_kv_cache(batch, max_len, attn_cfg(cfg, kind), dtype, dev)
+        c = init_kv_cache(batch, max_len, attn_cfg(cfg, kind), dtype, dev)
+        if kind.cross:
+            c["cross"] = init_kv_cache(batch, enc_len, cross_cfg(cfg), dtype, dev)
+        return c
 
     return [one(kind) for kind in layer_kinds(cfg)]
 
 
 def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=None):
     """Forward over the prompts and fill fresh caches: (logits [B, S, V],
-    caches). Optional ``batch["segments"]`` segment-masks self-attention, so
-    several packed prompts share one call."""
-    check_decoder(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = batch.get("positions")
-    if positions is None:
-        positions = _default_positions(B, S, tokens.device)
-    caches = init_cache(cfg, B, max_len, device=tokens.device)
-    x, _ = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
-                       caches=caches, segs=batch.get("segments"))
+    caches). The batch is :func:`forward_with_aux`'s; an encoder-decoder's
+    caches hold the memory's cross keys and values. Optional
+    ``batch["segments"]`` segment-masks self-attention, so several packed
+    prompts share one call."""
+    x, positions, memory = _prologue(params, batch, ctx, cfg, step_key)
+    caches = init_cache(cfg, x.shape[0], max_len,
+                        enc_len=0 if memory is None else memory.shape[1], device=x.device)
+    x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches,
+                       segs=batch.get("segments"), memory=memory)
     return _head(params, x, ctx, cfg), caches
 
 
 def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key=None):
-    """One decode step: tokens int [B, 1] at position ``pos`` (an int, or an
-    int tensor [B], one position per row). Writes the new keys and values,
-    or the new recurrent state, into ``caches`` in place. Returns (logits
+    """One decode step: tokens int [B, 1], or embeds float [B, 1, d], at
+    position ``pos`` (an int, or an int tensor [B], one position per row;
+    M-RoPE rotates all three streams by it, as JAX does). Writes the new
+    keys and values, or the new recurrent state, into ``caches`` in place;
+    a cross-attention reads the whole of its cached memory. Returns (logits
     [B, 1, V], caches)."""
     check_decoder(cfg)
-    B = tokens.shape[0]
-    positions = _default_positions(B, 1, tokens.device, offset=pos)
+    positions = _default_positions(cfg, tokens.shape[0], 1, tokens.device, offset=pos)
     x, _ = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
                        caches=caches, pos=pos)
     return _head(params, x, ctx, cfg), caches

@@ -1,13 +1,18 @@
-"""Causal GQA self-attention: training, prefill and decode.
+"""GQA attention: causal or bidirectional self-attention and cross-attention;
+training, prefill and decode.
 
-Port of ``repro/nn/attention.py``: sketched q/k/v/o projections, RoPE, and
-the attention core. ``impl="pallas"`` sends a call without segment ids to
-the flash-attention kernel (``kernels/ops.py``), as JAX does; every other
-call, and every call with segments, takes the plain float32 matmul and
-softmax (the JAX ``einsum`` impl; its ``chunked`` impl computes the same
-function in another order). Decode attends one query per row against the
-KV cache with a masked einsum on the unrepeated cache. Cross-attention and
-M-RoPE are not ported yet.
+Port of ``repro/nn/attention.py``: sketched q/k/v/o projections, RoPE or
+M-RoPE, and the attention core. ``impl="pallas"`` sends a call without
+segment ids to the flash-attention kernel (``kernels/ops.py``), as JAX does;
+every other call, and every call with segments, takes the plain float32
+matmul and softmax (the JAX ``einsum`` impl; its ``chunked`` impl computes
+the same function in another order). Decode attends one query per row
+against the KV cache with a masked einsum on the unrepeated cache.
+
+Cross-attention (``memory=``, the encoder's output): k and v project the
+memory, q the decoder's stream; no rotation of k, no segment mask, and no
+causal mask (its config has ``causal=False``), so the flash kernel runs it
+with Sq (the decoder's length) beside Skv (the encoder's).
 
 Caches are written in place (JAX returns new arrays): a decode step writes
 one position of each layer's cache instead of copying it.
@@ -21,7 +26,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.nn.common import Ctx, dense, dense_init
-from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.rope import apply_mrope, apply_rope
 
 __all__ = ["AttnCfg", "attn_init", "attention", "decode_attention", "init_kv_cache",
            "multi_head_attention"]
@@ -34,9 +39,10 @@ class AttnCfg:
     d_head: int
     causal: bool = True
     window: Optional[int] = None  # sliding window (None = full)
-    rope: str = "default"  # default | none
+    rope: str = "default"  # default | mrope | none
     theta: float = 10000.0
     impl: str = "chunked"  # chunked | einsum | pallas
+    cross: bool = False  # cross-attention (no rope on the kv side, bidirectional)
 
     @property
     def groups(self) -> int:
@@ -156,28 +162,37 @@ def _fill_prefill(cache, k, v, cfg: AttnCfg):
 
 
 def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None,
-              role_prefix: str = "attn", segs=None):
+              memory=None, role_prefix: str = "attn", segs=None):
     """Attention sublayer: sketched projections + core + sketched out-proj.
 
     * training: ``cache=None`` -> out;
     * prefill: a ``cache`` dict to fill (``init_kv_cache``) -> (out, cache);
     * decode: ``cache`` and ``pos`` (int, or int tensor [B]) -> (out, cache);
+    * cross-attention: ``memory`` [B, S_mem, d], the encoder's output: k and
+      v come from it, unrotated and never segment-masked (a prefill cache
+      then takes all of the memory's keys and values);
     * packed prefill: ``segs`` (int [B, S], 0 = padding) segment-masks it.
+
+    ``positions`` is [B, S], or [3, B, S] for ``rope="mrope"``.
     """
     B, S, _ = x.shape
+    src = x if memory is None else memory
+    Skv = src.shape[1]
     q = dense(params["q"], x, ctx, f"{role_prefix}_q").reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = dense(params["k"], x, ctx, f"{role_prefix}_k").reshape(B, S, cfg.n_kv, cfg.d_head)
-    v = dense(params["v"], x, ctx, f"{role_prefix}_v").reshape(B, S, cfg.n_kv, cfg.d_head)
-    if cfg.rope == "default":
-        q = apply_rope(q, positions, cfg.theta)
-        k = apply_rope(k, positions, cfg.theta)
+    k = dense(params["k"], src, ctx, f"{role_prefix}_k").reshape(B, Skv, cfg.n_kv, cfg.d_head)
+    v = dense(params["v"], src, ctx, f"{role_prefix}_v").reshape(B, Skv, cfg.n_kv, cfg.d_head)
+    if cfg.rope in ("default", "mrope"):
+        rotate = apply_rope if cfg.rope == "default" else apply_mrope
+        q = rotate(q, positions, cfg.theta)
+        if memory is None:
+            k = rotate(k, positions, cfg.theta)
     elif cfg.rope != "none":
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported to repro_torch yet")
+        raise ValueError(f"unknown rope {cfg.rope!r}")
     if cache is not None and pos is not None:
         _write_decode(cache, k, v, pos, cfg)
         o = decode_attention(q, cache["k"], cache["v"], pos, cfg)
         return dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o"), cache
-    o = multi_head_attention(q, k, v, cfg, segs=segs)
+    o = multi_head_attention(q, k, v, cfg, segs=None if memory is not None else segs)
     out = dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o")
     if cache is not None:
         _fill_prefill(cache, k, v, cfg)

@@ -31,11 +31,11 @@ and the engine launches no kernel of ``kernels/`` (as JAX's engine runs no
 Pallas kernel), whatever ``attn_impl`` says.
 
 What the port cannot serve is refused when the engine is built, before any
-device work: encoder-decoder configs, every config outside the ported dense
-decoder family (M-RoPE among them, ``lm.check_decoder``; the MoE family,
-gemma3's local/global interleave and the SSM and hybrid families run through
-``Runtime.prefill_step`` and ``decode_step`` but not the engines yet), and
-parameters on another device than the Runtime's.
+device work: encoder-decoder configs (as JAX's engine refuses them), every
+config outside the dense decoder family (the MoE family, gemma3's
+local/global interleave, the SSM and hybrid families and the M-RoPE VLM run
+through ``Runtime.prefill_step`` and ``decode_step`` but not the engines
+yet), and parameters on another device than the Runtime's.
 """
 from __future__ import annotations
 
@@ -70,11 +70,11 @@ def check_servable(params, cfg: ArchConfig, device: torch.device) -> None:
     if cfg.is_encdec:
         raise ValueError("the serving engine targets decoder-only archs")
     lm.check_decoder(cfg)
-    if cfg.n_experts or cfg.local_global or cfg.block_kind != "attn":
+    if cfg.n_experts or cfg.local_global or cfg.block_kind != "attn" or cfg.rope == "mrope":
         raise NotImplementedError(
             f"{cfg.name}: the port's serving engines serve the dense decoder family only; "
-            "serve the MoE family, gemma3's local/global interleave and the SSM and hybrid "
-            "families through Runtime.prefill_step and decode_step")
+            "serve the MoE family, gemma3's local/global interleave, the SSM and hybrid "
+            "families and the VLM through Runtime.prefill_step and decode_step")
     where = {t.device for t in tree_leaves(params) if isinstance(t, torch.Tensor)}
     if where != {device}:
         raise ValueError(f"parameters lie on {sorted(map(str, where))}, the Runtime serves on "

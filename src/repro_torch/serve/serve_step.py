@@ -3,8 +3,9 @@
 
 ``make_prefill`` and ``make_decode_step`` build the functions that
 ``Runtime.prefill_step`` and ``Runtime.decode_step`` hand out. They run
-without autograd on the runtime's device: inputs (token ids, segment ids,
-positions; numpy arrays or tensors) are moved there first. The decode step
+without autograd on the runtime's device: inputs (token ids or a stub
+frontend's embeds, segment ids, positions, an encoder's ``src_embeds``;
+numpy arrays or tensors) are moved there first. The decode step
 writes into the caches it is given (see ``nn/attention.py``). The engines
 (``serve/engine.py``, ``serve/legacy.py``) are built on them.
 """
@@ -47,13 +48,16 @@ def make_prefill(cfg: ArchConfig, max_len: int, *,
 def make_decode_step(cfg: ArchConfig, *, execution: Optional[ExecutionConfig] = None,
                      device="cuda"):
     """``decode_fn(params, caches, tokens [B, 1], pos) -> (logits [B, 1, V],
-    caches)``; ``pos`` is an int or one position per row."""
+    caches)``; ``pos`` is an int or one position per row. ``tokens`` may be
+    float embeds [B, 1, d] (the VLM's stub frontend), which pass as they
+    are."""
     ex = execution if execution is not None else ExecutionConfig()
     dev = resolve_device(device)
 
     @torch.no_grad()
     def decode_fn(params, caches, tokens, pos):
-        tokens = torch.as_tensor(tokens).long().to(dev)
+        tokens = torch.as_tensor(tokens)
+        tokens = (tokens if tokens.is_floating_point() else tokens.long()).to(dev)
         if not isinstance(pos, int):
             pos = torch.as_tensor(pos).long().to(dev)
         return lm.decode_step(params, caches, tokens, pos, ex.make_ctx(), cfg)

@@ -28,7 +28,9 @@ Keys. JAX stacks its layers, so one JAX site path (``segments/0/0/attn/q``)
 holds a ``[n_layers, PROBE_WIDTH]`` probe that ``summarize`` sums over its
 leading dimension; the port keeps one dict per layer (``layers/<i>/attn/q``).
 :func:`site_key` maps a port path to its JAX path (a model of several
-segments, gemma3's, passes ``layer_paths``: ``lm.jax_layer_paths``), and
+segments, gemma3's, passes ``layer_paths``: ``lm.jax_layer_paths``; an
+encoder-decoder also passes ``encoder_paths``: ``lm.jax_layer_paths(cfg,
+encoder=True)``), and
 :func:`summarize` sums the per-layer vectors under it, so ``probe_sites``
 (and a JSONL record) has JAX's keys and values. The per-site cost table
 (``telemetry/sinks.py``) uses the dense stack's mapping.
@@ -149,12 +151,18 @@ def collect_probes(grads) -> Tuple[object, Dict[str, torch.Tensor]]:
     return walk(grads, ()), probes
 
 
-def site_key(path: str, layer_paths=None) -> str:
+def site_key(path: str, layer_paths=None, encoder_paths=None) -> str:
     """The JAX site path of a port site path: layer ``i`` (``layers/<i>/...``)
     is ``layer_paths[i]`` (``segments/<segment>/<sub-block>``), by default
-    the dense stack's one segment (``segments/0/0``); every other path is
-    the same in both packages."""
+    the dense stack's one segment (``segments/0/0``); encoder layer ``i``
+    (``encoder/layers/<i>/...``) is ``encoder_paths[i]``
+    (``lm.jax_layer_paths(cfg, encoder=True)``); every other path is the
+    same in both packages."""
     parts = path.split("/")
+    if len(parts) > 3 and parts[:2] == ["encoder", "layers"] and parts[2].isdigit():
+        if encoder_paths is None:
+            raise ValueError(f"{path}: an encoder site needs encoder_paths")
+        return "/".join([encoder_paths[int(parts[2])]] + parts[3:])
     if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
         head = "segments/0/0" if layer_paths is None else layer_paths[int(parts[1])]
         return "/".join([head] + parts[2:])
@@ -162,7 +170,7 @@ def site_key(path: str, layer_paths=None) -> str:
 
 
 def summarize(probes: Dict[str, torch.Tensor], *, per_site: bool = True,
-              layer_paths=None) -> dict:
+              layer_paths=None, encoder_paths=None) -> dict:
     """Step-level probe metrics: ``probe_gsq``, ``probe_var``, ``probe_snr``
     and ``probe_align`` (0-d tensors), and, with ``per_site``, ``probe_sites``:
     JAX site path -> summed ``[PROBE_WIDTH]`` vector (the layers of a stacked
@@ -171,7 +179,7 @@ def summarize(probes: Dict[str, torch.Tensor], *, per_site: bool = True,
         return {}
     site_tot: Dict[str, torch.Tensor] = {}
     for path, v in probes.items():
-        key = site_key(path, layer_paths)
+        key = site_key(path, layer_paths, encoder_paths)
         v = v.reshape(-1, PROBE_WIDTH).sum(0)
         site_tot[key] = v if key not in site_tot else site_tot[key] + v
     tot = sum(site_tot.values())

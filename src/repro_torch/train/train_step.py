@@ -27,8 +27,9 @@ gradients, the probe vectors, out of the gradient tree and merges their
 summary into the metrics. Probes change no gradient: a step with them equals
 the step without them bit for bit.
 
-Gradient accumulation (``accum = k > 1``): the batch splits on axis 0 into k
-microbatches; microbatch ``m`` runs under the seed :func:`micro_seed` ``(key,
+Gradient accumulation (``accum = k > 1``): the batch splits on its batch
+axis into k microbatches (axis 0; axis 1 of M-RoPE's ``[3, B, S]``
+positions); microbatch ``m`` runs under the seed :func:`micro_seed` ``(key,
 m)`` = ``rng.fold_in(key, m)``, so no two microbatches share randomness. The
 loss and every gradient are averaged over the microbatches (``acc + g / k``
 from zeros, the order of JAX's scan), the refreshed plan carries with them,
@@ -123,12 +124,18 @@ def micro_seed(key: int, m: int) -> int:
 
 def _split_batch(batch: dict, accum: int) -> list:
     """``accum`` microbatches of ``batch``: microbatch ``m`` holds rows
-    ``[m B/accum, (m+1) B/accum)`` of every entry (axis 0)."""
-    B = next(iter(batch.values())).shape[0]
+    ``[m B/accum, (m+1) B/accum)`` of every entry, on axis 0, except M-RoPE's
+    ``positions`` [3, B, S], on axis 1 (as JAX's ``to_micro``). B comes from
+    an entry that is batch-major."""
+    def axis(k, v):
+        return 1 if k == "positions" and v.dim() == 3 else 0
+
+    B = next(v.shape[0] for k, v in batch.items() if axis(k, v) == 0)
     if B % accum:
         raise ValueError(f"a batch of {B} rows does not split into {accum} microbatches")
     b = B // accum
-    return [{k: v[m * b:(m + 1) * b] for k, v in batch.items()} for m in range(accum)]
+    return [{k: v.narrow(axis(k, v), m * b, b) for k, v in batch.items()}
+            for m in range(accum)]
 
 
 def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPolicy] = None,
@@ -148,6 +155,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     probes_on = tel is not None and tel.probes and policy is not None and ex.accum == 1
     rcfg = ex.resilience
     layer_paths = lm.jax_layer_paths(cfg) if cfg.family != "mlp" else None
+    encoder_paths = lm.jax_layer_paths(cfg, encoder=True) if cfg.family != "mlp" else None
 
     def grads_of(params_in, batch, key, fault_scale):
         ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
@@ -191,7 +199,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             if probes_on:
                 grads, vecs = tprobes.collect_probes(grads)
                 probe_metrics = tprobes.summarize(vecs, per_site=tel.per_site,
-                                                  layer_paths=layer_paths)
+                                                  layer_paths=layer_paths,
+                                                  encoder_paths=encoder_paths)
             grads = cgrad.fold_slot_grads(grads)
         else:
             loss, metrics, grads = accumulated(state.params, batch, key, fault_scale)

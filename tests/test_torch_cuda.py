@@ -999,3 +999,89 @@ def test_cuda_mamba_block_gradients_are_finite_at_chunk_256(cuda):
             o, state = ssm.mamba_decode(params, x[:, t:t + 1], Ctx(), cfg, state)
             steps.append(o)
     _close(y.detach(), torch.cat(steps, dim=1), 3e-5)
+
+
+# seamless-m4t-large-v2's prefill: the encoder's self-attention (768 source
+# frames, no causal mask) and the decoder's cross-attention (512 target
+# queries over the 768 frames, no causal mask), 16 heads of 64; and the
+# cross shape the other way round (more queries than keys)
+@pytest.mark.parametrize("B,Sq,Skv", [(4, 768, 768), (4, 512, 768), (2, 768, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_non_causal_at_the_encoder_and_cross_shapes(cuda, B, Sq, Skv,
+                                                                         dtype):
+    """Against the plain version without the causal mask, Sq and Skv as the
+    audio family's prefill gives them; one launch counted; the same bits on
+    a second call."""
+    q, k, v = _qkv(cuda, B, Sq, Skv, 16, 16, 64, dtype, seed=Sq + Skv)
+    before = flash.flash_attention.launches
+    got = flash.flash_attention(q, k, v, causal=False)
+    assert flash.flash_attention.launches == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == (B, Sq, 16, 64)
+    _close(got, want, TOL[dtype])
+    assert torch.equal(got, flash.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "onepass", "stale"])
+def test_cuda_vlm_step_launches_per_site(cuda, backend):
+    """One sketched step of qwen2-vl-2b's smoke config widened to 128-wide
+    blocks (2 layers, d 256, GQA 4:2 of 64, d_ff 512; M-RoPE, float embeds
+    and grid positions [3, B, S]): every sketched site (7 per layer)
+    launches its backend's kernels once; at
+    budget 0.999 every gradient equals exact backprop's (rtol 2e-4, as
+    chip_smoke's GRAD_RTOL); an accum-2 step, whose split takes the
+    positions on axis 1, launches twice as many."""
+    from repro_torch.api import ExecutionConfig, Runtime, SketchConfig, SketchPolicy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves
+
+    cfg = smoke_config("qwen2_vl_2b").replace(d_model=256, n_heads=4, n_kv=2, d_ff=512)
+    kernels = {"pallas": ("col_l1_scores", "block_gather_matmul_fused"),
+               "onepass": ("block_stream_matmul_fused",),
+               "stale": ("block_gather_matmul_fused",)}[backend]
+    per_step = cfg.n_layers * 7
+    gen = torch.Generator().manual_seed(0)
+    B, S, grid = 4, 64, 4
+    pos = torch.cat([torch.stack([torch.zeros(grid * grid, dtype=torch.long),
+                                  torch.arange(grid * grid) // grid,
+                                  torch.arange(grid * grid) % grid]),
+                     (grid + torch.arange(S - grid * grid)).expand(3, -1)], dim=1)
+    batch = {"embeds": (torch.randn(B, S, cfg.d_model, generator=gen) * 0.02).to(cuda),
+             "positions": pos[:, None].expand(3, B, S).to(cuda),
+             "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen).to(cuda)}
+    params = lm.init_params(0, cfg, device=cuda)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def grads(policy):
+        ctx = Ctx(policy=policy, key=3 if policy else None, n_layers=cfg.n_layers)
+        loss, _ = lm.lm_loss(params, batch, ctx, cfg, 3 if policy else None)
+        return torch.autograd.grad(loss, leaves[1:])  # the embedding table is unused
+
+    def policy(budget):
+        return SketchPolicy(base=SketchConfig(method="l1", budget=budget, backend=backend,
+                                              block=128))
+
+    exact = grads(None)
+    ops.reset_launch_counts()
+    full = grads(policy(0.999))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == dict.fromkeys(kernels,
+                                                                                 per_step)
+    for a, b in zip(full, exact):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4 * float(b.abs().max()) + 1e-30)
+    for accum in (1, 2):
+        rt = Runtime(policy=policy(0.5), execution=ExecutionConfig(accum=accum), device=cuda)
+        opt = sgd(0.1)
+        state = rt.init_state(0, cfg, opt)
+        ops.reset_launch_counts()
+        state, m = rt.train_step(cfg, opt)(state, batch, 1)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == dict.fromkeys(
+            kernels, accum * per_step)
+        assert all(math.isfinite(float(m[k])) for k in ("loss", "grad_norm"))

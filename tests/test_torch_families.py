@@ -53,7 +53,6 @@ from repro_torch.tree import tree_leaves
 RTOL, ATOL, TOL = 1e-5, 1e-6, 1e-5
 PORTED = ("yi_6b", "llama3_405b", "nemotron_4_340b", "gemma3_1b", "olmoe_1b_7b",
           "mixtral_8x22b")
-UNPORTED = ("qwen2_vl_2b", "seamless_m4t_large_v2")
 RECURRENT = ("zamba2_7b", "rwkv6_3b")  # refused until their port; tests/test_torch_ssm.py
 B, S = 2, 24
 
@@ -123,16 +122,40 @@ def test_configs_and_cells_equal_jax(arch):
         registry.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_refuse_by_name(arch):
+@pytest.mark.parametrize("arch", ("qwen2_vl_2b", "seamless_m4t_large_v2"))
+def test_vlm_and_audio_families_build(arch):
+    """The VLM and audio families, once refused here, now build: the
+    decoder check takes the full config, and the smoke config's weights
+    have JAX's leaves (its stacked layers counted one by one) and parameter
+    count (their parity with JAX: test_torch_vlm.py and
+    test_torch_audio.py)."""
     cfg = registry.get_config(arch)
     assert cfg.name == jreg.get_config(arch).name
+    lm.check_decoder(cfg)
     smoke = registry.smoke_config(arch)
-    for call in (lambda: lm.init_params(0, smoke, device="cpu"),
-                 lambda: lm.init_cache(smoke, 1, 8, device="cpu"),
-                 lambda: lm.check_decoder(cfg)):
-        with pytest.raises(NotImplementedError, match=cfg.name):
-            call()
+    lm.check_decoder(smoke)
+    params = lm.init_params(0, smoke, device="cpu")
+    jparams = jax.device_get(jlm.init_params(jax.random.key(0), jreg.smoke_config(arch)))
+    want = tree_leaves(params_from_jax(jparams, smoke, device="cpu"))
+    assert len(tree_leaves(params)) == len(want) > len(jax.tree.leaves(jparams))
+    assert lm.num_params(params) == jlm.num_params(jparams)
+
+
+def test_unknown_families_and_frontends_refuse_by_name():
+    """A family, frontend, rope or block kind outside the ported ones is
+    refused by name before any work."""
+    base = registry.smoke_config("yi_6b")
+    for change, what in ((dict(family="diffusion"), "the diffusion family"),
+                         (dict(frontend="video"), "the video frontend"),
+                         (dict(rope="yarn"), "rope 'yarn'"),
+                         (dict(block_kind="mamba"), "block kind 'mamba'"),
+                         (dict(block_kind="rwkv", enc_layers=2), "an encoder-decoder")):
+        cfg = base.replace(name="odd", **change)
+        for call in (lambda: lm.init_params(0, cfg, device="cpu"),
+                     lambda: lm.init_cache(cfg, 1, 8, device="cpu"),
+                     lambda: lm.check_decoder(cfg)):
+            with pytest.raises(NotImplementedError, match=f"odd: {what}"):
+                call()
 
 
 @pytest.mark.parametrize("arch", RECURRENT)

@@ -226,7 +226,7 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/nn/ssm.py",
             "src/repro_torch/core/variance.py", "benchmarks/torch/quickstart.py",
             "benchmarks/torch/fig3_larger_archs.py", "benchmarks/torch/serve_lm.py",
-            "benchmarks/torch/bench_resilience.py"} <= names
+            "benchmarks/torch/bench_resilience.py", "benchmarks/torch/trace_drops.py"} <= names
     # the serving engines, the observability and resilience layers,
     # pure-Python modules included: the port keeps its own copy of each
     for sub, mods in (("obs", ("__init__", "clock", "metrics", "tracing", "ledgers", "flight")),
@@ -239,9 +239,9 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_unported_configs_raise():
-    for family in ("vlm", "audio"):
+    for family in ("diffusion", "retrieval"):
         cfg = ArchConfig(**dict(TINY, family=family))
         with pytest.raises(NotImplementedError, match=f"the {family} family"):
             lm.init_params(0, cfg, device="cpu")
     with pytest.raises(NotImplementedError):
-        lm.check_supported(ArchConfig(**dict(TINY, rope="mrope")))
+        lm.check_supported(ArchConfig(**dict(TINY, rope="alibi")))

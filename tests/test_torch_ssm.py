@@ -585,10 +585,13 @@ def test_site_seeds_follow_jax_role_folds(arch, monkeypatch):
 def test_check_decoder_takes_both_families_and_refuses_the_rest_by_name():
     for arch in ARCHS:
         lm.check_decoder(registry.get_config(arch))
-    for arch in ("qwen2_vl_2b", "seamless_m4t_large_v2"):
-        cfg = registry.get_config(arch)
+    for change in (dict(family="diffusion"), dict(frontend="video")):
+        cfg = dataclasses.replace(registry.get_config("rwkv6_3b"), **change)
         with pytest.raises(NotImplementedError, match=cfg.name):
             lm.check_decoder(cfg)
-    mrope = dataclasses.replace(registry.smoke_config("rwkv6_3b"), rope="mrope")
-    with pytest.raises(NotImplementedError, match="mrope"):
-        lm.check_decoder(mrope)
+    odd = dataclasses.replace(registry.smoke_config("rwkv6_3b"), rope="xpos")
+    with pytest.raises(NotImplementedError, match="xpos"):
+        lm.check_decoder(odd)
+    encdec = dataclasses.replace(registry.smoke_config("zamba2_7b"), enc_layers=2)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        lm.check_decoder(encdec)
