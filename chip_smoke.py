@@ -191,7 +191,26 @@ which raises on failure:
    16 greedy decode steps: 28 (qwen) and 72 (seamless) flash launches per
    prefill and none in decode, logits against plain attention
    (teacher-forced), and prefill + one decode step against the forward;
-16. one JSON line listing the ported kernels, then the last line
+16. the serving engines over every decoder family at full width and depth
+   (float32, random weights from a seed), one family at a time: olmoe-1b-7b
+   (16 layers, paged), gemma3-1b (26 layers, contiguous over its 512-slot
+   rings), rwkv6-3b (32 layers) and zamba2-7b (81 layers), each prompt
+   prefilled alone at its exact length, and qwen2-vl-2b (28 layers, paged,
+   text prompts at ``[3, 1, S]`` positions); 10 requests each from numpy
+   (prompts of 16-768 tokens, the first two longer than 512, max_new 4-24)
+   through ``Runtime.serve(..., ServeConfig(n_slots=4, max_len=1024,
+   page_size=16)).run``, the same with ``page_size=None`` and
+   ``RunToCompletionEngine(batch=4, max_len=1024)``, with the launch counts
+   set to 0 before ``run`` and read after: every kernel 0; every counter
+   equal to the scheduler's rules; the telemetry printed; the greedy tokens
+   of 4 requests (the two long ones among them) against a sequential
+   reference, equal or differing first at a float32 near tie of the
+   reference's teacher-forced logits (olmoe at a capacity factor of
+   E / top_k, where no replica drops; one more paged run at the published
+   1.25 prints its dropped replicas and is not compared); and a profiler
+   trace of one engine decode step of zamba2-7b and of gemma3-1b (device
+   ops, busy time, exactly one device-to-host copy);
+17. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -2041,12 +2060,14 @@ def engine_requests(specs):
     return [Request(prompt=p.copy(), max_new=m) for p, m in specs]
 
 
-def engine_expected(specs, sv, *, paged, pack):
+def engine_expected(specs, sv, *, paged, pack, exact=False):
     """The counters the scheduler's rules give for these requests with no
     stop token (each request emits exactly max_new tokens, the first from
     its prefill): strict FIFO, worst-case page reservation, prompts packed
-    page-aligned into one max_len row when ``pack``. A restatement of the
-    rules on the host, independent of the engine's code."""
+    page-aligned into one max_len row when ``pack``, each wave prefilled at
+    its bucket, or at its one prompt's length when ``exact`` (a recurrent
+    layout). A restatement of the rules on the host, independent of the
+    engine's code."""
     items, trunc = [], 0
     for p, m in specs:
         n = min(len(p), sv.max_len - m)
@@ -2057,7 +2078,7 @@ def engine_expected(specs, sv, *, paged, pack):
     queue = list(items)
     free_pages = sv.pool_pages - 1 if paged else 0
     slots = []  # [emitted, max_new, pages] of the live requests
-    out = dict(prefill_calls=0, decode_steps=0, wasted_decode_steps=0,
+    out = dict(prefill_calls=0, prefill_tokens=0, decode_steps=0, wasted_decode_steps=0,
                tokens_out=sum(m for _, m in items), truncated_tokens=trunc,
                requests_done=len(items))
 
@@ -2090,6 +2111,7 @@ def engine_expected(specs, sv, *, paged, pack):
             if not wave:
                 break
             out["prefill_calls"] += 1
+            out["prefill_tokens"] += used if exact else sv.bucket_for(used)
             for n, m in wave:
                 admit(n, m)
         if slots:
@@ -2102,15 +2124,19 @@ def engine_expected(specs, sv, *, paged, pack):
     return out
 
 
-def legacy_expected(specs, batch, max_len):
+def legacy_expected(specs, batch, max_len, pad_ok=True):
     """The run-to-completion engine's counters: batches in arrival order, each
+    prefilled right-padded to its longest prompt (``pad_ok``) or, for a
+    recurrent layout, in one unpadded call per distinct prompt length, then
     decoding max(max_new) - 1 steps on every lane."""
-    out = dict(prefill_calls=0, decode_steps=0, wasted_decode_steps=0, tokens_out=0,
-               truncated_tokens=0)
+    out = dict(prefill_calls=0, prefill_tokens=0, decode_steps=0, wasted_decode_steps=0,
+               tokens_out=0, truncated_tokens=0)
     for i in range(0, len(specs), batch):
         part = specs[i:i + batch]
         M = max(m for _, m in part)
-        out["prefill_calls"] += 1
+        lens = [min(len(p), max_len - m) for p, m in part]
+        out["prefill_calls"] += 1 if pad_ok else len(set(lens))
+        out["prefill_tokens"] += batch * max(lens) if pad_ok else sum(lens)
         out["decode_steps"] += M - 1
         out["tokens_out"] += sum(m for _, m in part)
         out["truncated_tokens"] += sum(max(len(p) - (max_len - m), 0) for p, m in part)
@@ -2177,10 +2203,10 @@ def reference_tokens(dev, params, cfg, specs, idx):
     return out
 
 
-def near_tie(dev, params, cfg, prompt, prefix):
+def near_tie(dev, params, cfg, prompt, prefix, rtol=LOGIT_RTOL):
     """The reference's teacher-forced logits for the token after ``prompt`` +
     ``prefix`` (plain attention, one forward): (top-2 margin, tolerance
-    LOGIT_RTOL times the largest |logit|)."""
+    ``rtol`` times the largest |logit|)."""
     from repro_torch.models import lm
     from repro_torch.nn.common import Ctx
 
@@ -2189,13 +2215,14 @@ def near_tie(dev, params, cfg, prompt, prefix):
     with torch.no_grad():
         lg = lm.forward(params, {"tokens": toks}, Ctx(), cfg)[0, -1].float()
     top = torch.topk(lg, 2).values
-    return float(top[0] - top[1]), LOGIT_RTOL * float(lg.abs().max())
+    return float(top[0] - top[1]), rtol * float(lg.abs().max())
 
 
-def compare_tokens(dev, params, cfg, specs, runs):
+def compare_tokens(dev, params, cfg, specs, runs, rtol=LOGIT_RTOL):
     """Every request's greedy tokens in every run against the first run's.
     Where two runs differ, the first differing step must be a float32 near
-    tie of the reference's teacher-forced logits. Returns the differences."""
+    tie of the reference's teacher-forced logits (``rtol`` of the largest).
+    Returns the differences."""
     base_label, base = runs[0]
     diffs = []
     for label, toks in runs[1:]:
@@ -2205,7 +2232,7 @@ def compare_tokens(dev, params, cfg, specs, runs):
                 continue
             t = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
             p, m = specs[i]
-            margin, tol = near_tie(dev, params, cfg, p[-(ENGINE_MAX_LEN - m):], want[:t])
+            margin, tol = near_tie(dev, params, cfg, p[-(ENGINE_MAX_LEN - m):], want[:t], rtol)
             print(f"[engine]   request {i}: {label} differs from {base_label} first at step "
                   f"{t} ({got[t]} vs {want[t]}); the reference's top-2 margin there {margin:.3e}"
                   f", tol {tol:.3e}")
@@ -2418,7 +2445,8 @@ def serving_engines(dev, plain_decode):
         specs, "contiguous")
     add_counts(total, counts)
     tele = eng.telemetry()
-    check_counters("contiguous", tele, engine_expected(specs, sv, paged=False, pack=False))
+    check_counters("contiguous", tele, engine_expected(specs, sv.replace(page_size=None),
+                                                       paged=False, pack=False))
     print_telemetry("contiguous", tele)
     contig_tokens = {i: r.out.tolist() for i, r in enumerate(reqs)}
     del eng
@@ -3725,6 +3753,184 @@ def vlm_audio(dev, gen):
     return total, rows
 
 
+# ---------------------------------------------------------------------------
+# The serving engines over every decoder family (phase 16): olmoe-1b-7b,
+# gemma3-1b, rwkv6-3b, zamba2-7b and qwen2-vl-2b at full width and depth
+# ---------------------------------------------------------------------------
+
+# (family, the layout the continuous engine plans at page_size FE_PAGE): paged
+# for full-length K/V, contiguous for rings, contiguous with exact-length
+# waves for recurrent state
+FE_FAMILIES = (("olmoe-1b-7b", "paged"), ("gemma3-1b", "contiguous"),
+               ("rwkv6-3b", "exact"), ("zamba2-7b", "exact"), ("qwen2-vl-2b", "paged"))
+FE_SLOTS, FE_MAX_LEN, FE_PAGE = 4, 1024, 16
+FE_REQUESTS = 10
+FE_PROMPTS = (16, 768)  # prompt lengths, uniform, inclusive
+FE_LONG = (513, 768)  # the first two prompts: past gemma3's 512-token window
+FE_NEW = (4, 24)  # max_new, uniform, inclusive
+FE_SEED = 53  # the requests (one stream per family, FE_SEED + its index)
+FE_PARAM_SEED = 59
+FE_REF = (0, 1, 5, 9)  # requests decoded one at a time as the reference
+FE_TRACE = ("zamba2-7b", "gemma3-1b")  # one profiled engine decode step each
+
+
+def family_engine_specs(vocab, index):
+    """One family's requests: (prompt, max_new) pairs from numpy, the first
+    two prompts longer than 512 tokens (a bucket of 1,024 would wrap a
+    512-slot ring with its pads)."""
+    rng = np.random.default_rng(FE_SEED + index)
+    lens = rng.integers(FE_PROMPTS[0], FE_PROMPTS[1] + 1, size=FE_REQUESTS)
+    lens[:2] = rng.integers(FE_LONG[0], FE_LONG[1] + 1, size=2)
+    news = rng.integers(FE_NEW[0], FE_NEW[1] + 1, size=FE_REQUESTS)
+    return [(rng.integers(1, vocab, size=n).astype(np.int32), int(m)) for n, m in zip(lens, news)]
+
+
+def family_decode_trace(dev, params, cfg, specs):
+    """A profiler trace of one contiguous engine decode step with every slot
+    live: device ops, busy ms, device-to-host copies (must be 1)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Runtime, ServeConfig
+    from repro_torch.obs import clock
+
+    sv = ServeConfig(n_slots=FE_SLOTS, max_len=FE_MAX_LEN, page_size=None)
+    eng = Runtime(device=dev).serve(params, cfg, serve=sv)
+    eng.scheduler.submit(engine_requests([(p[:200], 64) for p, _ in specs[:FE_SLOTS]]),
+                         clock.now())
+    eng._refill()
+    eng._decode_one_step()  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    eng._decode_one_step()
+    sync(dev)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng._decode_one_step()
+        sync(dev)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    d2h = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
+    n_ops = sum(e.count for e in kern)
+    busy = sum(_device_us(e) for e in kern) / 1e3
+    print(f"[family-engine-trace] {cfg.name}: one contiguous engine decode step, {FE_SLOTS} live "
+          f"slots: {wall_ms:.2f} ms wall (unprofiled), {n_ops} device ops, busy {busy:.2f} ms "
+          f"(idle {100 * (1 - busy / wall_ms):.0f}% of the unprofiled wall), device-to-host "
+          f"copies {d2h}")
+    for e in sorted(kern, key=_device_us, reverse=True)[:5]:
+        print(f"[family-engine-trace]   device {_device_us(e) / 1e3:8.3f} ms x{e.count:<5d} "
+              f"{e.key[:80]}")
+    if d2h != 1:
+        raise AssertionError(f"{cfg.name}: an engine decode step made {d2h} device-to-host "
+                             "copies, want 1")
+    del eng
+
+
+def family_engines_one(dev, name, want_layout, index):
+    """Phase 16 for one family: three engines, counters, telemetry, the
+    reference comparison. An MoE family is served at a capacity factor of
+    E / top_k, where no replica can drop (capacity = the call's tokens): the
+    published factor couples the requests of a wave through their drops
+    (ROADMAP Queue 3 item 14), so one paged run at it only prints its drops.
+    Returns the launch counts of its runs."""
+    from repro_torch.api import Runtime, ServeConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.legacy import RunToCompletionEngine
+
+    t_fam = time.perf_counter()
+    published = f32_cfg(name).replace(attn_impl="pallas")
+    cfg = (published.replace(capacity_factor=published.n_experts / published.top_k)
+           if published.n_experts else published)
+    plain_cfg = cfg.replace(attn_impl="chunked")
+    params = lm.init_params(FE_PARAM_SEED, cfg, device=dev)
+    specs = family_engine_specs(cfg.vocab, index)
+    sv = ServeConfig(n_slots=FE_SLOTS, max_len=FE_MAX_LEN, page_size=FE_PAGE)
+    runtime = Runtime(device=dev)
+    rtol = SSM_LOGIT_RTOL if name == "zamba2-7b" else LOGIT_RTOL
+    total = {}
+    print(f"[family-engine] {name}: {cfg.n_layers} layers, {lm.num_params(params)} params "
+          f"(float32), {len(specs)} requests (prompts {[len(p) for p, _ in specs]}, max_new "
+          f"{[m for _, m in specs]}), eos None"
+          + (f", capacity factor {cfg.capacity_factor}" if cfg.n_experts else ""))
+    runs = []
+    for label, make in (
+            ("paged", lambda: runtime.serve(params, cfg, serve=sv)),
+            ("contiguous", lambda: runtime.serve(params, cfg, serve=sv.replace(page_size=None))),
+            ("run-to-completion", lambda: RunToCompletionEngine(
+                params, cfg, batch=FE_SLOTS, max_len=FE_MAX_LEN, runtime=runtime))):
+        eng, reqs, wall, counts = run_engine(dev, params, cfg, make, specs, f"{name} {label}")
+        add_counts(total, counts)
+        tele = eng.telemetry()
+        legacy = label == "run-to-completion"
+        if legacy:
+            want = legacy_expected(specs, FE_SLOTS, FE_MAX_LEN, pad_ok=want_layout != "exact")
+        else:
+            lay = eng.layout
+            got_layout = "paged" if lay.paged else ("contiguous" if lay.pad_ok else "exact")
+            want_here = want_layout if label == "paged" or want_layout == "exact" else "contiguous"
+            if got_layout != want_here:
+                raise AssertionError(f"{name} {label}: layout {got_layout}, want {want_here}")
+            want = engine_expected(specs, eng.serve, paged=lay.paged,
+                                   pack=lay.paged and sv.pack_prefill, exact=not lay.pad_ok)
+        check_counters(f"{name} {label}", tele, want)
+        builds = tele["trace_counts"]
+        shapes = {k for k in builds if k.startswith("prefill[")}
+        if any(v != 1 for v in builds.values()) or builds.get("decode") != 1 or (
+                want_layout == "exact" and shapes != {f"prefill[{len(p)}]" for p, _ in specs}):
+            raise AssertionError(f"{name} {label}: builds {builds}")
+        extra = None
+        if legacy:
+            lat = legacy_latencies(eng, FE_SLOTS)
+            extra = dict(ttft_p50_s=lat[50][0], ttft_p99_s=lat[99][0], latency_p50_s=lat[50][1],
+                         latency_p99_s=lat[99][1])
+        print_telemetry(f"{name} {label}", tele, extra)
+        steps = tele["decode_steps"]
+        print(f"[family-engine] {name} {label}: wall {wall:.3f} s, decode "
+              f"{1e3 * tele['decode_s'] / steps:.2f} ms per step ({steps} steps), prefill "
+              f"{1e3 * tele['prefill_s'] / tele['prefill_calls']:.2f} ms per call "
+              f"({tele['prefill_calls']} calls), {len(shapes)} prefill builds, launches {counts}")
+        runs.append((label, {i: r.out.tolist() for i, r in enumerate(reqs)}))
+        del eng
+    if cfg.n_experts:
+        # the published capacity factor: printed, not compared
+        with RouteSpy() as spy:
+            _, preqs, wall, counts = run_engine(dev, params, published,
+                                                lambda: runtime.serve(params, published, serve=sv),
+                                                specs, f"{name} paged at the published factor")
+        add_counts(total, counts)
+        same = sum(r.out.tolist() == runs[0][1][i] for i, r in enumerate(preqs))
+        print(f"[family-engine] {name} paged at the published capacity factor "
+              f"{published.capacity_factor}: wall {wall:.3f} s, "
+              f"{sum(int(c['dropped']) for c in spy.calls)} of "
+              f"{sum(c['sets'].numel() for c in spy.calls)} replicas dropped, {same} of "
+              f"{len(preqs)} requests' tokens equal to the run at factor {cfg.capacity_factor}")
+        del spy, preqs
+    t0 = time.perf_counter()
+    ref = reference_tokens(dev, params, plain_cfg, specs, FE_REF)
+    print(f"[family-engine] {name}: sequential reference of requests {list(FE_REF)}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    diffs = compare_tokens(dev, params, plain_cfg, specs, [("sequential reference", ref)] + runs,
+                           rtol)
+    print(f"[family-engine] {name} greedy tokens against the sequential reference of "
+          f"{len(ref)} requests in 3 engines: {3 * len(ref) - len(diffs)} equal, "
+          f"{len(diffs)} differing at a near tie")
+    if name in FE_TRACE:
+        family_decode_trace(dev, params, cfg, specs)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[time]   {name} engines {time.perf_counter() - t_fam:.1f} s")
+    return total
+
+
+def family_engines(dev):
+    """Phase 16. Returns the launches of its runs (every one 0)."""
+    t_phase = time.perf_counter()
+    total = {}
+    for index, (name, layout) in enumerate(FE_FAMILIES):
+        add_counts(total, family_engines_one(dev, name, layout, index))
+    print(f"[time]   family engines {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -3843,6 +4049,11 @@ def main() -> int:
     for name, rs in vlm_rows.items():
         fam_rows[name] += rs
     print(f"[time] the VLM and audio families {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fe_counts = family_engines(dev)
+    for name, n in fe_counts.items():
+        launches[name] += n
+    print(f"[time] the family engines {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -3889,7 +4100,8 @@ def main() -> int:
           f"each): {json.dumps(ssm_counts)}; the VLM and audio families (phase 15's main "
           f"paths: qwen2-vl-2b and seamless-m4t-large-v2 training, {FAM_STEPS} steps per "
           f"backend, qwen's stale step at accum 2, and one prefill each): "
-          f"{json.dumps(vlm_counts)}")
+          f"{json.dumps(vlm_counts)}; the family engines (phase 16: every engine run 0): "
+          f"{json.dumps(fe_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -60,7 +60,8 @@ from repro_torch.tree import tree_leaves
 
 __all__ = ["LayerKind", "plan_segments", "layer_kinds", "jax_layer_paths", "init_params",
            "forward", "forward_with_aux", "lm_loss", "num_params", "active_params_per_token",
-           "check_supported", "attn_cfg", "cross_cfg", "check_decoder", "init_cache",
+           "check_supported", "attn_cfg", "cross_cfg", "check_decoder", "check_recurrent_segments",
+           "init_cache", "layer_cache",
            "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE"]
 
 # the encoder's layer uids start here (JAX's seg_base), so its sites never
@@ -366,6 +367,24 @@ def _rwkv_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache):
     return x + o
 
 
+def check_recurrent_segments(cfg: ArchConfig, segs) -> None:
+    """Raise unless ``segs`` (int [B, S], a tensor or array; None passes)
+    makes each row one segment without padding, where ``cfg`` has a
+    recurrent layer: its state runs along the whole row (an exact-length
+    engine wave is such a row). JAX's recurrent layers ignore segments: a
+    packed row would leak state between its prompts, and pads would enter
+    the state. A device tensor costs a device-to-host sync, so the prefill
+    and train steps check their host batches before the copy, and
+    :func:`forward` and :func:`prefill` check only segments on the CPU."""
+    if segs is None or not any(k.kind in ("mamba", "rwkv") for k in layer_kinds(cfg)):
+        return
+    s = torch.as_tensor(segs)
+    if not bool(((s > 0) & (s == s[:, :1])).all()):
+        raise ValueError(f"{cfg.name}: a recurrent layer carries state along the row; its "
+                         "segment ids must make each row one segment without padding, not "
+                         "packed or padded prompts")
+
+
 def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, caches=None,
                 pos=None, segs=None, memory=None, encoder=False):
     """Run every layer; returns (x, aux): the MoE layers' aux losses summed
@@ -376,6 +395,8 @@ def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, cache
     (``params["encoder"]``) under their uids."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kinds = encoder_kinds(cfg) if encoder else layer_kinds(cfg)
+    if segs is not None and segs.device.type == "cpu" and not encoder:
+        check_recurrent_segments(cfg, segs)
     stack = params["encoder"]["layers"] if encoder else params["layers"]
     base = ENCODER_UID_BASE if encoder else 0
     for i, (kind, p) in enumerate(zip(kinds, stack)):
@@ -388,11 +409,6 @@ def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, cache
             if a is not None:
                 aux = aux + a
             continue
-        if segs is not None:
-            # JAX's recurrent layers ignore segments: packed prompts would
-            # leak state into each other
-            raise ValueError(f"{cfg.name}: a {kind.kind} layer carries state across the "
-                             "sequence and cannot run segment-packed prompts")
         if kind.kind == "mamba":
             x = _mamba_layer(p, x, lctx, cfg, cache, pos)
         else:
@@ -447,26 +463,31 @@ def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, enc_len: int = 0,
                device="cuda"):
-    """Zero decode caches, one dict per layer: ``{"k", "v"}`` of [batch, size,
-    n_kv, d_head] for attention (size = max_len, or the layer's window when
-    it is shorter), with ``"cross": {"k", "v"}`` of [batch, enc_len, n_kv,
-    d_head] in a decoder layer of an encoder-decoder; the zero recurrent
-    state for a Mamba or RWKV layer."""
+    """Zero decode caches, one dict per layer (:func:`layer_cache`)."""
     check_decoder(cfg)
     dev = resolve_device(device)
+    return [layer_cache(cfg, kind, batch, max_len, enc_len=enc_len, device=dev)
+            for kind in layer_kinds(cfg)]
+
+
+def layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int, max_len: int, *,
+                enc_len: int = 0, device: torch.device):
+    """One layer's zero decode cache on ``device`` (a ``torch.device``, taken
+    as it is: ``meta`` gives shapes without storage): ``{"k", "v"}`` of
+    [batch, size, n_kv, d_head] for attention (size = max_len, or the
+    layer's window when it is shorter), with ``"cross": {"k", "v"}`` of
+    [batch, enc_len, n_kv, d_head] in a decoder layer of an
+    encoder-decoder; the zero recurrent state for a Mamba or RWKV layer,
+    batch first."""
     dtype = getattr(torch, cfg.dtype)
-
-    def one(kind):
-        if kind.kind == "mamba":
-            return ssm.mamba_state_init(batch, _mamba_cfg(cfg), dtype, dev)
-        if kind.kind == "rwkv":
-            return ssm.rwkv_state_init(batch, _rwkv_cfg(cfg), dtype, dev)
-        c = init_kv_cache(batch, max_len, attn_cfg(cfg, kind), dtype, dev)
-        if kind.cross:
-            c["cross"] = init_kv_cache(batch, enc_len, cross_cfg(cfg), dtype, dev)
-        return c
-
-    return [one(kind) for kind in layer_kinds(cfg)]
+    if kind.kind == "mamba":
+        return ssm.mamba_state_init(batch, _mamba_cfg(cfg), dtype, device)
+    if kind.kind == "rwkv":
+        return ssm.rwkv_state_init(batch, _rwkv_cfg(cfg), dtype, device)
+    c = init_kv_cache(batch, max_len, attn_cfg(cfg, kind), dtype, device)
+    if kind.cross:
+        c["cross"] = init_kv_cache(batch, enc_len, cross_cfg(cfg), dtype, device)
+    return c
 
 
 def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=None):

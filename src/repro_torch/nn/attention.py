@@ -146,19 +146,36 @@ def _write_decode(cache, k, v, pos, cfg: AttnCfg):
         cache["v"][:, at] = v[:, 0].to(cache["v"].dtype)
 
 
-def _fill_prefill(cache, k, v, cfg: AttnCfg):
-    """Fill the cache with the prompt's (window-truncated) tail, in place."""
+def _fill_prefill(cache, k, v, cfg: AttnCfg, segs=None):
+    """Fill the cache from the prompt's keys and values, in place.
+
+    A full-length cache takes the row as it is: what lies past a prompt is
+    hidden by decode's ``idx <= pos`` mask until decode overwrites it. A ring
+    takes each row's last ``size`` valid tokens (``segs``, int [B, S], 0 =
+    padding; without it every token is valid), token ``p`` (its index in the
+    row) at slot ``p % size``, so the pads of a bucket or of a right-padded
+    batch never overwrite a slot that decode reads (JAX writes the padded
+    row's tail there)."""
     size = cache["k"].shape[1]
-    ktail = k[:, -size:].to(cache["k"].dtype)
-    vtail = v[:, -size:].to(cache["v"].dtype)
-    if _rolling(cfg, size) and k.shape[1] >= size:
-        # ring convention: absolute position p lives at slot p % size
-        shift = k.shape[1] % size
-        ktail = torch.roll(ktail, shift, dims=1)
-        vtail = torch.roll(vtail, shift, dims=1)
-    n = ktail.shape[1]
-    cache["k"][:, :n] = ktail
-    cache["v"][:, :n] = vtail
+    if not _rolling(cfg, size):
+        n = min(k.shape[1], size)
+        cache["k"][:, :n] = k[:, -n:].to(cache["k"].dtype)
+        cache["v"][:, :n] = v[:, -n:].to(cache["v"].dtype)
+        return
+    B, S = k.shape[:2]
+    valid = (segs.to(k.device) > 0 if segs is not None
+             else torch.ones((B, S), dtype=torch.bool, device=k.device))
+    # the valid tokens at or after each index: keep the last `size`
+    after = valid.flip(1).cumsum(1).flip(1)
+    keep = valid & (after <= size)
+    idx = torch.arange(S, device=k.device)
+    # dropped tokens go to an extra slot past the ring, then cut off
+    slot = torch.where(keep, idx % size, size)
+    for name, x in (("k", k), ("v", v)):
+        buf = torch.zeros((B, size + 1) + tuple(x.shape[2:]), dtype=cache[name].dtype,
+                          device=x.device)
+        buf.scatter_(1, slot[:, :, None, None].expand(x.shape), x.to(buf.dtype))
+        cache[name].copy_(buf[:, :size])
 
 
 def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None,
@@ -195,6 +212,6 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
     o = multi_head_attention(q, k, v, cfg, segs=None if memory is not None else segs)
     out = dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o")
     if cache is not None:
-        _fill_prefill(cache, k, v, cfg)
+        _fill_prefill(cache, k, v, cfg, segs=None if memory is not None else segs)
         return out, cache
     return out

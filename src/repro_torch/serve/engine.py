@@ -30,12 +30,14 @@ Every prefill batch carries segment ids, so attention takes the plain path
 and the engine launches no kernel of ``kernels/`` (as JAX's engine runs no
 Pallas kernel), whatever ``attn_impl`` says.
 
-What the port cannot serve is refused when the engine is built, before any
-device work: encoder-decoder configs (as JAX's engine refuses them), every
-config outside the dense decoder family (the MoE family, gemma3's
-local/global interleave, the SSM and hybrid families and the M-RoPE VLM run
-through ``Runtime.prefill_step`` and ``decode_step`` but not the engines
-yet), and parameters on another device than the Runtime's.
+Every decoder family is served: the dense decoder, gemma3's local/global
+interleave and other windowed configs (contiguous over ring caches), the
+MoE family, the SSM and hybrid families (contiguous; each prompt prefilled
+alone at its exact length, since a recurrent state would integrate pads)
+and the M-RoPE VLM (text prompts: the three position streams equal). What
+the engines refuse is refused when they are built, before any device work:
+encoder-decoder configs (as JAX's engine refuses them) and parameters on
+another device than the Runtime's.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from repro_torch.serve.serve_step import greedy_sample
 from repro_torch.telemetry.sinks import RingSink, percentiles
 from repro_torch.tree import tree_leaves
 
-__all__ = ["Request", "Engine", "check_servable"]
+__all__ = ["Request", "Engine", "check_servable", "text_positions"]
 
 _COUNTER_KEYS = ("batches", "prefill_calls", "prefill_tokens", "decode_steps",
                  "tokens_out", "decode_tokens", "requests_done",
@@ -64,21 +66,22 @@ _COUNTER_KEYS = ("batches", "prefill_calls", "prefill_tokens", "decode_steps",
 
 
 def check_servable(params, cfg: ArchConfig, device: torch.device) -> None:
-    """Raise, before any device work, for what the port's engines cannot
-    serve: an encoder-decoder or otherwise unported config, or parameters
-    that do not all lie on ``device``."""
+    """Raise, before any device work, for what the engines do not serve: an
+    encoder-decoder or unported config, or parameters that do not all lie
+    on ``device``."""
     if cfg.is_encdec:
         raise ValueError("the serving engine targets decoder-only archs")
     lm.check_decoder(cfg)
-    if cfg.n_experts or cfg.local_global or cfg.block_kind != "attn" or cfg.rope == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's serving engines serve the dense decoder family only; "
-            "serve the MoE family, gemma3's local/global interleave, the SSM and hybrid "
-            "families and the VLM through Runtime.prefill_step and decode_step")
     where = {t.device for t in tree_leaves(params) if isinstance(t, torch.Tensor)}
     if where != {device}:
         raise ValueError(f"parameters lie on {sorted(map(str, where))}, the Runtime serves on "
                          f"{device}: move them there, or build the Runtime with their device")
+
+
+def text_positions(cfg: ArchConfig, poss: np.ndarray) -> np.ndarray:
+    """A prefill batch's positions from its text positions [B, S]: as they
+    are, or broadcast to M-RoPE's three streams [3, B, S]."""
+    return np.repeat(poss[None], 3, axis=0) if cfg.rope == "mrope" else poss
 
 
 class _Counted:
@@ -231,8 +234,12 @@ class Engine:
         for r in wave:
             offs.append(off)
             off += -(-len(r.prompt) // align) * align
-        # every port layout may pad (pad_ok): no recurrent state
-        bucket = serve.bucket_for(off)
+        if self.layout.pad_ok:
+            bucket = serve.bucket_for(off)
+        else:
+            # a recurrent state integrates pads irreversibly: the wave's one
+            # prompt at its exact length (one build per distinct length)
+            bucket = len(wave[0].prompt)
         toks = np.zeros((1, bucket), np.int32)
         segs = np.zeros((1, bucket), np.int32)
         poss = np.zeros((1, bucket), np.int32)
@@ -243,7 +250,7 @@ class Engine:
             segs[0, o:o + n] = i + 1
             poss[0, o:o + n] = np.arange(n)
             last[i] = o + n - 1
-        batch = {"tokens": toks, "segments": segs, "positions": poss}
+        batch = {"tokens": toks, "segments": segs, "positions": text_positions(self.cfg, poss)}
         first, pref = self._bucket_prefill(bucket)(self.params, batch, self._to_dev(last))
         first_np = first.cpu().numpy()  # one [n_slots] device-to-host copy
         now = clock.now()

@@ -1,13 +1,14 @@
 """Paged KV cache: fixed-size pages, a per-slot page map and a trash page
 (port of ``repro/serve/kv_cache.py``).
 
-The port's decode caches are a list with one ``{"k", "v"}`` dict of
-``[n_slots, size, n_kv, d_head]`` per layer (``lm.init_cache``). Paged mode
-replaces each full-length leaf with a physical page pool ``[pool_pages,
-page_size, n_kv, d_head]`` (same list, same keys) plus one shared int page
-map ``[n_slots, pages_per_slot]`` of physical page ids. Page 0 is the
-**trash page**: a freed slot points every map entry at it, so its decode
-writes land in storage nothing reads back unmasked.
+The port's decode caches are a list with one dict per layer
+(``lm.init_cache``), batch first: ``{"k", "v"}`` of ``[n_slots, size, n_kv,
+d_head]`` for attention, a Mamba or RWKV layer's recurrent state. Paged
+mode replaces each full-length leaf with a physical page pool
+``[pool_pages, page_size, n_kv, d_head]`` (same list, same keys) plus one
+shared int page map ``[n_slots, pages_per_slot]`` of physical page ids.
+Page 0 is the **trash page**: a freed slot points every map entry at it,
+so its decode writes land in storage nothing reads back unmasked.
 
 A decode step composes the three operations below: :func:`gather_slots`
 builds the slot-major caches ``lm.decode_step`` takes, the step writes the
@@ -18,12 +19,13 @@ writes into its caches) and return it. So :func:`gather_slots` returns a
 **copy**: the decode step's in-place write must not reach the pools except
 through the scatter.
 
-Layout selection is shape-driven (:func:`plan_layout`): paging requires
-every cache leaf to be full-length attention K/V. A sliding-window config
-whose window is shorter than ``max_len`` has ring caches (``nn/attention.py``)
-and falls back to the contiguous slot-major layout, as in JAX. The port has
-no recurrent-state or cross-attention leaves (only the dense decoder family
-is ported), so every leaf is ``"kv_full"`` or ``"kv_ring"``.
+Layout selection is shape-driven (:func:`plan_layout`), as in JAX: every
+cache leaf is ``"kv_full"`` (attention K/V of ``max_len`` positions),
+``"kv_ring"`` (a window shorter than ``max_len``: ``nn/attention.py``'s
+ring), ``"state"`` (a recurrent layer's) or ``"cross"`` (an
+encoder-decoder's cross-attention memory, which the engines refuse). Paging
+needs every leaf ``kv_full``; rings and states fall back to the contiguous
+slot-major layout, and states also forbid padding (``pad_ok``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.nn.attention import init_kv_cache
 from repro_torch.serve.config import ServeConfig
 
 __all__ = ["CacheLayout", "plan_layout", "init_pools", "gather_slots",
@@ -49,13 +50,15 @@ class CacheLayout:
     * ``pack_ok`` — every leaf is full-length attention K/V, so several
       prompts may share one segment-masked prefill row and be inserted
       page-wise.
-    * ``pad_ok`` — prompts may be right-padded to a prefill bucket (pad keys
-      are segment-masked out of attention, and cache garbage beyond the
-      prompt is hidden by the ``idx <= pos`` decode mask until overwritten).
-      Always true in the port: it has no recurrent state, which would
-      integrate the padding.
-    * ``leaf_kinds`` — ``"kv_full"`` or ``"kv_ring"`` per cache leaf, layer
-      by layer, ``k`` before ``v`` (JAX lists one per stacked leaf).
+    * ``pad_ok`` — no recurrent state: prompts may be right-padded to a
+      prefill bucket (pad keys are segment-masked out of attention, a full
+      cache's garbage beyond the prompt is hidden by the ``idx <= pos``
+      decode mask until overwritten, and a ring is filled from the row's
+      valid tokens alone). A recurrent state integrates pads irreversibly,
+      so ``pad_ok=False`` layouts prefill at each prompt's exact length.
+    * ``leaf_kinds`` — ``"kv_full"``, ``"kv_ring"``, ``"state"`` or
+      ``"cross"`` per cache leaf, layer by layer in each layer dict's order
+      (JAX lists one per stacked leaf, so the two agree as sets).
     """
 
     paged: bool
@@ -68,15 +71,33 @@ def _meta_caches(cfg: ArchConfig, max_len: int):
     """``lm.init_cache(cfg, 1, max_len)`` as meta tensors: shapes and dtypes,
     no storage."""
     lm.check_decoder(cfg)
-    dtype = getattr(torch, cfg.dtype)
-    return [init_kv_cache(1, max_len, lm.attn_cfg(cfg, kind), dtype, "meta")
-            for kind in lm.layer_kinds(cfg)]
+    meta = torch.device("meta")
+    return [lm.layer_cache(cfg, kind, 1, max_len, device=meta) for kind in lm.layer_kinds(cfg)]
+
+
+def _leaf_kind(path: str, shape, max_len: int) -> str:
+    """JAX's ``_leaf_kind``: a cross-attention memory, attention K/V (full or
+    ring by its length) or recurrent state."""
+    if "cross" in path:
+        return "cross"
+    if path.endswith("/k") or path.endswith("/v"):
+        return "kv_full" if shape[1] == max_len else "kv_ring"
+    return "state"
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a nested dict's tensors, in key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
 
 
 def plan_layout(cfg: ArchConfig, serve: ServeConfig) -> CacheLayout:
     """Classify the arch's cache leaves and pick paged or contiguous."""
-    kinds = tuple("kv_full" if leaf.shape[1] == serve.max_len else "kv_ring"
-                  for layer in _meta_caches(cfg, serve.max_len) for leaf in layer.values())
+    kinds = tuple(_leaf_kind(path, leaf.shape, serve.max_len)
+                  for layer in _meta_caches(cfg, serve.max_len) for path, leaf in _paths(layer))
     pack_ok = bool(kinds) and all(k == "kv_full" for k in kinds)
     pad_ok = bool(kinds) and all(k in ("kv_full", "kv_ring") for k in kinds)
     paged = serve.page_size is not None and pack_ok
@@ -152,12 +173,20 @@ def insert_prompt_pages(pools, pref_caches, phys_pages, src_page0: int, serve: S
     return pools
 
 
-def insert_prompt_rows(dec_caches, pref_caches, slot: int):
-    """Contiguous-layout insert, in place: copy each prefill-cache leaf's one
-    row into slot ``slot``; returns ``dec_caches``. A whole-row copy is exact
-    for full-length and ring caches alike, because prefill builds its caches
-    at the engine's own ``max_len``."""
+def insert_prompt_rows(dec_caches, pref_caches, slot: int, row: int = 0):
+    """Contiguous-layout insert, in place: copy row ``row`` of every
+    prefill-cache leaf (nested dicts included) into slot ``slot``; returns
+    ``dec_caches``. A whole-row copy is exact for full-length caches, rings
+    and recurrent state alike, because prefill builds its caches at the
+    engine's own ``max_len``."""
+
+    def copy(dec, pref):
+        for k, d in dec.items():
+            if isinstance(d, dict):
+                copy(d, pref[k])
+            else:
+                d[slot] = pref[k][row].to(d.dtype)
+
     for dec_l, pref_l in zip(dec_caches, pref_caches):
-        for k, dec in dec_l.items():
-            dec[slot] = pref_l[k][0].to(dec.dtype)
+        copy(dec_l, pref_l)
     return dec_caches

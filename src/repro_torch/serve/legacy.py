@@ -11,6 +11,15 @@ closes. There is no queue, no eviction and no per-slot stop (eos is
 ignored), and a prefill is built per distinct padded prompt length (see
 ``trace_counts``, one count at each one's first call).
 
+A config with recurrent state (the SSM and hybrid families: the cache
+layout's ``pad_ok`` is False) is never padded, where JAX's engine pads it
+and its state integrates the pads: the batch's prompts are prefilled in
+groups of equal length, one call per distinct length (rows of one length
+together, no padding), and their rows are copied into the batch's caches.
+``prefill_calls`` then counts those calls and ``prefill_tokens`` the
+prompts' own tokens (JAX counts one call and ``batch x`` the longest
+prompt per batch). A padding lane's caches stay zero and its first token 0.
+
 A slot decoding past its own ``max_new`` may run past ``max_len``; its
 position is clipped to ``max_len - 1`` (JAX drops that out-of-range write),
 which changes only tokens the slot discards. One device-to-host copy per
@@ -27,9 +36,12 @@ import torch
 
 from repro_torch.api.runtime import Runtime
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
 from repro_torch.obs import clock, observability
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.serve.engine import _Counted, check_servable
+from repro_torch.serve import kv_cache
+from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.engine import _Counted, check_servable, text_positions
 from repro_torch.serve.scheduler import Request
 from repro_torch.serve.serve_step import greedy_sample
 from repro_torch.telemetry.sinks import RingSink
@@ -47,6 +59,8 @@ class RunToCompletionEngine:
         self.batch = batch
         self.max_len = max_len
         self.device = self.runtime.device
+        self.pad_ok = kv_cache.plan_layout(
+            cfg, ServeConfig(n_slots=batch, max_len=max_len, page_size=None)).pad_ok
         self.trace_counts: dict = {}
         pref_raw = self.runtime.prefill_step(cfg, max_len)
         dec_raw = self.runtime.decode_step(cfg)
@@ -81,6 +95,30 @@ class RunToCompletionEngine:
         if fn is None:
             fn = self._prefills[plen] = _Counted(self._pf, self.trace_counts, f"prefill[{plen}]")
         return fn
+
+    def _batch(self, toks: np.ndarray, segs: np.ndarray) -> dict:
+        poss = np.broadcast_to(np.arange(toks.shape[1], dtype=np.int32), toks.shape).copy()
+        return {"tokens": toks, "segments": segs, "positions": text_positions(self.cfg, poss)}
+
+    def _prefill_unpadded(self, prompts):
+        """(first tokens [batch], the batch's caches, prefill calls) of prompts
+        prefilled without padding: the rows of each distinct length in one
+        call, copied into the batch's caches at their own rows."""
+        dev = self.device
+        caches = lm.init_cache(self.cfg, self.batch, self.max_len, device=dev)
+        first = torch.zeros(self.batch, dtype=torch.int32, device=dev)
+        rows_of: dict = {}  # length -> rows, in order of first appearance
+        for j, p in enumerate(prompts):
+            rows_of.setdefault(len(p), []).append(j)
+        for n, rows in rows_of.items():
+            toks = np.stack([prompts[j] for j in rows])
+            f, pref = self._prefill(n)(
+                self.params, self._batch(toks, np.ones_like(toks)),
+                torch.full((len(rows),), n - 1, dtype=torch.long, device=dev))
+            first[torch.tensor(rows, device=dev)] = f
+            for i, j in enumerate(rows):
+                kv_cache.insert_prompt_rows(caches, pref, j, row=i)
+        return first, caches, len(rows_of)
 
     def run(self, requests: List[Request]) -> List[Request]:
         """Serve a list of requests in fixed-size run-to-completion batches.
@@ -117,18 +155,22 @@ class RunToCompletionEngine:
                 p = p[-keep:]  # keep the most recent context
             prompts.append(p)
         plen = max(len(p) for p in prompts)
-        toks = np.zeros((N, plen), np.int32)
-        segs = np.zeros((N, plen), np.int32)
         lens = np.zeros(N, np.int32)
-        for j, p in enumerate(prompts):
-            toks[j, :len(p)] = p  # right-pad; pads are segment-masked out
-            segs[j, :len(p)] = 1
-            lens[j] = len(p)
-        last_idx = np.maximum(lens - 1, 0)
+        lens[:B] = [len(p) for p in prompts]
         t0 = clock.now()
-        first, caches = self._prefill(plen)(
-            self.params, {"tokens": toks, "segments": segs},
-            torch.from_numpy(last_idx).to(dev, torch.long))
+        if self.pad_ok:
+            toks = np.zeros((N, plen), np.int32)
+            segs = np.zeros((N, plen), np.int32)
+            for j, p in enumerate(prompts):
+                toks[j, :len(p)] = p  # right-pad; pads are segment-masked out
+                segs[j, :len(p)] = 1
+            first, caches = self._prefill(plen)(
+                self.params, self._batch(toks, segs),
+                torch.from_numpy(np.maximum(lens - 1, 0)).to(dev, torch.long))
+            calls, ptoks = 1, N * plen
+        else:
+            first, caches, calls = self._prefill_unpadded(prompts)
+            ptoks = int(lens.sum())
         first_np = first.cpu().numpy()
         t_prefill = clock.now() - t0
         outs = [[int(first_np[j])] for j in range(B)]
@@ -157,8 +199,8 @@ class RunToCompletionEngine:
         tokens_out = sum(r.max_new for r in reqs)
         c = self.counters
         c["batches"] += 1
-        c["prefill_calls"] += 1
-        c["prefill_tokens"] += N * plen
+        c["prefill_calls"] += calls
+        c["prefill_tokens"] += ptoks
         c["decode_steps"] += max_new - 1
         c["tokens_out"] += tokens_out
         c["truncated_tokens"] += truncated

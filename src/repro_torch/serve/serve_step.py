@@ -40,6 +40,7 @@ def make_prefill(cfg: ArchConfig, max_len: int, *,
 
     @torch.no_grad()
     def prefill_fn(params, batch):
+        lm.check_recurrent_segments(cfg, batch.get("segments"))  # on the host, before the copy
         return lm.prefill(params, batch_to_device(batch, dev), ex.make_ctx(), cfg, max_len)
 
     return prefill_fn

@@ -185,6 +185,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
         return loss, metrics, acc
 
     def base_step(state: TrainState, batch, key: int, fault_scale):
+        lm.check_recurrent_segments(cfg, batch.get("segments"))  # on the host, before the copy
         batch = batch_to_device(batch, dev)
         _trainable(state.params)
         probe_metrics = {}

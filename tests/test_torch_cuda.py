@@ -1085,3 +1085,114 @@ def test_cuda_vlm_step_launches_per_site(cuda, backend):
         assert {k: v for k, v in ops.launch_counts().items() if v} == dict.fromkeys(
             kernels, accum * per_step)
         assert all(math.isfinite(float(m[k])) for k in ("loss", "grad_norm"))
+
+
+# the serving engines over every decoder family's smoke config
+# (tests/test_torch_engine_families.py runs them against JAX's on the CPU)
+FAMILY_ARCHS = ("olmoe_1b_7b", "mixtral_8x22b", "gemma3_1b", "rwkv6_3b", "zamba2_7b",
+                "qwen2_vl_2b")
+
+
+def _sequential_tokens(params, cfg, specs, device, max_len=64):
+    """The port's sequential decoding of each (prompt, max_new): prefill at
+    the exact prompt length, then greedy decode steps at batch 1."""
+    from repro_torch.api import Runtime
+    from repro_torch.serve import greedy_sample
+
+    rt = Runtime(device=device)
+    prefill, decode = rt.prefill_step(cfg, max_len), rt.decode_step(cfg)
+    out = []
+    for p, m in specs:
+        logits, caches = prefill(params, {"tokens": p[None]})
+        cur, toks = greedy_sample(logits[:, -1:]), []
+        for t in range(m):
+            toks.append(cur)
+            if t + 1 < m:
+                logits, caches = decode(params, caches, cur, len(p) + t)
+                cur = greedy_sample(logits)
+        out.append(torch.cat(toks, dim=1)[0].tolist())
+    return out
+
+
+def _serve_all(params, cfg, specs, device, max_len=64):
+    """Greedy tokens of the paged, contiguous and run-to-completion engines
+    (2 slots), with the launch counts set to 0 before each run: every one
+    must stay 0."""
+    from repro_torch.api import Runtime, ServeConfig
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.legacy import RunToCompletionEngine
+
+    rt = Runtime(device=device)
+    runs = {}
+    for label, eng in (
+            ("paged", Engine(params, cfg, serve=ServeConfig(n_slots=2, max_len=max_len),
+                             runtime=rt)),
+            ("contiguous", Engine(params, cfg, serve=ServeConfig(n_slots=2, max_len=max_len,
+                                                                 page_size=None), runtime=rt)),
+            ("run-to-completion", RunToCompletionEngine(params, cfg, batch=2, max_len=max_len,
+                                                        runtime=rt))):
+        reqs = [Request(prompt=p.copy(), max_new=m) for p, m in specs]
+        ops.reset_launch_counts()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        assert all(n == 0 for n in ops.launch_counts().values()), (label, ops.launch_counts())
+        runs[label] = [r.out.tolist() for r in reqs]
+    return runs
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_family_engines_equal_sequential_decoding(cuda, arch):
+    """On the card, each family's smoke config (``attn_impl="pallas"``)
+    through the paged (where its layout allows), contiguous and
+    run-to-completion engines: every request's greedy tokens equal the
+    port's sequential decoding (plain attention), and no kernel is launched
+    (every prefill carries segments; decode runs the plain attention)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+
+    cfg = smoke_config(arch).replace(attn_impl="pallas")
+    params = lm.init_params(0, cfg, device=cuda)
+    rng = np.random.default_rng(0)
+    specs = [(rng.integers(1, cfg.vocab, size=n).astype(np.int32), m)
+             for n, m in zip((11, 5, 23, 3, 17), (6, 3, 9, 2, 12))]
+    want = _sequential_tokens(params, cfg.replace(attn_impl="chunked"), specs, cuda)
+    for label, got in _serve_all(params, cfg, specs, cuda).items():
+        assert got == want, label
+
+
+def test_cuda_gemma3_ring_prefill_from_padded_rows(cuda):
+    """gemma3's 16-slot rings on the card, at prompts whose bucket padding
+    exceeds the window (40 tokens in a bucket of 64: 24 pads) or wraps it
+    (23 in 32), and a 3-token prompt right-padded to its batch's 40: the
+    ring filled from a padded row equals the exact-length prefill's within
+    1e-5 of its largest magnitude, and every engine equals sequential
+    decoding."""
+    import numpy as np
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+
+    cfg = smoke_config("gemma3_1b")
+    params = lm.init_params(1, cfg, device=cuda)
+    rng = np.random.default_rng(1)
+    specs = [(rng.integers(1, cfg.vocab, size=n).astype(np.int32), m)
+             for n, m in zip((40, 3, 23, 9), (8, 5, 10, 4))]
+    p = torch.as_tensor(specs[0][0], device=cuda).long()[None]
+    toks = torch.zeros((1, 64), dtype=torch.long, device=cuda)
+    segs = torch.zeros_like(toks)
+    toks[0, :40], segs[0, :40] = p[0], 1
+    with torch.no_grad():
+        _, exact = lm.prefill(params, {"tokens": p}, Ctx(), cfg, 64)
+        _, padded = lm.prefill(params, {"tokens": toks, "segments": segs}, Ctx(), cfg, 64)
+    rings = [i for i, k in enumerate(lm.layer_kinds(cfg)) if k.window]
+    assert rings
+    for i in rings:
+        for name in ("k", "v"):
+            assert padded[i][name].shape[1] == cfg.window
+            _close(padded[i][name], exact[i][name], 1e-5)
+    want = _sequential_tokens(params, cfg, specs, cuda)
+    for label, got in _serve_all(params, cfg, specs, cuda).items():
+        assert got == want, label

@@ -19,11 +19,13 @@ import torch
 
 from repro.configs.base import ArchConfig as JArchConfig
 from repro.models import lm as jlm
+from repro.nn.common import Ctx as JCtx
 from repro.serve import kv_cache as jkv
 from repro.serve.config import ServeConfig as JServeConfig
 from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import Request as JRequest
 from repro.serve.legacy import RunToCompletionEngine as JLegacy
+from repro.serve.serve_step import greedy_sample as jgreedy
 from repro_torch.api import Runtime, ServeConfig
 from repro_torch.configs import registry
 from repro_torch.configs.base import ArchConfig
@@ -83,21 +85,21 @@ def _mixed_requests(seed=0, lens=(11, 5, 23, 3, 17, 9, 30, 7), news=(6, 3, 9, 2,
 _REF_CACHE = {}
 
 
-def _reference_decode(params, prompt, max_new, max_len):
+def _reference_decode(params, prompt, max_new, max_len, cfg=CFG):
     """The port's sequential decoding of one prompt: prefill, the next token
     from a full forward, then ``max_new`` greedy decode steps at batch 1."""
-    key = (tuple(int(t) for t in prompt), max_new, max_len)
+    key = (cfg, tuple(int(t) for t in prompt), max_new, max_len)
     if key in _REF_CACHE:
         return _REF_CACHE[key]
     toks = torch.as_tensor(np.asarray(prompt)).long()[None]
     with torch.no_grad():
-        _, caches = lm.prefill(params, {"tokens": toks}, Ctx(), CFG, max_len)
-        logits = lm.forward(params, {"tokens": toks}, Ctx(), CFG)
+        _, caches = lm.prefill(params, {"tokens": toks}, Ctx(), cfg, max_len)
+        logits = lm.forward(params, {"tokens": toks}, Ctx(), cfg)
         cur = greedy_sample(logits[:, -1:])
         out, pos = [], toks.shape[1]
         for _ in range(max_new):
             out.append(int(cur[0, 0]))
-            logits, caches = lm.decode_step(params, caches, cur.long(), pos, Ctx(), CFG)
+            logits, caches = lm.decode_step(params, caches, cur.long(), pos, Ctx(), cfg)
             cur = greedy_sample(logits)
             pos += 1
     _REF_CACHE[key] = out
@@ -440,9 +442,29 @@ def test_cache_layout_of_windowed_configs_as_jax(window, paged):
     assert len(lay.leaf_kinds) == 2 * CFG.n_layers
 
 
+def _jax_reference_decode(jparams, jcfg, prompt, max_new, max_len):
+    """JAX's sequential decoding of one prompt: ``lm.prefill`` at its exact
+    length, then greedy ``decode_step``s at batch 1."""
+    prefill = jax.jit(lambda p, b: jlm.prefill(p, b, JCtx(), jcfg, max_len))
+    decode = jax.jit(lambda p, c, t, pos: jlm.decode_step(p, c, t, pos, JCtx(), jcfg))
+    logits, caches = prefill(jparams, {"tokens": jnp.asarray(prompt)[None]})
+    cur, out = jgreedy(logits[:, -1:]), []
+    for t in range(max_new):
+        out.append(int(cur[0, 0]))
+        logits, caches = decode(jparams, caches, cur, len(prompt) + t)
+        cur = jgreedy(logits)
+    return out
+
+
 def test_windowed_engine_matches_jax_engine():
     """A sliding window shorter than max_len: the contiguous engine over ring
-    caches gives JAX's tokens and counters."""
+    caches. Every request equals the port's sequential decoding; where JAX's
+    engine equals JAX's sequential decoding, the port equals JAX's engine
+    (counters and ring records on all). JAX's engine departs on the
+    23-token request: its bucket of 32 puts 9 pads into the 16-slot ring
+    over positions 7-15, which decode reads (ROADMAP Queue 3 item 12); so
+    it does on the 17-token one (15 pads over positions 1-15). The port
+    fills each ring from the row's valid tokens alone."""
     kw = dict(SERVE, window=16)
     cfg, jcfg = ArchConfig(**kw), JArchConfig(**kw)
     jp = jlm.init_params(jax.random.key(1), jcfg)
@@ -454,7 +476,16 @@ def test_windowed_engine_matches_jax_engine():
     assert not eng.layout.paged
     eng.run(reqs)
     jeng.run(jreqs)
-    _same_as_jax(reqs, jreqs, eng, jeng)
+    specs = _specs(7, lens, news)
+    for r, (p, m) in zip(reqs, specs):
+        assert r.out.tolist() == _reference_decode(tp, p, m, 64, cfg)
+    kept = [np.asarray(jr.out).tolist() == _jax_reference_decode(jp, jcfg, p, m, 64)
+            for jr, (p, m) in zip(jreqs, specs)]
+    # JAX departs where the bucket's pads wrap the ring: the 23- and 17-token
+    # prompts (bucket 32), not those whose bucket fits the window
+    assert kept == [eng.serve.bucket_for(n) <= 16 for n in lens] == [True, True, False, True,
+                                                                      False]
+    _same_as_jax(*zip(*[(r, jr) for r, jr, k in zip(reqs, jreqs, kept) if k]), eng, jeng)
 
 
 # ---------------------------------------------------------------------------
@@ -463,18 +494,19 @@ def test_windowed_engine_matches_jax_engine():
 
 
 def test_engines_refuse_what_the_port_cannot_serve():
+    """Both engines, and ``Runtime.serve``, refuse an encoder-decoder config
+    (as JAX's engine does) and parameters on another device than the
+    Runtime's, before any device work; every decoder family is served
+    (tests/test_torch_engine_families.py)."""
     _, params = _params()
-    for engine_cls in (Engine, RunToCompletionEngine):
-        with pytest.raises(ValueError, match="decoder-only"):
-            engine_cls(params, ArchConfig(**dict(SERVE, enc_layers=2)), runtime=CPU)
-        with pytest.raises(NotImplementedError, match="dense decoder"):
-            engine_cls(params, ArchConfig(**dict(SERVE, rope="mrope")), runtime=CPU)
-        for arch in ("rwkv6-3b", "zamba2-7b"):  # Runtime.prefill_step/decode_step serve them
-            with pytest.raises(NotImplementedError, match="SSM and hybrid families"):
-                engine_cls(params, registry.smoke_config(arch), runtime=CPU)
+    seamless = registry.smoke_config("seamless_m4t_large_v2")
+    for build in (Engine, RunToCompletionEngine, lambda p, c, runtime: runtime.serve(p, c)):
+        for cfg in (ArchConfig(**dict(SERVE, enc_layers=2)), seamless):
+            with pytest.raises(ValueError, match="decoder-only"):
+                build(params, cfg, runtime=CPU)
         elsewhere = dict(params, embed=params["embed"].to("meta"))
         with pytest.raises(ValueError, match="lie on"):
-            engine_cls(elsewhere, CFG, runtime=CPU)
+            build(elsewhere, CFG, runtime=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Engine(params, CFG)  # the default Runtime is the card's

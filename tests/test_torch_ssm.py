@@ -471,11 +471,20 @@ def test_prefill_then_decode_equals_the_forward(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_recurrent_layers_refuse_segments(arch):
     """JAX's SSM blocks ignore segment ids, so packed prompts would share
-    state: the port raises."""
+    state and pads would enter it: the port raises for a packed or a padded
+    row. A row that is one segment without padding (an exact-length engine
+    wave) runs, and gives the logits of the same batch without segments
+    exactly (the masks of one whole segment are the causal mask)."""
     _, cfg, _, batch = _setup(arch)
-    segs = torch.ones((B, S), dtype=torch.long)
-    with pytest.raises(ValueError, match="segment"):
-        lm.forward(_port(arch), dict(_tb(batch), segments=segs), Ctx(), cfg)
+    params, tb = _port(arch), _tb(batch)
+    packed = torch.tensor([[1] * 10 + [2] * (S - 10)] * B)
+    padded = torch.tensor([[1] * (S - 3) + [0] * 3] * B)
+    for segs in (packed, padded):
+        with pytest.raises(ValueError, match="segment"):
+            lm.forward(params, dict(tb, segments=segs), Ctx(), cfg)
+    one = torch.tensor([[1] * S, [2] * S])  # each row its own id
+    got = lm.forward(params, dict(tb, segments=one), Ctx(), cfg)
+    assert torch.equal(got, lm.forward(params, tb, Ctx(), cfg))
 
 
 # ---------------------------------------------------------------------------
