@@ -2746,9 +2746,9 @@ def res_drill(dev, total):
                 seed=RES_SEED), fault_plan=fault_plan)
             saves = []  # the synchronous saves: (step, seconds, verified)
 
-            def save(d, step, tree, keep=3, saves=saves):
+            def save(d, step, tree, keep=3, mesh=None, saves=saves):
                 t0 = time.perf_counter()
-                real_save(d, step, tree, keep=keep)
+                real_save(d, step, tree, keep=keep, mesh=mesh)
                 saves.append((step, time.perf_counter() - t0, ckmod.verify(d, step)))
 
             seen = []
@@ -3931,6 +3931,226 @@ def family_engines(dev):
     return total
 
 
+# -- phase 17: the distributed runtime on a one-rank NCCL mesh ----------------
+
+DIST_TIMED = 3  # synced steps timed per configuration, after one warm-up
+
+
+def dist_group(tmp):
+    """A one-rank NCCL process group (a file:// store in ``tmp``) and the
+    (1, 1) ("data", "model") mesh over it on the card. An init failure fails
+    the phase: there is no fallback to gloo or to no mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", rank=0,
+                            world_size=1)
+    return make_mesh((1, 1), ("data", "model"), device="cuda")
+
+
+def dist_site_split(cfg, ex, policy):
+    """The plan kind of each of lm-100m's 84 sketched sites and of its head
+    under ``ex`` (global shapes)."""
+    from collections import Counter
+
+    dims = {"attn_q": (cfg.n_heads * cfg.head_dim, cfg.d_model),
+            "attn_k": (cfg.n_kv * cfg.head_dim, cfg.d_model),
+            "attn_v": (cfg.n_kv * cfg.head_dim, cfg.d_model),
+            "attn_o": (cfg.d_model, cfg.n_heads * cfg.head_dim),
+            "mlp_in": (cfg.d_ff, cfg.d_model), "mlp_gate": (cfg.d_ff, cfg.d_model),
+            "mlp_out": (cfg.d_model, cfg.d_ff)}
+    kinds = Counter()
+    for i in range(cfg.n_layers):
+        for role, (n, d) in dims.items():
+            kinds[ex.site_spec(role, policy.config_for(role, i, cfg.n_layers), d_out=n,
+                               d_in=d).plan.kind] += 1
+    head_tp = ex.tp_sketch and policy.config_for("lm_head", 0, 1) is None
+    kinds["tp_exact" if head_tp else "local"] += 1
+    return dict(kinds)
+
+
+def dist_leaves(state):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(state.params) + tree_leaves(state.opt_state)
+
+
+def distributed(dev):
+    """Phase 17: lm-100m at full width and depth (12 layers, d 768, vocab
+    32,000, float32, batch 8x256, l1@0.2 block 128 on all 84 sites, head
+    exact) through the distributed runtime on a one-rank NCCL mesh (1, 1):
+    (a) tp_sketch off, pallas: one step equals the single-device step bit
+    for bit (loss, grad norm, every parameter and moment), 84 score + 84
+    fused launches; (b) tp_sketch on, pallas: sites 60 tp_column / 24 tp_row
+    / 1 tp_exact, loss equal to the exact step's (rel 1e-5), finite
+    gradients, 84 score + 0 fused launches per step, compact gradients equal
+    to the scatter path (rtol 2e-5, atol 2e-6), collective bytes against
+    the exact step's; (c) a checkpoint of (b) restores through
+    resume_on_mesh bit for bit; (d) ms per step of (a), (b) and the
+    single-device step, device ops and busy ms of one profiled step each.
+    Returns the launches of the runs that count (every step's)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    cfg = lm100m()
+    policy = slice_policy(0.2)
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = dist_group(tmp)
+        try:
+            distributed_checks(dev, cfg, policy, mesh, tmp, total)
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    print(f"[time]   distributed {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def distributed_checks(dev, cfg, policy, mesh, tmp, total):
+    """Phase 17's checks (a)-(d) on the one-rank mesh; adds every counted
+    step's launches to ``total``."""
+    import numpy as np
+
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import collective_bytes, reset_collective_bytes
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.elastic import resume_on_mesh
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    full = lm.init_params(17, cfg, device=dev)
+    batch = next(iter(LMStream(vocab=cfg.vocab, seed=17).batches(BATCH, SEQ)))
+    key = 17
+
+    def fresh(ex=None, opt=None):
+        params = tree_map(lambda t: t.detach().clone(), full)
+        return init_state(0, cfg, opt, params=params, device=dev, execution=ex)
+
+    def one(ex, pol, opt, label):
+        """One step from the initial parameters: (state, metrics, launches)."""
+        st = fresh(ex, opt)
+        fn = make_train_step(cfg, opt, pol, execution=ex, device=dev)
+        b = batch if ex is None or ex.mesh is None else shard_batch(batch, mesh=mesh)
+        ops.reset_launch_counts()
+        reset_collective_bytes()
+        st, m = fn(st, b, key)
+        sync(dev)
+        counts = ops.launch_counts()
+        if pol is not None:
+            add_counts(total, counts)
+        return st, m, counts, collective_bytes()["total"], fn, b
+
+    # (a) the local plan on the mesh, bit for bit the single-device step
+    opt = adamw(1e-3)
+    single, m1, c1, _, fn1, b1 = one(None, policy, opt, "single")
+    ex_a = ExecutionConfig(mesh=mesh)
+    mesh_a, m2, c2, bytes_a, fn_a, b_a = one(ex_a, policy, opt, "mesh")
+    want = expected_counts("pallas", 1)
+    if c2 != want or c1 != want:
+        raise AssertionError(f"[dist] (a) launches {c2} (single {c1}), want {want}")
+    same = (torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"],
+                                                                 m2["grad_norm"])
+            and all(torch.equal(a, b) for a, b in zip(dist_leaves(single),
+                                                      dist_leaves(mesh_a))))
+    if not same:
+        raise AssertionError("[dist] (a) the one-rank mesh step differs from the "
+                             "single-device step")
+    print(f"[dist] (a) mesh (1, 1) NCCL, tp_sketch off, pallas l1@0.2 block {BLOCK}: "
+          f"loss {float(m2['loss']):.6f}, grad_norm {float(m2['grad_norm']):.6g}, "
+          f"{len(dist_leaves(mesh_a))} leaves (params, AdamW moments) bit for bit the "
+          f"single-device step; launches {c2}; collective payload {bytes_a} B")
+    del single
+
+    # (b) the TP plans
+    ex_b = ExecutionConfig(mesh=mesh, tp_sketch=True)
+    split = dist_site_split(cfg, ex_b, policy)
+    if split != {"tp_column": 60, "tp_row": 24, "tp_exact": 1}:
+        raise AssertionError(f"[dist] (b) site plans {split}")
+    _, m_ex, _, bytes_ex, fn_ex, _ = one(ex_b, None, opt, "exact")
+    _, m_exact1, _, _, _, _ = one(None, None, opt, "exact single")
+    dense_b, m_b, c_b, bytes_b, fn_b, b_b = one(ex_b, policy, opt, "tp dense")
+    want_b = {name: 84 if name == "col_l1_scores" else 0 for name in ops.KERNELS}
+    rel = abs(float(m_b["loss"]) - float(m_exact1["loss"])) / abs(float(m_exact1["loss"]))
+    if c_b != want_b or rel > 1e-5 or not math.isfinite(float(m_b["grad_norm"])):
+        raise AssertionError(f"[dist] (b) launches {c_b}, loss rel {rel}, grad_norm "
+                             f"{float(m_b['grad_norm'])}")
+    if not all(torch.isfinite(t).all() for t in dist_leaves(dense_b)):
+        raise AssertionError("[dist] (b) a non-finite leaf after the TP step")
+    ex_c = ExecutionConfig(mesh=mesh, tp_sketch=True, compact_grads=True)
+    comp_b, m_c, c_c, bytes_c, _, _ = one(ex_c, policy, opt, "tp compact")
+    errs = [float(((a - b).abs() / (2e-6 + 2e-5 * b.abs())).max().detach())
+            for a, b in zip(dist_leaves(comp_b), dist_leaves(dense_b))]
+    if c_c != want_b or max(errs) > 1.0:
+        raise AssertionError(f"[dist] (b) compact launches {c_c}, worst err/tol "
+                             f"{max(errs)}")
+    print(f"[dist] (b) tp_sketch on: sites {split}; loss {float(m_b['loss']):.6f} vs exact "
+          f"{float(m_exact1['loss']):.6f} (rel {rel:.2e}); grad_norm "
+          f"{float(m_b['grad_norm']):.6g}; launches per step {c_b} (compact {c_c}); "
+          f"compact gradients against the scatter path: worst |diff| / (2e-6 + 2e-5 |b|) "
+          f"{max(errs):.3g}; collective payload per step: exact {bytes_ex} B, dense "
+          f"sketched {bytes_b} B ({bytes_b / bytes_ex:.3f}), compact {bytes_c} B "
+          f"({bytes_c / bytes_ex:.3f})")
+    del comp_b
+
+    # (c) a checkpoint of (b), written as the trainer writes under a mesh
+    # (gathered leaf by leaf to rank 0's host), restored on the mesh
+    ckdir = os.path.join(tmp, "ckpt")
+    mgr = ck.CheckpointManager(ckdir, every=1, mesh=mesh)
+    mgr.maybe_save(1, dense_b)
+    mgr.wait()
+    restored, step = resume_on_mesh(ckdir, dense_b, mesh, device=dev)
+    if step != 1 or not all(torch.equal(a, b) for a, b in zip(dist_leaves(dense_b),
+                                                              dist_leaves(restored))):
+        raise AssertionError("[dist] (c) the restored state differs")
+    print(f"[dist] (c) checkpoint of (b) ({len(dist_leaves(restored))} leaves) restored "
+          "through resume_on_mesh bit for bit")
+    del restored, dense_b
+
+    # (d) ms per step, interleaved: single, mesh (a), TP (b)
+    runs = {"single": (fn1, b1, None), "mesh (a)": (fn_a, b_a, ex_a),
+            "tp (b)": (fn_b, b_b, ex_b)}
+    states = {k: fresh(ex, opt) for k, (_, _, ex) in runs.items()}
+    ms = {k: [] for k in runs}
+    ops.reset_launch_counts()
+    for k, (fn, b, _) in runs.items():
+        states[k], _ = fn(states[k], b, key)  # warm-up
+    sync(dev)
+    for rep in range(DIST_TIMED):
+        for k, (fn, b, _) in runs.items():
+            t0 = time.perf_counter()
+            states[k], m = fn(states[k], b, key + rep)
+            float(m["loss"])
+            sync(dev)
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+    prof = {}
+    for k, (fn, b, _) in runs.items():
+        states[k], _, n_ops, busy = profiled_step(dev, fn, states[k], b, key)
+        prof[k] = (n_ops, busy)
+    sync(dev)
+    per_run = 1 + DIST_TIMED + 1  # warm-up, timed, profiled
+    want_d = expected_counts("pallas", 2 * per_run)  # single and mesh (a)
+    want_d["col_l1_scores"] += 7 * cfg.n_layers * per_run  # tp (b)
+    got_d = ops.launch_counts()
+    if got_d != want_d:
+        raise AssertionError(f"[dist] (d) launches {got_d}, want {want_d}")
+    add_counts(total, got_d)
+    print(f"[dist] (d) ms per step ({DIST_TIMED} synced steps after a warm-up, order "
+          f"single, mesh, tp): " + ", ".join(
+              f"{k} {[round(v, 2) for v in ms[k]]} (median {np.median(ms[k]):.2f}; "
+              f"device ops {prof[k][0]}, busy {prof[k][1]:.2f} ms)" for k in runs)
+          + f"; card {smi_line()}")
+    del states
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -4054,6 +4274,11 @@ def main() -> int:
     for name, n in fe_counts.items():
         launches[name] += n
     print(f"[time] the family engines {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist_counts = distributed(dev)
+    for name, n in dist_counts.items():
+        launches[name] += n
+    print(f"[time] the distributed runtime {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -4101,7 +4326,8 @@ def main() -> int:
           f"paths: qwen2-vl-2b and seamless-m4t-large-v2 training, {FAM_STEPS} steps per "
           f"backend, qwen's stale step at accum 2, and one prefill each): "
           f"{json.dumps(vlm_counts)}; the family engines (phase 16: every engine run 0): "
-          f"{json.dumps(fe_counts)}")
+          f"{json.dumps(fe_counts)}; the distributed runtime (phase 17: the one-rank mesh's "
+          f"sketched steps and their single-device twins): {json.dumps(dist_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -1,23 +1,37 @@
 """Execution configuration (port of ``repro/api/execution.py``).
 
-The JAX config also carries the mesh and the shardings, which are not ported
-yet. This one holds compact gradients, the accumulation count, telemetry,
-resilience and observability, and is the one factory for
-:class:`~repro_torch.nn.common.Ctx` outside the nn substrate.
+Where a Runtime runs (a mesh, its axis names, the TP plans), compact
+gradients, the accumulation count, telemetry, resilience and observability;
+the one factory for :class:`~repro_torch.nn.common.Ctx` outside the nn
+substrate.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 __all__ = ["ExecutionConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionConfig:
-    """Static execution environment of one Runtime (single device, local plan).
+    """Static execution environment of one Runtime.
 
     Attributes:
+      mesh: a :class:`repro_torch.launch.mesh.Mesh` (``make_mesh``, over an
+        initialised process group) for distributed runs; None = one device.
+        Under a mesh every rank holds its shards of the state and its rows
+        of the batch (docs/port.md, "Distributed").
+      act_sharding: the residual stream's spec. The port's SPMD code fixes
+        it (batch over the data axes, replicated over model:
+        ``launch.sharding.logical_rules(mesh)["activations"]``), so only None
+        or that spec is taken; any other layout raises (ROADMAP.md, Queue 1
+        item 2b).
+      data_axes / model_axes: the mesh axes carrying data parallelism and
+        tensor parallelism (axes the mesh lacks are dropped).
+      tp_sketch: sites that can take the TP plans run them (``tp_column``,
+        ``tp_row``, ``tp_exact`` for the head), with the compressed DP
+        gradient collective (``core/site.py``).
       compact_grads: keep sketched dW compact (rows + indices) from the
         backward through clipping into row-sparse optimizer updates
         (``core/compact_grad.py``; requires ``accum == 1``).
@@ -40,6 +54,11 @@ class ExecutionConfig:
         turns them off.
     """
 
+    mesh: Optional[Any] = None
+    act_sharding: Optional[Any] = None
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axes: Tuple[str, ...] = ("model",)
+    tp_sketch: bool = False
     compact_grads: bool = False
     accum: int = 1
     telemetry: Optional[Any] = None  # repro_torch.telemetry.TelemetryConfig
@@ -47,6 +66,12 @@ class ExecutionConfig:
     obs: Optional[Any] = None  # repro_torch.obs.ObsConfig
 
     def __post_init__(self):
+        object.__setattr__(self, "data_axes", tuple(self.data_axes))
+        object.__setattr__(self, "model_axes", tuple(self.model_axes))
+        if self.mesh is not None and not hasattr(self.mesh, "axis_names"):
+            raise ValueError(f"mesh must be a repro_torch.launch.mesh.Mesh, got {self.mesh!r}")
+        if self.act_sharding is not None:
+            self._check_act_sharding()
         if self.accum < 1:
             raise ValueError(f"accum must be >= 1, got {self.accum}")
         if self.compact_grads and self.accum != 1:
@@ -62,12 +87,52 @@ class ExecutionConfig:
         if self.obs is not None and not hasattr(self.obs, "trace_capacity"):
             raise ValueError(f"obs must be a repro_torch.obs.ObsConfig, got {self.obs!r}")
 
+    def _check_act_sharding(self):
+        if self.mesh is None:
+            raise ValueError("act_sharding needs a mesh")
+        from repro_torch.launch.sharding import dim_axes, logical_rules
+
+        fixed = logical_rules(self.mesh)["activations"]
+        act = tuple(self.act_sharding)
+        if tuple(map(dim_axes, act)) != tuple(map(dim_axes, fixed)):
+            raise NotImplementedError(
+                f"act_sharding {act}: the port's residual stream is laid out as {fixed} "
+                "(batch over the data axes, replicated over model); another layout is not "
+                "ported (ROADMAP.md, Queue 1 item 2b)")
+
     def replace(self, **kw) -> "ExecutionConfig":
         return dataclasses.replace(self, **kw)
+
+    def axes_in_mesh(self) -> tuple:
+        """(data axes, model axes) that the mesh has."""
+        if self.mesh is None:
+            return self.data_axes, self.model_axes
+        have = self.mesh.axis_names
+        return (tuple(a for a in self.data_axes if a in have),
+                tuple(a for a in self.model_axes if a in have))
+
+    def site_spec(self, role: str, cfg, *, d_out: int, d_in: int, has_bias: bool = False,
+                  x_ndim: int = 3):
+        """The :class:`~repro_torch.core.site.SiteSpec` a site resolves to in
+        this environment (plan, slot ranks, probe capability)."""
+        from repro_torch.core.site import resolve_site
+
+        dp, mp = self.axes_in_mesh()
+        return resolve_site(role, cfg, d_out=d_out, d_in=d_in, has_bias=has_bias,
+                            x_ndim=x_ndim, mesh=self.mesh, data_axes=dp, model_axes=mp,
+                            tp_sketch=self.tp_sketch)
+
+    def slot_kwargs(self) -> dict:
+        """The mesh arguments of the slot builders (``with_grad_slots``,
+        ``with_probe_slots``, ``with_plan_state``)."""
+        dp, mp = self.axes_in_mesh()
+        return dict(mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch)
 
     def make_ctx(self, *, policy=None, key=None, layer_index: int = 0, n_layers: int = 1):
         """The per-call :class:`~repro_torch.nn.common.Ctx` (``key``: the
         integer seed sketched sites derive their generators from)."""
         from repro_torch.nn.common import Ctx
 
-        return Ctx(policy=policy, key=key, layer_index=layer_index, n_layers=n_layers)
+        dp, mp = self.axes_in_mesh()
+        return Ctx(policy=policy, key=key, layer_index=layer_index, n_layers=n_layers,
+                   mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch)

@@ -146,7 +146,7 @@ class Runtime:
 
         # the policy lets plan-carry estimators seed their carry leaves
         return init_state(seed, cfg, opt, params=params, device=self.device,
-                          policy=self.policy)
+                          policy=self.policy, execution=self.execution)
 
     def train_step(self, cfg, opt, *, budget: Optional[float] = 1.0) -> Callable:
         """``step_fn(state, batch, key) -> (state, metrics)`` of one budget
@@ -242,16 +242,20 @@ class Runtime:
     # -- migration ----------------------------------------------------------
 
     @classmethod
-    def from_legacy_kwargs(cls, policy=None, *, compact_grads: bool = False, accum: int = 1,
+    def from_legacy_kwargs(cls, policy=None, *, mesh=None, act_sharding=None,
+                           data_axes=("data",), model_axes=("model",),
+                           tp_sketch: bool = False, compact_grads: bool = False, accum: int = 1,
                            straggler_budgets: Tuple[float, ...] = (),
                            schedule: Optional[BudgetSchedule] = None,
                            device="cuda") -> "Runtime":
-        """The Runtime of the pre-Runtime keyword spelling (the JAX method's,
-        without its mesh arguments): ``straggler_budgets`` becomes a reactive
-        :class:`BudgetSchedule`."""
+        """The Runtime of the pre-Runtime keyword spelling (the JAX method's):
+        ``straggler_budgets`` becomes a reactive :class:`BudgetSchedule`."""
         if schedule is None:
             schedule = (BudgetSchedule.straggler(tuple(straggler_budgets))
                         if straggler_budgets else BudgetSchedule())
         return cls(policy=policy,
-                   execution=ExecutionConfig(compact_grads=compact_grads, accum=accum),
+                   execution=ExecutionConfig(mesh=mesh, act_sharding=act_sharding,
+                                             data_axes=tuple(data_axes),
+                                             model_axes=tuple(model_axes), tp_sketch=tp_sketch,
+                                             compact_grads=compact_grads, accum=accum),
                    schedule=schedule, device=device)

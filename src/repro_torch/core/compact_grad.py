@@ -50,7 +50,8 @@ from repro_torch.core.sketching import (SketchConfig, effective_cfg, static_bloc
                                         static_rank)
 
 __all__ = ["CompactGrad", "GradSlot", "GRAD_SLOT", "is_compact", "row_gather", "row_scatter",
-           "densify", "compact_rank", "with_grad_slots", "grad_targets", "fold_slot_grads"]
+           "densify", "compact_rank", "with_grad_slots", "grad_targets", "fold_slot_grads",
+           "localize_compact"]
 
 GRAD_SLOT = "gslot"
 
@@ -115,7 +116,9 @@ class GradSlot:
 
     ``r`` is the resolved ``SiteSpec.compact_rows`` the slot was made for;
     :meth:`put` checks the backward's rows against it, so slot emission and
-    the backward's dispatch cannot drift apart."""
+    the backward's dispatch cannot drift apart. On the ``tp_column`` plan
+    ``r`` is n_mp x the shard's rank: every model shard's rows with global
+    indices (:func:`localize_compact` keeps this rank's)."""
 
     __slots__ = ("r", "rows", "idx")
 
@@ -135,7 +138,8 @@ class GradSlot:
         self.idx = idx.to(torch.int64)
 
 
-def with_grad_slots(params, policy, *, n_layers: int = 1):
+def with_grad_slots(params, policy, *, n_layers: int = 1, mesh=None, data_axes=("data",),
+                    model_axes=("model",), tp_sketch: bool = False):
     """``params`` with a fresh :class:`GradSlot` under ``"gslot"`` in every
     site whose backward takes a compact path: the tree to run the loss on.
 
@@ -152,7 +156,9 @@ def with_grad_slots(params, policy, *, n_layers: int = 1):
     def walk(node, path):
         if isinstance(node, dict):
             out = {k: walk(v, path + (k,)) for k, v in node.items()}
-            spec = resolve_tree_site(path, node, policy, n_layers=n_layers)
+            spec = resolve_tree_site(path, node, policy, n_layers=n_layers, mesh=mesh,
+                                     data_axes=data_axes, model_axes=model_axes,
+                                     tp_sketch=tp_sketch)
             if spec is not None and spec.compact_rows is not None:
                 out[GRAD_SLOT] = GradSlot(spec.compact_rows)
             return out
@@ -179,6 +185,33 @@ def grad_targets(params):
         return node
 
     return walk(params)
+
+
+def localize_compact(grads, params):
+    """Under a mesh: each CompactGrad's rows (global row indices, in the
+    weight shard's d_in layout) cut to the rows this rank's shard holds,
+    re-indexed from the shard's first row, so the optimizer updates its own
+    rows. A tp_column slot holds every model shard's rows (n_mp x rank,
+    all-gathered); the row plan's and the local plan's hold all d_out rows.
+    Unmarked weights, and shards holding every row, pass unchanged."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.sharding import dim_axes, mesh_of, spec_of
+
+    def walk(g, p):
+        if isinstance(g, dict):
+            return {k: walk(v, p[k]) for k, v in g.items()}
+        if isinstance(g, (list, tuple)):
+            return type(g)(walk(a, b) for a, b in zip(g, p))
+        spec = spec_of(p) if isinstance(p, torch.Tensor) else None
+        if not is_compact(g) or spec is None or not dim_axes(spec[0]):
+            return g
+        mesh = mesh_of(p)
+        n_loc = p.shape[0]
+        lo = meshlib.axis_index(mesh, dim_axes(spec[0])) * n_loc
+        keep = (g.idx >= lo) & (g.idx < lo + n_loc)
+        return CompactGrad(rows=g.rows[keep], idx=g.idx[keep] - lo, dense=g.dense)
+
+    return walk(grads, params)
 
 
 def fold_slot_grads(grads):

@@ -41,7 +41,9 @@ class EstimatorVJP:
     ``probe`` (telemetry): the site's ``[PROBE_WIDTH]`` f32 probe vector
     (``telemetry/probes.py``), emitted by :meth:`Estimator.apply_with_probe`
     or by ``apply_with_state(..., want_probe=True)``; the site returns it as
-    the gradient of its probe slot.
+    the gradient of its probe slot. ``probe_p``: the keep marginals of the
+    rows it read (``[r]``, or ``[n]`` for a dense dW): a site whose rows are
+    summed over data ranks afterwards recomputes the probe from the sum.
     """
 
     dx: torch.Tensor  # [N, d_in] flattened-input gradient
@@ -52,6 +54,7 @@ class EstimatorVJP:
     db_c: Optional[torch.Tensor] = None
     state: Optional[torch.Tensor] = None
     probe: Optional[torch.Tensor] = None
+    probe_p: Optional[torch.Tensor] = None  # the keep marginals the probe read
 
     @property
     def is_compact(self) -> bool:
@@ -92,11 +95,29 @@ class Estimator:
     ``plan_carry``: the estimator samples the step-t sketch from state
     carried over from step t-1 instead of a score pass over G, so the
     backward's only read of G is the estimator's kernel.
+
+    ``tp_shardable``: opt-in to the tensor-parallel plans (``core/site.py``,
+    ``tp_column``/``tp_row``): the estimator's :meth:`plan` returns a
+    compact ``ColumnPlan`` (indices, scales, keep marginals) valid on one
+    model shard of G, and the site runs the matmuls and collectives around
+    it. :func:`repro_torch.core.site.tp_estimator` consults the flag and
+    calls :meth:`validate`; an estimator without it resolves to the local
+    plan (the dense mask backend on a compact-form estimator).
+      plan(cfg, G2d, w, gen, *, want_compact, score_psum_axes): the sampled
+        sketch; inside the TP backward ``want_compact=True`` and
+        ``score_psum_axes`` names the data axes whose ranks pool their
+        scores. The default returns None.
+
+    The builtin backends also take ``score_psum_axes`` in ``apply``,
+    ``apply_with_probe`` and ``apply_with_state``: a local-plan site under a
+    data-sharded mesh passes its data axes, so every replica draws the plan
+    of the whole batch (``core/sketching.py``).
     """
 
     name: str = "?"
     supports_compact_grad: bool = False
     plan_carry: bool = False
+    tp_shardable: bool = False
 
     def validate(self, cfg) -> None:  # noqa: B027 — optional hook
         pass
@@ -106,6 +127,9 @@ class Estimator:
 
     def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b) -> EstimatorVJP:
         return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b)
+
+    def plan(self, cfg, G2d, w, gen, *, want_compact=True, score_psum_axes=None):
+        return None
 
     def compact_rank(self, cfg, n: int) -> int:
         raise NotImplementedError(f"estimator {self.name!r} is not compact")

@@ -60,7 +60,8 @@ def policy_uses_carry(policy) -> bool:
         plan_carry_capable(cfg) for _, cfg in policy.overrides)
 
 
-def with_plan_state(params, policy, *, n_layers: int = 1):
+def with_plan_state(params, policy, *, n_layers: int = 1, mesh=None, data_axes=("data",),
+                    model_axes=("model",), tp_sketch: bool = False):
     """``params`` with a uniform-prior carry leaf in every site whose config
     carries a plan (``SiteSpec.carry_rows``, from ``core.site.
     resolve_tree_site``, the resolution the site runs). Ones, not zeros:
@@ -76,7 +77,9 @@ def with_plan_state(params, policy, *, n_layers: int = 1):
     def walk(node, path):
         if isinstance(node, dict):
             out = {k: walk(v, path + (k,)) for k, v in node.items()}
-            spec = resolve_tree_site(path, node, policy, n_layers=n_layers)
+            spec = resolve_tree_site(path, node, policy, n_layers=n_layers, mesh=mesh,
+                                     data_axes=data_axes, model_axes=model_axes,
+                                     tp_sketch=tp_sketch)
             if spec is not None and spec.carry_rows is not None:
                 out[PLAN_SLOT] = torch.ones(spec.carry_rows, dtype=torch.float32,
                                             device=node["w"].device)

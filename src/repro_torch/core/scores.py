@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["column_scores", "SCORE_METHODS", "kernel_reduction_mode",
+__all__ = ["column_scores", "summed_column_scores", "SCORE_METHODS", "kernel_reduction_mode",
            "scores_from_kernel_reduction"]
 
 
@@ -65,6 +65,37 @@ def column_scores(method: str, G: torch.Tensor, W: torch.Tensor | None = None) -
     if base not in _BASE:
         raise ValueError(f"unknown score method {method!r}; choose from {SCORE_METHODS}")
     s = _BASE[base](G, W)
+    return s.square() if squared else s
+
+
+def summed_column_scores(method: str, G: torch.Tensor, W, psum) -> torch.Tensor:
+    """:func:`column_scores` of the rows of ``G`` on every rank of a data
+    axis together: ``psum`` sums a tensor over those ranks, and each score is
+    rebuilt from summed column reductions (sums of |G|, G and G², or GᵀG), so
+    the l2 family's square root runs after the sum and the result is the
+    score of the whole batch."""
+    squared = method.endswith("_sq")
+    base = method[:-3] if squared else method
+    G32 = _f32(G)
+    if base == "l1":
+        s = psum(G32.abs().sum(0))
+    elif base == "l2":
+        s = torch.sqrt(psum(G32.square().sum(0)))
+    elif base in ("var", "ds"):
+        n = psum(torch.full((), float(G.shape[0]), dtype=torch.float32, device=G.device))
+        sq = psum(G32.square().sum(0)) / n
+        if base == "var":
+            mean = psum(G32.sum(0)) / n
+            s = (sq - mean.square()).clamp_min(0.0)
+        else:
+            if W is None:
+                raise ValueError("DS score requires the layer weight W.")
+            s = torch.sqrt(sq * _f32(W).square().sum(-1))
+    elif base == "gsv":
+        evals, evecs = torch.linalg.eigh(psum(G32.T @ G32))
+        s = evecs.square() @ torch.sqrt(evals.clamp_min(0.0))
+    else:
+        raise ValueError(f"unknown score method {method!r}; choose from {SCORE_METHODS}")
     return s.square() if squared else s
 
 

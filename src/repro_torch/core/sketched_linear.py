@@ -36,7 +36,8 @@ def with_probe(out: EstimatorVJP, plan) -> EstimatorVJP:
     marginals at the kept columns."""
     from repro_torch.telemetry.probes import probe_from_rows
 
-    out.probe = probe_from_rows(out.rows, plan.probs[out.cols])
+    out.probe_p = plan.probs[out.cols]
+    out.probe = probe_from_rows(out.rows, out.probe_p)
     return out
 
 
@@ -46,13 +47,30 @@ def block_cols(idx: torch.Tensor, block: int) -> torch.Tensor:
             + torch.arange(block, dtype=idx.dtype, device=idx.device)[None, :]).reshape(-1)
 
 
+def _same(t):
+    return t
+
+
+def _no_shared_plan(cfg, score_psum_axes) -> None:
+    """Raise for a method whose draws follow the local batch's shape
+    (per-element masks, per-sample gates, rcs) on a data axis of several
+    ranks: its plan cannot be the one of the whole batch."""
+    if (score_psum_axes is not None and score_psum_axes.size > 1
+            and cfg.method not in COLUMN_METHODS and not cfg.is_noop):
+        raise NotImplementedError(
+            f"method {cfg.method!r} on a data-sharded mesh is not ported (ROADMAP.md, "
+            "the next distributed slice): only the column-family methods share one plan "
+            "across data replicas")
+
+
 class _MaskEstimator(estimators.Estimator):
     """Paper-faithful dense backend: full-size Ĝ, dense downstream matmuls."""
 
     name = "mask"
     supports_compact_grad = False
 
-    def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
+    def apply(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
+        _no_shared_plan(cfg, score_psum_axes)
         if cfg.method == "per_element":
             # Alg. 3: independent element masks on W (for dX) and X (for dW);
             # the bias gradient stays exact.
@@ -62,23 +80,25 @@ class _MaskEstimator(estimators.Estimator):
             return EstimatorVJP(dx=(G2d @ (w * mw)) / p,
                                 dw=(G2d.T @ (X2d * mx)) / p,
                                 db=G2d.sum(0) if has_b else None)
-        Ghat = sketch_dense(cfg, G2d, w, gen)
+        Ghat = sketch_dense(cfg, G2d, w, gen, score_psum_axes)
         return EstimatorVJP(dx=Ghat @ w, dw=Ghat.T @ X2d,
                             db=Ghat.sum(0) if has_b else None)
 
-    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b):
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
         """Column-family methods expose the plan's marginals, so the probe is
         a reduction over the sketched dW: the same gate from the same draws,
         the gradients of ``apply``. Other methods emit no probe."""
         if cfg.method not in COLUMN_METHODS or cfg.is_noop:
-            return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b)
+            return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b,
+                              score_psum_axes=score_psum_axes)
         from repro_torch.telemetry.probes import probe_from_rows
 
-        plan = column_plan(cfg, G2d, w, gen, want_compact=False)
+        plan = column_plan(cfg, G2d, w, gen, want_compact=False,
+                           score_psum_axes=score_psum_axes)
         Ghat = G2d * plan.gate[None, :].to(G2d.dtype)
         dw = Ghat.T @ X2d
         return EstimatorVJP(dx=Ghat @ w, dw=dw, db=Ghat.sum(0) if has_b else None,
-                            probe=probe_from_rows(dw, plan.probs))
+                            probe=probe_from_rows(dw, plan.probs), probe_p=plan.probs)
 
 
 class _CompactEstimator(estimators.Estimator):
@@ -87,6 +107,7 @@ class _CompactEstimator(estimators.Estimator):
 
     name = "compact"
     supports_compact_grad = True
+    tp_shardable = True  # plan() is valid on a model shard of G
 
     def validate(self, cfg) -> None:
         if cfg.method not in COLUMN_METHODS:
@@ -103,19 +124,24 @@ class _CompactEstimator(estimators.Estimator):
             return static_block_rank(lcfg, n) * lcfg.block
         return static_rank(lcfg, n)
 
-    def _apply_planned(self, cfg, G2d, X2d, w, gen):
+    def plan(self, cfg, G2d, w, gen, *, want_compact=True, score_psum_axes=None):
+        return column_plan(cfg, G2d, w, gen, want_compact=want_compact,
+                           score_psum_axes=score_psum_axes)
+
+    def _apply_planned(self, cfg, G2d, X2d, w, gen, score_psum_axes=None):
         cfg = effective_cfg(cfg, G2d.shape[-1])
-        plan = column_plan(cfg, G2d, w, gen, want_compact=True)
+        plan = column_plan(cfg, G2d, w, gen, want_compact=True,
+                           score_psum_axes=score_psum_axes)
         return self.apply_plan(cfg, G2d, X2d, w, plan.indices, plan.scales), plan
 
-    def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
-        return self._apply_planned(cfg, G2d, X2d, w, gen)[0]
+    def apply(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
+        return self._apply_planned(cfg, G2d, X2d, w, gen, score_psum_axes)[0]
 
-    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b):
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
         """The compact rows (the fused kernel's dWc on block-granular
         configs) and the plan's marginals at the kept columns are all the
         probe needs: one ``[r]`` reduction after the same backward."""
-        return with_probe(*self._apply_planned(cfg, G2d, X2d, w, gen))
+        return with_probe(*self._apply_planned(cfg, G2d, X2d, w, gen, score_psum_axes))
 
     def apply_plan(self, cfg, G2d, X2d, w, indices, scales) -> EstimatorVJP:
         """The backward for a given plan (kept indices and ``1/p`` scales;
@@ -180,6 +206,7 @@ class _PlanCarryEstimator(_PallasEstimator):
     """
 
     plan_carry = True
+    tp_shardable = False  # the carry is local-plan only
 
     def validate(self, cfg) -> None:
         super().validate(cfg)
@@ -192,24 +219,30 @@ class _PlanCarryEstimator(_PallasEstimator):
     def carry_size(self, cfg, n: int) -> int:
         return n
 
-    def apply(self, cfg, G2d, X2d, w, gen, *, has_b):
-        return self.apply_with_state(cfg, G2d, X2d, w, gen, None, has_b=has_b)
-
-    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b):
+    def apply(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
         return self.apply_with_state(cfg, G2d, X2d, w, gen, None, has_b=has_b,
-                                     want_probe=True)
+                                     score_psum_axes=score_psum_axes)
 
-    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b, want_probe=False):
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
+        return self.apply_with_state(cfg, G2d, X2d, w, gen, None, has_b=has_b,
+                                     want_probe=True, score_psum_axes=score_psum_axes)
+
+    def apply_with_state(self, cfg, G2d, X2d, w, gen, state, *, has_b, want_probe=False,
+                         score_psum_axes=None):
+        """``score_psum_axes``: the kernel's column reductions of this rank's
+        rows are summed over those data axes before they become the fresh
+        scores (the carry is replicated: every replica samples alike)."""
         n = G2d.shape[-1]
         cfg = effective_cfg(cfg, n)
         if state is None:
             state = torch.ones(n, dtype=torch.float32, device=G2d.device)  # uniform prior
         plan = column_plan_from_scores(cfg, state, gen, want_compact=True)
-        out = self._one_pass(cfg, G2d, plan, w, X2d, state)
+        psum = _same if score_psum_axes is None else score_psum_axes.psum
+        out = self._one_pass(cfg, G2d, plan, w, X2d, state, psum)
         # the probe reads the one sweep's rows: no second kernel launch
         return with_probe(out, plan) if want_probe else out
 
-    def _one_pass(self, cfg, G2d, plan, w, X2d, state) -> EstimatorVJP:
+    def _one_pass(self, cfg, G2d, plan, w, X2d, state, psum=_same) -> EstimatorVJP:
         raise NotImplementedError
 
 
@@ -221,7 +254,7 @@ class _OnePassEstimator(_PlanCarryEstimator):
 
     name = "onepass"
 
-    def _one_pass(self, cfg, G2d, plan, w, X2d, state):
+    def _one_pass(self, cfg, G2d, plan, w, X2d, state, psum=_same):
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
 
@@ -238,7 +271,7 @@ class _OnePassEstimator(_PlanCarryEstimator):
                                                                  score_mode=mode)
             cols = idx
         return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c,
-                            state=scores_from_kernel_reduction(cfg.method, red))
+                            state=scores_from_kernel_reduction(cfg.method, psum(red)))
 
 
 class _StalePlanEstimator(_PlanCarryEstimator):
@@ -249,7 +282,7 @@ class _StalePlanEstimator(_PlanCarryEstimator):
 
     name = "stale"
 
-    def _one_pass(self, cfg, G2d, plan, w, X2d, state):
+    def _one_pass(self, cfg, G2d, plan, w, X2d, state, psum=_same):
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
 
@@ -268,7 +301,7 @@ class _StalePlanEstimator(_PlanCarryEstimator):
             cols = idx
         # out of place: the carry passed in stays as it was
         fresh = state.detach().to(torch.float32, copy=True)
-        fresh[cols] = scores_from_kernel_reduction(cfg.method, kept)
+        fresh[cols] = scores_from_kernel_reduction(cfg.method, psum(kept))
         return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c, state=fresh)
 
 

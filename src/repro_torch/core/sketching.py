@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import solver
-from repro_torch.core.scores import SCORE_METHODS, column_scores
+from repro_torch.core.scores import SCORE_METHODS, column_scores, summed_column_scores
 
 __all__ = [
     "SketchConfig",
@@ -135,27 +135,36 @@ class ColumnPlan:
     probs: torch.Tensor  # [n] f32 marginals
 
 
-def _proxy_scores(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor]) -> torch.Tensor:
+def _proxy_scores(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
+                  score_psum_axes=None) -> torch.Tensor:
     """Column proxy scores. On the ``pallas`` backend the ℓ1/ℓ2 families go
     through the score kernel (``kernels.ops.col_l1_scores``: one pass over G,
-    fp32 accumulation); everything else uses :func:`column_scores`."""
+    fp32 accumulation); everything else uses :func:`column_scores`.
+
+    ``score_psum_axes`` (a :class:`~repro_torch.launch.mesh.Axes`, or None):
+    the data axes the batch is sharded over. The column reductions are
+    summed over them before the score is formed (the l2 mode's square root
+    after the sum), so every replica scores the whole batch and draws the
+    SAME plan from the shared seed: the paper's batch-shared sketch, which
+    the compressed gradient collective needs."""
     base = cfg.method[:-3] if cfg.method.endswith("_sq") else cfg.method
+    psum = (lambda t: t) if score_psum_axes is None else score_psum_axes.psum
     if cfg.backend == "pallas" and base in ("l1", "l2"):
         from repro_torch.kernels import ops as kops
 
-        if base == "l1":
-            s = kops.col_l1_scores(G2d, mode="l1")
-        else:
-            s = torch.sqrt(kops.col_l1_scores(G2d, mode="l2"))
+        red = psum(kops.col_l1_scores(G2d, mode=base))
+        s = red if base == "l1" else torch.sqrt(red)
         return s.square() if cfg.method.endswith("_sq") else s
-    return column_scores(cfg.method, G2d, W)
+    if score_psum_axes is None:
+        return column_scores(cfg.method, G2d, W)
+    return summed_column_scores(cfg.method, G2d, W, psum)
 
 
-def _column_probs(cfg: SketchConfig, G2d, W, r: int) -> torch.Tensor:
+def _column_probs(cfg: SketchConfig, G2d, W, r: int, score_psum_axes=None) -> torch.Tensor:
     n = G2d.shape[-1]
     if cfg.method == "per_column":
         return torch.full((n,), r / n, dtype=torch.float32, device=G2d.device)
-    s = _proxy_scores(cfg, G2d, W)
+    s = _proxy_scores(cfg, G2d, W, score_psum_axes)
     return solver.optimal_probabilities(s.square(), r)  # p ∝ s ⇔ w = s²
 
 
@@ -167,15 +176,18 @@ def _ones_plan(n: int, n_idx: int, device) -> ColumnPlan:
 
 
 def column_plan(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
-                gen: torch.Generator, *, want_compact: bool) -> ColumnPlan:
+                gen: torch.Generator, *, want_compact: bool,
+                score_psum_axes=None) -> ColumnPlan:
     """Sample a column sketch for gradient matrix ``G2d`` ([N, n]) from the
-    site's generator ``gen``."""
+    site's generator ``gen``; ``score_psum_axes``: the data axes whose
+    ranks pool their scores (:func:`_proxy_scores`)."""
     n = G2d.shape[-1]
     cfg = effective_cfg(cfg, n)
     if cfg.block > 1:
-        return _block_plan(cfg, G2d, W, gen, want_compact=want_compact)
+        return _block_plan(cfg, G2d, W, gen, want_compact=want_compact,
+                           score_psum_axes=score_psum_axes)
     r = static_rank(cfg, n)
-    p = _column_probs(cfg, G2d, W, r)
+    p = _column_probs(cfg, G2d, W, r, score_psum_axes)
     if r >= n:
         return _ones_plan(n, n, G2d.device)
     if cfg.exact_r:
@@ -190,7 +202,8 @@ def column_plan(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
     return ColumnPlan(indices=None, scales=None, gate=z / p.clamp_min(1e-20), probs=p)
 
 
-def _block_plan(cfg: SketchConfig, G2d, W, gen, *, want_compact: bool) -> ColumnPlan:
+def _block_plan(cfg: SketchConfig, G2d, W, gen, *, want_compact: bool,
+                score_psum_axes=None) -> ColumnPlan:
     """Block-granular sketch: pool proxy weights per block, sample blocks.
     Every column of a kept block is rescaled by ``1/p_block``."""
     n = G2d.shape[-1]
@@ -200,7 +213,7 @@ def _block_plan(cfg: SketchConfig, G2d, W, gen, *, want_compact: bool) -> Column
     if cfg.method == "per_column":
         p = torch.full((nb,), rb / nb, dtype=torch.float32, device=G2d.device)
     else:
-        s = _proxy_scores(cfg, G2d, W)
+        s = _proxy_scores(cfg, G2d, W, score_psum_axes)
         # pool proxy *weights* (w = s²) per block; probabilities ∝ sqrt(pool)
         w_blk = s.square().reshape(nb, bs).sum(-1)
         p = solver.optimal_probabilities(w_blk, rb)
@@ -274,9 +287,10 @@ def column_plan_from_scores(cfg: SketchConfig, scores: torch.Tensor, gen: torch.
     return ColumnPlan(indices=idx, scales=inv_p_sel, gate=gate, probs=p)
 
 
-def column_gate(cfg: SketchConfig, G2d, W, gen) -> torch.Tensor:
+def column_gate(cfg: SketchConfig, G2d, W, gen, score_psum_axes=None) -> torch.Tensor:
     """Dense ``[n]`` gate (z/p) for mask-backend column methods."""
-    return column_plan(cfg, G2d, W, gen, want_compact=False).gate
+    return column_plan(cfg, G2d, W, gen, want_compact=False,
+                       score_psum_axes=score_psum_axes).gate
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +358,7 @@ def apply_rcs(cfg: SketchConfig, G2d: torch.Tensor, W: torch.Tensor,
 
 
 def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
-                 gen: torch.Generator) -> torch.Tensor:
+                 gen: torch.Generator, score_psum_axes=None) -> torch.Tensor:
     """The full-size unbiased surrogate ``Ĝ`` (``E[Ĝ|G] = G``).
 
     ``per_element`` masks W and X, not G, and is handled by the mask
@@ -361,5 +375,5 @@ def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor]
         if W is None:
             raise ValueError("RCS requires the layer weight W")
         return apply_rcs(cfg, G2d, W, gen)
-    gate = column_gate(cfg, G2d, W, gen)
+    gate = column_gate(cfg, G2d, W, gen, score_psum_axes)
     return G2d * gate[None, :].to(G2d.dtype)

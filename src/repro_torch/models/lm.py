@@ -62,7 +62,8 @@ __all__ = ["LayerKind", "plan_segments", "layer_kinds", "jax_layer_paths", "init
            "forward", "forward_with_aux", "lm_loss", "num_params", "active_params_per_token",
            "check_supported", "attn_cfg", "cross_cfg", "check_decoder", "check_recurrent_segments",
            "init_cache", "layer_cache",
-           "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE"]
+           "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE", "check_mesh",
+           "param_shapes"]
 
 # the encoder's layer uids start here (JAX's seg_base), so its sites never
 # share a seed with the decoder's
@@ -242,8 +243,9 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
         from repro_torch.models import mlp as mlpmod
 
         return mlpmod.mlp_init(seed, mlpmod.mlp_sizes(cfg), dtype, device=device)
-    dev = resolve_device(device)
-    gen = rng.generator(seed, dev)
+    meta = str(device) == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    gen = None if meta else rng.generator(seed, dev)
     d = cfg.d_model
     kinds = layer_kinds(cfg)
     params = {
@@ -260,6 +262,12 @@ def init_params(seed: int, cfg: ArchConfig, *, device="cuda"):
             "layers": [_init_layer(gen, kind, cfg, dtype, dev) for kind in encoder_kinds(cfg)],
             "final_norm": rmsnorm_init(d, dtype, dev)}
     return params
+
+
+def param_shapes(cfg: ArchConfig):
+    """The parameter tree of ``cfg`` as ``meta`` tensors: shapes and dtypes,
+    no storage (what the sharding rules read for a config of any size)."""
+    return init_params(0, cfg, device="meta")
 
 
 def _default_positions(cfg: ArchConfig, B: int, S: int, device, offset=0):
@@ -289,6 +297,20 @@ def _embed(params, tokens_or_embeds, cfg: ArchConfig):
     return x
 
 
+def _mesh_embed(params, tokens, ctx: Ctx, cfg: ArchConfig):
+    """The embedding on a mesh: the table's d is sharded over model, so this
+    rank looks up its chunk of d and the rows are all-gathered over model
+    (the residual stream is replicated over model)."""
+    from repro_torch.launch.mesh import gather_replicated
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    x = _embed(params, tokens, cfg)
+    spec = spec_of(params["embed"])
+    if spec is not None and dim_axes(spec[1]):
+        x = gather_replicated(x, dim_axes(spec[1]), ctx.mesh, -1)
+    return x
+
+
 def _inputs(batch):
     """The batch's ``tokens``, else its ``embeds`` (JAX's lookup order)."""
     return batch["tokens"] if "tokens" in batch else batch["embeds"]
@@ -298,8 +320,45 @@ def _head(params, x, ctx: Ctx, cfg: ArchConfig):
     x = rmsnorm(params["final_norm"], x)
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]["w"]
     hcfg = ctx.cfg_for("lm_head")
+    if ctx.mesh is not None:
+        return _mesh_head(w, x, ctx, hcfg)
     key = ctx.site_key("lm_head", x.device) if hcfg is not None else None
     return linear(x, w, key=key, cfg=hcfg)
+
+
+def _mesh_head(w, x, ctx: Ctx, hcfg):
+    """The head on a mesh: under ``tp_sketch`` an exact head whose vocabulary
+    divides the model axis runs the Megatron column-parallel ``tp_exact``
+    plan (JAX's ``tp_exact_linear``, ``models/lm.py:403-414``), and its
+    vocab-sharded logits are all-gathered over model for the loss (the
+    numbers of a vocab-parallel softmax); otherwise the local plan on the
+    gathered weight."""
+    from repro_torch.core.sharded_sketch import tp_exact_linear
+    from repro_torch.launch.mesh import gather_replicated
+    from repro_torch.launch.sharding import global_shape
+    from repro_torch.nn.common import _mesh_dense
+
+    if ctx.tp_sketch and hcfg is None and global_shape(w, ctx.mesh)[0] % ctx.n_mp == 0:
+        return gather_replicated(tp_exact_linear(x, w, ctx), ctx.model_axes, ctx.mesh, -1)
+    return _mesh_dense({"w": w}, x, ctx, "lm_head", hcfg)
+
+
+def check_mesh(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the distributed runtime
+    does not run yet: it runs the dense decoder family with its own head
+    (the other families, tied embeddings and serving under a mesh are
+    ROADMAP.md's next distributed slice)."""
+    what = None
+    if cfg.family != "dense" or cfg.block_kind != "attn" or cfg.n_experts > 0:
+        what = f"the {cfg.family} family"
+    elif cfg.tie_embeddings:
+        what = "tied embeddings"
+    elif cfg.is_encdec or cfg.frontend is not None or cfg.local_global > 0:
+        what = "this layer plan"
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} under a mesh is not ported (ROADMAP.md, the next distributed "
+            "slice): the distributed runtime runs the dense decoder family")
 
 
 def _cross(p, x, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
@@ -436,6 +495,9 @@ def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(cfg, B, S, inp.device)
+    if ctx.mesh is not None:
+        check_mesh(cfg)
+        return _mesh_embed(params, inp, ctx, cfg), positions, None
     memory = (encode(params, batch["src_embeds"], ctx, cfg, step_key) if cfg.is_encdec
               else None)
     return _embed(params, inp, cfg), positions, memory
@@ -535,7 +597,18 @@ def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     true_logit = lg32.gather(-1, batch["labels"][..., None].long())[..., 0]
     nll = lse - true_logit
     mask = batch.get("mask")
-    if mask is None:
+    n_dp = 1 if ctx.mesh is None else ctx.mesh.axis_size(ctx.data_axes)
+    if n_dp > 1:
+        # this rank's rows' share of the global mean: the ranks' losses (and
+        # their gradients) sum to the global one
+        from repro_torch.launch.mesh import psum
+
+        if mask is None:
+            loss = nll.mean() / n_dp
+        else:
+            den = psum(mask.sum().to(torch.float32), ctx.data_axes, ctx.mesh)
+            loss = (nll * mask).sum() / den.clamp_min(1.0)
+    elif mask is None:
         loss = nll.mean()
     else:
         loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)

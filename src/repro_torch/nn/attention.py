@@ -178,6 +178,41 @@ def _fill_prefill(cache, k, v, cfg: AttnCfg, segs=None):
         cache[name].copy_(buf[:, :size])
 
 
+# plans whose output is sharded over the model axis
+_MODEL_SHARDED_OUT = ("tp_column", "tp_exact")
+
+
+def _mesh_heads(params, ctx: Ctx, cfg: AttnCfg, prefix: str, q, k, v):
+    """q, k, v projections on a mesh: kept on this rank's heads when all
+    three ran column-parallel (``tp_column``, ``tp_exact``) and the query and kv heads
+    both divide the model axis; otherwise each model-sharded one is
+    all-gathered over model, and attention runs on all heads. Returns (q, k,
+    v, local)."""
+    from repro_torch.launch.mesh import gather_replicated
+
+    sharded = [ctx.plan_kind(f"{prefix}_{n}", params[n]) in _MODEL_SHARDED_OUT
+               for n in ("q", "k", "v")]
+    if all(sharded) and ctx.heads_local(cfg.n_heads, cfg.n_kv):
+        return q, k, v, True
+    out = [gather_replicated(t, ctx.model_axes, ctx.mesh, -1) if sh else t
+           for t, sh in zip((q, k, v), sharded)]
+    return out[0], out[1], out[2], False
+
+
+def _mesh_out_input(p, ctx: Ctx, role: str, h, local: bool):
+    """The out-projection's input in the layout its plan reads: d_in's model
+    chunk for ``tp_row``, the whole otherwise (``local``: ``h`` holds this
+    rank's chunk)."""
+    from repro_torch.launch.mesh import gather_replicated, slice_replicated
+
+    row = ctx.plan_kind(role, p) == "tp_row"
+    if row and not local:
+        return slice_replicated(h, ctx.model_axes, ctx.mesh, -1)
+    if local and not row:
+        return gather_replicated(h, ctx.model_axes, ctx.mesh, -1)
+    return h
+
+
 def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None,
               memory=None, role_prefix: str = "attn", segs=None):
     """Attention sublayer: sketched projections + core + sketched out-proj.
@@ -190,14 +225,26 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
       then takes all of the memory's keys and values);
     * packed prefill: ``segs`` (int [B, S], 0 = padding) segment-masks it.
 
-    ``positions`` is [B, S], or [3, B, S] for ``rope="mrope"``.
+    ``positions`` is [B, S], or [3, B, S] for ``rope="mrope"``. Under a mesh
+    (training only), on this rank's heads where the plans allow
+    (:func:`_mesh_heads`).
     """
     B, S, _ = x.shape
     src = x if memory is None else memory
     Skv = src.shape[1]
-    q = dense(params["q"], x, ctx, f"{role_prefix}_q").reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = dense(params["k"], src, ctx, f"{role_prefix}_k").reshape(B, Skv, cfg.n_kv, cfg.d_head)
-    v = dense(params["v"], src, ctx, f"{role_prefix}_v").reshape(B, Skv, cfg.n_kv, cfg.d_head)
+    q = dense(params["q"], x, ctx, f"{role_prefix}_q")
+    k = dense(params["k"], src, ctx, f"{role_prefix}_k")
+    v = dense(params["v"], src, ctx, f"{role_prefix}_v")
+    local = False
+    if ctx.mesh is not None:
+        if cache is not None:
+            raise NotImplementedError("serving under a mesh is not ported (ROADMAP.md, the "
+                                      "next distributed slice)")
+        q, k, v, local = _mesh_heads(params, ctx, cfg, role_prefix, q, k, v)
+    # under a mesh with local heads: this rank's model chunk of the heads
+    q = q.reshape(B, S, -1, cfg.d_head)
+    k = k.reshape(B, Skv, -1, cfg.d_head)
+    v = v.reshape(B, Skv, -1, cfg.d_head)
     if cfg.rope in ("default", "mrope"):
         rotate = apply_rope if cfg.rope == "default" else apply_mrope
         q = rotate(q, positions, cfg.theta)
@@ -210,7 +257,10 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
         o = decode_attention(q, cache["k"], cache["v"], pos, cfg)
         return dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o"), cache
     o = multi_head_attention(q, k, v, cfg, segs=None if memory is not None else segs)
-    out = dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o")
+    o = o.reshape(B, S, -1)
+    if ctx.mesh is not None:
+        o = _mesh_out_input(params["o"], ctx, f"{role_prefix}_o", o, local)
+    out = dense(params["o"], o, ctx, f"{role_prefix}_o")
     if cache is not None:
         _fill_prefill(cache, k, v, cfg, segs=None if memory is not None else segs)
         return out, cache

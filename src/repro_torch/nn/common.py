@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +39,74 @@ class Ctx:
     key: Optional[int] = None
     layer_index: int = 0
     n_layers: int = 1
+    mesh: Optional[Any] = None  # a launch.mesh.Mesh: run on this rank's shards
+    data_axes: tuple = ("data",)
+    model_axes: tuple = ("model",)
+    tp_sketch: bool = False  # TP plans for the sites that take them (core/site.py)
+
+    @property
+    def n_mp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_size(self.model_axes)
+
+    def heads_local(self, n_heads: int, n_kv: int) -> bool:
+        """JAX's ``constrain_heads`` rule: attention heads are sharded over
+        the model axis only where both the query and the kv heads divide it."""
+        n = self.n_mp
+        return n > 1 and n_heads % n == 0 and n_kv % n == 0
+
+    def site_spec(self, role: str, cfg, w, *, has_bias: bool = False, x_ndim: int = 3):
+        """Resolve one linear site against this context's mesh (memoized in
+        core/site.py: the one dispatch the slot builders share). ``w`` may be
+        a shard: its global shape counts."""
+        from repro_torch.core.site import resolve_site
+
+        shape = tuple(w.shape)
+        if self.mesh is not None:
+            from repro_torch.launch.sharding import global_shape
+
+            shape = global_shape(w, self.mesh)
+        return resolve_site(role, cfg, d_out=shape[0], d_in=shape[1], has_bias=has_bias,
+                            x_ndim=x_ndim, mesh=self.mesh, data_axes=tuple(self.data_axes),
+                            model_axes=tuple(self.model_axes), tp_sketch=self.tp_sketch)
+
+    def exact_spec(self, role: str, w, *, has_bias: bool = False, x_ndim: int = 3):
+        """The TP plan of an EXACT site under ``tp_sketch`` (no config, a
+        no-op config or no key), or None: a column role whose d_out divides
+        the model axis runs ``tp_exact`` (Megatron column-parallel), a row
+        role whose d_in divides it ``tp_row`` with the exact backward; the
+        layout GSPMD gives an exact site of TP-sharded weights in JAX, so an
+        exact bucket keeps the sketched buckets' layout and its collectives
+        differ from theirs only in the gradient reduction."""
+        from repro_torch.core import site
+        from repro_torch.launch.sharding import global_shape
+
+        if self.mesh is None or not self.tp_sketch or x_ndim != 3 or not self.model_axes:
+            return None
+        n, d_in = global_shape(w, self.mesh)
+        kind = None
+        if role in site.TP_OUT_ROLES and n % self.n_mp == 0:
+            kind = "tp_exact"
+        elif role in site.TP_ROW_ROLES and d_in % self.n_mp == 0:
+            kind = "tp_row"
+        if kind is None:
+            return None
+        plan = site.ExecutionPlan(kind, self.mesh, tuple(self.data_axes), self.model_axes[0])
+        return site.SiteSpec(role=role, cfg=None, plan=plan, has_bias=has_bias, d_out=n,
+                             d_in=d_in)
+
+    def plan_kind(self, role: str, params, x_ndim: int = 3) -> str:
+        """The plan ``dense`` runs the site of ``params`` on: ``tp_column``
+        and ``tp_exact`` give an output sharded over the model axis,
+        ``tp_row`` takes an input sharded over it; ``local`` reads and gives
+        whole tensors."""
+        if self.mesh is None:
+            return "local"
+        cfg = self.cfg_for(role)
+        if cfg is None or cfg.is_noop or self.key is None:
+            spec = self.exact_spec(role, params["w"], x_ndim=x_ndim)
+            return "local" if spec is None else spec.plan.kind
+        return self.site_spec(role, cfg, params["w"], has_bias="b" in params,
+                              x_ndim=x_ndim).plan.kind
 
     def site_seed(self, role: str) -> Optional[int]:
         if self.key is None:
@@ -88,12 +156,37 @@ def dense(params, x, ctx: Ctx, role: str):
     """Linear site; sketched iff the policy covers ``role``. A plan-carry
     site's ``"sslot"`` leaf (``core/plan_state.py``), a compact-gradient
     site's ``"gslot"`` (``core/compact_grad.py``) and a probed site's
-    ``"pslot"`` (``telemetry/probes.py``) go to the site."""
+    ``"pslot"`` (``telemetry/probes.py``) go to the site. Under a mesh the
+    site runs its resolved plan on this rank's shards (:func:`_mesh_dense`)."""
     cfg = ctx.cfg_for(role)
+    if ctx.mesh is not None:
+        return _mesh_dense(params, x, ctx, role, cfg)
     key = ctx.site_key(role, x.device) if cfg is not None else None
     return linear(x, params["w"], params.get("b"), key=key, cfg=cfg,
                   plan_state=params.get(PLAN_SLOT), grad_slot=params.get(GRAD_SLOT),
                   probe_slot=params.get(PROBE_SLOT))
+
+
+def _mesh_dense(params, x, ctx: Ctx, role: str, cfg):
+    """``dense`` on this rank's shards: the resolved plan's site
+    (``core/site.py``): a TP plan, or the local plan on the gathered weight."""
+    from repro_torch.core import site
+
+    w, b = params["w"], params.get("b")
+    seed = ctx.site_seed(role) if cfg is not None else None
+    if cfg is None or cfg.is_noop or seed is None:
+        spec = ctx.exact_spec(role, w, has_bias=b is not None, x_ndim=x.dim())
+        if spec is not None:
+            return site.tp_site(spec, x, w, b, None)
+        return site.mesh_site(None, x, w, b, None, ctx.mesh, ctx.data_axes, ctx.model_axes)
+    spec = ctx.site_spec(role, cfg, w, has_bias=b is not None, x_ndim=x.dim())
+    slots = dict(gslot=params.get(GRAD_SLOT), pslot=params.get(PROBE_SLOT),
+                 sslot=params.get(PLAN_SLOT))
+    if spec.plan.is_tp:
+        return site.tp_site(spec, x, w, b, seed, **slots)
+    return site.mesh_site(spec.cfg, x, w, b, rng.generator(seed, x.device), ctx.mesh,
+                          ctx.data_axes, ctx.model_axes, compact_rows=spec.compact_rows,
+                          **slots)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):

@@ -19,6 +19,12 @@ path). Clipping and the updates consume that form directly:
 * AdamW ``lazy=True`` — LazyAdam: rows the sketch did not keep skip the
   moment decay, the weight decay and the update (cheaper, not identical to
   dense AdamW). It ignores a CompactGrad's dense part, as in JAX.
+
+Under a mesh every leaf is this rank's shard and its gradient the shard's
+(the train step keeps a CompactGrad's rows of the shard,
+``core.compact_grad.localize_compact``): the updates are elementwise or by
+row, so they run on the shards as they are; the gradient norm of clipping
+sums the sharded leaves over their axes.
 """
 from __future__ import annotations
 
@@ -53,10 +59,40 @@ def _sq_norm(g) -> torch.Tensor:
     return g.to(torch.float32).square().sum()
 
 
-def global_grad_norm(grads) -> torch.Tensor:
+def global_grad_norm(grads, params=None) -> torch.Tensor:
     """sqrt(Σ g²) over every leaf, in float32, as a tensor (no host sync);
-    a CompactGrad counts as its densified form."""
-    return torch.sqrt(sum(_sq_norm(g) for g in tree_leaves(grads)))
+    a CompactGrad counts as its densified form.
+
+    Under a mesh, ``params`` (the shards, ``launch.sharding.spec_of``) says
+    which leaves are sharded: their local sums of squares are summed over
+    the axes that shard them (one all-reduce per set of axes); a replicated
+    leaf is counted once. Without marks the sum is the single-device one,
+    term for term."""
+    sq = [_sq_norm(g) for g in tree_leaves(grads)]
+    if params is not None:
+        sq = _sum_sharded(sq, tree_leaves(params))
+    return torch.sqrt(sum(sq))
+
+
+def _sum_sharded(sq, leaves):
+    from repro_torch.launch.mesh import psum
+    from repro_torch.launch.sharding import mesh_of, spec_axes, spec_of
+
+    groups = {}
+    for i, p in enumerate(leaves):
+        spec = spec_of(p) if isinstance(p, torch.Tensor) else None
+        if spec is None:
+            continue
+        mesh = mesh_of(p)
+        axes = mesh.axes(spec_axes(spec))
+        if mesh.axis_size(axes) > 1:
+            groups.setdefault((id(mesh), axes), (mesh, []))[1].append(i)
+    sq = list(sq)
+    for (_, axes), (mesh, idx) in groups.items():
+        tot = psum(torch.stack([sq[i] for i in idx]), axes, mesh)
+        for j, i in enumerate(idx):
+            sq[i] = tot[j]
+    return sq
 
 
 def _scale_grad(g, scale):
@@ -67,9 +103,10 @@ def _scale_grad(g, scale):
     return (g.to(torch.float32) * scale).to(g.dtype)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale every leaf by ``min(1, max_norm / ‖g‖)``; returns (grads, norm)."""
-    gn = global_grad_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, params=None):
+    """Scale every leaf by ``min(1, max_norm / ‖g‖)``; returns (grads, norm).
+    ``params``: the shards under a mesh (:func:`global_grad_norm`)."""
+    gn = global_grad_norm(grads, params)
     scale = torch.clamp(max_norm / gn.clamp_min(1e-12), max=1.0)
     return tree_map(lambda g: _scale_grad(g, scale), grads), gn
 
@@ -89,7 +126,7 @@ def sgd(lr: Callable | float, momentum: float = 0.0, clip: Optional[float] = Non
     @torch.no_grad()
     def update(grads, state, params, step):
         if clip is not None:
-            grads, _ = clip_by_global_norm(grads, clip)
+            grads, _ = clip_by_global_norm(grads, clip, params)
         lr_t = lr_fn(step)
         if momentum == 0.0:
             for p, g in zip(tree_leaves(params), tree_leaves(grads)):
@@ -149,7 +186,7 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95, eps: float = 
     @torch.no_grad()
     def update(grads, state, params, step):
         if clip is not None:
-            grads, _ = clip_by_global_norm(grads, clip)
+            grads, _ = clip_by_global_norm(grads, clip, params)
         t = float(step) + 1.0
         lr_t = lr_fn(step)
         c1 = 1.0 - b1 ** t

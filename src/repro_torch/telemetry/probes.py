@@ -85,7 +85,8 @@ def _slot(device) -> torch.Tensor:
     return torch.zeros(PROBE_WIDTH, dtype=torch.float32, device=device, requires_grad=True)
 
 
-def with_probe_slots(params, policy, *, n_layers: int = 1):
+def with_probe_slots(params, policy, *, n_layers: int = 1, mesh=None, data_axes=("data",),
+                     model_axes=("model",), tp_sketch: bool = False):
     """``params`` with a fresh probe slot under ``"pslot"`` at every site whose
     resolved :class:`~repro_torch.core.site.SiteSpec` is ``probe_capable`` —
     the resolution the gslot and sslot builders and ``nn.common.dense`` read.
@@ -98,7 +99,9 @@ def with_probe_slots(params, policy, *, n_layers: int = 1):
     def walk(node, path):
         if isinstance(node, dict):
             out = {k: walk(v, path + (k,)) for k, v in node.items()}
-            spec = resolve_tree_site(path, node, policy, n_layers=n_layers)
+            spec = resolve_tree_site(path, node, policy, n_layers=n_layers, mesh=mesh,
+                                     data_axes=data_axes, model_axes=model_axes,
+                                     tp_sketch=tp_sketch)
             if spec is not None and spec.probe_capable:
                 out[PROBE_SLOT] = _slot(node["w"].device)
             return out

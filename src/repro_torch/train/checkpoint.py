@@ -1,5 +1,11 @@
 """Checkpoints: atomic, async, verified, in the JAX package's on-disk format
-(port of ``repro/train/checkpoint.py``, one device).
+(port of ``repro/train/checkpoint.py``). Under a mesh, rank 0 writes the
+whole leaves, gathered from the shards one leaf at a time into its host
+memory (``save(..., mesh=)``, ``CheckpointManager(mesh=...)``), and every
+rank restores its own shard, cut from each ``.npy`` on the host before it
+reaches the device (``restore(shardings=...)``): the whole state never sits
+on a card. A failed write of rank 0 raises on every rank at the same
+``wait()``, so a retry's gathers run on all of them.
 
 Format, as JAX writes it: a directory ``step_<012d>/`` holding one ``.npy``
 per leaf, named by the leaf's path with ``__`` between its parts (``k:<key>``
@@ -97,20 +103,29 @@ def _flatten(tree, prefix=()) -> dict:
     return out
 
 
-def _rebuild(like, loaded: dict, device, prefix=()):
-    """A tree of ``like``'s structure with the leaves from ``loaded``."""
+def _rebuild(like, load, device, shardings=None, prefix=()):
+    """A tree of ``like``'s structure with the leaves ``load(key, sharding)``
+    gives (``shardings``: None, or a tree of ``like``'s structure whose
+    leaves are ``NamedSharding`` or None)."""
+    from repro_torch.launch.sharding import NamedSharding, set_spec
+
     if like is None:
         return None
     items = _items(like)
+    sharding = shardings if isinstance(shardings, NamedSharding) else None
     if items is None:
-        arr = loaded[_SEP.join(prefix)]
+        arr = load(_SEP.join(prefix), sharding)
         if isinstance(like, torch.Tensor):
             t = torch.from_numpy(arr).to(device if device is not None else like.device)
+            if sharding is not None:
+                set_spec(t, sharding.spec, sharding.mesh)
             return t.requires_grad_(like.requires_grad) if t.is_floating_point() else t
         if isinstance(like, (bool, int, float)):
             return type(like)(arr)
         return arr
-    children = [_rebuild(child, loaded, device, prefix + (part,)) for part, child in items]
+    sub = dict(_items(shardings) or ()) if shardings is not None and sharding is None else {}
+    children = [_rebuild(child, load, device, sub.get(part), prefix + (part,))
+                for part, child in items]
     if isinstance(like, dict):
         return dict(zip(like.keys(), children))
     if isinstance(like, (list, tuple)):
@@ -142,9 +157,31 @@ def _snapshot(tree) -> dict:
     return out
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3):
-    """Synchronous atomic save."""
-    _write(ckpt_dir, step, _snapshot(tree), keep)
+def _gathered_snapshot(tree, mesh):
+    """Rank 0's owned host copies of the whole leaves of a sharded ``tree``
+    (each leaf gathered from its shards by its mark, copied to the host and
+    dropped before the next: never the whole tree on a device); None on the
+    other ranks, which join the gathers."""
+    from repro_torch.launch.sharding import gather_tensor, spec_of
+
+    out = {}
+    for k, v in _flatten(tree).items():
+        if isinstance(v, torch.Tensor):
+            whole = gather_tensor(v, spec_of(v), mesh)
+            if mesh.rank == 0:
+                out[k] = whole.to("cpu", copy=True)
+            del whole
+        else:
+            out[k] = np.array(v, copy=True)
+    return out if mesh.rank == 0 else None
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, mesh=None):
+    """Synchronous atomic save. Under ``mesh`` every rank calls it with its
+    shards and rank 0 writes the whole leaves."""
+    host = _snapshot(tree) if mesh is None else _gathered_snapshot(tree, mesh)
+    if host is not None:
+        _write(ckpt_dir, step, host, keep)
 
 
 class _Writer(threading.Thread):
@@ -265,11 +302,16 @@ def latest_verified_step(ckpt_dir: str):
     return None
 
 
-def restore(ckpt_dir: str, tree_like, *, step=None, device=None):
+def restore(ckpt_dir: str, tree_like, *, step=None, device=None, shardings=None):
     """Restore into the structure of ``tree_like``; returns ``(tree, step)``.
 
     Tensor leaves come back on ``device`` (default: the device of
-    ``tree_like``'s leaf), with its ``requires_grad``. With ``step=None``
+    ``tree_like``'s leaf), with its ``requires_grad``. ``shardings`` (a tree
+    of ``tree_like``'s structure whose leaves are
+    ``launch.sharding.NamedSharding`` or None, e.g.
+    ``train.elastic.state_shardings``): each rank keeps its shard of every
+    leaf, on a mesh of any shape (checkpoints hold whole arrays, so a
+    different mesh than the one that saved restores unchanged). With ``step=None``
     the newest checkpoint is verified first; a corrupt newest falls back to
     the newest verified step (with a warning), and :class:`CheckpointError`
     is raised only when no step verifies. An explicit ``step`` that fails
@@ -289,38 +331,69 @@ def restore(ckpt_dir: str, tree_like, *, step=None, device=None):
     elif not verify(ckpt_dir, step):
         raise CheckpointError(f"checkpoint step {step} in {ckpt_dir} failed CRC verification")
     d = os.path.join(ckpt_dir, f"step_{step:012d}")
-    loaded = {k: np.load(os.path.join(d, k + ".npy")) for k in _flatten(tree_like)}
-    return _rebuild(tree_like, loaded, None if device is None else torch.device(device)), step
+
+    def load(key, sharding):
+        path = os.path.join(d, key + ".npy")
+        if sharding is None or all(e is None for e in sharding.spec):
+            return np.load(path)
+        from repro_torch.launch.sharding import shard_slices
+
+        # this rank's shard, read from the mapped file on the host
+        arr = np.load(path, mmap_mode="r")
+        return np.array(arr[shard_slices(arr.shape, sharding.spec, sharding.mesh)])
+
+    tree = _rebuild(tree_like, load, None if device is None else torch.device(device),
+                    shardings)
+    return tree, step
 
 
 class CheckpointManager:
     """Trainer-facing manager: periodic async saves and resume."""
 
-    def __init__(self, ckpt_dir: str, every: int = 100, keep: int = 3, tracer=None):
+    def __init__(self, ckpt_dir: str, every: int = 100, keep: int = 3, tracer=None,
+                 mesh=None):
         self.dir = ckpt_dir
         self.every = every
         self.keep = keep
         self.tracer = tracer  # a repro_torch.obs tracer: async writes record I/O spans
+        self.mesh = mesh  # under a mesh: gather the shards, rank 0 writes
         self._pending: Optional[_Writer] = None
 
     def maybe_save(self, step: int, tree):
         if step % self.every != 0:
             return False
         self.wait()
-        self._pending = save_async(self.dir, step, tree, keep=self.keep, tracer=self.tracer)
+        if self.mesh is None:
+            self._pending = save_async(self.dir, step, tree, keep=self.keep, tracer=self.tracer)
+            return True
+        host = _gathered_snapshot(tree, self.mesh)
+        if host is not None:
+            self._pending = _Writer(self.dir, step, host, self.keep, self.tracer)
+            self._pending.start()
         return True
 
     def wait(self):
-        """Join the pending write; re-raise its failure as CheckpointError."""
+        """Join the pending write; re-raise its failure as CheckpointError.
+        Under a mesh of several ranks every rank raises when rank 0's write
+        failed (one all-reduce of a flag), so the ranks take the same path."""
         t, self._pending = self._pending, None
+        err = None
         if t is not None:
             t.join()
-            if t.error is not None:
-                if isinstance(t.error, CheckpointError):
-                    raise t.error
-                raise CheckpointError(f"async checkpoint write failed: {t.error!r}") from t.error
+            err = t.error
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
 
-    def restore_or_none(self, tree_like, device=None):
+            flag = torch.tensor([0 if err is None else 1], device=self.mesh.device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            if err is None and int(flag.item()):
+                raise CheckpointError("rank 0's async checkpoint write failed")
+        if err is not None:
+            if isinstance(err, CheckpointError):
+                raise err
+            raise CheckpointError(f"async checkpoint write failed: {err!r}") from err
+
+    def restore_or_none(self, tree_like, device=None, shardings=None):
         if latest_step(self.dir) is None:
             return None
-        return restore(self.dir, tree_like, device=device)
+        return restore(self.dir, tree_like, device=device, shardings=shardings)

@@ -49,6 +49,20 @@ the new state and selects old or new leaf by leaf; the port's optimizers
 update in place, so there is no old state left to select, and a copy to
 select from would add the parameters' and moments' footprint to the step's
 peak (docs/port.md, "Resilience").
+
+Under a mesh (``ExecutionConfig(mesh=...)``; the dense decoder family): the
+state holds this rank's shards (:func:`init_state` cuts them by
+``launch.sharding.param_specs``) and the step takes this rank's rows of the
+batch (``data.pipeline.shard_batch``). Every rank runs the same step. Each
+rank's loss is its rows' mean over the number of data ranks, so the ranks'
+partial gradients sum to the gradient of the global mean; the sites'
+backwards (``core/site.py``) reduce their weights' and biases' gradients
+over the data axes themselves (the compact block, reduce-scattered to the
+shard), and the step sums every other leaf's (the embedding, the norms)
+over them, as GSPMD does implicitly in JAX. A compact gradient keeps the
+rows of this rank's shard (``compact_grad.localize_compact``), and the
+gradient norm sums the sharded leaves over their axes. On a one-rank mesh
+the step is the single-device step, bit for bit.
 """
 from __future__ import annotations
 
@@ -64,6 +78,7 @@ from repro_torch.core import SketchPolicy
 from repro_torch.core import compact_grad as cgrad
 from repro_torch.core import plan_state as pstate
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import psum
 from repro_torch.models import lm
 from repro_torch.optim import Optimizer, global_grad_norm
 from repro_torch.resilience.sentinel import trip_flag
@@ -87,18 +102,31 @@ def _trainable(params) -> None:
 
 
 def init_state(seed: int, cfg: ArchConfig, opt: Optimizer, *, params=None,
-               device="cuda", policy: Optional[SketchPolicy] = None) -> TrainState:
+               device="cuda", policy: Optional[SketchPolicy] = None,
+               execution: Optional[ExecutionConfig] = None) -> TrainState:
     """Fresh train state: random parameters from ``seed`` (or the given
-    ``params``), the optimizer's initial state, step 0. With a plan-carry
-    ``policy`` every carry-capable site gets its carry leaf (the uniform
-    prior); without it a carry policy still runs, but every step samples
-    from the uniform prior."""
+    ``params``, whole), the optimizer's initial state, step 0. With a
+    plan-carry ``policy`` every carry-capable site gets its carry leaf (the
+    uniform prior); without it a carry policy still runs, but every step
+    samples from the uniform prior. Under ``execution.mesh`` the state holds
+    this rank's shards of the parameters and moments."""
+    ex = execution or ExecutionConfig()
     if params is None:
         params = lm.init_params(seed, cfg, device=device)
+    if ex.mesh is not None:
+        from repro_torch.launch import sharding
+
+        lm.check_mesh(cfg)
+        params = sharding.shard_tree(params, sharding.param_specs(params, ex.mesh), ex.mesh)
     if pstate.policy_uses_carry(policy):
-        params = pstate.with_plan_state(params, policy, n_layers=cfg.n_layers)
+        params = pstate.with_plan_state(params, policy, n_layers=cfg.n_layers,
+                                        **ex.slot_kwargs())
     _trainable(params)
-    return TrainState(params=params, opt_state=opt.init(params), step=0)
+    opt_state = opt.init(params)
+    if ex.mesh is not None:
+        for k in opt_state:
+            sharding.mark_like(opt_state[k], params)
+    return TrainState(params=params, opt_state=opt_state, step=0)
 
 
 def batch_to_device(batch, device) -> dict:
@@ -138,6 +166,42 @@ def _split_batch(batch: dict, accum: int) -> list:
             for m in range(accum)]
 
 
+def _site_leaf(path) -> bool:
+    """A linear site's weight or bias (their backwards reduce over data)."""
+    from repro_torch.core.site import site_role
+
+    if len(path) < 2 or path[-1] not in ("w", "b"):
+        return False
+    return path[-2] == "lm_head" or site_role(path[:-1]) is not None
+
+
+def _sum_over_data(grads, mesh, dp):
+    """Sum over the data axes every gradient leaf that no site reduced (the
+    embedding, the norms): one all-reduce of their concatenation. The slots'
+    gradients (probes, refreshed carries) come out of their sites whole."""
+    picked = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k not in (cgrad.GRAD_SLOT, tprobes.PROBE_SLOT, pstate.PLAN_SLOT):
+                    walk(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+        elif isinstance(node, torch.Tensor) and not _site_leaf(path):
+            picked.append(node)
+
+    walk(grads, ())
+    if picked:
+        flat = psum(torch.cat([t.reshape(-1).to(torch.float32) for t in picked]), dp, mesh)
+        off = 0
+        for t in picked:
+            t.copy_(flat[off:off + t.numel()].view_as(t).to(t.dtype))
+            off += t.numel()
+    return grads
+
+
 def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPolicy] = None,
                     *, execution: Optional[ExecutionConfig] = None, device="cuda"):
     """Returns ``step_fn(state, batch, key) -> (state, metrics)``, or with
@@ -150,6 +214,12 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     ex = execution or ExecutionConfig()
     dev = resolve_device(device)
     lm.check_supported(cfg)
+    mesh = ex.mesh
+    dp = ex.axes_in_mesh()[0]
+    n_dp = 1 if mesh is None else mesh.axis_size(dp)
+    if mesh is not None:
+        lm.check_mesh(cfg)
+    slot_kw = ex.slot_kwargs()
     carry_on = pstate.policy_uses_carry(policy)
     tel = ex.telemetry
     probes_on = tel is not None and tel.probes and policy is not None and ex.accum == 1
@@ -171,7 +241,13 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
         flat = iter(g if g is not None else torch.zeros_like(t) for g, t in
                     zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves))
         grads = tree_map(lambda t: next(flat) if isinstance(t, torch.Tensor) else t, targets)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        loss = loss.detach()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if n_dp > 1:
+            grads = _sum_over_data(grads, mesh, dp)
+            loss = psum(loss, dp, mesh)
+            metrics = {k: psum(v, dp, mesh) if v.dim() == 0 else v for k, v in metrics.items()}
+        return loss, metrics, grads
 
     def accumulated(params, batch, key, fault_scale):
         loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -193,9 +269,11 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             params_in = state.params
             if ex.compact_grads:
                 # fresh slots for this step: host objects, nothing on the card
-                params_in = cgrad.with_grad_slots(params_in, policy, n_layers=cfg.n_layers)
+                params_in = cgrad.with_grad_slots(params_in, policy, n_layers=cfg.n_layers,
+                                                  **slot_kw)
             if probes_on:
-                params_in = tprobes.with_probe_slots(params_in, policy, n_layers=cfg.n_layers)
+                params_in = tprobes.with_probe_slots(params_in, policy, n_layers=cfg.n_layers,
+                                                     **slot_kw)
             loss, metrics, grads = grads_of(params_in, batch, key, fault_scale)
             if probes_on:
                 grads, vecs = tprobes.collect_probes(grads)
@@ -203,6 +281,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
                                                   layer_paths=layer_paths,
                                                   encoder_paths=encoder_paths)
             grads = cgrad.fold_slot_grads(grads)
+            if mesh is not None and ex.compact_grads:
+                grads = cgrad.localize_compact(grads, state.params)
         else:
             loss, metrics, grads = accumulated(state.params, batch, key, fault_scale)
         fresh = {}
@@ -211,7 +291,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             # over the microbatches): take them out before the norm, the
             # clipping and the moments see them
             grads, fresh = pstate.collect_plan_state(grads)
-        gn = global_grad_norm(grads)
+        gn = global_grad_norm(grads, state.params if mesh is not None else None)
         ok = True
         if rcfg is not None and rcfg.sentinel:
             ok_t, tripped = trip_flag(loss, gn, rcfg.max_grad_norm)

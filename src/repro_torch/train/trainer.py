@@ -29,6 +29,7 @@ from repro_torch import rng
 from repro_torch.api import Runtime
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import SketchPolicy
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.obs import clock, observability
 from repro_torch.optim import Optimizer
 from repro_torch.telemetry import sinks as tsinks
@@ -85,15 +86,22 @@ def _host_metrics(metrics, *, scalars_only: bool = False) -> dict:
     return out
 
 
-def _policy_can_probe(policy) -> bool:
+def _policy_can_probe(policy, execution=None) -> bool:
     """Does any site of ``policy`` emit telemetry probes? (a column-family
     method and an estimator with the probe hook, on a ``location="all"``
-    policy)"""
+    policy; under ``tp_sketch`` on a mesh, a TP-shardable estimator, whose
+    TP plans probe in the backward body)"""
+    from repro_torch.core.site import tp_estimator
     from repro_torch.telemetry.probes import probe_capable
 
     if policy is None or policy.location != "all":
         return False
-    return probe_capable(policy.base) or any(probe_capable(cfg) for _, cfg in policy.overrides)
+    tp = execution is not None and execution.tp_sketch and execution.mesh is not None
+
+    def can(cfg):
+        return probe_capable(cfg) or (tp and tp_estimator(cfg) is not None)
+
+    return can(policy.base) or any(can(cfg) for _, cfg in policy.overrides)
 
 
 def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable,
@@ -159,7 +167,7 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
         tel = (TelemetryConfig(per_site=False) if tel is None
                else dataclasses.replace(tel, probes=True))
         runtime = runtime.replace(execution=runtime.execution.replace(telemetry=tel))
-    if schedule.is_adaptive and not _policy_can_probe(runtime.policy):
+    if schedule.is_adaptive and not _policy_can_probe(runtime.policy, runtime.execution):
         warnings.warn("adaptive BudgetSchedule cannot measure gradient SNR here (exact or "
                       "location-restricted policy, or no probe-capable site: a column-family "
                       "method and an estimator with the probe hook); the controller will "
@@ -182,10 +190,17 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
     traced = tracer.enabled
     if state is None:
         state = runtime.init_state(rng.fold_in(tcfg.seed, 0), cfg, opt)
-    ckpt = (CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_every, tracer=tracer)
+    mesh = runtime.execution.mesh
+    ckpt = (CheckpointManager(tcfg.ckpt_dir, tcfg.ckpt_every, tracer=tracer, mesh=mesh)
             if tcfg.ckpt_dir else None)
     if ckpt is not None:
-        restored = ckpt.restore_or_none(state, device=runtime.device)
+        shardings = None
+        if mesh is not None:
+            from repro_torch.train import elastic
+
+            # every rank restores its own shard, whatever mesh saved it
+            shardings = elastic.state_shardings(state, mesh)
+        restored = ckpt.restore_or_none(state, device=runtime.device, shardings=shardings)
         if restored is not None:
             state, step0 = restored
             print(f"[trainer] resumed from step {step0}")
@@ -229,7 +244,7 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
         emit({"event": "ckpt_io_recovered", "step": logged_step, "error": str(err)})
         ob.dump_crash("ckpt_io", {"step": logged_step, "error": str(err)})
         with tracer.span("ckpt_save_sync", step=at_step):
-            ckptlib.save(ckpt.dir, at_step, state, keep=ckpt.keep)
+            ckptlib.save(ckpt.dir, at_step, state, keep=ckpt.keep, mesh=mesh)
 
     reg = ob.metrics
     steps_counter = reg.counter("train.steps") if reg is not None else None
@@ -240,6 +255,8 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
         with tracer.span("train_loop", start_step=state.step, steps=tcfg.steps):
             for step in range(state.step, tcfg.steps):
                 batch = next(data_it)
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh=mesh)  # this rank's rows
                 fscale = 1.0
                 fault = injector.take(step) if injector is not None else None
                 if fault is not None:
@@ -252,7 +269,8 @@ def train_loop(runtime: Runtime, cfg: ArchConfig, opt: Optimizer, data: Iterable
                         if fault.kind == "slow":
                             time.sleep(fault.sleep_s)
                         elif fault.kind == "ckpt_io":
-                            if ckpt is not None:
+                            # under a mesh only rank 0 writes
+                            if ckpt is not None and (mesh is None or mesh.rank == 0):
                                 ckptlib.inject_fault_once()
                         elif fault.kind == "nonfinite":
                             fscale = float("nan")

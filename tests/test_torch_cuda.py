@@ -1196,3 +1196,91 @@ def test_cuda_gemma3_ring_prefill_from_padded_rows(cuda):
     want = _sequential_tokens(params, cfg, specs, cuda)
     for label, got in _serve_all(params, cfg, specs, cuda).items():
         assert got == want, label
+
+
+# -- the distributed runtime on a one-rank NCCL mesh -----------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group (file:// store) and the (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_arch():
+    from repro_torch.configs.base import ArchConfig
+
+    # block-128 sites at a small width: q/k/v/o 256, d_ff 512 (2 and 4 blocks)
+    return ArchConfig(name="t", family="dense", n_layers=2, d_model=256, n_heads=4, n_kv=4,
+                      d_ff=512, vocab=512, q_chunk=64, kv_chunk=64)
+
+
+def _dist_step(cuda, execution, policy):
+    import numpy as np
+
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = _dist_arch()
+    opt = adamw(1e-3)
+    params = lm.init_params(3, cfg, device=cuda)
+    st = init_state(0, cfg, opt, params=params, device=cuda, execution=execution)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (4, 128))
+    batch = {"tokens": toks, "labels": toks}
+    if execution is not None and execution.mesh is not None:
+        batch = shard_batch(batch, mesh=execution.mesh)
+    ops.reset_launch_counts()
+    st, m = make_train_step(cfg, opt, policy, execution=execution, device=cuda)(st, batch, 5)
+    torch.cuda.synchronize()
+    return st, m, ops.launch_counts()
+
+
+def _slice_policy():
+    from repro_torch.api import SketchConfig, SketchPolicy
+
+    return SketchPolicy(base=SketchConfig(method="l1", budget=0.2, backend="pallas", block=128))
+
+
+def test_cuda_one_rank_mesh_step_equals_single_device(nccl_mesh, cuda):
+    """tp_sketch off on the (1, 1) NCCL mesh: the step is bit for bit the
+    single-device step (loss, grad norm, every parameter and moment), with
+    the same launches (one score and one fused per sketched site)."""
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.tree import tree_leaves
+
+    s1, m1, c1 = _dist_step(cuda, None, _slice_policy())
+    s2, m2, c2 = _dist_step(cuda, ExecutionConfig(mesh=nccl_mesh), _slice_policy())
+    n_sites = 7 * _dist_arch().n_layers
+    assert c1 == c2 and c2["col_l1_scores"] == n_sites
+    assert c2["block_gather_matmul_fused"] == n_sites
+    assert torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"], m2["grad_norm"])
+    for a, b in zip(tree_leaves((s1.params, s1.opt_state)), tree_leaves((s2.params,
+                                                                        s2.opt_state))):
+        assert torch.equal(a, b)
+
+
+def test_cuda_tp_plans_launch_scores_only(nccl_mesh, cuda):
+    """tp_sketch on: every sketched site takes a TP plan, which runs the
+    score kernel once and no fused kernel (the body gathers and multiplies,
+    as JAX's); the loss is the exact step's (rel 1e-5)."""
+    from repro_torch.api import ExecutionConfig
+
+    _, m_exact, _ = _dist_step(cuda, None, None)
+    _, m, c = _dist_step(cuda, ExecutionConfig(mesh=nccl_mesh, tp_sketch=True), _slice_policy())
+    n_sites = 7 * _dist_arch().n_layers
+    assert c["col_l1_scores"] == n_sites
+    assert all(v == 0 for k, v in c.items() if k != "col_l1_scores"), c
+    rel = abs(float(m["loss"]) - float(m_exact["loss"])) / abs(float(m_exact["loss"]))
+    assert rel < 1e-5 and math.isfinite(float(m["grad_norm"]))

@@ -1,0 +1,959 @@
+"""The port's distributed runtime on CPU gloo ranks, against JAX's meshes.
+
+One module fixture spawns 4 ranks once (``torch.multiprocessing``, a
+``file://`` store under ``tmp_path``: no ports, so no clash between xdist
+workers; one intra-op thread per rank). Every rank runs every scenario on the
+meshes (2, 2) and (1, 4) ``("data", "model")``; rank 0 saves what they
+produced, and the tests compare it here: with JAX on the same numpy inputs
+(``make_mesh(..., devices=jax.devices()[:4])``, weights carried by
+``interop.params_from_jax``) for the deterministic cases, with the port's own
+single-device step, and statistically for the TP estimators and probes. The
+arch is JAX's ``test_distributed._arch()``: 2 layers, d 32, 4 heads, 2 kv,
+d_ff 64, vocab 64.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+MESHES = ((2, 2), (1, 4))
+TAGS = tuple(f"{a}x{b}" for a, b in MESHES)
+ELASTIC = (((4, 1), ("data", "model")), ((2, 2), ("data", "model")),
+           ((1, 4), ("data", "model")), ((1, 2, 2), ("pod", "data", "model")))
+WORLD = 4
+JOIN_TIMEOUT_S = 240
+N_MC = 480  # draws of the unbiasedness tests (JAX's)
+N_PROBE = 384  # draws of the probe tests (JAX's)
+B, S, DIN, N = 4, 8, 16, 32  # the TP linear tests' shapes (JAX's)
+STEP_SEED = 2
+# the toy estimator's registry name: not JAX's test's own ("toy_tp_firstr"),
+# which a worker sharing this process must find unregistered or its own
+TOY = "toy_tp_firstr_port"
+PLAN_SEEDS = 16
+FULL = 0.999  # a budget that keeps every column (and block) with scale 1
+
+
+def _arch():
+    from repro_torch.configs.base import ArchConfig
+
+    return ArchConfig(name="t", family="dense", n_layers=2, d_model=32, n_heads=4, n_kv=2,
+                      d_ff=64, vocab=64, q_chunk=16, kv_chunk=16)
+
+
+def _policy(name):
+    from repro_torch.api import SketchConfig, SketchPolicy
+
+    if name.startswith("exact"):
+        return None
+    kw = dict(method="l1", budget=0.5, backend="mask" if name == "mask" else "compact")
+    if name.startswith("block"):
+        kw["block"] = 4
+    return SketchPolicy(base=SketchConfig(**kw))
+
+
+# name: (tp_sketch, compact_grads)
+STEPS = {"exact": (False, False), "mask": (False, False), "exact_tp": (True, False),
+         "compact": (True, False), "block": (True, False), "block_cg": (True, True)}
+
+
+# ---------------------------------------------------------------------------
+# The ranks' side
+# ---------------------------------------------------------------------------
+
+
+class _ToyTPFirstR:
+    """The port of JAX's ``_ToyTPFirstR``: compact semantics, but the plan
+    keeps the FIRST r columns (uniform marginals), deterministically."""
+
+    @staticmethod
+    def make():
+        from repro_torch.core.sketched_linear import _CompactEstimator
+        from repro_torch.core.sketching import ColumnPlan, static_rank
+
+        class Toy(_CompactEstimator):
+            name = TOY
+            tp_shardable = True
+
+            def plan(self, cfg, G2d, w, gen, *, want_compact=True, score_psum_axes=None):
+                n = G2d.shape[-1]
+                r = static_rank(cfg, n)
+                p = torch.full((n,), r / n, dtype=torch.float32)
+                idx = torch.arange(r)
+                return ColumnPlan(indices=idx, scales=1.0 / p[idx], gate=None, probs=p)
+
+        return Toy()
+
+
+def _np(t):
+    return t.detach().to(torch.float32).cpu().numpy().copy()
+
+
+def _full(t, spec, mesh):
+    from repro_torch.launch.sharding import gather_tensor
+
+    return _np(gather_tensor(t, spec, mesh))
+
+
+def _steps(mesh, tag, inp, out):
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.optim import sgd
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = _arch()
+    batch = {"tokens": inp["tokens"], "labels": inp["tokens"]}
+    for name, (tp, cg) in STEPS.items():
+        opt = sgd(0.1)
+        ex = ExecutionConfig(mesh=mesh, tp_sketch=tp, compact_grads=cg)
+        st = init_state(0, cfg, opt, params=_clone(inp["params"]), device="cpu", execution=ex)
+        step = make_train_step(cfg, opt, _policy(name), execution=ex, device="cpu")
+        meshlib.reset_collective_bytes()
+        new, m = step(st, shard_batch(batch, mesh=mesh), STEP_SEED)
+        out[f"{tag}/step/{name}/bytes"] = meshlib.collective_bytes()["total"]
+        whole = sharding.gather_tree(new.params, mesh)
+        out[f"{tag}/step/{name}/params"] = [_np(t) for t in tree_leaves(whole)]
+        out[f"{tag}/step/{name}/loss"] = float(m["loss"])
+        out[f"{tag}/step/{name}/grad_norm"] = float(m["grad_norm"])
+        if name == "exact" and tag == TAGS[0]:
+            out["ckpt_state"] = new
+    for name in ("exact", "mask"):
+        if f"single/{name}/params" in out:
+            continue
+        opt = sgd(0.1)
+        st = init_state(0, cfg, opt, params=_clone(inp["params"]), device="cpu")
+        new, m = make_train_step(cfg, opt, _policy(name), device="cpu")(st, batch, STEP_SEED)
+        out[f"single/{name}/params"] = [_np(t) for t in tree_leaves(new.params)]
+        out[f"single/{name}/loss"] = float(m["loss"])
+
+
+def _clone(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _ctx(mesh, **kw):
+    from repro_torch.api import ExecutionConfig
+
+    return ExecutionConfig(mesh=mesh, tp_sketch=True).make_ctx(**kw)
+
+
+def _linear_inputs(inp, mesh, kind, rows=B):
+    """This rank's x rows of the first ``rows`` (and model chunk of d_in on
+    the row plan), w shard (the rules of a q / an mlp-out weight), and the
+    specs."""
+    from repro_torch.launch import mesh as m
+    from repro_torch.launch import sharding
+
+    path = "/layers/0/mlp/out/w" if kind == "row" else "/layers/0/attn/q/w"
+    wspec = sharding.spec_for_path(path, (N, DIN), mesh)
+    w = sharding.shard_tensor(inp["lin_w"], wspec, mesh).requires_grad_(True)
+    x = m.chunk_of(inp["lin_x"][:rows], ("data",), mesh, 0)
+    xspec = (("data",), None, "model" if kind == "row" else None)
+    if kind == "row":
+        x = m.chunk_of(x, ("model",), mesh, 2)
+    return x.clone().requires_grad_(True), w, wspec, xspec
+
+
+def _tp_fn(kind):
+    from repro_torch.core import sharded_sketch as ss
+
+    return ss.tp_row_sketched_linear if kind == "row" else ss.tp_sketched_linear
+
+
+def _gout(inp, mesh, kind, rows=B):
+    """This rank's slice of the output cotangent ``g_out`` [rows, S, N]."""
+    from repro_torch.launch import mesh as m
+
+    g = m.chunk_of(inp["lin_g"][:rows], ("data",), mesh, 0)
+    return g if kind == "row" else m.chunk_of(g, ("model",), mesh, 2)
+
+
+def _toy(mesh, tag, inp, out):
+    from repro_torch.core import estimators
+    from repro_torch.core.sketching import SketchConfig
+
+    if TOY not in estimators.registered_backends():
+        estimators.register_estimator(_ToyTPFirstR.make())
+    cfg = SketchConfig(method="per_column", budget=0.5, backend=TOY)
+    x, w, wspec, xspec = _linear_inputs(inp, mesh, "column")
+    y = _tp_fn("column")(x, w, _ctx(mesh), cfg, 7)
+    dx, dw = torch.autograd.grad(torch.sin(y).sum(), (x, w))
+    out[f"{tag}/toy/dx"] = _full(dx, xspec, mesh)
+    out[f"{tag}/toy/dw"] = _full(dw, wspec, mesh)
+
+
+def _budget_one(mesh, tag, inp, out):
+    """Every TP plan at budget 0.999 (every column kept with scale 1: budget
+    1.0 is a no-op config in both packages) with a bias and a probe; dense
+    gradients, then the compact rows through a gradient slot."""
+    from repro_torch.core.compact_grad import GradSlot
+    from repro_torch.core.sharded_sketch import tp_exact_linear
+    from repro_torch.core.sketching import SketchConfig
+    from repro_torch.telemetry.probes import PROBE_WIDTH
+
+    for kind in ("column", "column_block", "row", "exact"):
+        cfg = SketchConfig(method="l1", budget=FULL, backend="compact",
+                           block=4 if kind == "column_block" else 0)
+        lk = "row" if kind == "row" else "column"
+        for compact in (False, True):
+            if compact and kind == "exact":
+                continue
+            x, w, wspec, xspec = _linear_inputs(inp, mesh, lk)
+            b = inp["lin_b"].clone().requires_grad_(True)
+            ps = torch.zeros(PROBE_WIDTH, requires_grad=True)
+            slot = None
+            if compact:
+                n_mp = mesh.axis_size("model")
+                slot = GradSlot(N if lk == "row" else n_mp * (N // n_mp))
+            ctx = _ctx(mesh)
+            if kind == "exact":
+                y = tp_exact_linear(x, w, ctx, b=b)
+            else:
+                y = _tp_fn(lk)(x, w, ctx, cfg, 11, slot, b=b, pslot=ps)
+            loss = (y * _gout(inp, mesh, lk)).sum()
+            wants = [x, b] + ([] if compact else [w]) + ([] if kind == "exact" else [ps])
+            grads = dict(zip(["dx", "db"] + ([] if compact else ["dw"])
+                             + ([] if kind == "exact" else ["probe"]),
+                             torch.autograd.grad(loss, wants)))
+            key = f"{tag}/one/{kind}/{'compact' if compact else 'dense'}"
+            out[key + "/y"] = _full(y.detach(), (("data",), None, None if lk == "row"
+                                                 else "model"), mesh)
+            out[key + "/dx"] = _full(grads["dx"], xspec, mesh)
+            out[key + "/db"] = _np(grads["db"])
+            if "dw" in grads:
+                out[key + "/dw"] = _full(grads["dw"], wspec, mesh)
+            if "probe" in grads:
+                out[key + "/probe"] = _np(grads["probe"])
+            if compact:
+                cols = (None, "model") if lk == "row" else (None, ("data",))
+                out[key + "/rows"] = _full(slot.rows, cols, mesh)
+                out[key + "/idx"] = slot.idx.numpy().copy()
+
+
+def _stack_full(draws, spec, mesh):
+    """The draws of this rank's shards stacked, gathered whole once."""
+    return _full(torch.stack(draws), (None,) + tuple(spec), mesh)
+
+
+def _mc(mesh, tag, inp, out):
+    """Draws for the statistical tests: the TP sketch (column), the probes
+    (column, column block, row) and the bias sites (column, row)."""
+    from repro_torch.api import SketchPolicy
+    from repro_torch.core.sketching import SketchConfig
+    from repro_torch.nn.common import dense
+    from repro_torch.telemetry.probes import PROBE_WIDTH
+
+    cfg = SketchConfig(method="l1", budget=0.5, backend="compact")
+    x, w, wspec, xspec = _linear_inputs(inp, mesh, "column")
+    ctx = _ctx(mesh)
+    dxs, dws = [], []
+    for k in range(N_MC):
+        y = _tp_fn("column")(x, w, ctx, cfg, 1000 + k)
+        dx, dw = torch.autograd.grad(torch.sin(y).sum(), (x, w))
+        dxs.append(dx)
+        dws.append(dw)
+    out[f"{tag}/mc/sketch/dx"] = _stack_full(dxs, xspec, mesh)
+    out[f"{tag}/mc/sketch/dw"] = _stack_full(dws, wspec, mesh)
+    out[f"{tag}/mc/sketch/y"] = _full(y.detach(), (("data",), None, "model"), mesh)
+    for kind in ("column", "column_block", "row"):
+        lk = "row" if kind == "row" else "column"
+        kcfg = SketchConfig(method="l1", budget=0.5, backend="compact",
+                            block=4 if kind == "column_block" else 0)
+        x, w, wspec, xspec = _linear_inputs(inp, mesh, lk, rows=2)  # JAX's B = 2
+        g = _gout(inp, mesh, lk, rows=2)
+        dws, probes = [], []
+        for k in range(N_PROBE):
+            ps = torch.zeros(PROBE_WIDTH, requires_grad=True)
+            y = _tp_fn(lk)(x, w, ctx, kcfg, 5000 + k, pslot=ps)
+            dw, probe = torch.autograd.grad((y * g).sum(), (w, ps))
+            dws.append(dw)
+            probes.append(_np(probe))
+        out[f"{tag}/mc/probe/{kind}/dw"] = _stack_full(dws, wspec, mesh)
+        out[f"{tag}/mc/probe/{kind}/probe"] = np.stack(probes)
+    for role in ("attn_q", "mlp_out"):
+        lk = "row" if role == "mlp_out" else "column"
+        x, w, wspec, xspec = _linear_inputs(inp, mesh, lk, rows=2)
+        b = inp["lin_b"].clone().requires_grad_(True)
+        pol = SketchPolicy(base=cfg)
+        ctx0 = _ctx(mesh, policy=pol, key=3)
+        spec = ctx0.site_spec(role, cfg, w, has_bias=True)
+        out[f"{tag}/mc/bias/{role}/kind"] = spec.plan.kind
+        out[f"{tag}/mc/bias/{role}/rows"] = spec.compact_rows
+        dws, dbs = [], []
+        for k in range(N_MC):
+            ctx0.key = 9000 + k
+            y = dense({"w": w, "b": b}, x, ctx0, role)
+            dw, db = torch.autograd.grad(torch.sin(y).sum(), (w, b))
+            dws.append(dw)
+            dbs.append(_np(db))
+        out[f"{tag}/mc/bias/{role}/dw"] = _stack_full(dws, wspec, mesh)
+        out[f"{tag}/mc/bias/{role}/db"] = np.stack(dbs)
+        out[f"{tag}/mc/bias/{role}/y"] = _full(y.detach(), (("data",), None, None if lk == "row"
+                                                            else "model"), mesh)
+
+
+def _plans(mesh, tag, inp, out):
+    """Which plan each rank drew, over PLAN_SEEDS seeds: the slot's indices
+    of one TP column site (this shard's own local plan) and one TP row site,
+    gathered from every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.core.compact_grad import GradSlot
+    from repro_torch.core.estimators import get_estimator
+    from repro_torch.core.sketching import SketchConfig
+    from repro_torch.launch import mesh as m
+
+    cfg = SketchConfig(method="l1", budget=0.5, backend="compact")
+    est = get_estimator("compact")
+    n_mp = mesh.axis_size("model")
+    n_loc = N // n_mp
+    for lk in ("column", "row"):
+        x, w, _, _ = _linear_inputs(inp, mesh, lk)
+        mine = []
+        for seed in range(PLAN_SEEDS):
+            slot = GradSlot(est.compact_rank(cfg, N) if lk == "row"
+                            else n_mp * est.compact_rank(cfg, n_loc))
+            y = _tp_fn(lk)(x, w, _ctx(mesh), cfg, 77 + seed, slot)
+            torch.autograd.grad((y * _gout(inp, mesh, lk)).sum(), (x,))
+            idx = slot.idx
+            if lk == "column":
+                lo = m.axis_index(mesh, "model") * n_loc
+                idx = idx[(idx >= lo) & (idx < lo + n_loc)] - lo
+            mine.append(tuple(idx.tolist()))
+        got = [None] * WORLD
+        dist.all_gather_object(got, (mesh.coords["data"], mesh.coords["model"], mine))
+        out[f"{tag}/plans/{lk}"] = got
+
+
+DATA_ONLY_BACKENDS = ("compact", "pallas", "onepass", "stale")
+
+
+def _data_only(inp, out):
+    """Every backend's local plan on the data-only mesh (4, 1) and on one
+    device, from the same parameters, batch and seed: block-4 l1@0.5 (the
+    plan-carry backends with their carry leaves)."""
+    from repro_torch.api import ExecutionConfig, SketchConfig, SketchPolicy
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_mesh((4, 1), ("data", "model"), device="cpu")
+    cfg = _arch()
+    batch = {"tokens": inp["tokens"], "labels": inp["tokens"]}
+    for backend in DATA_ONLY_BACKENDS:
+        pol = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend=backend, block=4))
+        for ex in (None, ExecutionConfig(mesh=mesh)):
+            opt = sgd(0.1)
+            st = init_state(0, cfg, opt, params=_clone(inp["params"]), device="cpu",
+                            policy=pol, execution=ex)
+            new, m = make_train_step(cfg, opt, pol, execution=ex, device="cpu")(
+                st, batch if ex is None else shard_batch(batch, mesh=mesh), STEP_SEED)
+            tree = new.params if ex is None else sharding.gather_tree(new.params, mesh)
+            key = f"data_only/{backend}/{'single' if ex is None else 'mesh'}"
+            out[key + "/params"] = [_np(t) for t in tree_leaves(tree)]
+            out[key + "/loss"] = float(m["loss"])
+
+
+def _trainer(inp, out):
+    """JAX's test_adaptive_schedule_under_tp_sketch on the (2, 2) mesh:
+    ``Runtime.train`` with ``BudgetSchedule.adaptive`` under ``tp_sketch``
+    (the TP plans' probes feed the controller), 8 steps."""
+    import warnings
+
+    from repro_torch.api import (BudgetSchedule, ExecutionConfig, Runtime, SketchConfig,
+                                 SketchPolicy)
+    from repro_torch.api import runtime as runtime_mod
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainerConfig
+
+    from repro_torch.train import train_step as tstep_mod
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    cfg = _arch()
+    runtime_mod._STEP_CACHE.clear()
+    real, builds = tstep_mod.make_train_step, []
+
+    def counting(*a, **kw):
+        builds.append(1)
+        return real(*a, **kw)
+
+    tstep_mod.make_train_step = counting
+    sched = BudgetSchedule.adaptive(0.05, budgets=(1.0, 0.5, 0.2), window=2)
+    pol = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend="compact"))
+    rt = Runtime(policy=pol, schedule=sched, device="cpu",
+                 execution=ExecutionConfig(mesh=mesh, tp_sketch=True))
+    data = LMStream(vocab=cfg.vocab, seed=0).batches(8, 16)
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            state, hist = rt.train(cfg, sgd(0.1), data, TrainerConfig(steps=8, log_every=1),
+                                   on_metrics=lambda m: None)
+    finally:
+        tstep_mod.make_train_step = real
+    out["trainer/warned"] = any("cannot measure gradient SNR" in str(w.message) for w in rec)
+    out["trainer/builds"] = len(builds)
+    out["trainer/buckets"] = sched.buckets()
+    out["trainer/hist"] = [{k: v for k, v in h.items() if k in ("budget", "probe_snr", "loss")}
+                           for h in hist]
+
+
+def _resilience(inp, out, work):
+    """``train_loop`` under resilience on the (2, 2) mesh, AdamW, a checkpoint
+    every 2 of 6 steps, with a ``ckpt_io`` fault at steps 1 and 5: the write
+    of step 2 fails and surfaces at step 4's save, the write of step 6 at
+    the loop's last wait. Rank 0 alone writes, so every rank must learn of
+    the failure before the synchronous retry's gathers (the run would hang
+    otherwise). Records the events, the steps on disk and whether each one
+    restores bit for bit."""
+    from repro_torch.api import ExecutionConfig, Runtime, SketchConfig, SketchPolicy
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import gather_tree
+    from repro_torch.optim import adamw
+    from repro_torch.resilience import ResilienceConfig
+    from repro_torch.resilience.faults import FaultPlan, FaultSpec
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.elastic import resume_on_mesh, state_shardings
+    from repro_torch.train.trainer import TrainerConfig, train_loop
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    cfg = _arch()
+    pol = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend="compact"))
+    rt = Runtime(policy=pol, device="cpu",
+                 execution=ExecutionConfig(mesh=mesh, tp_sketch=True,
+                                           resilience=ResilienceConfig(rollback_after=0)))
+    ckdir = os.path.join(work, "resilience")
+    plan = FaultPlan(faults=(FaultSpec(step=1, kind="ckpt_io"),
+                             FaultSpec(step=5, kind="ckpt_io")))
+    events = []
+    state, _ = train_loop(rt, cfg, adamw(1e-2), LMStream(vocab=cfg.vocab, seed=0).batches(8, 16),
+                          TrainerConfig(steps=6, log_every=1, ckpt_dir=ckdir, ckpt_every=2),
+                          on_metrics=lambda m: None, faults=plan, on_event=events.append)
+    import torch.distributed as dist
+
+    mine = [(e["event"], e["step"]) for e in events if e["event"].startswith("ckpt")]
+    out["resilience/events"] = [None] * dist.get_world_size()  # every rank's
+    dist.all_gather_object(out["resilience/events"], mine)
+    out["resilience/steps_on_disk"] = [s for s in (2, 4, 6) if ck.verify(ckdir, s)]
+    # step 4 restores as this rank's shards; the newest, step 6, bit for bit
+    at4, _ = ck.restore(ckdir, state, step=4, shardings=state_shardings(state, mesh))
+    restored, step = resume_on_mesh(ckdir, state, mesh)
+
+    def whole(st):
+        return (tree_leaves(gather_tree(st.params, mesh))
+                + tree_leaves(gather_tree(st.opt_state, mesh)))
+
+    want, got = whole(state), whole(restored)
+    out["resilience/final_restores"] = (step == 6 and state.step == 6 and len(want) == len(got)
+                                        and all(torch.equal(a, b) for a, b in zip(want, got)))
+    out["resilience/step4_shards"] = all(
+        a.shape == b.shape for a, b in zip(tree_leaves(at4.params), tree_leaves(state.params)))
+
+
+def _elastic(inp, out, work, rank):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import gather_tree
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.elastic import gather_state, resume_on_mesh
+    from repro_torch.tree import tree_leaves
+
+    state = out.pop("ckpt_state")
+    mesh = make_mesh(MESHES[0], ("data", "model"), device="cpu")
+    whole = gather_state(state, mesh)
+    ckdir = os.path.join(work, "ckpt")
+    if rank == 0:
+        ck.save(ckdir, 5, whole)
+    dist.barrier()
+    want = [t for t in tree_leaves(whole.params)]
+    for shape, axes in ELASTIC:
+        mesh = make_mesh(shape, axes, device="cpu")
+        restored, step = resume_on_mesh(ckdir, whole, mesh)
+        got = tree_leaves(gather_tree(restored.params, mesh))
+        moments = gather_tree(restored.opt_state, mesh) if restored.opt_state else {}
+        out[f"elastic/{'x'.join(map(str, shape))}"] = (
+            step == 5 and all(torch.equal(a, b) for a, b in zip(want, got))
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(whole.opt_state),
+                                                     tree_leaves(moments))))
+
+
+def _worker(rank, world, store, work):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+
+        inp = torch.load(os.path.join(work, "inputs.pt"))
+        out = {}
+        for shape in MESHES:
+            mesh = make_mesh(shape, ("data", "model"), device="cpu")
+            tag = "x".join(map(str, shape))
+            for part in (_steps, _toy, _budget_one, _mc, _plans):
+                t0 = time.perf_counter()
+                part(mesh, tag, inp, out)
+                out[f"time/{tag}/{part.__name__}"] = time.perf_counter() - t0
+        for part in (_data_only, _trainer):
+            t0 = time.perf_counter()
+            part(inp, out)
+            out[f"time/{part.__name__}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _resilience(inp, out, work)
+        out["time/_resilience"] = time.perf_counter() - t0
+        _elastic(inp, out, work, rank)
+        if rank == 0:
+            torch.save(out, os.path.join(work, "results.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The test process's side
+# ---------------------------------------------------------------------------
+
+
+def _jax_arch():
+    from repro.configs.base import ArchConfig
+
+    return ArchConfig(name="t", family="dense", n_layers=2, d_model=32, n_heads=4, n_kv=2,
+                      d_ff=64, vocab=64, q_chunk=16, kv_chunk=16)
+
+
+@pytest.fixture(scope="module")
+def jax_init():
+    from repro import compat
+    from repro.optim import sgd
+    from repro.train.train_step import init_state
+
+    return init_state(compat.prng_key(0), _jax_arch(), sgd(0.1))
+
+
+@pytest.fixture(scope="module")
+def inputs(jax_init):
+    from repro_torch import interop
+
+    rs = np.random.RandomState(0)
+    return {
+        "params": interop.params_from_jax(jax_init.params, _arch(), device="cpu"),
+        "tokens": torch.as_tensor(rs.randint(0, 64, (8, 16))),
+        "lin_x": torch.as_tensor(rs.standard_normal((B, S, DIN)).astype(np.float32)),
+        "lin_w": torch.as_tensor((rs.standard_normal((N, DIN)) / 4).astype(np.float32)),
+        "lin_b": torch.as_tensor((rs.standard_normal((N,)) / 4).astype(np.float32)),
+        "lin_g": torch.as_tensor(rs.standard_normal((B, S, N)).astype(np.float32)),
+    }
+
+
+@pytest.fixture(scope="module")
+def ranks(inputs, tmp_path_factory):
+    """Spawn the 4 ranks once; their results (rank 0's), and the wall time."""
+    import torch.multiprocessing as mp
+
+    work = str(tmp_path_factory.mktemp("ranks"))
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    pc = mp.start_processes(_worker, args=(WORLD, os.path.join(work, "store"), work),
+                            nprocs=WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while not pc.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in pc.processes:
+                if p.is_alive():
+                    p.kill()
+            pytest.fail(f"the {WORLD} ranks did not finish within {JOIN_TIMEOUT_S} s")
+    out = torch.load(os.path.join(work, "results.pt"), weights_only=False)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _jax_mesh(tag):
+    from repro import compat
+    import jax
+
+    shape = tuple(int(a) for a in tag.split("x"))
+    return compat.make_mesh(shape, ("data", "model"), devices=jax.devices()[:4])
+
+
+def _jax_sharded_exact_step(tag, jax_init, tokens):
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import compat
+    from repro.launch import sharding as shard
+    from repro.optim import sgd
+    from repro.train.train_step import TrainState, make_train_step
+
+    mesh = _jax_mesh(tag)
+    state = jax_init
+    pspecs = shard.param_shardings(state.params, mesh)
+    sshard = TrainState(params=pspecs, opt_state={k: pspecs for k in state.opt_state},
+                        step=NamedSharding(mesh, P()))
+    act = NamedSharding(mesh, P(("data",), None, None))
+    step = make_train_step(_jax_arch(), sgd(0.1), None, mesh=mesh, act_sharding=act,
+                           data_axes=("data",), model_axes=("model",))
+    batch = {"tokens": np.asarray(tokens), "labels": np.asarray(tokens)}
+    bspec = {k: NamedSharding(mesh, P("data", None)) for k in batch}
+    step = jax.jit(step, in_shardings=(sshard, bspec, NamedSharding(mesh, P())))
+    new, m = step(state, batch, compat.prng_key(STEP_SEED))
+    return new, float(m["loss"])
+
+
+def _port_leaves_from_jax(jax_params):
+    from repro_torch import interop
+    from repro_torch.tree import tree_leaves
+
+    return [_np(t) for t in tree_leaves(interop.params_from_jax(jax_params, _arch(),
+                                                                device="cpu"))]
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_exact_sharded_step_matches_jax(ranks, jax_init, inputs, tag):
+    """The exact sharded step (tp_sketch off) against JAX's on the same mesh
+    shape: loss rtol 1e-4; parameters rtol 2e-3, atol 2e-4 (JAX's own
+    tolerances for its sharded step)."""
+    new, loss = _jax_sharded_exact_step(tag, jax_init, inputs["tokens"])
+    np.testing.assert_allclose(ranks[f"{tag}/step/exact/loss"], loss, rtol=1e-4)
+    for a, b in zip(ranks[f"{tag}/step/exact/params"], _port_leaves_from_jax(new.params)):
+        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["exact", "mask"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_mesh_step_matches_port_single_device(ranks, tag, name):
+    """The exact and ``mask`` mesh steps against the port's single-device
+    step from the same parameters, batch and seed (every replica draws the
+    single-device plan): loss and every parameter within 1e-5."""
+    np.testing.assert_allclose(ranks[f"{tag}/step/{name}/loss"], ranks[f"single/{name}/loss"],
+                               rtol=1e-5)
+    for a, b in zip(ranks[f"{tag}/step/{name}/params"], ranks[f"single/{name}/params"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["exact_tp", "compact", "block", "block_cg"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_step_loss_is_exact_and_update_finite(ranks, tag, name):
+    """The sketch is backward-only: every TP step's loss equals the exact
+    single-device loss (rtol 1e-5); the update is finite and moves."""
+    np.testing.assert_allclose(ranks[f"{tag}/step/{name}/loss"], ranks["single/exact/loss"],
+                               rtol=1e-5)
+    assert np.isfinite(ranks[f"{tag}/step/{name}/grad_norm"])
+    assert all(np.isfinite(a).all() for a in ranks[f"{tag}/step/{name}/params"])
+    if name == "exact_tp":  # Megatron exact: the single-device numbers
+        for a, b in zip(ranks[f"{tag}/step/{name}/params"], ranks["single/exact/params"]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_compact_grads_match_scatter_path(ranks, tag):
+    """Compact gradients on the mesh (rows with global indices, each rank's
+    own rows updated) equal the dense scatter path for the same seed (JAX's
+    test_sharded_compact_grads_match_scatter_path: rtol 2e-5, atol 2e-6)."""
+    np.testing.assert_allclose(ranks[f"{tag}/step/block/loss"],
+                               ranks[f"{tag}/step/block_cg/loss"], rtol=1e-5)
+    np.testing.assert_allclose(ranks[f"{tag}/step/block/grad_norm"],
+                               ranks[f"{tag}/step/block_cg/grad_norm"], rtol=1e-3)
+    for a, b in zip(ranks[f"{tag}/step/block/params"], ranks[f"{tag}/step/block_cg/params"]):
+        np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", ["compact", "block", "block_cg"])
+@pytest.mark.parametrize("tag", TAGS[:1])
+def test_compressed_collective_sends_fewer_bytes(ranks, tag, name):
+    """On the (2, 2) mesh the sketched TP steps hand the collectives fewer
+    bytes than the exact step of the same layout (exact sites on the TP
+    plans): the compact dW block replaces the dense one in the data-axis
+    reduction. (On (1, 4) there is no data reduction to compress, and the
+    compact slot's all-gather of every model shard's rows costs more than
+    it saves at this width: docs/port.md, "Distributed".)"""
+    assert ranks[f"{tag}/step/{name}/bytes"] < ranks[f"{tag}/step/exact_tp/bytes"]
+
+
+def _jax_tp_linear(kind, tag, inputs, cfg, key, *, slot=False, bias=False, probe=False):
+    import jax
+    import jax.numpy as jnp
+
+    from repro import compat
+    from repro.core.compact_grad import CompactGrad
+    from repro.core.sharded_sketch import (tp_exact_linear, tp_row_sketched_linear,
+                                           tp_sketched_linear)
+    from repro.nn.common import Ctx
+    from repro.telemetry.probes import PROBE_WIDTH
+
+    mesh = _jax_mesh(tag)
+    ctx = Ctx(mesh=mesh, data_axes=("data",), model_axes=("model",), tp_sketch=True)
+    x = jnp.asarray(inputs["lin_x"].numpy())
+    w = jnp.asarray(inputs["lin_w"].numpy())
+    b = jnp.asarray(inputs["lin_b"].numpy())
+    g = jnp.asarray(inputs["lin_g"].numpy())
+    n_mp = mesh.shape["model"]
+    rows = N if kind == "row" else n_mp * (N // n_mp)
+    sl = CompactGrad(rows=jnp.zeros((rows, DIN)), idx=jnp.zeros((rows,))) if slot else None
+    ps = jnp.zeros((PROBE_WIDTH,), jnp.float32) if probe else None
+    k = compat.prng_key(key)
+
+    def loss(x_, w_, b_, sl_, ps_):
+        kw = dict(b=b_ if bias else None)
+        if kind == "exact":
+            y = tp_exact_linear(x_, w_, ctx, **kw)
+        else:
+            fn = tp_row_sketched_linear if kind == "row" else tp_sketched_linear
+            y = fn(x_, w_, ctx, cfg, k, sl_, pslot=ps_, **kw)
+        return jnp.sum(y * g), y
+
+    (_, y), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        x, w, b, sl, ps)
+    return y, grads
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_registry_estimator_routes_through_tp_column(ranks, inputs, tag):
+    """JAX's toy first-r ``tp_shardable`` estimator through ``tp_column``
+    (deterministic: each model shard keeps its first r columns): dX and dW
+    equal JAX's within 1e-5, and dW's support is each shard's leading r
+    rows."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import api, compat
+    from repro.core.sharded_sketch import tp_sketched_linear
+    from repro.core.sketched_linear import _CompactEstimator
+    from repro.core.sketching import ColumnPlan, SketchConfig, static_rank
+    from repro.nn.common import Ctx
+
+    class _Toy(_CompactEstimator):
+        name = TOY
+        tp_shardable = True
+
+        def plan(self, cfg, G2d, w, key, *, want_compact=True, score_psum_axes=None):
+            n = G2d.shape[-1]
+            r = static_rank(cfg, n)
+            p = jnp.full((n,), jnp.float32(r) / n)
+            idx = jnp.arange(r, dtype=jnp.int32)
+            return ColumnPlan(indices=idx, scales=1.0 / jnp.take(p, idx), gate=None, probs=p)
+
+    if TOY not in api.registered_backends():
+        api.register_estimator(_Toy())
+    mesh = _jax_mesh(tag)
+    ctx = Ctx(mesh=mesh, data_axes=("data",), model_axes=("model",), tp_sketch=True)
+    cfg = SketchConfig(method="per_column", budget=0.5, backend=TOY)
+    x = jnp.asarray(inputs["lin_x"].numpy())
+    w = jnp.asarray(inputs["lin_w"].numpy())
+    dx, dw = jax.grad(lambda x_, w_: jnp.sum(jnp.sin(tp_sketched_linear(
+        x_, w_, ctx, cfg, compat.prng_key(2)))), argnums=(0, 1))(x, w)
+    np.testing.assert_allclose(ranks[f"{tag}/toy/dx"], np.asarray(dx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ranks[f"{tag}/toy/dw"], np.asarray(dw), rtol=1e-5, atol=1e-5)
+    n_mp = mesh.shape["model"]
+    n_loc = N // n_mp
+    r_loc = static_rank(cfg, n_loc)
+    got = ranks[f"{tag}/toy/dw"].reshape(n_mp, n_loc, DIN)
+    assert np.abs(got[:, :r_loc]).sum() > 0
+    np.testing.assert_array_equal(got[:, r_loc:], 0.0)
+
+
+@pytest.mark.parametrize("kind,compact", [(k, c) for k in ("column", "column_block", "row")
+                                          for c in (False, True)] + [("exact", False)],
+                         ids=lambda v: v if isinstance(v, str) else ("compact" if v else
+                                                                     "dense"))
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_plans_at_full_budget_match_jax(ranks, inputs, tag, kind, compact):
+    """Every TP plan at budget 0.999 (every column kept with scale 1: no
+    randomness; 1.0 is a no-op config in both packages) with a bias and a
+    probe slot, against JAX's shard_map bodies: the forward, dX, dW (dense;
+    or the compact rows with their global indices), db and the probe,
+    within 1e-5."""
+    from repro.core.sketching import SketchConfig
+
+    cfg = SketchConfig(method="l1", budget=FULL, backend="compact",
+                       block=4 if kind == "column_block" else 0)
+    jk = "row" if kind == "row" else ("exact" if kind == "exact" else "column")
+    y, (dx, dw, db, sl, probe) = _jax_tp_linear(jk, tag, inputs, cfg, 11, slot=compact,
+                                               bias=True, probe=kind != "exact")
+    key = f"{tag}/one/{kind}/{'compact' if compact else 'dense'}"
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ranks[key + "/y"], np.asarray(y), **tol)
+    np.testing.assert_allclose(ranks[key + "/dx"], np.asarray(dx), **tol)
+    np.testing.assert_allclose(ranks[key + "/db"], np.asarray(db), **tol)
+    if compact:
+        np.testing.assert_allclose(ranks[key + "/rows"], np.asarray(sl.rows), **tol)
+        np.testing.assert_array_equal(ranks[key + "/idx"], np.asarray(sl.idx).astype(np.int64))
+    else:
+        np.testing.assert_allclose(ranks[key + "/dw"], np.asarray(dw), **tol)
+    if kind != "exact":
+        np.testing.assert_allclose(ranks[key + "/probe"], np.asarray(probe), rtol=1e-5)
+
+
+def _exact_grads(x, w, b=None):
+    """dX, dW (and db) of sum(sin(x @ w.T + b)) in float64."""
+    x64, w64 = x.astype(np.float64), w.astype(np.float64)
+    z = x64 @ w64.T + (0.0 if b is None else b.astype(np.float64))
+    G = np.cos(z)
+    return G @ w64, G.reshape(-1, G.shape[-1]).T @ x64.reshape(-1, x64.shape[-1]), \
+        G.reshape(-1, G.shape[-1]).sum(0)
+
+
+def _assert_unbiased(draws, want, thresh=1.8):
+    """JAX's MC check: deterministic entries equal (rtol 1e-3); elsewhere the
+    mean t-statistic of mean - exact over the draws below ``thresh``."""
+    mean, std = draws.mean(0), draws.std(0)
+    scale = np.abs(want).max() + 1e-9
+    det = std < 1e-5 * scale
+    np.testing.assert_allclose(mean[det], want[det], rtol=1e-3, atol=1e-3 * scale)
+    if det.all():
+        return
+    t = np.abs(mean[~det] - want[~det]) / (std[~det] / np.sqrt(len(draws)))
+    assert np.mean(t) < thresh, np.mean(t)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_sharded_sketch_unbiased_and_fwd_exact(ranks, inputs, tag):
+    """JAX's test_tp_sharded_sketch_unbiased_and_fwd_exact: the column plan's
+    forward is exact (1e-5) and dX, dW over 480 seeds are unbiased (mean
+    t-statistic < 1.8)."""
+    x, w = inputs["lin_x"].numpy(), inputs["lin_w"].numpy()
+    np.testing.assert_allclose(ranks[f"{tag}/mc/sketch/y"], x @ w.T, rtol=1e-5, atol=1e-5)
+    dx, dw, _ = _exact_grads(x, w)
+    _assert_unbiased(ranks[f"{tag}/mc/sketch/dx"], dx)
+    _assert_unbiased(ranks[f"{tag}/mc/sketch/dw"], dw)
+
+
+@pytest.mark.parametrize("kind", ["column", "column_block", "row"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_probe_unbiased_vs_bruteforce(ranks, inputs, tag, kind):
+    """JAX's test_tp_probe_unbiased_vs_bruteforce: over 384 seeds the probe's
+    mean var equals the brute-force E||dŴ - dW||² and its g_sq ||dW||²
+    (rel 0.15); ok is 1 exactly once."""
+    x = inputs["lin_x"].numpy()[:2]
+    g = inputs["lin_g"].numpy()[:2]
+    dw_exact = g.reshape(-1, N).T.astype(np.float64) @ x.reshape(-1, DIN).astype(np.float64)
+    dws = ranks[f"{tag}/mc/probe/{kind}/dw"]
+    var_mc = float(np.mean(np.sum(np.square(dws - dw_exact[None]), axis=(1, 2))))
+    pm = ranks[f"{tag}/mc/probe/{kind}/probe"].mean(0)
+    assert pm[3] == pytest.approx(1.0)
+    assert pm[1] == pytest.approx(var_mc, rel=0.15), (kind, pm, var_mc)
+    assert pm[0] == pytest.approx(float(np.sum(dw_exact ** 2)), rel=0.15)
+
+
+@pytest.mark.parametrize("role,kind", [("attn_q", "tp_column"), ("mlp_out", "tp_row")])
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_bias_sites_route_sharded_and_grads_unbiased(ranks, inputs, tag, role, kind):
+    """JAX's test_tp_bias_sites_route_sharded_and_grads_unbiased: a bias site
+    resolves to its TP plan with compact rows, its forward (bias included)
+    is exact, and dW and db over 480 seeds are unbiased."""
+    assert ranks[f"{tag}/mc/bias/{role}/kind"] == kind
+    assert ranks[f"{tag}/mc/bias/{role}/rows"] is not None
+    x = inputs["lin_x"].numpy()[:2]
+    w, b = inputs["lin_w"].numpy(), inputs["lin_b"].numpy()
+    np.testing.assert_allclose(ranks[f"{tag}/mc/bias/{role}/y"], x @ w.T + b, rtol=1e-5,
+                               atol=1e-5)
+    _, dw, db = _exact_grads(x, w, b)
+    _assert_unbiased(ranks[f"{tag}/mc/bias/{role}/dw"], dw)
+    _assert_unbiased(ranks[f"{tag}/mc/bias/{role}/db"], db)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_replicas_share_plans_and_model_shards_differ(ranks, tag):
+    """Over 16 seeds: every data replica draws the same plan as its model
+    shard's other replicas (the scores are summed over data, the seed is
+    shared); all model shards draw the same row plan; the column plans of
+    the model shards (the seed folded with the model rank, each its own G)
+    differ for some seed."""
+    for lk in ("column", "row"):
+        by = {}
+        for di, mi, plans in ranks[f"{tag}/plans/{lk}"]:
+            by.setdefault(mi, set()).add(tuple(plans))
+        assert all(len(v) == 1 for v in by.values()), (lk, by)
+        per_shard = [next(iter(v)) for _, v in sorted(by.items())]
+        if lk == "row":
+            assert len(set(per_shard)) == 1
+        elif len(per_shard) > 1:
+            differ = [len(set(p[s] for p in per_shard)) > 1 for s in range(PLAN_SEEDS)]
+            assert any(differ), per_shard
+
+
+@pytest.mark.parametrize("backend", DATA_ONLY_BACKENDS)
+def test_every_backend_on_a_data_only_mesh_matches_single_device(ranks, backend):
+    """On the data-only mesh (4, 1) every backend's local plan draws the
+    single-device plan (scores and plan-carry refreshes summed over data):
+    loss and every parameter and carry leaf within 1e-5 of one device."""
+    key = f"data_only/{backend}"
+    np.testing.assert_allclose(ranks[key + "/mesh/loss"], ranks[key + "/single/loss"],
+                               rtol=1e-5)
+    for a, b in zip(ranks[key + "/mesh/params"], ranks[key + "/single/params"]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_adaptive_schedule_under_tp_sketch(ranks):
+    """JAX's test of the same name: under ``tp_sketch`` on the (2, 2) mesh the
+    adaptive controller reads the TP probes (no "cannot measure" warning),
+    runs only its pre-built buckets and switches between them, with a
+    finite ``probe_snr``."""
+    import math
+
+    hist = ranks["trainer/hist"]
+    assert not ranks["trainer/warned"]
+    assert ranks["trainer/builds"] == len(ranks["trainer/buckets"])
+    assert all(h["budget"] in ranks["trainer/buckets"] for h in hist)
+    assert len({h["budget"] for h in hist}) >= 2
+    assert all(math.isfinite(h["probe_snr"]) for h in hist if "probe_snr" in h)
+    assert all(math.isfinite(h["loss"]) for h in hist) and len(hist) == 8
+
+
+def test_ckpt_io_faults_under_a_mesh_recover_on_every_rank(ranks):
+    """A failed async write of rank 0, surfaced at a later save's wait and at
+    the loop's last wait, is retried synchronously by every rank together
+    (the ranks finished: no rank waited alone in a gather); each retry wrote
+    its step, the failed step 2 is not on disk, and the newest checkpoint
+    restores onto the mesh bit for bit."""
+    for events in ranks["resilience/events"]:
+        assert events == [("ckpt_io_recovered", 3), ("ckpt_io_recovered", 6)]
+    assert ranks["resilience/steps_on_disk"] == [4, 6]
+    assert ranks["resilience/step4_shards"] is True
+    assert ranks["resilience/final_restores"] is True
+
+
+@pytest.mark.parametrize("shape", ["x".join(map(str, s)) for s, _ in ELASTIC])
+def test_elastic_restore_across_meshes(ranks, shape):
+    """A checkpoint of the (2, 2) step's state restores through
+    ``resume_on_mesh`` onto (4, 1), (2, 2), (1, 4) and (1, 2, 2) ``("pod",
+    "data", "model")``, every parameter and moment bit for bit."""
+    assert ranks[f"elastic/{shape}"] is True
+
+
+def test_mesh_without_process_group_raises():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is initialised in this process")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1, 1), ("data", "model"), device="cpu")
+
+
+def test_other_families_under_a_mesh_raise():
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+
+    for name in ("olmoe_1b_7b", "rwkv6_3b", "zamba2_7b", "gemma3_1b", "qwen2_vl_2b",
+                 "seamless_m4t_large_v2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            lm.check_mesh(smoke_config(name))
+    lm.check_mesh(smoke_config("yi_6b"))
+    lm.check_mesh(_arch())
