@@ -210,7 +210,20 @@ which raises on failure:
    1.25 prints its dropped replicas and is not compared); and a profiler
    trace of one engine decode step of zamba2-7b and of gemma3-1b (device
    ops, busy time, exactly one device-to-host copy);
-17. one JSON line listing the ported kernels, then the last line
+17. the distributed runtime on a one-rank NCCL mesh (lm-100m): one step with
+   ``tp_sketch`` off equal to the single-device step bit for bit, the TP plans'
+   sites and launches, their collective payloads, a checkpoint restored bit
+   for bit, ms per step (``distributed(dev)``);
+18. the analysis tooling (``analysis(dev)``): the lint over
+   ``src/repro_torch`` with no finding and exactly the reviewed waivers;
+   ``analyze_runtime`` on the card for lm-100m, olmoe-1b-7b (4 layers),
+   gemma3-1b, rwkv6-3b (8), zamba2-7b (13), qwen2-vl-2b,
+   seamless-m4t-large-v2, yi-6b (4) and mixtral-8x22b (1) at full width
+   under the block-128 l1@0.2 ``pallas`` policy, the baseline gate green;
+   and one forward and backward of each at 1 x 256 whose score and fused
+   kernels each launch exactly the analyzer's count of sketched site
+   applications;
+19. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -4151,6 +4164,122 @@ def distributed_checks(dev, cfg, policy, mesh, tmp, total):
     del states
 
 
+# ---------------------------------------------------------------------------
+# The analysis tooling (phase 18): the lint gate over the port, and the
+# coverage gate at full width, cross-checked against the kernels' launches
+# ---------------------------------------------------------------------------
+
+# (config, layers: None for the registry's depth, sketched site applications
+# per step). The depths are the training phases' (float32 weights and
+# gradients must fit 80 GB: mixtral's one layer takes ~23 GB); yi-6b and
+# mixtral-8x22b run here for the first time at full width
+ANALYSIS_CFGS = (("lm-100m", None, 84), ("olmoe-1b-7b", OLMOE_TRAIN_LAYERS, 784),
+                 ("gemma3-1b", None, 182), ("rwkv6-3b", 8, 64), ("zamba2-7b", 13, 53),
+                 ("qwen2-vl-2b", None, 196), ("seamless-m4t-large-v2", None, 384),
+                 ("yi-6b", 4, 28), ("mixtral-8x22b", 1, 28))
+# the cross-check's forward and backward: one row of 256 tokens
+ANALYSIS_BATCH, ANALYSIS_SEQ = 1, 256
+
+
+def analysis_cross_check(dev, runtime, cfg, params, n_sites):
+    """Phase 18 (c) for one config: one forward and backward of
+    ``lm.lm_loss`` under ``runtime`` on ANALYSIS_BATCH x ANALYSIS_SEQ tokens
+    from LMStream (FAM_SEED, a stub frontend's inputs by ``stub_inputs``),
+    the launch counts set to 0 just before and read just after: the score
+    and fused kernels each ``n_sites`` times, every other kernel 0; the loss
+    and every gradient finite. Returns the counts."""
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import batch_to_device
+    from repro_torch.tree import tree_leaves
+
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    batch = next(LMStream(vocab=cfg.vocab, seed=FAM_SEED).batches(ANALYSIS_BATCH, ANALYSIS_SEQ))
+    batch = batch_to_device(stub_inputs(cfg, np.random.default_rng(FAM_SEED), batch), dev)
+    ops.reset_launch_counts()
+    loss = lm.lm_loss(params, batch, runtime.ctx(key=FAM_SEED, n_layers=cfg.n_layers), cfg,
+                      FAM_SEED)[0]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {name: n_sites if name in SITE_KERNELS["pallas"] else 0 for name in ops.KERNELS}
+    if counts != want:
+        raise AssertionError(f"{cfg.name}: the analyzer counts {n_sites} sketched site "
+                             f"applications, one forward and backward launched {counts}")
+    # a VLM's embedding table reads no token: the one leaf without a gradient
+    missing = sum(g is None for g in grads)
+    loss = float(loss.detach())
+    if not math.isfinite(loss) or missing > (cfg.frontend == "vision") or not all(
+            torch.isfinite(g).all() for g in grads if g is not None):
+        raise AssertionError(f"{cfg.name}: loss {loss}, {missing} leaves without a "
+                             "gradient, or a non-finite gradient")
+    return counts
+
+
+def analysis(dev):
+    """Phase 18: (a) ``run_lint`` over ``src/repro_torch``: no finding, the
+    waived findings exactly ``lint.REVIEWED_WAIVERS``; (b) per config of
+    ANALYSIS_CFGS at full width (float32, random weights from FAM_SEED),
+    ``analyze_runtime`` on the card under the block-128 l1@0.2 ``pallas``
+    policy: the baseline gate green, every sketched site application on a
+    resolved or unresolved leaf (or the shared block's exact one), and as
+    many applications as the table says; (c) the cross-check
+    (``analysis_cross_check``). Returns (c)'s launches."""
+    from repro_torch.analysis import analyze_runtime, check_baseline, run_lint
+    from repro_torch.analysis.lint import REVIEWED_WAIVERS, waiver_key
+    from repro_torch.api import Runtime
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    res = run_lint([os.path.join(ROOT, "src", "repro_torch")])
+    waived = sorted(waiver_key(f) for f in res.waived)
+    if res.findings or set(waived) != REVIEWED_WAIVERS or len(waived) != len(REVIEWED_WAIVERS):
+        raise AssertionError("lint: " + "; ".join(map(str, res.findings + res.waived)))
+    print(f"[analysis] (a) lint src/repro_torch: 0 findings, {len(waived)} waived, the "
+          f"reviewed list {[(f, code) for _, f, code in waived]}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    runtime = Runtime(policy=slice_policy(0.2), device=dev)
+    total = {}
+    for name, layers, n_want in ANALYSIS_CFGS:
+        t0 = time.perf_counter()
+        cfg = lm100m() if name == "lm-100m" else f32_cfg(name, layers)
+        params = lm.init_params(FAM_SEED, cfg, device=dev)
+        t1 = time.perf_counter()
+        rep = analyze_runtime(runtime, cfg, device=dev, params=params)
+        t_an = time.perf_counter() - t1
+        br = check_baseline(rep)
+        if not br.ok:
+            raise AssertionError(f"{name}: {br.message()}")
+        for s in rep.sites:
+            if s.applications and not (s.category in ("resolved", "unresolved") or (
+                    s.category == "exact" and s.param.startswith("shared/"))):
+                raise AssertionError(f"{name}: {s.applications} sketched applications on "
+                                     f"{s.param}, a {s.category} leaf")
+        n = rep.applications
+        if n != n_want:
+            raise AssertionError(f"{name}: the analyzer counts {n} sketched site "
+                                 f"applications, want {n_want}")
+        cats = {k: len(v) for k, v in sorted(rep.by_category().items())}
+        print(f"[analysis] (b) {name}, {cfg.n_layers} layers" + (
+            f" + {cfg.enc_layers} encoder" if cfg.is_encdec else "") + f", d {cfg.d_model}: "
+            f"gate ok, categories {cats}, baseline waivers used {br.used}, modelled escaped "
+            f"fraction {rep.escaped_flop_frac:.6g}, unresolved fraction "
+            f"{rep.unresolved_flop_frac:.6g}, {n} sketched site applications; analyzer "
+            f"{t_an:.2f} s")
+        t1 = time.perf_counter()
+        counts = analysis_cross_check(dev, runtime, cfg, params, n)
+        add_counts(total, counts)
+        print(f"[analysis] (c) {name}: one forward and backward at {ANALYSIS_BATCH}x"
+              f"{ANALYSIS_SEQ} launched {counts}, the analyzer's {n} each; "
+              f"{time.perf_counter() - t1:.2f} s; config {time.perf_counter() - t0:.1f} s")
+        del params, rep
+        torch.cuda.empty_cache()
+    print(f"[time]   analysis {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -4279,6 +4408,11 @@ def main() -> int:
     for name, n in dist_counts.items():
         launches[name] += n
     print(f"[time] the distributed runtime {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    an_counts = analysis(dev)
+    for name, n in an_counts.items():
+        launches[name] += n
+    print(f"[time] the analysis tooling {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -4327,7 +4461,9 @@ def main() -> int:
           f"backend, qwen's stale step at accum 2, and one prefill each): "
           f"{json.dumps(vlm_counts)}; the family engines (phase 16: every engine run 0): "
           f"{json.dumps(fe_counts)}; the distributed runtime (phase 17: the one-rank mesh's "
-          f"sketched steps and their single-device twins): {json.dumps(dist_counts)}")
+          f"sketched steps and their single-device twins): {json.dumps(dist_counts)}; the analysis "
+          f"tooling (phase 18's cross-checks, one forward and backward per config): "
+          f"{json.dumps(an_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -7,6 +7,14 @@ on the CPU only when the caller passes ``device="cpu"``. The backward kernels
 that the JAX package wrote in Pallas for the TPU are written here by hand for
 Hopper (``repro_torch.kernels``). See ``docs/port.md``.
 """
-from repro_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # lazy (PEP 562), so that the stdlib-only lint (``repro_torch.analysis``)
+    # imports no torch
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -298,7 +298,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             probe_metrics = dict(probe_metrics, sentinel_trip=tripped)
             # the one host read of the gate: the loop fetches the step's
             # scalars right after it anyway
-            ok = bool(ok_t)
+            ok = bool(ok_t)  # lint: waive=host-sync-in-step — the gate's one read
         if ok:
             params, opt_state = opt.update(grads, state.opt_state, state.params, state.step)
             # after the update: the optimizer saw zero gradients on the carry

@@ -1284,3 +1284,44 @@ def test_cuda_tp_plans_launch_scores_only(nccl_mesh, cuda):
     assert all(v == 0 for k, v in c.items() if k != "col_l1_scores"), c
     rel = abs(float(m["loss"]) - float(m_exact["loss"])) / abs(float(m_exact["loss"]))
     assert rel < 1e-5 and math.isfinite(float(m["grad_norm"]))
+
+
+# smoke configs widened where a sketched site is narrower than one 64-wide
+# block, so that every sketched site is block-granular and launches both
+# pallas kernels; zamba2's shared block runs twice (7 layers, every 3)
+ANALYSIS_SMOKE = {"llama3_405b": (dict(n_kv=8), 2 * 7),
+                  "olmoe_1b_7b": (dict(d_ff=64), 2 * (4 + 3 * 8)),
+                  "zamba2_7b": ({}, 7 * 3 + 7 * 2)}
+
+
+@pytest.mark.parametrize("arch", sorted(ANALYSIS_SMOKE))
+def test_cuda_analyzer_counts_the_sites_that_launch(cuda, arch):
+    """chip_smoke phase 18 (c) at smoke size: ``analyze_runtime`` on the card
+    under an l1@0.2 block-64 ``pallas`` policy passes the baseline gate, and
+    one forward and backward launches the score and fused kernels exactly
+    once per sketched site application the analyzer counts in its graph."""
+    from repro_torch.analysis import analyze_runtime, check_baseline
+    from repro_torch.api import Runtime, SketchConfig, SketchPolicy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    widen, n_want = ANALYSIS_SMOKE[arch]
+    cfg = smoke_config(arch).replace(**widen)
+    rt = Runtime(policy=SketchPolicy(base=SketchConfig(method="l1", budget=0.2,
+                                                       backend="pallas", block=64)),
+                 device=cuda)
+    params = lm.init_params(0, cfg, device=cuda)
+    rep = analyze_runtime(rt, cfg, device=cuda, params=params)
+    assert check_baseline(rep).ok
+    assert rep.applications == n_want
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    toks = torch.arange(64, device=cuda).reshape(1, 64) % cfg.vocab
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    ops.reset_launch_counts()
+    loss = lm.lm_loss(params, batch, rt.ctx(key=1, n_layers=cfg.n_layers), cfg, 1)[0]
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"col_l1_scores": n_want, "block_gather_matmul_fused": n_want}
+    assert all(torch.isfinite(g).all() for g in grads)
