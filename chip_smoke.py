@@ -212,8 +212,9 @@ which raises on failure:
    ops, busy time, exactly one device-to-host copy);
 17. the distributed runtime on a one-rank NCCL mesh (lm-100m): one step with
    ``tp_sketch`` off equal to the single-device step bit for bit, the TP plans'
-   sites and launches, their collective payloads, a checkpoint restored bit
-   for bit, ms per step (``distributed(dev)``);
+   sites and launches, their collective payloads (the local plan's equal to
+   its count from the shapes), a checkpoint restored bit for bit, ms per
+   step (``distributed(dev)``);
 18. the analysis tooling (``analysis(dev)``): the lint over
    ``src/repro_torch`` with no finding and exactly the reviewed waivers;
    ``analyze_runtime`` on the card for lm-100m, olmoe-1b-7b (4 layers),
@@ -223,7 +224,14 @@ which raises on failure:
    and one forward and backward of each at 1 x 256 whose score and fused
    kernels each launch exactly the analyzer's count of sketched site
    applications;
-19. one JSON line listing the ported kernels, then the last line
+19. every family under a one-rank NCCL mesh (``families_mesh(dev)``):
+   olmoe-1b-7b (2 layers), mixtral-8x22b (1), gemma3-1b (6), rwkv6-3b (2),
+   zamba2-7b (6 and the shared block), qwen2-vl-2b (2) and
+   seamless-m4t-large-v2 (2 + 2) at full width, float32, block-128 l1@0.2:
+   one mesh step bit for bit the single-device step with equal score and
+   fused launches; the TP plans' sites, launches and loss; olmoe's mesh
+   checkpoint restored bit for bit; ms per step, single against mesh;
+20. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -3984,6 +3992,19 @@ def dist_site_split(cfg, ex, policy):
     return dict(kinds)
 
 
+def dist_payload_a(cfg) -> int:
+    """Phase 17 (a)'s collective payload per step on the one-rank mesh, from
+    the shapes (the counters count a payload on a one-rank axis too): each
+    sketched site's weight and the head's, all-gathered over model and over
+    data in the forward and its gradient reduce-scattered over data (3 x its
+    float32 bytes), and the embedded rows all-gathered over model (BATCH x
+    SEQ x d); the step's sum over data is skipped on one data rank."""
+    d, dh = cfg.d_model, cfg.head_dim
+    sites = cfg.n_layers * (d * (cfg.n_heads + 2 * cfg.n_kv) * dh + cfg.n_heads * dh * d
+                            + 3 * d * cfg.d_ff) + cfg.vocab * d
+    return 4 * (3 * sites + BATCH * SEQ * d)
+
+
 def dist_leaves(state):
     from repro_torch.tree import tree_leaves
 
@@ -4070,6 +4091,9 @@ def distributed_checks(dev, cfg, policy, mesh, tmp, total):
     want = expected_counts("pallas", 1)
     if c2 != want or c1 != want:
         raise AssertionError(f"[dist] (a) launches {c2} (single {c1}), want {want}")
+    if bytes_a != dist_payload_a(cfg):
+        raise AssertionError(f"[dist] (a) collective payload {bytes_a} B, want "
+                             f"{dist_payload_a(cfg)} B from the shapes")
     same = (torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"],
                                                                  m2["grad_norm"])
             and all(torch.equal(a, b) for a, b in zip(dist_leaves(single),
@@ -4080,7 +4104,8 @@ def distributed_checks(dev, cfg, policy, mesh, tmp, total):
     print(f"[dist] (a) mesh (1, 1) NCCL, tp_sketch off, pallas l1@0.2 block {BLOCK}: "
           f"loss {float(m2['loss']):.6f}, grad_norm {float(m2['grad_norm']):.6g}, "
           f"{len(dist_leaves(mesh_a))} leaves (params, AdamW moments) bit for bit the "
-          f"single-device step; launches {c2}; collective payload {bytes_a} B")
+          f"single-device step; launches {c2}; collective payload {bytes_a} B (the shapes' "
+          f"{dist_payload_a(cfg)} B)")
     del single
 
     # (b) the TP plans
@@ -4280,6 +4305,294 @@ def analysis(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Every family under a mesh (phase 19): the seven family configs at full
+# width and a cut depth through the distributed runtime on a one-rank NCCL
+# mesh, each held bit for bit to its single-device step
+# ---------------------------------------------------------------------------
+
+# (config, depth cut, optimizer): olmoe and mixtral train with SGD, whose
+# state is the parameters alone (mixtral's float32 AdamW state at 1 layer is
+# 43.3 GiB, and the single-device step's results wait on the host while the
+# mesh step runs); the others with AdamW (parameters and both moments held
+# bit for bit)
+MESH_FAMILIES = (
+    ("olmoe-1b-7b", dict(n_layers=2), "sgd"),
+    ("mixtral-8x22b", dict(n_layers=1), "sgd"),
+    ("gemma3-1b", dict(n_layers=6), "adamw"),  # one 5 local : 1 global period
+    ("rwkv6-3b", dict(n_layers=2), "adamw"),
+    ("zamba2-7b", dict(n_layers=6), "adamw"),  # six Mamba2 layers and the shared block
+    ("qwen2-vl-2b", dict(n_layers=2), "adamw"),
+    ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2), "adamw"),
+)
+MESH_BATCH, MESH_SEQ = 4, 256
+MESH_TIMED = 2  # synced steps timed per run, after one warm-up
+MESH_SEED = 19
+
+
+def mesh_batch(cfg):
+    """MESH_BATCH x MESH_SEQ tokens and labels from LMStream, a stub
+    frontend's inputs from numpy (``stub_inputs``), all from MESH_SEED."""
+    from repro_torch.data.synthetic import LMStream
+
+    batch = next(iter(LMStream(vocab=cfg.vocab, seed=MESH_SEED).batches(MESH_BATCH, MESH_SEQ)))
+    return stub_inputs(cfg, np.random.default_rng(MESH_SEED), batch)
+
+
+def mesh_sites(cfg):
+    """(layer index, role, d_out, d_in) of every linear site of one step
+    that ``dense`` runs (experts apart), in uid order, and the expert sites
+    per MoE layer."""
+    from repro_torch.models import lm
+
+    d, dh, H, Kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    glu = cfg.mlp_type in ("swiglu", "geglu")
+    attn = [("attn_q", H * dh, d), ("attn_k", Kv * dh, d), ("attn_v", Kv * dh, d),
+            ("attn_o", d, H * dh)]
+    ffn = [("mlp_in", cfg.d_ff, d)] + ([("mlp_gate", cfg.d_ff, d)] if glu else []) \
+        + [("mlp_out", d, cfg.d_ff)]
+    di = 2 * d
+    mamba = [("ssm_in", di, d), ("ssm_in", di, d), ("ssm_small", cfg.ssm_state, d),
+             ("ssm_small", cfg.ssm_state, d), ("ssm_small", di // cfg.ssm_head_dim, d),
+             ("ssm_out", d, di)]
+    f = cfg.d_ff or 7 * d // 2
+    rwkv = [("attn_q", d, d), ("attn_k", d, d), ("attn_v", d, d), ("mlp_gate", d, d),
+            ("attn_o", d, d), ("mlp_in", f, d), ("mlp_gate", d, d), ("mlp_out", d, f)]
+    out, experts = [], 0
+    kinds = [(i, k) for i, k in enumerate(lm.layer_kinds(cfg))] + [
+        (lm.ENCODER_UID_BASE + i, k) for i, k in enumerate(lm.encoder_kinds(cfg))]
+    for i, kind in kinds:
+        if kind.kind == "mamba":
+            sites = mamba
+        elif kind.kind == "rwkv":
+            sites = rwkv
+        else:
+            sites = attn + [(r.replace("attn", "cross"), n, k) for r, n, k in attn] * kind.cross
+            if kind.moe:
+                experts += (3 if glu else 2) * cfg.n_experts
+            else:
+                sites = sites + ffn
+        out += [(i, r, n, k) for r, n, k in sites]
+    return out, experts
+
+
+def mesh_site_split(cfg, ex, policy):
+    """The plan (and effective backend) of every site of one step of ``cfg``
+    under ``ex`` (tp_sketch on, global shapes), and the launches of one
+    ``pallas`` step there: a sketched TP site launches the score kernel
+    alone, a local sketched site runs ``mask`` (no kernel), an expert site
+    its local plan as on one device (JAX's body runs with no mesh): the
+    score and the fused kernel."""
+    from collections import Counter
+
+    from repro_torch.core.site import TP_OUT_ROLES, TP_ROW_ROLES
+    from repro_torch.kernels import ops
+
+    n_mp = ex.mesh.axis_size(ex.axes_in_mesh()[1])
+    sites, experts = mesh_sites(cfg)
+    kinds, score, fused = Counter(), 0, 0
+    for i, role, n, k in sites:
+        c = policy.config_for(role, i, cfg.n_layers)
+        if c is None or c.is_noop:
+            kind = ("tp_exact" if role in TP_OUT_ROLES and n % n_mp == 0 else
+                    "tp_row" if role in TP_ROW_ROLES and k % n_mp == 0 else "local")
+            kinds[f"exact {kind}"] += 1
+            continue
+        spec = ex.site_spec(role, c, d_out=n, d_in=k)
+        kinds[f"{spec.plan.kind}/{spec.cfg.backend}"] += 1
+        if spec.cfg.backend == "pallas":
+            score += 1
+            fused += spec.plan.kind == "local"
+    if experts:
+        kinds["expert local/pallas"] += experts
+        score, fused = score + experts, fused + experts
+    head_tp = not cfg.tie_embeddings and cfg.vocab % n_mp == 0
+    kinds["head exact " + ("tp_exact" if head_tp else "local")] += 1
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(col_l1_scores=score, block_gather_matmul_fused=fused)
+    return dict(kinds), want
+
+
+def device_step(dev, fn, state, batch, key):
+    """One step with the card's activity traced (device events alone):
+    (state, metrics, device ops, device busy ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, m = fn(state, batch, key)
+        float(m["loss"])
+        sync(dev)
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return state, m, sum(e.count for e in kern), sum(_device_us(e) for e in kern) / 1e3
+
+
+def mesh_family(dev, mesh, name, cut, opt_name, tmp, total):
+    """Phase 19's checks of one config on the one-rank mesh (``families_mesh``)."""
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import collective_bytes, reset_collective_bytes
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.elastic import resume_on_mesh
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = f32_cfg(name).replace(**cut)
+    policy = slice_policy(0.2)
+    opt = sgd(1e-3) if opt_name == "sgd" else adamw(1e-3)
+    batch = mesh_batch(cfg)
+    full = lm.init_params(MESH_SEED, cfg, device=dev)
+    n_params = lm.num_params(full)
+
+    def fresh(ex):
+        params = tree_map(lambda t: t.detach().clone(), full)
+        return init_state(0, cfg, opt, params=params, device=dev, execution=ex)
+
+    def run(ex, pol):
+        """One step from the initial parameters: (state, metrics, launches,
+        payload bytes, step function, its batch)."""
+        st = fresh(ex)
+        fn = make_train_step(cfg, opt, pol, execution=ex, device=dev)
+        b = batch if ex is None else shard_batch(batch, mesh=mesh)
+        ops.reset_launch_counts()
+        reset_collective_bytes()
+        st, m = fn(st, b, MESH_SEED)
+        sync(dev)
+        counts = ops.launch_counts()
+        if pol is not None:
+            add_counts(total, counts)
+        return st, m, counts, collective_bytes()["total"], fn, b
+
+    # (a) tp_sketch off, pallas: the mesh step is the single-device step
+    want_a = family_counts(cfg, "pallas", 1)
+    single, m1, c1, _, fn1, b1 = run(None, policy)
+    host = [t.detach().cpu() for t in dist_leaves(single)]
+    loss1, gn1 = m1["loss"].detach().cpu(), m1["grad_norm"].detach().cpu()
+    del single, m1
+    ex_a = ExecutionConfig(mesh=mesh)
+    mesh_a, m2, c2, bytes_a, fn_a, b_a = run(ex_a, policy)
+    got = dist_leaves(mesh_a)
+    same = (len(got) == len(host) and torch.equal(loss1, m2["loss"].detach().cpu())
+            and torch.equal(gn1, m2["grad_norm"].detach().cpu())
+            and all(torch.equal(h, t.detach().cpu()) for h, t in zip(host, got)))
+    if c1 != want_a or c2 != want_a:
+        raise AssertionError(f"[mesh-fam] {name} (a) launches {c2} (single {c1}), want {want_a}")
+    if not same:
+        raise AssertionError(f"[mesh-fam] {name} (a) the one-rank mesh step differs from the "
+                             "single-device step")
+    del host, got
+    print(f"[mesh-fam] {name} ({n_params} params, {cut}, {opt_name}): (a) tp_sketch off, "
+          f"pallas l1@0.2 block {BLOCK}: loss {float(m2['loss']):.6f}, aux "
+          f"{float(m2['aux']):.6g}, grad_norm {float(m2['grad_norm']):.6g}; "
+          f"{len(dist_leaves(mesh_a))} leaves bit for bit the single-device step; launches "
+          f"{c2} (= single); collective payload {bytes_a} B")
+
+    # (c) olmoe: the mesh state through CheckpointManager(mesh=)
+    if name == "olmoe-1b-7b":
+        ckdir = os.path.join(tmp, "olmoe_ckpt")
+        mgr = ck.CheckpointManager(ckdir, every=1, mesh=mesh)
+        mgr.maybe_save(1, mesh_a)
+        mgr.wait()
+        restored, step = resume_on_mesh(ckdir, mesh_a, mesh, device=dev)
+        if step != 1 or not all(torch.equal(a, b) for a, b in zip(dist_leaves(mesh_a),
+                                                                  dist_leaves(restored))):
+            raise AssertionError("[mesh-fam] (c) the restored olmoe state differs")
+        print(f"[mesh-fam] {name} (c) the mesh state ({len(dist_leaves(restored))} leaves) "
+              "through CheckpointManager(mesh=) and resume_on_mesh bit for bit")
+        del restored
+    del mesh_a
+
+    # (b) tp_sketch on
+    ex_b = ExecutionConfig(mesh=mesh, tp_sketch=True)
+    split, want_b = mesh_site_split(cfg, ex_b, policy)
+    exact_b, m_ex, _, bytes_ex, _, _ = run(ex_b, None)
+    del exact_b
+    tp_b, m_b, c_b, bytes_b, _, _ = run(ex_b, policy)
+    rel = abs(float(m_b["loss"]) - float(m_ex["loss"])) / abs(float(m_ex["loss"]))
+    finite = math.isfinite(float(m_b["grad_norm"])) and all(
+        torch.isfinite(t).all() for t in dist_leaves(tp_b))
+    if c_b != want_b or rel > 1e-5 or not finite:
+        raise AssertionError(f"[mesh-fam] {name} (b) launches {c_b} (want {want_b}), loss "
+                             f"rel {rel}, finite {finite}")
+    del tp_b
+    print(f"[mesh-fam] {name} (b) tp_sketch on: sites {split}; loss {float(m_b['loss']):.6f} "
+          f"vs the exact TP step's {float(m_ex['loss']):.6f} (rel {rel:.2e}); grad_norm "
+          f"{float(m_b['grad_norm']):.6g}, every leaf finite; launches {c_b}; collective "
+          f"payload: exact TP {bytes_ex} B, sketched {bytes_b} B")
+
+    # (d) ms per step, single against mesh (a), interleaved
+    runs = {"single": (fn1, b1, None), "mesh": (fn_a, b_a, ex_a)}
+    states = {k: fresh(ex) for k, (_, _, ex) in runs.items()}
+    del full
+    ms = {k: [] for k in runs}
+    ops.reset_launch_counts()
+    for k, (fn, b, _) in runs.items():
+        states[k], _ = fn(states[k], b, MESH_SEED)  # warm-up
+    sync(dev)
+    for rep in range(MESH_TIMED):
+        for k, (fn, b, _) in runs.items():
+            t1 = time.perf_counter()
+            states[k], m = fn(states[k], b, MESH_SEED + 1 + rep)
+            float(m["loss"])
+            sync(dev)
+            ms[k].append(1e3 * (time.perf_counter() - t1))
+    prof = {}
+    for k, (fn, b, _) in runs.items():
+        states[k], _, n_ops, busy = device_step(dev, fn, states[k], b, MESH_SEED)
+        prof[k] = (n_ops, busy)
+    sync(dev)
+    counts_d = ops.launch_counts()
+    want_d = family_counts(cfg, "pallas", 2 * (2 + MESH_TIMED))
+    if counts_d != want_d:
+        raise AssertionError(f"[mesh-fam] {name} (d) launches {counts_d}, want {want_d}")
+    add_counts(total, counts_d)
+    del states
+    torch.cuda.empty_cache()
+    print(f"[mesh-fam] {name} (d) ms per step ({MESH_TIMED} synced steps after a warm-up, "
+          f"order single, mesh): " + ", ".join(
+              f"{k} {[round(v, 2) for v in ms[k]]} (device ops {prof[k][0]}, busy "
+              f"{prof[k][1]:.2f} ms)" for k in runs)
+          + f"; collective payload of the mesh step {bytes_a} B; card {smi_line()}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def families_mesh(dev):
+    """Phase 19: the seven family configs (olmoe-1b-7b, mixtral-8x22b,
+    gemma3-1b, rwkv6-3b, zamba2-7b, qwen2-vl-2b, seamless-m4t-large-v2) at
+    full width, float32, l1@0.2 block 128, cut in depth (MESH_FAMILIES),
+    through the distributed runtime on a one-rank NCCL mesh (1, 1), batch
+    4x256: (a) tp_sketch off, pallas: one mesh step equals the single-device
+    step bit for bit (loss, grad norm, every parameter and moment), score
+    and fused launches equal and one each per sketched site; (b) tp_sketch
+    on: the plan of every site, the loss equal to the exact TP step's (rel
+    1e-5), a finite update, the launches of the plans (expert sites run
+    their local plan: score and fused); (c) olmoe's mesh state restored
+    bit for bit through CheckpointManager(mesh=); (d) ms per step, single
+    against mesh, device ops and busy ms of one traced step each. The TPX
+    mode cannot occur on one rank (E % 1 == 0): the gloo tests cover it.
+    Returns the launches of every sketched step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = dist_group(tmp)
+        try:
+            for name, cut, opt_name in MESH_FAMILIES:
+                mesh_family(dev, mesh, name, cut, opt_name, tmp, total)
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    print(f"[time]   families under a mesh {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -4413,6 +4726,11 @@ def main() -> int:
     for name, n in an_counts.items():
         launches[name] += n
     print(f"[time] the analysis tooling {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_fam_counts = families_mesh(dev)
+    for name, n in mesh_fam_counts.items():
+        launches[name] += n
+    print(f"[time] the families under a mesh {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -4463,7 +4781,8 @@ def main() -> int:
           f"{json.dumps(fe_counts)}; the distributed runtime (phase 17: the one-rank mesh's "
           f"sketched steps and their single-device twins): {json.dumps(dist_counts)}; the analysis "
           f"tooling (phase 18's cross-checks, one forward and backward per config): "
-          f"{json.dumps(an_counts)}")
+          f"{json.dumps(an_counts)}; the families under a mesh (phase 19: every sketched "
+          f"single-device and one-rank mesh step): {json.dumps(mesh_fam_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -128,11 +128,15 @@ class ExecutionConfig:
         dp, mp = self.axes_in_mesh()
         return dict(mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch)
 
-    def make_ctx(self, *, policy=None, key=None, layer_index: int = 0, n_layers: int = 1):
+    def make_ctx(self, *, policy=None, key=None, layer_index: int = 0, n_layers: int = 1,
+                 rows_sharded: bool = True):
         """The per-call :class:`~repro_torch.nn.common.Ctx` (``key``: the
-        integer seed sketched sites derive their generators from)."""
+        integer seed sketched sites derive their generators from;
+        ``rows_sharded``: under a mesh, whether the batch holds this rank's
+        rows or the whole batch on every data rank)."""
         from repro_torch.nn.common import Ctx
 
         dp, mp = self.axes_in_mesh()
         return Ctx(policy=policy, key=key, layer_index=layer_index, n_layers=n_layers,
-                   mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch)
+                   mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch,
+                   rows_sharded=rows_sharded)

@@ -78,7 +78,7 @@ from repro_torch.core import estimators
 from repro_torch.core.sketching import SketchConfig, effective_cfg, static_block_rank, static_rank
 
 __all__ = ["ExecutionPlan", "SiteSpec", "resolve_site", "resolve_tree_site", "site_role",
-           "sketched_site", "tp_estimator", "tp_site", "mesh_site", "gather_param",
+           "sketched_site", "tp_estimator", "tp_site", "mesh_site", "gather_param", "gather_fsdp",
            "TP_OUT_ROLES", "TP_ROW_ROLES"]
 
 # roles whose d_out (column-parallel) / d_in (row-parallel) is sharded over
@@ -484,16 +484,54 @@ def gather_param(w, mesh, data_axes):
     return _GatherParam.apply(w, spec, mesh, tuple(data_axes))
 
 
+def gather_fsdp(w, mesh, data_axes):
+    """A marked shard gathered over the data axes only (its FSDP
+    dimension), its model-sharded dimensions left as they are: the stacked
+    expert weights of an expert- or tensor-parallel MoE layer
+    (``nn/moe.py``), of any rank. Backward: the gradient reduce-scattered
+    over the data axes (all-reduced where no dimension shards over them).
+    An unmarked leaf is summed over the data axes on the backward."""
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    data_axes = tuple(data_axes)
+    spec = spec_of(w)
+    if spec is not None:
+        spec = tuple(tuple(a for a in dim_axes(e) if a in data_axes) or None for e in spec)
+    if spec is None or all(e is None for e in spec):
+        return _SumOverData.apply(w, mesh, data_axes)
+    return _GatherParam.apply(w, spec, mesh, data_axes)
+
+
+def _gather_model(w, mesh, data_axes):
+    """The whole of a shard sharded over model only (gathered along each
+    such dimension; backward: this rank's chunk, no sum over data)."""
+    from repro_torch.launch.mesh import gather_replicated
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    for d, e in enumerate(spec_of(w) or ()):
+        axes = dim_axes(e)
+        if any(a in data_axes for a in axes):
+            raise ValueError(f"a weight sharded over the data axes ({spec_of(w)}) needs its "
+                             "gradient summed over them: gather it with gather_param")
+        if axes:
+            w = gather_replicated(w, axes, mesh, d)
+    return w
+
+
 def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gslot=None,
-              pslot=None, compact_rows=None):
+              pslot=None, compact_rows=None, reduce_grad=True):
     """A local-plan site under a mesh: the weight gathered whole, this rank's
     rows of the batch, the single-device numbers (module docstring). Exact
     (``cfg`` None or no generator) through plain autograd on the gathered
     weight. A sketched site on a model axis of several ranks runs the
-    ``mask`` backend only (or raises)."""
+    ``mask`` backend only (or raises). ``reduce_grad=False`` (a tied head's
+    table, sharded over model only): the weight is gathered over model and
+    its gradient left this rank's partial sum over data, for the train step
+    to sum with the table's other uses."""
     from repro_torch.launch.sharding import spec_of
 
-    wf = gather_param(w, mesh, data_axes)
+    wf = gather_param(w, mesh, data_axes) if reduce_grad else _gather_model(w, mesh,
+                                                                            data_axes)
     bf = None if b is None else _SumOverData.apply(b, mesh, tuple(data_axes))
     if cfg is None or cfg.is_noop or gen is None:
         return _matmul(x, wf, bf)

@@ -46,7 +46,8 @@ from repro_torch.device import resolve_device
 __all__ = ["Mesh", "Axes", "layout", "make_mesh", "make_production_mesh", "dp_axes", "mp_axes",
            "psum", "psum_scatter", "all_gather", "axis_index", "chunk_of", "collective_bytes",
            "reset_collective_bytes", "gather_replicated",
-           "slice_replicated"]
+           "slice_replicated", "copy_to", "reduce_from", "psum_partial", "pmean_shared",
+           "split_partial", "gather_partial"]
 
 _BYTES: Dict[str, int] = {"psum": 0, "psum_scatter": 0, "all_gather": 0}
 
@@ -270,7 +271,9 @@ def all_gather(x: torch.Tensor, axes, mesh: Mesh, *, axis: int = 0,
     out = torch.empty((src.shape[0] * n,) + tuple(src.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather_into_tensor(out, src, group=mesh.group(axes))
-    return out.movedim(0, d)
+    # contiguous in the input's layout, so what reads it reduces in the
+    # single-device order
+    return out.movedim(0, d).contiguous()
 
 
 def chunk_of(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
@@ -330,3 +333,136 @@ def slice_replicated(x, axes, mesh: Mesh, dim: int):
     if not mesh.axes(axes):
         return x
     return _SliceReplicated.apply(x, mesh.axes(axes), mesh, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axes, ctx.mesh), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        out = psum(x, axes, mesh)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to(x, axes, mesh: Mesh):
+    """``x`` (replicated over ``axes``) entering work that each rank of
+    ``axes`` does a part of: identity forward; backward: the all-reduce of
+    the ranks' partial cotangents (Megatron's ``f``)."""
+    if not mesh.axes(axes):
+        return x
+    return _CopyTo.apply(x, mesh.axes(axes), mesh)
+
+
+def reduce_from(x, axes, mesh: Mesh):
+    """The sum over ``axes`` of the ranks' partial results, replicated over
+    them; identity backward: every rank holds the full cotangent of the sum
+    (Megatron's ``g``)."""
+    if not mesh.axes(axes):
+        return x
+    return _ReduceFrom.apply(x, mesh.axes(axes), mesh)
+
+
+# -- tensors whose cotangents are partial sums ----------------------------------
+#
+# Over the data axes each rank's loss is its share of the global one, so the
+# cotangents there are partial sums that the train step completes by summing
+# the gradients over the data axes. The functions below move such tensors.
+
+
+class _PsumPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        out = psum(x, axes, mesh)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.axes, ctx.mesh), None, None
+
+
+class _PmeanShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return psum(x, axes, mesh) / mesh.axis_size(axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SplitPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim, ctx.n = axes, mesh, dim, x.shape[dim]
+        return chunk_of(x, axes, mesh, dim).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        size = g.shape[ctx.dim]
+        shape = list(g.shape)
+        shape[ctx.dim] = ctx.n
+        out = g.new_zeros(shape)
+        out.narrow(ctx.dim, axis_index(ctx.mesh, ctx.axes) * size, size).copy_(g)
+        return out, None, None, None
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return all_gather(x, axes, mesh, axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_scatter(g, ctx.axes, ctx.mesh, scatter_dimension=ctx.dim), None, None, None
+
+
+def psum_partial(x, axes, mesh: Mesh):
+    """The sum over ``axes`` replicated on their ranks, each of which reads
+    it for its own part of the work (a norm's sum of squares over a model
+    chunk of channels): all-reduce forward and backward."""
+    if not mesh.axes(axes):
+        return x
+    return _PsumPartial.apply(x, mesh.axes(axes), mesh)
+
+
+def pmean_shared(x, axes, mesh: Mesh):
+    """The mean over ``axes`` of the ranks' values (statistics of their own
+    rows, as JAX's ``pmean``), with an identity backward: each rank's loss
+    carries its share of what reads the mean, so the ranks' gradients sum
+    to the gradient of the whole."""
+    if not mesh.axes(axes):
+        return x
+    return _PmeanShared.apply(x, mesh.axes(axes), mesh)
+
+
+def split_partial(x, axes, mesh: Mesh, dim: int = 0):
+    """This rank's chunk along ``dim`` of a tensor every rank of ``axes``
+    holds whole; backward: the chunk's cotangent in place and zeros
+    elsewhere (this rank's share, which the ranks' sum completes)."""
+    if not mesh.axes(axes):
+        return x
+    return _SplitPartial.apply(x, mesh.axes(axes), mesh, dim)
+
+
+def gather_partial(x, axes, mesh: Mesh, dim: int = 0):
+    """The chunks of ``axes``' ranks all-gathered along ``dim``; backward:
+    the ranks' partial cotangents summed and this rank's chunk kept
+    (a reduce-scatter). The inverse of :func:`split_partial`."""
+    if not mesh.axes(axes):
+        return x
+    return _GatherPartial.apply(x, mesh.axes(axes), mesh, dim)

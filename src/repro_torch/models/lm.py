@@ -51,8 +51,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
 from repro_torch.nn import ssm
-from repro_torch.nn.attention import (AttnCfg, attention, attn_init, decode_attention,
-                                      init_kv_cache)
+from repro_torch.nn.attention import (SERVING_MESH, AttnCfg, attention, attn_init,
+                                      decode_attention, init_kv_cache)
 from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init, trunc_normal
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.nn.moe import MoECfg, moe_ffn, moe_init
@@ -62,7 +62,7 @@ __all__ = ["LayerKind", "plan_segments", "layer_kinds", "jax_layer_paths", "init
            "forward", "forward_with_aux", "lm_loss", "num_params", "active_params_per_token",
            "check_supported", "attn_cfg", "cross_cfg", "check_decoder", "check_recurrent_segments",
            "init_cache", "layer_cache",
-           "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE", "check_mesh",
+           "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE",
            "param_shapes"]
 
 # the encoder's layer uids start here (JAX's seg_base), so its sites never
@@ -297,16 +297,18 @@ def _embed(params, tokens_or_embeds, cfg: ArchConfig):
     return x
 
 
-def _mesh_embed(params, tokens, ctx: Ctx, cfg: ArchConfig):
+def _mesh_embed(params, inp, ctx: Ctx, cfg: ArchConfig):
     """The embedding on a mesh: the table's d is sharded over model, so this
     rank looks up its chunk of d and the rows are all-gathered over model
-    (the residual stream is replicated over model)."""
+    (the residual stream is replicated over model). A stub frontend's float
+    embeddings arrive whole. The table's gradient (the lookup's, plus a tied
+    head's) is this rank's partial sum over data; the train step sums it."""
     from repro_torch.launch.mesh import gather_replicated
     from repro_torch.launch.sharding import dim_axes, spec_of
 
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, inp, cfg)
     spec = spec_of(params["embed"])
-    if spec is not None and dim_axes(spec[1]):
+    if not inp.is_floating_point() and spec is not None and dim_axes(spec[1]):
         x = gather_replicated(x, dim_axes(spec[1]), ctx.mesh, -1)
     return x
 
@@ -321,44 +323,38 @@ def _head(params, x, ctx: Ctx, cfg: ArchConfig):
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]["w"]
     hcfg = ctx.cfg_for("lm_head")
     if ctx.mesh is not None:
-        return _mesh_head(w, x, ctx, hcfg)
+        return _mesh_head(w, x, ctx, hcfg, cfg.tie_embeddings)
     key = ctx.site_key("lm_head", x.device) if hcfg is not None else None
     return linear(x, w, key=key, cfg=hcfg)
 
 
-def _mesh_head(w, x, ctx: Ctx, hcfg):
-    """The head on a mesh: under ``tp_sketch`` an exact head whose vocabulary
-    divides the model axis runs the Megatron column-parallel ``tp_exact``
-    plan (JAX's ``tp_exact_linear``, ``models/lm.py:403-414``), and its
-    vocab-sharded logits are all-gathered over model for the loss (the
-    numbers of a vocab-parallel softmax); otherwise the local plan on the
-    gathered weight."""
+def _mesh_head(w, x, ctx: Ctx, hcfg, tied: bool):
+    """The head on a mesh: under ``tp_sketch`` an exact untied head whose
+    vocabulary divides the model axis runs the Megatron column-parallel
+    ``tp_exact`` plan (JAX's ``tp_exact_linear``, ``models/lm.py:403-414``),
+    and its vocab-sharded logits are all-gathered over model for the loss
+    (the numbers of a vocab-parallel softmax); otherwise the local plan on
+    the gathered weight. A tied head (the embedding table: JAX's local plan
+    on it) gathers the table over model only: its gradient stays this
+    rank's partial sum over data, which the train step sums once with the
+    lookup's."""
+    from repro_torch.core import site
     from repro_torch.core.sharded_sketch import tp_exact_linear
     from repro_torch.launch.mesh import gather_replicated
     from repro_torch.launch.sharding import global_shape
     from repro_torch.nn.common import _mesh_dense
 
+    if tied:
+        seed = ctx.site_seed("lm_head") if hcfg is not None else None
+        args = (ctx.mesh, ctx.data_axes, ctx.model_axes)
+        if hcfg is None or hcfg.is_noop or seed is None:
+            return site.mesh_site(None, x, w, None, None, *args, reduce_grad=False)
+        spec = ctx.site_spec("lm_head", hcfg, w)
+        return site.mesh_site(spec.cfg, x, w, None, rng.generator(seed, x.device), *args,
+                              reduce_grad=False)
     if ctx.tp_sketch and hcfg is None and global_shape(w, ctx.mesh)[0] % ctx.n_mp == 0:
         return gather_replicated(tp_exact_linear(x, w, ctx), ctx.model_axes, ctx.mesh, -1)
     return _mesh_dense({"w": w}, x, ctx, "lm_head", hcfg)
-
-
-def check_mesh(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the distributed runtime
-    does not run yet: it runs the dense decoder family with its own head
-    (the other families, tied embeddings and serving under a mesh are
-    ROADMAP.md's next distributed slice)."""
-    what = None
-    if cfg.family != "dense" or cfg.block_kind != "attn" or cfg.n_experts > 0:
-        what = f"the {cfg.family} family"
-    elif cfg.tie_embeddings:
-        what = "tied embeddings"
-    elif cfg.is_encdec or cfg.frontend is not None or cfg.local_global > 0:
-        what = "this layer plan"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} under a mesh is not ported (ROADMAP.md, the next distributed "
-            "slice): the distributed runtime runs the dense decoder family")
 
 
 def _cross(p, x, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
@@ -495,12 +491,12 @@ def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(cfg, B, S, inp.device)
-    if ctx.mesh is not None:
-        check_mesh(cfg)
-        return _mesh_embed(params, inp, ctx, cfg), positions, None
+    # under a mesh every entry holds this rank's rows (M-RoPE's positions on
+    # axis 1): the encoder runs on this rank's source rows
     memory = (encode(params, batch["src_embeds"], ctx, cfg, step_key) if cfg.is_encdec
               else None)
-    return _embed(params, inp, cfg), positions, memory
+    x = _embed(params, inp, cfg) if ctx.mesh is None else _mesh_embed(params, inp, ctx, cfg)
+    return x, positions, memory
 
 
 def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -558,6 +554,8 @@ def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=Non
     caches hold the memory's cross keys and values. Optional
     ``batch["segments"]`` segment-masks self-attention, so several packed
     prompts share one call."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(SERVING_MESH)
     x, positions, memory = _prologue(params, batch, ctx, cfg, step_key)
     caches = init_cache(cfg, x.shape[0], max_len,
                         enc_len=0 if memory is None else memory.shape[1], device=x.device)
@@ -574,6 +572,8 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
     a cross-attention reads the whole of its cached memory. Returns (logits
     [B, 1, V], caches)."""
     check_decoder(cfg)
+    if ctx.mesh is not None:
+        raise NotImplementedError(SERVING_MESH)
     positions = _default_positions(cfg, tokens.shape[0], 1, tokens.device, offset=pos)
     x, _ = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
                        caches=caches, pos=pos)
@@ -600,7 +600,9 @@ def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     n_dp = 1 if ctx.mesh is None else ctx.mesh.axis_size(ctx.data_axes)
     if n_dp > 1:
         # this rank's rows' share of the global mean: the ranks' losses (and
-        # their gradients) sum to the global one
+        # their gradients) sum to the global one. aux is the global value on
+        # every rank, so each carries aux / n_dp (nn/moe.py); the metric
+        # "aux" stays the global value, which the step does not sum
         from repro_torch.launch.mesh import psum
 
         if mask is None:
@@ -608,7 +610,8 @@ def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
         else:
             den = psum(mask.sum().to(torch.float32), ctx.data_axes, ctx.mesh)
             loss = (nll * mask).sum() / den.clamp_min(1.0)
-    elif mask is None:
+        return loss + aux / n_dp, {"loss": loss, "aux": aux, "nll": loss}
+    if mask is None:
         loss = nll.mean()
     else:
         loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -181,6 +181,9 @@ def _fill_prefill(cache, k, v, cfg: AttnCfg, segs=None):
 # plans whose output is sharded over the model axis
 _MODEL_SHARDED_OUT = ("tp_column", "tp_exact")
 
+SERVING_MESH = ("serving under a mesh is not ported (ROADMAP.md Queue 1 item 2b, the next "
+                "distributed slice): prefill and decode run on one device")
+
 
 def _mesh_heads(params, ctx: Ctx, cfg: AttnCfg, prefix: str, q, k, v):
     """q, k, v projections on a mesh: kept on this rank's heads when all
@@ -238,8 +241,7 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
     local = False
     if ctx.mesh is not None:
         if cache is not None:
-            raise NotImplementedError("serving under a mesh is not ported (ROADMAP.md, the "
-                                      "next distributed slice)")
+            raise NotImplementedError(SERVING_MESH)
         q, k, v, local = _mesh_heads(params, ctx, cfg, role_prefix, q, k, v)
     # under a mesh with local heads: this rank's model chunk of the heads
     q = q.reshape(B, S, -1, cfg.d_head)

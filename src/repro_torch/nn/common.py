@@ -43,6 +43,9 @@ class Ctx:
     data_axes: tuple = ("data",)
     model_axes: tuple = ("model",)
     tp_sketch: bool = False  # TP plans for the sites that take them (core/site.py)
+    # under a mesh: this rank's rows are its share of the batch over the data
+    # axes (False: every data rank holds the whole batch, which did not divide)
+    rows_sharded: bool = True
 
     @property
     def n_mp(self) -> int:

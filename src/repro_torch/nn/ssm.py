@@ -23,6 +23,19 @@ function (see the comments there):
 
 JAX's ``cost_mode`` (python-unrolled loops for HLO cost artifacts) has no
 counterpart: the port's chunk loop is always a Python loop.
+
+Under a mesh (training) the blocks' linears run through ``dense`` with JAX's
+roles, so under ``tp_sketch`` Mamba2's ``in_x``/``in_z`` (``ssm_in``) and
+RWKV6's ``r``/``k``/``v``/``g`` take column plans and their out projections
+row plans; ``in_B``/``in_C``/``in_dt`` (``ssm_small``), ``w1``/``w2`` and the
+small leaves stay whole. The recurrence runs on this rank's heads where
+every projection feeding it ran column-parallel and the heads divide the
+model axis (the conv leaf, stored as its model chunk of channels by the
+sharding rules, is then used as it is, the per-head leaves are cut to this
+rank's heads, and the RMS norm over the channels sums its squares over
+model); otherwise each model-sharded projection is all-gathered over model
+and the recurrence runs on every head, as ``nn.attention._mesh_heads``
+does.
 """
 from __future__ import annotations
 
@@ -167,34 +180,126 @@ def _ssd(x, dt, A, B, C, cfg: MambaCfg, state0):
     return y[:, :S_in], state
 
 
-def _mamba_pre(params, x, ctx: Ctx, cfg: MambaCfg, conv_state=None):
+# -- under a mesh ------------------------------------------------------------
+
+def _sharded_out(ctx: Ctx, p, role: str) -> bool:
+    """Whether the plan of ``p``'s site gives an output sharded over model."""
+    from repro_torch.nn.attention import _MODEL_SHARDED_OUT
+
+    return ctx.plan_kind(role, p) in _MODEL_SHARDED_OUT
+
+
+def _heads_local(ctx: Ctx, params, roles: dict, n_heads: int) -> bool:
+    """Whether a block runs its recurrence on this rank's heads: every
+    projection in ``roles`` (name -> role) ran column-parallel and the heads
+    divide the model axis."""
+    return (ctx.mesh is not None and n_heads % ctx.n_mp == 0
+            and all(_sharded_out(ctx, params[n], r) for n, r in roles.items()))
+
+
+def _whole(t, ctx: Ctx, p, role: str):
+    """A projection's output whole: all-gathered over model where its plan
+    sharded it."""
+    if ctx.mesh is None or not _sharded_out(ctx, p, role):
+        return t
+    from repro_torch.launch.mesh import gather_replicated
+
+    return gather_replicated(t, ctx.model_axes, ctx.mesh, -1)
+
+
+def _mine(t, ctx: Ctx, dim: int = -1):
+    """This rank's model chunk of a tensor replicated over model (a per-head
+    leaf, the whole decay); backward: the chunks' cotangents gathered."""
+    from repro_torch.launch.mesh import slice_replicated
+
+    return slice_replicated(t, ctx.model_axes, ctx.mesh, dim)
+
+
+def _model_whole(w, ctx: Ctx, dim: int):
+    """A leaf the rules shard over model along ``dim``, gathered whole
+    (backward: this rank's chunk)."""
+    from repro_torch.launch.mesh import gather_replicated
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    spec = spec_of(w)
+    if ctx.mesh is None or spec is None or not dim_axes(spec[dim]):
+        return w
+    return gather_replicated(w, dim_axes(spec[dim]), ctx.mesh, dim)
+
+
+def _norm(p, x, ctx: Ctx, local: bool, eps: float = 1e-6):
+    """``rmsnorm`` over the channels; with ``local``, ``x`` holds this rank's
+    chunk of them and the mean square is summed over model."""
+    from repro_torch.launch.mesh import psum_partial
+
+    if not local:
+        return rmsnorm(p, x, eps)
+    x32 = x.to(torch.float32)
+    d = x.shape[-1] * ctx.n_mp
+    ss = psum_partial(x32.square().sum(-1, keepdim=True), ctx.model_axes, ctx.mesh)
+    y = x32 * torch.rsqrt(ss / d + eps)
+    return (y * _mine(p["g"], ctx, 0).to(torch.float32)).to(x.dtype)
+
+
+def _out_input(p, ctx: Ctx, role: str, h, local: bool):
+    if ctx.mesh is None:
+        return h
+    from repro_torch.nn.attention import _mesh_out_input
+
+    return _mesh_out_input(p, ctx, role, h, local)
+
+
+_MAMBA_IN = {"in_z": "ssm_in", "in_x": "ssm_in"}
+
+
+def _mamba_pre(params, x, ctx: Ctx, cfg: MambaCfg, conv_state=None, local=False):
+    """The projections, the conv and dt; with ``local`` (under a mesh) z,
+    x, the conv and dt on this rank's heads."""
     z = dense(params["in_z"], x, ctx, "ssm_in")
     xs = dense(params["in_x"], x, ctx, "ssm_in")
     Bc = dense(params["in_B"], x, ctx, "ssm_small")
     Cc = dense(params["in_C"], x, ctx, "ssm_small")
     dt = dense(params["in_dt"], x, ctx, "ssm_small")
-    xs, new_conv = _causal_conv(xs, params["conv"], conv_state)
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
+    conv, dt_bias = params["conv"], params["dt_bias"]
+    if ctx.mesh is not None:
+        if local:
+            from repro_torch.launch.mesh import copy_to
+
+            dt, dt_bias = _mine(dt, ctx), _mine(dt_bias, ctx, 0)
+            # B and C are shared by every head: this rank's heads give
+            # partial cotangents
+            Bc, Cc = (copy_to(t, ctx.model_axes, ctx.mesh) for t in (Bc, Cc))
+        else:
+            z, xs = _whole(z, ctx, params["in_z"], "ssm_in"), _whole(xs, ctx, params["in_x"],
+                                                                     "ssm_in")
+            conv = _model_whole(conv, ctx, 1)
+    xs, new_conv = _causal_conv(xs, conv, conv_state)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)
     return z, xs, Bc, Cc, dt, new_conv
 
 
-def _mamba_post(params, y, z, ctx: Ctx, dtype):
+def _mamba_post(params, y, z, ctx: Ctx, dtype, local=False):
     y = y.to(dtype) * F.silu(z.to(torch.float32)).to(dtype)
-    return dense(params["out"], rmsnorm(params["norm"], y), ctx, "ssm_out")
+    y = _out_input(params["out"], ctx, "ssm_out", _norm(params["norm"], y, ctx, local), local)
+    return dense(params["out"], y, ctx, "ssm_out")
 
 
 def mamba_prefill(params, x, ctx: Ctx, cfg: MambaCfg):
     """Training/prefill path. x: [B, S, d_model] -> (out [B, S, d_model],
     the final ``{"ssm", "conv"}`` state; JAX's ``lm._mamba_prefill``)."""
     Bsz, S, _ = x.shape
-    H, P = cfg.n_heads, cfg.head_dim
-    z, xs, Bc, Cc, dt, conv = _mamba_pre(params, x, ctx, cfg)
+    local = _heads_local(ctx, params, _MAMBA_IN, cfg.n_heads)
+    H, P = cfg.n_heads // (ctx.n_mp if local else 1), cfg.head_dim
+    z, xs, Bc, Cc, dt, conv = _mamba_pre(params, x, ctx, cfg, local=local)
     xh = xs.reshape(Bsz, S, H, P).to(torch.float32)
-    A = torch.exp(params["A_log"])
+    A_log, D = params["A_log"], params["D"]
+    if local:
+        A_log, D = _mine(A_log, ctx, 0), _mine(D, ctx, 0)
+    A = torch.exp(A_log)
     state0 = x.new_zeros((Bsz, H, P, cfg.d_state), dtype=torch.float32)
     y, state = _ssd(xh, dt, A, Bc.to(torch.float32), Cc.to(torch.float32), cfg, state0)
-    y = y + params["D"][None, None, :, None] * xh
-    out = _mamba_post(params, y.reshape(Bsz, S, cfg.d_inner), z, ctx, x.dtype)
+    y = y + D[None, None, :, None] * xh
+    out = _mamba_post(params, y.reshape(Bsz, S, H * P), z, ctx, x.dtype, local)
     return out, {"ssm": state, "conv": conv}
 
 
@@ -296,6 +401,9 @@ def _wkv_chunk(state, r, k, v, w, u):
     return state, out + (r * u * k).sum(-1, keepdim=True) * v
 
 
+_RWKV_IN = {"r": "attn_q", "k": "attn_k", "v": "attn_v", "g": "mlp_gate"}
+
+
 def rwkv_time_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
     """x: [B, S, d] -> (y, new_state); state = {"wkv": [B, H, P, P], "shift":
     [B, 1, d]} or None (zeros)."""
@@ -314,11 +422,19 @@ def rwkv_time_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
     # data-dependent decay w in (0, 1): exp(-exp(lora(x))); a raw matmul, not a site
     wlog = (mix(4).to(torch.float32) @ params["w1"]["w"].t()) @ params["w2"]["w"].t()
     w = torch.exp(-torch.exp(wlog + params["w_bias"]))
+    u = params["u"]
+    local = _heads_local(ctx, params, _RWKV_IN, H)
+    if local:
+        H, d = H // ctx.n_mp, d // ctx.n_mp
+        w, u = _mine(w, ctx), _mine(u, ctx, 0)
+    elif ctx.mesh is not None:
+        r, k, v, g = (_whole(t, ctx, params[n], role)
+                      for t, (n, role) in zip((r, k, v, g), _RWKV_IN.items()))
 
     shp = (Bsz, S, H, P)
     rh, kh, vh = (t.to(torch.float32).reshape(shp) for t in (r, k, v))
     wh = w.reshape(shp)
-    u = params["u"].reshape(H, P)
+    u = u.reshape(H, P)
     s = (state["wkv"] if state is not None
          else x.new_zeros((Bsz, H, P, P), dtype=torch.float32))
     Q = min(cfg.chunk, S)
@@ -332,9 +448,9 @@ def rwkv_time_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
         ys.append(o)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y[:, :S].reshape(Bsz, S, d).to(x.dtype)
-    y = rmsnorm(params["ln_x"], y)
+    y = _norm(params["ln_x"], y, ctx, local)
     y = y * F.silu(g.to(torch.float32)).to(x.dtype)
-    y = dense(params["out"], y, ctx, "attn_o")
+    y = dense(params["out"], _out_input(params["out"], ctx, "attn_o", y, local), ctx, "attn_o")
     return y, {"wkv": s, "shift": x[:, -1:]}
 
 
@@ -347,7 +463,11 @@ def rwkv_channel_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
     xr = x + mu[1].to(x.dtype) * (xp - x)
     kk = dense(params["cm_k"], xk, ctx, "mlp_in")
     kk = torch.square(F.relu(kk.to(torch.float32))).to(x.dtype)
-    rr = torch.sigmoid(dense(params["cm_r"], xr, ctx, "mlp_gate").to(torch.float32)).to(x.dtype)
+    rr = _whole(dense(params["cm_r"], xr, ctx, "mlp_gate"), ctx, params["cm_r"], "mlp_gate")
+    rr = torch.sigmoid(rr.to(torch.float32)).to(x.dtype)
+    if ctx.mesh is not None:  # the hidden layer on this rank's chunk where cm_k gave one
+        kk = _out_input(params["cm_v"], ctx, "mlp_out", kk,
+                        _sharded_out(ctx, params["cm_k"], "mlp_in"))
     return rr * dense(params["cm_v"], kk, ctx, "mlp_out"), x[:, -1:]
 
 

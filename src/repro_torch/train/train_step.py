@@ -116,7 +116,6 @@ def init_state(seed: int, cfg: ArchConfig, opt: Optimizer, *, params=None,
     if ex.mesh is not None:
         from repro_torch.launch import sharding
 
-        lm.check_mesh(cfg)
         params = sharding.shard_tree(params, sharding.param_specs(params, ex.mesh), ex.mesh)
     if pstate.policy_uses_carry(policy):
         params = pstate.with_plan_state(params, policy, n_layers=cfg.n_layers,
@@ -166,13 +165,33 @@ def _split_batch(batch: dict, accum: int) -> list:
             for m in range(accum)]
 
 
+# the linear sites of the recurrent blocks (their w and b run through dense)
+_RECURRENT_SITES = {"mamba": frozenset({"in_z", "in_x", "in_B", "in_C", "in_dt", "out"}),
+                    "rwkv": frozenset({"r", "k", "v", "g", "out", "cm_k", "cm_v", "cm_r"})}
+
+
 def _site_leaf(path) -> bool:
-    """A linear site's weight or bias (their backwards reduce over data)."""
+    """A leaf whose reader reduces its gradient over data itself: a linear
+    site's weight or bias, a stacked expert weight (``core.site.gather_fsdp``)."""
     from repro_torch.core.site import site_role
 
+    if len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wi", "wg", "wo"):
+        return True
     if len(path) < 2 or path[-1] not in ("w", "b"):
         return False
-    return path[-2] == "lm_head" or site_role(path[:-1]) is not None
+    if path[-2] == "lm_head" or site_role(path[:-1]) is not None:
+        return True
+    return len(path) >= 3 and path[-2] in _RECURRENT_SITES.get(path[-3], ())
+
+
+def _rows_sharded(batch) -> bool:
+    """Whether a mesh step's batch holds this rank's rows (entries marked by
+    ``data.pipeline.shard_batch``), not the whole batch on every data rank
+    (a batch that did not divide the data axes, or one not sharded)."""
+    from repro_torch.launch.sharding import spec_of
+
+    inp = batch.get("tokens", batch.get("embeds", batch.get("x")))
+    return isinstance(inp, torch.Tensor) and spec_of(inp) is not None
 
 
 def _sum_over_data(grads, mesh, dp):
@@ -217,8 +236,6 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     mesh = ex.mesh
     dp = ex.axes_in_mesh()[0]
     n_dp = 1 if mesh is None else mesh.axis_size(dp)
-    if mesh is not None:
-        lm.check_mesh(cfg)
     slot_kw = ex.slot_kwargs()
     carry_on = pstate.policy_uses_carry(policy)
     tel = ex.telemetry
@@ -227,8 +244,9 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
     layer_paths = lm.jax_layer_paths(cfg) if cfg.family != "mlp" else None
     encoder_paths = lm.jax_layer_paths(cfg, encoder=True) if cfg.family != "mlp" else None
 
-    def grads_of(params_in, batch, key, fault_scale):
-        ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers)
+    def grads_of(params_in, batch, key, fault_scale, rows_sharded):
+        ctx = ex.make_ctx(policy=policy, key=key, n_layers=cfg.n_layers,
+                          rows_sharded=rows_sharded)
         loss, metrics = lm.lm_loss(params_in, batch, ctx, cfg, key)
         if fault_scale is not None:
             loss = loss * fault_scale  # 1.0: a bitwise identity
@@ -246,15 +264,18 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
         if n_dp > 1:
             grads = _sum_over_data(grads, mesh, dp)
             loss = psum(loss, dp, mesh)
-            metrics = {k: psum(v, dp, mesh) if v.dim() == 0 else v for k, v in metrics.items()}
+            # "aux" (the MoE load-balance loss) is the global value on every rank
+            metrics = {k: psum(v, dp, mesh) if v.dim() == 0 and k != "aux" else v
+                       for k, v in metrics.items()}
         return loss, metrics, grads
 
-    def accumulated(params, batch, key, fault_scale):
+    def accumulated(params, batch, key, fault_scale, rows_sharded):
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                        params)
         for m, mb in enumerate(_split_batch(batch, ex.accum)):
-            mloss, metrics, grads = grads_of(params, mb, micro_seed(key, m), fault_scale)
+            mloss, metrics, grads = grads_of(params, mb, micro_seed(key, m), fault_scale,
+                                             rows_sharded)
             loss = loss + mloss / ex.accum
             for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
                 a.add_(g / ex.accum)
@@ -262,6 +283,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
 
     def base_step(state: TrainState, batch, key: int, fault_scale):
         lm.check_recurrent_segments(cfg, batch.get("segments"))  # on the host, before the copy
+        rows_sharded = mesh is None or _rows_sharded(batch)
         batch = batch_to_device(batch, dev)
         _trainable(state.params)
         probe_metrics = {}
@@ -274,7 +296,7 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             if probes_on:
                 params_in = tprobes.with_probe_slots(params_in, policy, n_layers=cfg.n_layers,
                                                      **slot_kw)
-            loss, metrics, grads = grads_of(params_in, batch, key, fault_scale)
+            loss, metrics, grads = grads_of(params_in, batch, key, fault_scale, rows_sharded)
             if probes_on:
                 grads, vecs = tprobes.collect_probes(grads)
                 probe_metrics = tprobes.summarize(vecs, per_site=tel.per_site,
@@ -284,7 +306,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, policy: Optional[SketchPoli
             if mesh is not None and ex.compact_grads:
                 grads = cgrad.localize_compact(grads, state.params)
         else:
-            loss, metrics, grads = accumulated(state.params, batch, key, fault_scale)
+            loss, metrics, grads = accumulated(state.params, batch, key, fault_scale,
+                                               rows_sharded)
         fresh = {}
         if carry_on:
             # the carry leaves' gradients ARE the refreshed scores (averaged

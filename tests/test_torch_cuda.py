@@ -1286,6 +1286,48 @@ def test_cuda_tp_plans_launch_scores_only(nccl_mesh, cuda):
     assert rel < 1e-5 and math.isfinite(float(m["grad_norm"]))
 
 
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "zamba2_7b"])
+def test_cuda_one_rank_mesh_family_step_equals_single_device(nccl_mesh, cuda, arch):
+    """chip_smoke phase 19 (a) at smoke size: the MoE layer's expert-parallel
+    body (every expert on the one model rank) and the Mamba2 blocks with the
+    shared attention block, tp_sketch off, l1@0.2 block-64 ``pallas``: the
+    one-rank mesh step is bit for bit the single-device step (loss, grad
+    norm, every parameter and moment) with the same launches, one score and
+    one fused per sketched site (olmoe 2 x (4 + 3 x 8), zamba2 7 x 3 + 2 x 7)."""
+    import numpy as np
+
+    from repro_torch.api import ExecutionConfig, SketchConfig, SketchPolicy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    widen, n_want = ANALYSIS_SMOKE[arch]
+    cfg = smoke_config(arch).replace(**widen)
+    pol = SketchPolicy(base=SketchConfig(method="l1", budget=0.2, backend="pallas", block=64))
+    toks = np.random.RandomState(0).randint(0, cfg.vocab, (4, 64))
+    out = []
+    for ex in (None, ExecutionConfig(mesh=nccl_mesh)):
+        opt = adamw(1e-3)
+        st = init_state(0, cfg, opt, params=lm.init_params(3, cfg, device=cuda), device=cuda,
+                        execution=ex)
+        batch = {"tokens": toks, "labels": toks}
+        if ex is not None:
+            batch = shard_batch(batch, mesh=nccl_mesh)
+        ops.reset_launch_counts()
+        st, m = make_train_step(cfg, opt, pol, execution=ex, device=cuda)(st, batch, 5)
+        torch.cuda.synchronize()
+        out.append((st, m, ops.launch_counts()))
+    (s1, m1, c1), (s2, m2, c2) = out
+    assert c1 == c2 and c2["col_l1_scores"] == n_want == c2["block_gather_matmul_fused"], c2
+    assert torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"], m2["grad_norm"])
+    for a, b in zip(tree_leaves((s1.params, s1.opt_state)), tree_leaves((s2.params,
+                                                                        s2.opt_state))):
+        assert torch.equal(a, b)
+
+
 # smoke configs widened where a sketched site is narrower than one 64-wide
 # block, so that every sketched site is block-granular and launches both
 # pallas kernels; zamba2's shared block runs twice (7 layers, every 3)

@@ -945,15 +945,3 @@ def test_mesh_without_process_group_raises():
         pytest.skip("a process group is initialised in this process")
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh((1, 1), ("data", "model"), device="cpu")
-
-
-def test_other_families_under_a_mesh_raise():
-    from repro_torch.configs.registry import smoke_config
-    from repro_torch.models import lm
-
-    for name in ("olmoe_1b_7b", "rwkv6_3b", "zamba2_7b", "gemma3_1b", "qwen2_vl_2b",
-                 "seamless_m4t_large_v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            lm.check_mesh(smoke_config(name))
-    lm.check_mesh(smoke_config("yi_6b"))
-    lm.check_mesh(_arch())

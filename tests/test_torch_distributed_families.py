@@ -1,0 +1,413 @@
+"""Every model family's training under a mesh, on CPU gloo ranks, against
+JAX's sharded step and the port's single device.
+
+One module fixture spawns 4 ranks once (a ``file://`` store under
+``tmp_path``, one intra-op thread per rank), as ``test_torch_distributed.py``
+does; each rank runs the smoke configs of gemma3-1b (tied embeddings, the 5
+local : 1 global plan), rwkv6-3b, zamba2-7b (Mamba2 with its shared block),
+qwen2-vl-2b (M-RoPE over stub embeddings, 6:2 heads that do not divide 4
+ranks) and seamless-m4t-large-v2 (the encoder-decoder) on the meshes (2, 2)
+and (1, 4) ``("data", "model")``, and rank 0 saves what they produced.
+The MoE family, with its expert-parallel layer, is
+``test_torch_distributed_moe.py``, which imports this module's harness.
+
+The port's weights are JAX's (``interop.params_from_jax`` of its
+``init_state``), the batch the same numpy arrays in both packages; JAX runs
+with ``remat="none"`` (the same function, a shorter compile). Tolerances:
+JAX's own for its sharded step (loss rtol 1e-4, parameters rtol 2e-3 / atol
+2e-4) and 1e-5 against the port's single device.
+
+The ``mask`` comparison with one device: ``per_column`` plans, whose
+probabilities do not read the gradient, on both meshes, and ``l1`` plans on
+(1, 4), where the ranks hold the whole batch and the step's numbers are the
+single device's bit for bit. On (2, 2) the ``l1`` scores are summed over
+the data ranks in another order than one device sums them, and systematic
+sampling turns a last-bit difference of a cumulative probability next to a
+sampling point into another kept column (a tie, not a fault), so ``l1`` is
+not compared there.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+WORLD = 4
+JOIN_TIMEOUT_S = 240
+STEP_SEED = 2
+B, S, S_ENC = 8, 16, 12
+MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+FAMILIES = ("gemma3_1b", "rwkv6_3b", "zamba2_7b", "qwen2_vl_2b", "seamless_m4t_large_v2")
+# (family, mesh) pairs held to JAX's sharded exact step
+JAX_CASES = tuple((n, "2x2") for n in FAMILIES) + (("zamba2_7b", "1x4"),)
+EXPERT_ROLES = ("expert_in", "expert_gate", "expert_out")
+
+
+# ---------------------------------------------------------------------------
+# The harness (shared with test_torch_distributed_moe.py)
+# ---------------------------------------------------------------------------
+
+
+def family_batch(cfg, seed=0) -> dict:
+    """The numpy batch of a smoke config: tokens (or the VLM's embeddings and
+    [3, B, S] positions whose three streams differ), labels, and an
+    encoder-decoder's source frames."""
+    rs = np.random.RandomState(seed)
+    b = {"labels": rs.randint(0, cfg.vocab, (B, S)).astype(np.int64)}
+    if cfg.frontend == "vision":
+        b["embeds"] = (rs.standard_normal((B, S, cfg.d_model)) * 0.5).astype(np.float32)
+        t = np.arange(S)
+        b["positions"] = np.stack([np.broadcast_to(s, (B, S)) for s in (t, t // 4, t % 4)]
+                                  ).astype(np.int64)
+    else:
+        b["tokens"] = rs.randint(0, cfg.vocab, (B, S)).astype(np.int64)
+    if cfg.is_encdec:
+        b["src_embeds"] = (rs.standard_normal((B, S_ENC, cfg.d_model)) * 0.5).astype(np.float32)
+    return b
+
+
+def np32(t):
+    return t.detach().to(torch.float32).cpu().numpy().copy()
+
+
+def clone(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def policy(kind):
+    """None (exact); ``mask_pc`` / ``mask_l1``: the mask backend at budget 0.5
+    with per_column / l1 plans; ``compact``: l1@0.5 compact (the TP plans).
+    The expert roles stay exact in the mask policies: their draws follow
+    the model rank's local expert index (ROADMAP.md Queue 3 item 18)."""
+    from repro_torch.api import SketchConfig, SketchPolicy
+    from repro_torch.core.policy import _DEFAULT_EXCLUDE
+
+    if kind == "exact":
+        return None
+    if kind == "compact":
+        return SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend="compact"))
+    method = "per_column" if kind == "mask_pc" else "l1"
+    return SketchPolicy(base=SketchConfig(method=method, budget=0.5, backend="mask"),
+                        exclude_roles=tuple(_DEFAULT_EXCLUDE) + EXPERT_ROLES)
+
+
+def one_step(cfg, params, batch, *, mesh=None, tp=False, kind="exact", opt=None):
+    """One step from ``params`` (whole): (new state, metrics, collective
+    bytes). Under ``mesh`` the state and batch are this rank's shards."""
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.optim import sgd
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    opt = opt or sgd(0.1)
+    ex = None if mesh is None else ExecutionConfig(mesh=mesh, tp_sketch=tp)
+    st = init_state(0, cfg, opt, params=clone(params), device="cpu", execution=ex)
+    step = make_train_step(cfg, opt, policy(kind), execution=ex, device="cpu")
+    meshlib.reset_collective_bytes()
+    new, m = step(st, batch if mesh is None else shard_batch(batch, mesh=mesh), STEP_SEED)
+    return new, m, meshlib.collective_bytes()["total"]
+
+
+def flat(tree, path="") -> dict:
+    """A tree's tensor leaves by path (``/layers/0/attn/q/w``): JAX's trees
+    order their dicts' keys, the port's keep its own order."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in flat(sub, f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in flat(sub, f"{path}/{i}").items()}
+    return {path: np32(tree)} if isinstance(tree, torch.Tensor) else {}
+
+
+def whole_leaves(state, mesh=None) -> dict:
+    from repro_torch.launch.sharding import gather_tree
+
+    return flat(state.params if mesh is None else gather_tree(state.params, mesh))
+
+
+def family_runs(name, inp, out, meshes):
+    """The single-device steps (exact, both masks) and on each mesh: exact,
+    ``mask_pc`` (and ``mask_l1`` on (1, 4)), the exact TP step and the
+    compact TP step."""
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(name)
+    params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
+    for kind in ("exact", "mask_pc", "mask_l1"):
+        new, m, _ = one_step(cfg, params, batch, kind=kind)
+        out[f"{name}/single/{kind}/params"] = whole_leaves(new)
+        out[f"{name}/single/{kind}/loss"] = float(m["loss"])
+    for tag, mesh in meshes.items():
+        runs = [("exact", False), ("mask_pc", False), ("exact_tp", True), ("compact", True)]
+        if tag == "1x4":
+            runs.append(("mask_l1", False))
+        for run, tp in runs:
+            kind = "exact" if run == "exact_tp" else run
+            new, m, nbytes = one_step(cfg, params, batch, mesh=mesh, tp=tp, kind=kind)
+            key = f"{name}/{tag}/{run}"
+            out[key + "/params"] = whole_leaves(new, mesh)
+            out[key + "/loss"] = float(m["loss"])
+            out[key + "/aux"] = float(m["aux"])
+            out[key + "/grad_norm"] = float(m["grad_norm"])
+            out[key + "/bytes"] = nbytes
+
+
+def runtime_train(name, inp, out, mesh):
+    """``Runtime.train`` for two steps over two batches (l1@0.5 mask, the
+    per_column plans), on one device and under ``ExecutionConfig(mesh=)``,
+    from the same initial state: the loss histories."""
+    from repro_torch.api import ExecutionConfig, Runtime
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.optim import sgd
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = smoke_config(name)
+    data = [inp[f"{name}/batch"], {k: v.flip(0) for k, v in inp[f"{name}/batch"].items()}]
+    for tag, ex in (("single", ExecutionConfig()), ("mesh", ExecutionConfig(mesh=mesh))):
+        rt = Runtime(policy=policy("mask_pc"), device="cpu", execution=ex)
+        opt = sgd(0.1)
+        state = rt.init_state(0, cfg, opt, params=clone(inp[f"{name}/params"]))
+        _, hist = rt.train(cfg, opt, iter(data), TrainerConfig(steps=2, log_every=1),
+                           state=state, on_metrics=lambda m: None)
+        out[f"{name}/train/{tag}"] = [h["loss"] for h in hist]
+
+
+def make_meshes(shapes):
+    from repro_torch.launch.mesh import make_mesh
+
+    return {tag: make_mesh(shape, ("data", "model"), device="cpu")
+            for tag, shape in shapes.items()}
+
+
+def spawn_ranks(worker, inputs, work):
+    """Run ``worker(rank, world, store, work)`` on 4 spawned ranks once;
+    rank 0's saved results, and the wall time."""
+    import torch.multiprocessing as mp
+
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    pc = mp.start_processes(worker, args=(WORLD, os.path.join(work, "store"), work),
+                            nprocs=WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while not pc.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in pc.processes:
+                if p.is_alive():
+                    p.kill()
+            pytest.fail(f"the {WORLD} ranks did not finish within {JOIN_TIMEOUT_S} s")
+    out = torch.load(os.path.join(work, "results.pt"), weights_only=False)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def init_group(rank, world, store):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+
+
+def finish(rank, out, work):
+    import torch.distributed as dist
+
+    try:
+        if rank == 0:
+            torch.save(out, os.path.join(work, "results.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The ranks' side
+# ---------------------------------------------------------------------------
+
+
+def _worker(rank, world, store, work):
+    init_group(rank, world, store)
+    out = {}
+    try:
+        inp = torch.load(os.path.join(work, "inputs.pt"))
+        meshes = make_meshes(MESHES)
+        for name in FAMILIES:
+            t0 = time.perf_counter()
+            family_runs(name, inp, out, meshes)
+            runtime_train(name, inp, out, meshes["2x2"])
+            out[f"time/{name}"] = time.perf_counter() - t0
+    finally:
+        finish(rank, out, work)
+
+
+# ---------------------------------------------------------------------------
+# The test process's side
+# ---------------------------------------------------------------------------
+
+
+def jax_setup(name):
+    """JAX's smoke config (remat off) and its sgd(0.1) initial state."""
+    from repro import compat
+    from repro.configs import registry as jreg
+    from repro.optim import sgd
+    from repro.train.train_step import init_state
+
+    jcfg = jreg.smoke_config(name).replace(remat="none")
+    return jcfg, init_state(compat.prng_key(0), jcfg, sgd(0.1))
+
+
+def family_inputs(names):
+    from repro_torch import interop
+    from repro_torch.configs.registry import smoke_config
+
+    inp = {}
+    for name in names:
+        cfg = smoke_config(name)
+        _, st = jax_setup(name)
+        inp[f"{name}/params"] = interop.params_from_jax(st.params, cfg, device="cpu")
+        inp[f"{name}/batch"] = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
+    return inp
+
+
+def jax_mesh(tag):
+    import jax
+
+    from repro import compat
+
+    return compat.make_mesh(MESHES.get(tag) or tuple(int(a) for a in tag.split("x")),
+                            ("data", "model"), devices=jax.devices()[:4])
+
+
+def jax_sharded_exact_step(name, tag, batch):
+    """JAX's sharded exact step (``tests/test_distributed.py``'s): the
+    parameter shardings of its rules, activations over ("data",), the batch's
+    rows over data; its new parameters as the port's leaves, and the loss."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import compat
+    from repro.launch import sharding as shard
+    from repro.optim import sgd
+    from repro.train.train_step import TrainState, make_train_step
+    from repro_torch import interop
+    from repro_torch.configs.registry import smoke_config
+
+    jcfg, state = jax_setup(name)
+    mesh = jax_mesh(tag)
+    pspecs = shard.param_shardings(state.params, mesh)
+    sshard = TrainState(params=pspecs, opt_state={k: pspecs for k in state.opt_state},
+                        step=NamedSharding(mesh, P()))
+    act = NamedSharding(mesh, P(("data",), None, None))
+    step = make_train_step(jcfg, sgd(0.1), None, mesh=mesh, act_sharding=act,
+                           data_axes=("data",), model_axes=("model",))
+
+    def spec(k, v):
+        if k == "positions":
+            return P(None, "data", None)
+        return P("data", *([None] * (v.ndim - 1)))
+
+    bspec = {k: NamedSharding(mesh, spec(k, v)) for k, v in batch.items()}
+    step = jax.jit(step, in_shardings=(sshard, bspec, NamedSharding(mesh, P())))
+    new, m = step(state, {k: np.asarray(v.numpy()) for k, v in batch.items()},
+                  compat.prng_key(STEP_SEED))
+    return flat(interop.params_from_jax(new.params, smoke_config(name), device="cpu")), \
+        float(m["loss"])
+
+
+def assert_close_leaves(got: dict, want: dict, rtol, atol):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return family_inputs(FAMILIES)
+
+
+@pytest.fixture(scope="module")
+def ranks(inputs, tmp_path_factory):
+    return spawn_ranks(_worker, inputs, str(tmp_path_factory.mktemp("ranks")))
+
+
+@pytest.mark.parametrize("name,tag", JAX_CASES)
+def test_family_sharded_step_matches_jax(ranks, inputs, name, tag):
+    """The exact mesh step (tp_sketch off) against JAX's sharded exact step
+    on the same mesh shape: loss rtol 1e-4; parameters rtol 2e-3, atol 2e-4
+    (JAX's own tolerances for its sharded step)."""
+    want, loss = jax_sharded_exact_step(name, tag, inputs[f"{name}/batch"])
+    np.testing.assert_allclose(ranks[f"{name}/{tag}/exact/loss"], loss, rtol=1e-4)
+    assert_close_leaves(ranks[f"{name}/{tag}/exact/params"], want, 2e-3, 2e-4)
+
+
+@pytest.mark.parametrize("run", ["exact", "exact_tp", "mask_pc"])
+@pytest.mark.parametrize("tag", list(MESHES))
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_mesh_step_matches_single_device(ranks, name, tag, run):
+    """The exact mesh step, the exact TP step (Megatron plans) and the
+    ``per_column`` mask step against the port's single-device step from the
+    same parameters, batch and seed: loss and every parameter within 1e-5."""
+    kind = "exact" if run == "exact_tp" else run
+    np.testing.assert_allclose(ranks[f"{name}/{tag}/{run}/loss"],
+                               ranks[f"{name}/single/{kind}/loss"], rtol=1e-5)
+    assert_close_leaves(ranks[f"{name}/{tag}/{run}/params"],
+                        ranks[f"{name}/single/{kind}/params"], 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_l1_mask_on_a_model_mesh_is_the_single_device_step(ranks, name):
+    """On (1, 4) the ranks hold the whole batch: the ``l1`` mask step (scores
+    read from the gradient) is the single-device step bit for bit."""
+    got, want = ranks[f"{name}/1x4/mask_l1/params"], ranks[f"{name}/single/mask_l1/params"]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert ranks[f"{name}/1x4/mask_l1/loss"] == ranks[f"{name}/single/mask_l1/loss"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_tp_sketch_step(ranks, name):
+    """The compact TP step: its loss equals the exact TP step's (the sketch
+    is backward-only, rtol 1e-5), its update is finite, and on (2, 2) it
+    hands the collectives fewer bytes than the exact TP step."""
+    for tag in MESHES:
+        key = f"{name}/{tag}/compact"
+        np.testing.assert_allclose(ranks[key + "/loss"], ranks[f"{name}/{tag}/exact_tp/loss"],
+                                   rtol=1e-5)
+        assert np.isfinite(ranks[key + "/grad_norm"])
+        assert all(np.isfinite(a).all() for a in ranks[key + "/params"].values())
+    assert ranks[f"{name}/2x2/compact/bytes"] < ranks[f"{name}/2x2/exact_tp/bytes"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_runtime_trains_the_family_under_a_mesh(ranks, name):
+    """``Runtime.train`` with ``ExecutionConfig(mesh=(2, 2))``: two steps
+    whose losses are the single-device run's (1e-5)."""
+    got, want = ranks[f"{name}/train/mesh"], ranks[f"{name}/train/single"]
+    assert len(got) == len(want) == 2
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_serving_under_a_mesh_raises_naming_the_next_slice(name):
+    """Prefill and decode under a mesh stay for the next distributed slice
+    (ROADMAP.md Queue 1 item 2b): they raise before any collective."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.mesh import layout
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+
+    cfg = smoke_config(name)
+    params = lm.init_params(0, cfg, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
+    ctx = Ctx(mesh=layout((2, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
+        lm.prefill(params, batch, ctx, cfg, max_len=S + 4)
+    tok = batch["tokens"][:, :1] if "tokens" in batch else batch["embeds"][:, :1]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
+        lm.decode_step(params, lm.init_cache(cfg, B, S + 4, enc_len=S_ENC, device="cpu"), tok,
+                       0, ctx, cfg)

@@ -475,14 +475,15 @@ def test_expert_sites_never_share_a_seed(monkeypatch):
 
 
 def test_moe_refuses_a_mesh():
+    """A model axis that divides neither the experts (4) nor their d_ff (8)
+    is refused by name, as JAX refuses it, before any collective (the EP and
+    TPX modes: tests/test_torch_distributed_moe.py)."""
+    from repro_torch.launch.mesh import layout
+
     cfg, _, jp, x = _moe_problem(1.0)
-
-    @dataclasses.dataclass
-    class MeshCtx(Ctx):
-        mesh: object = "mesh"
-
-    with pytest.raises(NotImplementedError, match="mesh"):
-        moe.moe_ffn(_tp(jp), torch.tensor(x)[None], MeshCtx(), cfg)
+    ctx = Ctx(mesh=layout((1, 3), ("data", "model")))
+    with pytest.raises(ValueError, match=r"neither experts \(4\) nor expert d_ff \(8\)"):
+        moe.moe_ffn(_tp(jp), torch.tensor(x)[None], ctx, cfg)
 
 
 # ---------------------------------------------------------------------------
