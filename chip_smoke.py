@@ -225,13 +225,22 @@ which raises on failure:
    kernels each launch exactly the analyzer's count of sketched site
    applications;
 19. every family under a one-rank NCCL mesh (``families_mesh(dev)``):
-   olmoe-1b-7b (2 layers), mixtral-8x22b (1), gemma3-1b (6), rwkv6-3b (2),
+   olmoe-1b-7b (1 layer), mixtral-8x22b (1), gemma3-1b (6), rwkv6-3b (2),
    zamba2-7b (6 and the shared block), qwen2-vl-2b (2) and
    seamless-m4t-large-v2 (2 + 2) at full width, float32, block-128 l1@0.2:
    one mesh step bit for bit the single-device step with equal score and
    fused launches; the TP plans' sites, launches and loss; olmoe's mesh
    checkpoint restored bit for bit; ms per step, single against mesh;
-20. one JSON line listing the ported kernels, then the last line
+20. serving under a one-rank NCCL mesh (``serving_mesh(dev)``): lm-100m's
+   serving main path (``attn_impl="pallas"``, waves 8 x 1024 and 4 x 1000,
+   32 greedy steps) through ``Runtime(execution=ExecutionConfig(mesh=))``:
+   12 flash_attention launches per prefill and none in decode, logits and
+   tokens bit for bit the single device's, every prefill's and decode
+   step's collective payload equal to ``serve_payload``'s count from the
+   shapes; phase 11's paged and run-to-completion engines and one
+   contiguous engine per phase-16 family (at its depth) on the mesh, their
+   tokens equal to the single-device engines';
+21. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -2060,6 +2069,9 @@ ENGINE_SEED = 0  # the requests
 ENGINE_PARAM_SEED = 23
 ENGINE_REF = 8  # requests decoded one at a time as the reference
 ENGINE_TRAIN_STEPS = 3
+# the single-device engines' tokens of phases 11 and 16, which phase 20's mesh
+# engines must equal: {config: {engine: {request: tokens}}}
+ENGINE_TOKENS: dict = {}
 
 
 def engine_specs(vocab):
@@ -2487,6 +2499,7 @@ def serving_engines(dev, plain_decode):
     print("[engine]   (the run-to-completion TTFT and latency come from its per-batch ring: "
           "every request submitted when the run starts)")
     legacy_tokens = {i: r.out.tolist() for i, r in enumerate(reqs)}
+    ENGINE_TOKENS["lm-100m"] = {"paged": paged_tokens, "run-to-completion": legacy_tokens}
     del eng
 
     t0 = time.perf_counter()
@@ -3911,6 +3924,7 @@ def family_engines_one(dev, name, want_layout, index):
               f"({tele['prefill_calls']} calls), {len(shapes)} prefill builds, launches {counts}")
         runs.append((label, {i: r.out.tolist() for i, r in enumerate(reqs)}))
         del eng
+    ENGINE_TOKENS[name] = {"contiguous": dict(runs)["contiguous"]}
     if cfg.n_experts:
         # the published capacity factor: printed, not compared
         with RouteSpy() as spy:
@@ -4315,9 +4329,10 @@ def analysis(dev):
 # state is the parameters alone (mixtral's float32 AdamW state at 1 layer is
 # 43.3 GiB, and the single-device step's results wait on the host while the
 # mesh step runs); the others with AdamW (parameters and both moments held
-# bit for bit)
+# bit for bit); olmoe at one layer: its steps are host-bound (~35 s a layer
+# on the H100), and the script keeps inside its time limit
 MESH_FAMILIES = (
-    ("olmoe-1b-7b", dict(n_layers=2), "sgd"),
+    ("olmoe-1b-7b", dict(n_layers=1), "sgd"),
     ("mixtral-8x22b", dict(n_layers=1), "sgd"),
     ("gemma3-1b", dict(n_layers=6), "adamw"),  # one 5 local : 1 global period
     ("rwkv6-3b", dict(n_layers=2), "adamw"),
@@ -4593,6 +4608,209 @@ def families_mesh(dev):
     return total
 
 
+# -- phase 20: serving under a one-rank NCCL mesh ------------------------------
+
+
+def serve_payload(cfg, B, S) -> int:
+    """The collective payload of one prefill of B rows of S tokens (S = 1: one
+    decode step) of a dense decoder on the one-rank mesh, from the shapes:
+    every linear weight (q, k, v, o, the three MLP sites, the head)
+    all-gathered over model and over data (2 x its float32 bytes) and the
+    embedded rows over model (B x S x d floats). One model rank holds every
+    cache position, so decode combines no softmax statistics; the batch's
+    rows are cut with no collective."""
+    d, dh = cfg.d_model, cfg.head_dim
+    w = cfg.n_layers * (d * (cfg.n_heads + 2 * cfg.n_kv) * dh + cfg.n_heads * dh * d
+                        + 3 * d * cfg.d_ff) + cfg.vocab * d
+    return 4 * (2 * w + B * S * d)
+
+
+def mesh_generate(dev, runtime, params, cfg, prompts):
+    """``serve_path``'s generation through ``runtime``: the prefill, then
+    DECODE_STEPS greedy steps. Returns (prefill logits, tokens fed, step
+    logits, launches of the prefill and of the decode steps, payload of the
+    prefill and of each step, prefill ms, decode ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import collective_bytes, reset_collective_bytes
+    from repro_torch.serve import greedy_sample
+
+    B, S = prompts.shape
+    prefill = runtime.prefill_step(cfg, S + DECODE_STEPS)
+    decode = runtime.decode_step(cfg)
+    sync(dev)
+    ops.reset_launch_counts()
+    reset_collective_bytes()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompts})
+    sync(dev)
+    t1 = time.perf_counter()
+    pre_counts, pre_bytes = ops.launch_counts(), collective_bytes()["total"]
+    ops.reset_launch_counts()
+    cur = greedy_sample(logits[:, -1:])
+    fed, step_logits, step_bytes = [], [], []
+    for i in range(DECODE_STEPS):
+        fed.append(cur)
+        reset_collective_bytes()
+        lg, caches = decode(params, caches, cur, S + i)
+        step_bytes.append(collective_bytes()["total"])
+        step_logits.append(lg)
+        cur = greedy_sample(lg)
+    fed.append(cur)
+    sync(dev)
+    t2 = time.perf_counter()
+    return (logits, fed, step_logits, pre_counts, ops.launch_counts(), pre_bytes, step_bytes,
+            1e3 * (t1 - t0), 1e3 * (t2 - t1) / DECODE_STEPS)
+
+
+def mesh_serve_steps(dev, mesh, total):
+    """Phase 20 (a): lm-100m, ``attn_impl="pallas"``, the serving main path's
+    waves on one device and on the one-rank mesh; adds the mesh runs'
+    launches to ``total``."""
+    from repro_torch.api import ExecutionConfig, Runtime
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models import lm
+
+    cfg = lm100m().replace(attn_impl="pallas")
+    params = lm.init_params(SERVE_SEED, cfg, device=dev)
+    single = Runtime(device=dev)
+    meshed = Runtime(device=dev, execution=ExecutionConfig(mesh=mesh))
+    shards = shard_params(params, mesh, copy=False)
+    gen = np.random.default_rng(SERVE_SEED)
+    L = cfg.n_layers
+    for w, (B, S) in enumerate(SERVE_WAVES):
+        prompts = gen.integers(1, cfg.vocab, size=(B, S))
+        ref = mesh_generate(dev, single, params, cfg, prompts)
+        got = mesh_generate(dev, meshed, shards, cfg, prompts)
+        add_counts(total, got[3])
+        add_counts(total, got[4])
+        want_pre = {name: 0 for name in ops.KERNELS}
+        want_pre["flash_attention"] = L
+        if got[3] != want_pre or any(got[4].values()):
+            raise AssertionError(f"wave {w + 1}: mesh launches {got[3]} in the prefill, {got[4]} "
+                                 f"in decode; want {L} flash_attention per prefill, none else")
+        same = (torch.equal(got[0], ref[0]) and all(torch.equal(a, b) for a, b in
+                                                    zip(got[2], ref[2]))
+                and all(torch.equal(a, b) for a, b in zip(got[1], ref[1])))
+        if not same:
+            err = max(float((a - b).abs().max()) for a, b in zip([got[0]] + got[2],
+                                                                 [ref[0]] + ref[2]))
+            raise AssertionError(f"wave {w + 1}: the mesh's logits or tokens differ from the "
+                                 f"single device's (max|diff| {err:.3e})")
+        want_pre_b, want_dec_b = serve_payload(cfg, B, S), serve_payload(cfg, B, 1)
+        if got[5] != want_pre_b or got[6] != [want_dec_b] * DECODE_STEPS:
+            raise AssertionError(f"wave {w + 1}: payload {got[5]} B per prefill, "
+                                 f"{sorted(set(got[6]))} per decode step; the shapes give "
+                                 f"{want_pre_b} and {want_dec_b}")
+        print(f"[serve-mesh] wave {w + 1} ({B} x {S}, {DECODE_STEPS} greedy steps): one-rank "
+              f"mesh bit for bit the single device (prefill logits, {DECODE_STEPS} steps' "
+              f"logits, {B * (DECODE_STEPS + 1)} tokens); {got[3]['flash_attention']} "
+              f"flash_attention per prefill, 0 in decode; payload {got[5]:,} B per prefill, "
+              f"{got[6][0]:,} B per decode step (= the shapes'); prefill ms single / mesh "
+              f"{ref[7]:.1f} / {got[7]:.1f}, decode ms per step {ref[8]:.2f} / {got[8]:.2f}")
+        del ref, got
+    del params, shards
+    torch.cuda.empty_cache()
+
+
+def mesh_engine_tokens(dev, label, make, specs, cfg, params):
+    """One engine run (``run_engine``: 0 launches, every request to its
+    length): (tokens by request, wall s)."""
+    _, reqs, wall, _ = run_engine(dev, params, cfg, make, specs, label)
+    return {i: r.out.tolist() for i, r in enumerate(reqs)}, wall
+
+
+def mesh_engines(dev, mesh):
+    """Phase 20 (b) and (c): phase 11's two engines on lm-100m and one
+    contiguous engine per phase-16 family, under the one-rank mesh; their
+    tokens against the single-device engines' (phases 11 and 16, or run
+    here when the phase runs alone)."""
+    from repro_torch.api import ExecutionConfig, Runtime, ServeConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.legacy import RunToCompletionEngine
+
+    meshed = Runtime(device=dev, execution=ExecutionConfig(mesh=mesh))
+    single = Runtime(device=dev)
+    cfg = lm100m().replace(attn_impl="pallas")
+    params = lm.init_params(ENGINE_PARAM_SEED, cfg, device=dev)
+    specs = engine_specs(cfg.vocab)
+    sv = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, page_size=ENGINE_PAGE)
+    engines = {
+        "paged": lambda rt: rt.serve(params, cfg, serve=sv),
+        "run-to-completion": lambda rt: RunToCompletionEngine(
+            params, cfg, batch=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, runtime=rt)}
+    for label, make in engines.items():
+        want = ENGINE_TOKENS.get("lm-100m", {}).get(label)
+        if want is None:
+            want, _ = mesh_engine_tokens(dev, f"single {label}", lambda: make(single), specs, cfg,
+                                         params)
+        got, wall = mesh_engine_tokens(dev, f"mesh {label}", lambda: make(meshed), specs, cfg,
+                                       params)
+        if got != want:
+            bad = [i for i in want if got[i] != want[i]]
+            raise AssertionError(f"lm-100m {label} under the mesh: requests {bad} differ from "
+                                 "the single-device engine's tokens")
+        print(f"[serve-mesh] lm-100m {label} engine on the mesh: {len(specs)} requests' tokens "
+              f"equal to the single device's, 0 launches, wall {wall:.3f} s")
+    del params
+    torch.cuda.empty_cache()
+    for index, (name, _) in enumerate(FE_FAMILIES):
+        published = f32_cfg(name).replace(attn_impl="pallas")
+        fcfg = (published.replace(capacity_factor=published.n_experts / published.top_k)
+                if published.n_experts else published)
+        fparams = lm.init_params(FE_PARAM_SEED, fcfg, device=dev)
+        fspecs = family_engine_specs(fcfg.vocab, index)
+        fsv = ServeConfig(n_slots=FE_SLOTS, max_len=FE_MAX_LEN, page_size=None)
+        want = ENGINE_TOKENS.get(name, {}).get("contiguous")
+        if want is None:
+            want, _ = mesh_engine_tokens(dev, f"single {name}", lambda: single.serve(
+                fparams, fcfg, serve=fsv), fspecs, fcfg, fparams)
+        got, wall = mesh_engine_tokens(dev, f"mesh {name}", lambda: meshed.serve(
+            fparams, fcfg, serve=fsv), fspecs, fcfg, fparams)
+        if got != want:
+            bad = [i for i in want if got[i] != want[i]]
+            raise AssertionError(f"{name} contiguous under the mesh: requests {bad} differ from "
+                                 "the single-device engine's tokens")
+        print(f"[serve-mesh] {name} ({fcfg.n_layers} layers) contiguous engine on the mesh: "
+              f"{len(fspecs)} requests' tokens equal to the single device's, 0 launches, wall "
+              f"{wall:.3f} s")
+        del fparams
+        torch.cuda.empty_cache()
+
+
+def serving_mesh(dev):
+    """Phase 20: serving under a one-rank NCCL mesh (1, 1). (a) lm-100m's
+    serving main path (``Runtime.prefill_step`` / ``decode_step``,
+    ``attn_impl="pallas"``, waves 8 x 1024 and 4 x 1000, 32 greedy steps)
+    under ``ExecutionConfig(mesh=)``: 12 flash_attention launches per
+    prefill and none in decode, logits and tokens bit for bit the single
+    device's, each prefill's and decode step's payload equal to
+    ``serve_payload``'s; (b) phase 11's paged and run-to-completion engines
+    on the mesh, tokens equal to the single device's; (c) one contiguous
+    engine run per phase-16 family at its depth, tokens equal. Returns the
+    mesh runs' launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = dist_group(tmp)
+        try:
+            t0 = time.perf_counter()
+            mesh_serve_steps(dev, mesh, total)
+            print(f"[time]   mesh serving steps {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            mesh_engines(dev, mesh)
+            print(f"[time]   mesh engines {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    print(f"[time]   serving under a mesh {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def per_step(rows, key):
     return sum(r["calls"] * r[key] for r in rows)
 
@@ -4731,6 +4949,11 @@ def main() -> int:
     for name, n in mesh_fam_counts.items():
         launches[name] += n
     print(f"[time] the families under a mesh {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_mesh_counts = serving_mesh(dev)
+    for name, n in serve_mesh_counts.items():
+        launches[name] += n
+    print(f"[time] serving under a mesh {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -4782,7 +5005,9 @@ def main() -> int:
           f"sketched steps and their single-device twins): {json.dumps(dist_counts)}; the analysis "
           f"tooling (phase 18's cross-checks, one forward and backward per config): "
           f"{json.dumps(an_counts)}; the families under a mesh (phase 19: every sketched "
-          f"single-device and one-rank mesh step): {json.dumps(mesh_fam_counts)}")
+          f"single-device and one-rank mesh step): {json.dumps(mesh_fam_counts)}; serving "
+          f"under a mesh (phase 20: the one-rank mesh's two lm-100m waves and engines): "
+          f"{json.dumps(serve_mesh_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -21,7 +21,8 @@ class ExecutionConfig:
       mesh: a :class:`repro_torch.launch.mesh.Mesh` (``make_mesh``, over an
         initialised process group) for distributed runs; None = one device.
         Under a mesh every rank holds its shards of the state and its rows
-        of the batch (docs/port.md, "Distributed").
+        of the batch (docs/port.md, "Distributed"), and its shards of the
+        serving caches (docs/port.md, "Serving under a mesh").
       act_sharding: the residual stream's spec. The port's SPMD code fixes
         it (batch over the data axes, replicated over model:
         ``launch.sharding.logical_rules(mesh)["activations"]``), so only None

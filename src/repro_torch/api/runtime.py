@@ -214,14 +214,18 @@ class Runtime:
 
     def prefill_step(self, cfg, max_len: int) -> Callable:
         """``prefill_fn(params, batch) -> (logits, caches)`` on this runtime's
-        device."""
+        device. Under ``execution.mesh`` every rank calls it with the global
+        batch and its parameter shards (``launch.sharding.shard_params``);
+        it returns this rank's rows of logits and its cache shards
+        (``serve/serve_step.py``)."""
         from repro_torch.serve.serve_step import make_prefill
 
         return make_prefill(cfg, max_len, execution=self.execution, device=self.device)
 
     def decode_step(self, cfg) -> Callable:
         """``decode_fn(params, caches, tokens, pos) -> (logits, caches)`` on
-        this runtime's device."""
+        this runtime's device; under ``execution.mesh``, the global tokens
+        and positions with this rank's shards, as :meth:`prefill_step`."""
         from repro_torch.serve.serve_step import make_decode_step
 
         return make_decode_step(cfg, execution=self.execution, device=self.device)
@@ -234,7 +238,9 @@ class Runtime:
         ``serve`` is a :class:`~repro_torch.serve.config.ServeConfig` (slot
         count, KV budget, paged-cache geometry, prefill buckets and packing,
         stop token); ``batch`` and ``max_len`` are the legacy spelling and
-        build one."""
+        build one. Under ``execution.mesh`` every rank builds the same
+        engine and runs the same requests; whole parameters are sharded
+        once."""
         from repro_torch.serve.engine import Engine
 
         return Engine(params, cfg, serve=serve, batch=batch, max_len=max_len, runtime=self)

@@ -15,6 +15,7 @@ counterpart:
 JAX                       here
 ========================  ==========================================
 ``psum(x, axes)``         :func:`psum`: ``all_reduce`` (sum)
+``pmax(x, axes)``         :func:`pmax`: ``all_reduce`` (max)
 ``psum_scatter(tiled)``   :func:`psum_scatter`: ``reduce_scatter_tensor``
 ``all_gather(tiled)``     :func:`all_gather`: ``all_gather_into_tensor``
 ``axis_index(axes)``      :func:`axis_index` (``get_local_rank`` per axis)
@@ -44,12 +45,12 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "Axes", "layout", "make_mesh", "make_production_mesh", "dp_axes", "mp_axes",
-           "psum", "psum_scatter", "all_gather", "axis_index", "chunk_of", "collective_bytes",
+           "psum", "pmax", "psum_scatter", "all_gather", "axis_index", "chunk_of", "collective_bytes",
            "reset_collective_bytes", "gather_replicated",
            "slice_replicated", "copy_to", "reduce_from", "psum_partial", "pmean_shared",
            "split_partial", "gather_partial"]
 
-_BYTES: Dict[str, int] = {"psum": 0, "psum_scatter": 0, "all_gather": 0}
+_BYTES: Dict[str, int] = {"psum": 0, "pmax": 0, "psum_scatter": 0, "all_gather": 0}
 
 
 def collective_bytes() -> Dict[str, int]:
@@ -231,6 +232,18 @@ def psum(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
         return x
     out = x.contiguous().clone()
     dist.all_reduce(out, group=mesh.group(axes))
+    return out
+
+
+def pmax(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``axes`` (``x`` itself on one rank)."""
+    if not mesh.axes(axes):
+        return x
+    _count("pmax", x)
+    if mesh.axis_size(axes) == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(axes))
     return out
 
 

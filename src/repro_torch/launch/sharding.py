@@ -19,7 +19,10 @@ its paths read ``/layers/<i>/attn/q/w`` where JAX's read
 :func:`shard_tree` cuts a full tree into this rank's shards and marks each
 sharded tensor with its spec (:func:`spec_of`), which the sites, the train
 step, the optimizer and the checkpoints read; :func:`gather_tree` is its
-inverse.
+inverse. :func:`shard_params`, :func:`shard_caches` and :func:`shard_pools`
+cut a parameter, decode-cache or page-pool tree by :func:`param_specs`,
+:func:`cache_specs` and :func:`paged_cache_specs`; :func:`zeros_shards`
+allocates this rank's zero shards of a tree of shapes without the whole.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from repro_torch.launch.mesh import dp_axes, mp_axes
 
 __all__ = ["NamedSharding", "param_specs", "param_shardings", "batch_specs", "batch_row_specs",
            "cache_specs", "paged_cache_specs", "logical_rules", "spec_for_path", "shard_tree", "gather_tree", "shard_slices", "shard_tensor", "gather_tensor",
-           "spec_of", "set_spec", "mesh_of", "mark_like", "global_shape", "dim_axes", "spec_axes"]
+           "spec_of", "set_spec", "mesh_of", "mark_like", "global_shape", "dim_axes", "spec_axes",
+           "rows_axes", "shard_params", "shard_caches", "shard_pools", "zeros_shards"]
 
 # (path regex, spec for trailing dims); "dp"/"mp" resolve against the mesh
 _RULES = [
@@ -180,15 +184,25 @@ def batch_row_specs(batch: dict, mesh) -> dict:
     return out
 
 
-def cache_specs(cfg: ArchConfig, cache_shape, mesh, global_batch: int):
-    """Decode-cache specs (the port's list of per-layer dicts): KV leaves
-    [B, S, kv, hd] batch over the data axes where it divides and the
-    sequence over model (flash-decoding style); recurrent states batch
-    only. Specs only: serving under a mesh is not ported yet."""
+def rows_axes(n_rows: int, mesh) -> tuple:
+    """The data axes a batch of ``n_rows`` rows is split over
+    (:func:`batch_specs`' rule): all of them where the rows divide them,
+    else none (every data rank holds every row)."""
     dp = dp_axes(mesh)
+    return dp if n_rows % math.prod(mesh.shape[a] for a in dp) == 0 else ()
+
+
+def cache_specs(cfg: ArchConfig, cache_shape, mesh, global_batch: int):
+    """Decode-cache specs (the port's list of per-layer dicts), the layout
+    the serving steps keep their caches in: KV leaves [B, S, kv, hd] (a
+    cross-attention memory's too) batch over the data axes where it divides
+    and the sequence over model where it divides (flash-decoding: each model
+    rank holds a chunk of every row's positions, for all kv heads, and
+    decode combines the chunks' softmax statistics); recurrent states
+    (``ssm``, ``wkv``, ``conv``, ``shift_*``) batch only. ``cfg`` is unread,
+    as in JAX."""
+    bax = rows_axes(global_batch, mesh) or None
     mp = mp_axes(mesh)
-    n_dp = math.prod(mesh.shape[a] for a in dp)
-    bax = dp if global_batch % n_dp == 0 else None
     mp1 = mp[0] if mp else None
 
     def spec(path, leaf):
@@ -212,10 +226,9 @@ def cache_specs(cfg: ArchConfig, cache_shape, mesh, global_batch: int):
 def paged_cache_specs(pool_shape, mesh, n_pages: int):
     """Specs of a paged KV pool tree (``serve/kv_cache.py``): the page
     dimension over the data axes where ``n_pages`` divides them; a page's
-    interior and the page map replicated. Specs only."""
-    dp = dp_axes(mesh)
-    n_dp = math.prod(mesh.shape[a] for a in dp)
-    pax = dp if n_pages % n_dp == 0 else None
+    interior and the page map replicated (a page is too short to split its
+    positions over model)."""
+    pax = rows_axes(n_pages, mesh) or None
 
     def spec(path, leaf):
         if not _has_shape(leaf):
@@ -226,6 +239,42 @@ def paged_cache_specs(pool_shape, mesh, n_pages: int):
         return (None,) * len(shape)
 
     return _walk(pool_shape, spec)
+
+
+def shard_params(params, mesh, *, copy: bool = True):
+    """This rank's shards of a whole parameter tree, by :func:`param_specs`
+    (``copy=False``: views where they can be, for serving, which never
+    writes them)."""
+    return shard_tree(params, param_specs(params, mesh), mesh, copy=copy)
+
+
+def shard_caches(caches, mesh, global_batch: int):
+    """This rank's shards of whole decode caches of ``global_batch`` rows, by
+    :func:`cache_specs`."""
+    return shard_tree(caches, cache_specs(None, caches, mesh, global_batch), mesh)
+
+
+def shard_pools(pools, mesh, n_pages: int):
+    """This rank's shards of whole page pools of ``n_pages`` pages, by
+    :func:`paged_cache_specs`."""
+    return shard_tree(pools, paged_cache_specs(pools, mesh, n_pages), mesh)
+
+
+def zeros_shards(shape_tree, specs, mesh, device):
+    """This rank's zero shard of every leaf of ``shape_tree`` (tensors, e.g.
+    ``meta``, whose shapes and dtypes count) under ``specs`` (a tree of the
+    same structure), on ``device``, marked; the whole is never allocated."""
+    flat_specs = {}
+    _walk(specs, lambda path, sp: flat_specs.__setitem__(path, sp))
+
+    def zero(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        spec = flat_specs.get(path)
+        shape = tuple(sl.stop - sl.start for sl in shard_slices(leaf.shape, spec, mesh))
+        return set_spec(torch.zeros(shape, dtype=leaf.dtype, device=device), spec, mesh)
+
+    return _walk(shape_tree, zero)
 
 
 def logical_rules(mesh) -> dict:
@@ -313,12 +362,14 @@ def shard_slices(shape, spec, mesh) -> tuple:
     return tuple(out)
 
 
-def shard_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+def shard_tensor(t: torch.Tensor, spec, mesh, *, copy: bool = True) -> torch.Tensor:
     """This rank's shard of the full tensor ``t`` under ``spec`` (a new,
-    contiguous tensor, marked with its spec)."""
+    contiguous tensor, marked with its spec). ``copy=False``: a view of
+    ``t``'s storage where the shard is contiguous in it (all of ``t`` on one
+    rank), for a reader that never writes it (the serving steps)."""
     out = t[shard_slices(t.shape, spec, mesh)] if t.dim() else t
-    out = out.detach().clone().contiguous()
-    if t.requires_grad:
+    out = out.detach().clone().contiguous() if copy else out.detach().contiguous()
+    if t.requires_grad and copy:
         out.requires_grad_(True)
     return set_spec(out, spec, mesh)
 
@@ -334,17 +385,17 @@ def gather_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return out.contiguous()
 
 
-def shard_tree(full_tree, specs, mesh):
+def shard_tree(full_tree, specs, mesh, *, copy: bool = True):
     """This rank's shard of every tensor leaf of ``full_tree`` (``specs``:
     a tree of the same structure, e.g. :func:`param_specs`; None leaves and
-    non-tensors pass through)."""
+    non-tensors pass through); ``copy``: :func:`shard_tensor`'s."""
     flat_specs = {}
     _walk(specs, lambda path, s: flat_specs.__setitem__(path, s))
 
     def cut(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        return shard_tensor(leaf, flat_specs.get(path), mesh)
+        return shard_tensor(leaf, flat_specs.get(path), mesh, copy=copy)
 
     return _walk(full_tree, cut)
 

@@ -51,8 +51,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
 from repro_torch.nn import ssm
-from repro_torch.nn.attention import (SERVING_MESH, AttnCfg, attention, attn_init,
-                                      decode_attention, init_kv_cache)
+from repro_torch.nn.attention import AttnCfg, attention, attn_init, init_kv_cache
 from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init, trunc_normal
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.nn.moe import MoECfg, moe_ffn, moe_init
@@ -364,11 +363,20 @@ def _cross(p, x, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
     ccfg = cross_cfg(cfg)
     h = rmsnorm(p["norm_c"], x)
     if cache is not None and pos is not None:
+        from repro_torch.launch.mesh import all_gather
+        from repro_torch.nn import attention as attn
+
         B, S, _ = h.shape
-        q = dense(p["cross"]["q"], h, ctx, "cross_q").reshape(B, S, ccfg.n_heads, ccfg.d_head)
+        q = dense(p["cross"]["q"], h, ctx, "cross_q")
+        # q on all heads; the memory's last position, the global one
+        if ctx.plan_kind("cross_q", p["cross"]["q"]) in attn._MODEL_SHARDED_OUT:
+            q = all_gather(q, ctx.model_axes, ctx.mesh, axis=-1)
+        q = q.reshape(B, S, ccfg.n_heads, ccfg.d_head)
         kc, vc = cache["cross"]["k"], cache["cross"]["v"]
-        o = decode_attention(q, kc, vc, kc.shape[1] - 1, ccfg)
-        return dense(p["cross"]["o"], o.reshape(B, S, -1), ctx, "cross_o")
+        n_mem = kc.shape[1] * attn._seq_split(kc, ctx)[1]
+        o = attn._decode_shard(q, kc, vc, n_mem - 1, ccfg, ctx).reshape(B, S, -1)
+        o = attn._mesh_out_input(p["cross"]["o"], ctx, "cross_o", o, False)
+        return dense(p["cross"]["o"], o, ctx, "cross_o")
     o = attention(p["cross"], h, ctx, ccfg, None, memory=memory, role_prefix="cross",
                   cache=None if cache is None else cache["cross"])
     return o if cache is None else o[0]
@@ -402,7 +410,8 @@ def _mamba_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache, pos):
     if cache is None:
         return x + ssm.mamba_block(p["mamba"], h, ctx, mcfg)
     if pos is None:
-        o, state = ssm.mamba_prefill(p["mamba"], h, ctx, mcfg)
+        # the cached state holds every head (cache_specs: batch over data only)
+        o, state = ssm.mamba_prefill(p["mamba"], h, ctx, mcfg, whole_heads=True)
     else:
         o, state = ssm.mamba_decode(p["mamba"], h, ctx, mcfg, cache)
     _write_state(cache, state)
@@ -520,10 +529,20 @@ def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, enc_len: int = 0,
-               device="cuda"):
-    """Zero decode caches, one dict per layer (:func:`layer_cache`)."""
+               device="cuda", mesh=None):
+    """Zero decode caches, one dict per layer (:func:`layer_cache`). With
+    ``mesh``: this rank's zero shards of the caches of ``batch`` rows, in
+    ``launch.sharding.cache_specs``' layout, marked with their specs."""
     check_decoder(cfg)
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.launch import sharding
+
+        meta = torch.device("meta")
+        shapes = [layer_cache(cfg, kind, batch, max_len, enc_len=enc_len, device=meta)
+                  for kind in layer_kinds(cfg)]
+        return sharding.zeros_shards(shapes, sharding.cache_specs(cfg, shapes, mesh, batch),
+                                     mesh, dev)
     return [layer_cache(cfg, kind, batch, max_len, enc_len=enc_len, device=dev)
             for kind in layer_kinds(cfg)]
 
@@ -548,17 +567,26 @@ def layer_cache(cfg: ArchConfig, kind: LayerKind, batch: int, max_len: int, *,
     return c
 
 
+def _global_rows(n_local: int, ctx: Ctx) -> int:
+    """The batch's global row count from this rank's ``n_local`` rows."""
+    if ctx.mesh is None or not ctx.rows_sharded:
+        return n_local
+    return n_local * ctx.mesh.axis_size(ctx.data_axes)
+
+
 def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=None):
     """Forward over the prompts and fill fresh caches: (logits [B, S, V],
     caches). The batch is :func:`forward_with_aux`'s; an encoder-decoder's
     caches hold the memory's cross keys and values. Optional
     ``batch["segments"]`` segment-masks self-attention, so several packed
-    prompts share one call."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(SERVING_MESH)
+    prompts share one call. Under a mesh the batch holds this rank's rows
+    (``ctx.rows_sharded``; the whole batch otherwise), the logits are this
+    rank's rows over the whole vocabulary, and the caches this rank's shards
+    (:func:`init_cache` with ``mesh``)."""
     x, positions, memory = _prologue(params, batch, ctx, cfg, step_key)
-    caches = init_cache(cfg, x.shape[0], max_len,
-                        enc_len=0 if memory is None else memory.shape[1], device=x.device)
+    caches = init_cache(cfg, _global_rows(x.shape[0], ctx), max_len,
+                        enc_len=0 if memory is None else memory.shape[1], device=x.device,
+                        mesh=ctx.mesh)
     x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches,
                        segs=batch.get("segments"), memory=memory)
     return _head(params, x, ctx, cfg), caches
@@ -570,13 +598,13 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
     M-RoPE rotates all three streams by it, as JAX does). Writes the new
     keys and values, or the new recurrent state, into ``caches`` in place;
     a cross-attention reads the whole of its cached memory. Returns (logits
-    [B, 1, V], caches)."""
+    [B, 1, V], caches). Under a mesh: this rank's rows of ``tokens`` and
+    ``pos``, and this rank's shards of the caches (:func:`prefill`'s)."""
     check_decoder(cfg)
-    if ctx.mesh is not None:
-        raise NotImplementedError(SERVING_MESH)
     positions = _default_positions(cfg, tokens.shape[0], 1, tokens.device, offset=pos)
-    x, _ = _run_layers(params, _embed(params, tokens, cfg), ctx, cfg, step_key, positions,
-                       caches=caches, pos=pos)
+    x = _embed(params, tokens, cfg) if ctx.mesh is None else _mesh_embed(params, tokens, ctx,
+                                                                         cfg)
+    x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches, pos=pos)
     return _head(params, x, ctx, cfg), caches
 
 

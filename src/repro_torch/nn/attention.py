@@ -181,9 +181,6 @@ def _fill_prefill(cache, k, v, cfg: AttnCfg, segs=None):
 # plans whose output is sharded over the model axis
 _MODEL_SHARDED_OUT = ("tp_column", "tp_exact")
 
-SERVING_MESH = ("serving under a mesh is not ported (ROADMAP.md Queue 1 item 2b, the next "
-                "distributed slice): prefill and decode run on one device")
-
 
 def _mesh_heads(params, ctx: Ctx, cfg: AttnCfg, prefix: str, q, k, v):
     """q, k, v projections on a mesh: kept on this rank's heads when all
@@ -205,7 +202,7 @@ def _mesh_heads(params, ctx: Ctx, cfg: AttnCfg, prefix: str, q, k, v):
 def _mesh_out_input(p, ctx: Ctx, role: str, h, local: bool):
     """The out-projection's input in the layout its plan reads: d_in's model
     chunk for ``tp_row``, the whole otherwise (``local``: ``h`` holds this
-    rank's chunk)."""
+    rank's chunk); ``h`` itself off a mesh."""
     from repro_torch.launch.mesh import gather_replicated, slice_replicated
 
     row = ctx.plan_kind(role, p) == "tp_row"
@@ -214,6 +211,133 @@ def _mesh_out_input(p, ctx: Ctx, role: str, h, local: bool):
     if local and not row:
         return gather_replicated(h, ctx.model_axes, ctx.mesh, -1)
     return h
+
+
+# -- caches on a shard ----------------------------------------------------------
+#
+# Under a mesh the caches keep ``launch.sharding.cache_specs``' layout, read
+# from the marks on their leaves: this rank's rows, and where the sequence is
+# split over model, this rank's chunk of every row's positions for all kv
+# heads. Off a mesh, or where one rank holds every position, the functions
+# below are the single-device ones.
+
+
+def _seq_split(cache_leaf, ctx: Ctx):
+    """(model axes, ranks) the cache leaf's positions are split over: none
+    off a mesh, on an unmarked leaf, or where the axes hold one rank (there
+    the chunk is the whole, and decode is the single-device decode)."""
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    spec = spec_of(cache_leaf) if ctx.mesh is not None else None
+    axes = dim_axes(spec[1]) if spec is not None else ()
+    n = ctx.mesh.axis_size(axes) if axes else 1
+    return (axes, n) if n > 1 else ((), 1)
+
+
+def _whole_heads(t, ctx: Ctx, local: bool):
+    """[B, S, heads, dh] on all heads: this rank's heads all-gathered over
+    model where ``local``."""
+    from repro_torch.launch.mesh import all_gather
+
+    return all_gather(t, ctx.model_axes, ctx.mesh, axis=2) if local else t
+
+
+def _fill_shard(cache, k, v, cfg: AttnCfg, ctx: Ctx, local: bool, segs=None):
+    """:func:`_fill_prefill` into this rank's shard: all kv heads (gathered
+    over model where the projections left this rank's), and this rank's
+    chunk of positions where the cache's sequence is split over model."""
+    from repro_torch.launch.mesh import chunk_of
+
+    k, v = _whole_heads(k, ctx, local), _whole_heads(v, ctx, local)
+    axes, n = _seq_split(cache["k"], ctx)
+    if n == 1:
+        _fill_prefill(cache, k, v, cfg, segs)
+        return
+    size = cache["k"].shape[1] * n
+    full = {name: cache[name].new_zeros((cache[name].shape[0], size) + cache[name].shape[2:])
+            for name in ("k", "v")}
+    _fill_prefill(full, k, v, cfg, segs)
+    for name in ("k", "v"):
+        cache[name].copy_(chunk_of(full[name], axes, ctx.mesh, 1))
+
+
+def _write_shard(cache, k, v, pos, cfg: AttnCfg, ctx: Ctx):
+    """:func:`_write_decode` into this rank's shard: the model rank whose
+    chunk holds a row's slot ``pos`` (``pos % size`` for a ring) writes it,
+    the others leave their chunk as it is."""
+    from repro_torch.launch.mesh import axis_index
+
+    axes, n = _seq_split(cache["k"], ctx)
+    if n == 1:
+        _write_decode(cache, k, v, pos, cfg)
+        return
+    c = cache["k"].shape[1]
+    size = c * n
+    B = k.shape[0]
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        at = pos.to(device=k.device, dtype=torch.long)
+    else:
+        at = torch.full((B,), int(pos), dtype=torch.long, device=k.device)
+    if _rolling(cfg, size):
+        at = at % size
+    at = at - axis_index(ctx.mesh, axes) * c
+    mine = ((at >= 0) & (at < c))[:, None, None]
+    # every row writes one slot of its chunk: its new token's where the slot
+    # is this rank's, the value already there otherwise
+    at = at.clamp(0, c - 1)
+    rows = torch.arange(B, device=k.device)
+    for name, x in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf[rows, at] = torch.where(mine, x[:, 0].to(buf.dtype), buf[rows, at])
+
+
+def _decode_shard(q, k_cache, v_cache, pos, cfg: AttnCfg, ctx: Ctx):
+    """:func:`decode_attention` on this rank's shard of the caches (q on all
+    heads). Where the positions are split over model, each rank forms the
+    float32 softmax statistics of its chunk (the max, the sum of the
+    exponentials, their weighted sum of values) and the chunks combine over
+    model: the max by ``pmax``, the two sums rescaled to it by one ``psum``
+    (flash-decoding). Otherwise the single-device decode."""
+    from repro_torch.launch.mesh import axis_index, pmax, psum
+
+    axes, n = _seq_split(k_cache, ctx)
+    if n == 1:
+        return decode_attention(q, k_cache, v_cache, pos, cfg)
+    B, _, H, dh = q.shape
+    c, Kv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, 1, Kv, G, dh).to(torch.float32)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg, k_cache.to(torch.float32)) * dh ** -0.5
+    idx = axis_index(ctx.mesh, axes) * c + torch.arange(c, device=q.device)
+    posv = pos.to(q.device).reshape(-1, 1) if isinstance(pos, torch.Tensor) else int(pos)
+    mask = idx[None, :] <= posv
+    if cfg.window is not None and not _rolling(cfg, c * n):
+        mask &= idx[None, :] > posv - cfg.window
+    s = s.masked_fill(~mask[:, None, None, None, :], -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    # a chunk with no valid position has m = -1e30; the combine scales it
+    # by exp(-1e30 - max) = 0 (position 0 is valid on the first chunk)
+    mg = pmax(m, axes, ctx.mesh)
+    scale = torch.exp(m - mg)
+    l = p.sum(-1, keepdim=True) * scale  # [B, Kv, G, 1, 1]
+    acc = torch.einsum("bkgqc,bckh->bkgqh", p, v_cache.to(torch.float32)) * scale
+    both = psum(torch.cat([acc, l], dim=-1), axes, ctx.mesh)
+    o = both[..., :dh] / both[..., dh:]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, dh).to(q.dtype)
+
+
+def _decode(params, ctx: Ctx, cfg: AttnCfg, prefix: str, q, k, v, cache, pos, local):
+    """A decode step's attention: q, k, v on all heads, the new token written
+    by the rank that holds its slot, attention over the shard (combined over
+    model where the positions are split), and the out-projection's input in
+    the layout its plan reads."""
+    B = q.shape[0]
+    q, k, v = (_whole_heads(t, ctx, local) for t in (q, k, v))
+    _write_shard(cache, k, v, pos, cfg, ctx)
+    o = _decode_shard(q, cache["k"], cache["v"], pos, cfg, ctx).reshape(B, 1, -1)
+    o = _mesh_out_input(params["o"], ctx, f"{prefix}_o", o, False)
+    return dense(params["o"], o, ctx, f"{prefix}_o"), cache
 
 
 def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None,
@@ -229,8 +353,10 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
     * packed prefill: ``segs`` (int [B, S], 0 = padding) segment-masks it.
 
     ``positions`` is [B, S], or [3, B, S] for ``rope="mrope"``. Under a mesh
-    (training only), on this rank's heads where the plans allow
-    (:func:`_mesh_heads`).
+    on this rank's rows, and on this rank's heads where the plans allow
+    (:func:`_mesh_heads`); the caches are this rank's shards of
+    ``launch.sharding.cache_specs``' layout (prefill writes this rank's
+    chunk, decode combines the chunks' softmax statistics over model).
     """
     B, S, _ = x.shape
     src = x if memory is None else memory
@@ -240,8 +366,6 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
     v = dense(params["v"], src, ctx, f"{role_prefix}_v")
     local = False
     if ctx.mesh is not None:
-        if cache is not None:
-            raise NotImplementedError(SERVING_MESH)
         q, k, v, local = _mesh_heads(params, ctx, cfg, role_prefix, q, k, v)
     # under a mesh with local heads: this rank's model chunk of the heads
     q = q.reshape(B, S, -1, cfg.d_head)
@@ -255,15 +379,13 @@ def attention(params, x, ctx: Ctx, cfg: AttnCfg, positions, cache=None, pos=None
     elif cfg.rope != "none":
         raise ValueError(f"unknown rope {cfg.rope!r}")
     if cache is not None and pos is not None:
-        _write_decode(cache, k, v, pos, cfg)
-        o = decode_attention(q, cache["k"], cache["v"], pos, cfg)
-        return dense(params["o"], o.reshape(B, S, -1), ctx, f"{role_prefix}_o"), cache
+        return _decode(params, ctx, cfg, role_prefix, q, k, v, cache, pos, local)
     o = multi_head_attention(q, k, v, cfg, segs=None if memory is not None else segs)
     o = o.reshape(B, S, -1)
     if ctx.mesh is not None:
         o = _mesh_out_input(params["o"], ctx, f"{role_prefix}_o", o, local)
     out = dense(params["o"], o, ctx, f"{role_prefix}_o")
     if cache is not None:
-        _fill_prefill(cache, k, v, cfg, segs=None if memory is not None else segs)
+        _fill_shard(cache, k, v, cfg, ctx, local, None if memory is not None else segs)
         return out, cache
     return out

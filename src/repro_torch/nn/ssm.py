@@ -35,7 +35,9 @@ sharding rules, is then used as it is, the per-head leaves are cut to this
 rank's heads, and the RMS norm over the channels sums its squares over
 model); otherwise each model-sharded projection is all-gathered over model
 and the recurrence runs on every head, as ``nn.attention._mesh_heads``
-does.
+does. Serving under a mesh (prefill with a cached state, and decode) always
+runs it on every head: the cached states hold every head, batch over data
+only (``launch.sharding.cache_specs``).
 """
 from __future__ import annotations
 
@@ -284,11 +286,13 @@ def _mamba_post(params, y, z, ctx: Ctx, dtype, local=False):
     return dense(params["out"], y, ctx, "ssm_out")
 
 
-def mamba_prefill(params, x, ctx: Ctx, cfg: MambaCfg):
+def mamba_prefill(params, x, ctx: Ctx, cfg: MambaCfg, *, whole_heads: bool = False):
     """Training/prefill path. x: [B, S, d_model] -> (out [B, S, d_model],
-    the final ``{"ssm", "conv"}`` state; JAX's ``lm._mamba_prefill``)."""
+    the final ``{"ssm", "conv"}`` state; JAX's ``lm._mamba_prefill``).
+    ``whole_heads`` (a prefill that caches the state, which holds every
+    head under a mesh): the recurrence runs on every head."""
     Bsz, S, _ = x.shape
-    local = _heads_local(ctx, params, _MAMBA_IN, cfg.n_heads)
+    local = not whole_heads and _heads_local(ctx, params, _MAMBA_IN, cfg.n_heads)
     H, P = cfg.n_heads // (ctx.n_mp if local else 1), cfg.head_dim
     z, xs, Bc, Cc, dt, conv = _mamba_pre(params, x, ctx, cfg, local=local)
     xh = xs.reshape(Bsz, S, H, P).to(torch.float32)
@@ -423,7 +427,8 @@ def rwkv_time_mix(params, x, ctx: Ctx, cfg: RWKVCfg, state=None):
     wlog = (mix(4).to(torch.float32) @ params["w1"]["w"].t()) @ params["w2"]["w"].t()
     w = torch.exp(-torch.exp(wlog + params["w_bias"]))
     u = params["u"]
-    local = _heads_local(ctx, params, _RWKV_IN, H)
+    # a carried state holds every head (cache_specs: batch over data only)
+    local = state is None and _heads_local(ctx, params, _RWKV_IN, H)
     if local:
         H, d = H // ctx.n_mp, d // ctx.n_mp
         w, u = _mine(w, ctx), _mine(u, ctx, 0)

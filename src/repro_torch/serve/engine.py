@@ -30,6 +30,16 @@ Every prefill batch carries segment ids, so attention takes the plain path
 and the engine launches no kernel of ``kernels/`` (as JAX's engine runs no
 Pallas kernel), whatever ``attn_impl`` says.
 
+Under a mesh-bearing Runtime (``ExecutionConfig(mesh=...)``) every rank
+runs the same engine on the same requests, through the same code path (as
+in JAX): the parameters are sharded once (``launch.sharding.shard_params``,
+unless the caller passes shards), the pools or caches are this rank's
+shards (``paged_cache_specs``, ``cache_specs``), the prefill and decode
+steps keep this rank's rows, and the sampled tokens are all-gathered over
+the data axes (``serve_step.whole_rows``), so every rank's host scheduler
+reads the same ``[n_slots]`` array and makes the same decisions. That is
+still one device-to-host copy per decode step.
+
 Every decoder family is served: the dense decoder, gemma3's local/global
 interleave and other windowed configs (contiguous over ring caches), the
 MoE family, the SSM and hybrid families (contiguous; each prompt prefilled
@@ -54,11 +64,11 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve import kv_cache
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.scheduler import Request, Scheduler, Slot
-from repro_torch.serve.serve_step import greedy_sample
+from repro_torch.serve.serve_step import greedy_sample, whole_rows
 from repro_torch.telemetry.sinks import RingSink, percentiles
 from repro_torch.tree import tree_leaves
 
-__all__ = ["Request", "Engine", "check_servable", "text_positions"]
+__all__ = ["Request", "Engine", "check_servable", "serving_params", "text_positions"]
 
 _COUNTER_KEYS = ("batches", "prefill_calls", "prefill_tokens", "decode_steps",
                  "tokens_out", "decode_tokens", "requests_done",
@@ -76,6 +86,20 @@ def check_servable(params, cfg: ArchConfig, device: torch.device) -> None:
     if where != {device}:
         raise ValueError(f"parameters lie on {sorted(map(str, where))}, the Runtime serves on "
                          f"{device}: move them there, or build the Runtime with their device")
+
+
+def serving_params(params, mesh):
+    """The parameters a serving engine holds: as given off a mesh or when
+    they are already this rank's shards (a marked leaf), else cut by
+    ``launch.sharding.shard_params`` (views of the caller's tensors where
+    they can be: on one rank no copy)."""
+    if mesh is None:
+        return params
+    from repro_torch.launch import sharding
+
+    if any(sharding.spec_of(t) is not None for t in tree_leaves(params)):
+        return params
+    return sharding.shard_params(params, mesh, copy=False)
 
 
 def text_positions(cfg: ArchConfig, poss: np.ndarray) -> np.ndarray:
@@ -115,7 +139,8 @@ class Engine:
         if serve is None:
             serve = ServeConfig(n_slots=batch, max_len=max_len,
                                 page_size=16 if max_len % 16 == 0 else None)
-        self.params = params
+        self.mesh = self.runtime.execution.mesh
+        self.params = serving_params(params, self.mesh)
         self.cfg = cfg
         self.serve = serve
         self.batch = serve.n_slots
@@ -141,9 +166,10 @@ class Engine:
         self._decode = _Counted(self._build_decode(), self.trace_counts, "decode")
         self._insert = _Counted(self._build_insert(), self.trace_counts, "insert")
         if self.layout.paged:
-            self._state = kv_cache.init_pools(cfg, serve, device=self.device)
+            self._state = kv_cache.init_pools(cfg, serve, device=self.device, mesh=self.mesh)
         else:
-            self._state = lm.init_cache(cfg, serve.n_slots, serve.max_len, device=self.device)
+            self._state = lm.init_cache(cfg, serve.n_slots, serve.max_len, device=self.device,
+                                        mesh=self.mesh)
         self._cur = np.zeros(serve.n_slots, np.int32)
         self._pos = np.zeros(serve.n_slots, np.int32)
 
@@ -152,30 +178,37 @@ class Engine:
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, torch.long)
 
+    def _sampled(self, logits):
+        """The greedy tokens of every slot [n_slots] from this rank's rows'
+        decode logits (all-gathered over data under a mesh)."""
+        tok = greedy_sample(logits)[:, 0]
+        return tok if self.mesh is None else whole_rows(tok, self.mesh, self.serve.n_slots)
+
     def _build_decode(self):
-        serve, dec = self.serve, self._dec_raw
+        serve, dec, mesh = self.serve, self._dec_raw, self.mesh
         if self.layout.paged:
             def step(params, pools, page_map, toks, pos):
                 posc = pos.clamp(max=serve.max_len - 1)
-                contig = kv_cache.gather_slots(pools, page_map, serve)
+                contig = kv_cache.gather_slots(pools, page_map, serve, mesh)
                 logits, new = dec(params, contig, toks, posc)
-                pools = kv_cache.scatter_token(pools, new, page_map, posc, serve)
-                return greedy_sample(logits)[:, 0], pools
+                pools = kv_cache.scatter_token(pools, new, page_map, posc, serve, mesh)
+                return self._sampled(logits), pools
         else:
             def step(params, caches, toks, pos):
                 posc = pos.clamp(max=serve.max_len - 1)
                 logits, new = dec(params, caches, toks, posc)
-                return greedy_sample(logits)[:, 0], new
+                return self._sampled(logits), new
         return torch.no_grad()(step)
 
     def _build_insert(self):
-        serve = self.serve
+        serve, mesh = self.serve, self.mesh
         if self.layout.paged:
             def ins(pools, pref, phys_pages, src_page0):
-                return kv_cache.insert_prompt_pages(pools, pref, phys_pages, src_page0, serve)
+                return kv_cache.insert_prompt_pages(pools, pref, phys_pages, src_page0, serve,
+                                                    mesh)
         else:
             def ins(caches, pref, slot):
-                return kv_cache.insert_prompt_rows(caches, pref, slot)
+                return kv_cache.insert_prompt_rows(caches, pref, slot, mesh=mesh)
         return torch.no_grad()(ins)
 
     def _bucket_prefill(self, bucket: int):
@@ -186,6 +219,7 @@ class Engine:
 
         @torch.no_grad()
         def pf(params, batch, last_idx):
+            # one row, which every rank holds under a mesh
             logits, caches = raw(params, batch)
             idx = last_idx.clamp(0, logits.shape[1] - 1)
             return greedy_sample(logits[0, idx]), caches  # first tokens [n_slots]

@@ -25,6 +25,11 @@ position is clipped to ``max_len - 1`` (JAX drops that out-of-range write),
 which changes only tokens the slot discards. One device-to-host copy per
 decode step, and a device synchronize before the decode time is read.
 
+Under a mesh-bearing Runtime every rank runs the same batches (as
+``serve/engine.py`` does): sharded parameters, caches in ``cache_specs``'
+layout, this rank's rows in the steps, and the first and sampled tokens
+all-gathered over the data axes.
+
 Greedy outputs equal the continuous engine's and sequential decoding's.
 """
 from __future__ import annotations
@@ -41,9 +46,9 @@ from repro_torch.obs import clock, observability
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve import kv_cache
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.engine import _Counted, check_servable, text_positions
+from repro_torch.serve.engine import _Counted, check_servable, serving_params, text_positions
 from repro_torch.serve.scheduler import Request
-from repro_torch.serve.serve_step import greedy_sample
+from repro_torch.serve.serve_step import greedy_sample, own_rows, whole_rows
 from repro_torch.telemetry.sinks import RingSink
 
 __all__ = ["Request", "RunToCompletionEngine"]
@@ -54,7 +59,8 @@ class RunToCompletionEngine:
                  max_len: int = 256, runtime: Optional[Runtime] = None):
         self.runtime = runtime if runtime is not None else Runtime()
         check_servable(params, cfg, self.runtime.device)
-        self.params = params
+        mesh = self.mesh = self.runtime.execution.mesh
+        self.params = serving_params(params, mesh)
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -68,13 +74,18 @@ class RunToCompletionEngine:
         @torch.no_grad()
         def pf(params, batch_d, last_idx):
             logits, caches = pref_raw(params, batch_d)
+            n = last_idx.shape[0]
+            if mesh is not None:
+                last_idx = own_rows(last_idx, mesh, n)
             rows = torch.arange(logits.shape[0], device=logits.device)
-            return greedy_sample(logits[rows, last_idx]), caches
+            first = greedy_sample(logits[rows, last_idx])
+            return (first if mesh is None else whole_rows(first, mesh, n)), caches
 
         @torch.no_grad()
         def dc(params, caches, toks, pos):
             logits, new = dec_raw(params, caches, toks, pos.clamp(max=max_len - 1))
-            return greedy_sample(logits)[:, 0], new
+            nxt = greedy_sample(logits)[:, 0]
+            return (nxt if mesh is None else whole_rows(nxt, mesh, toks.shape[0])), new
 
         self._pf = pf
         self._prefills: dict = {}  # padded prompt length -> built prefill
@@ -105,7 +116,7 @@ class RunToCompletionEngine:
         prefilled without padding: the rows of each distinct length in one
         call, copied into the batch's caches at their own rows."""
         dev = self.device
-        caches = lm.init_cache(self.cfg, self.batch, self.max_len, device=dev)
+        caches = lm.init_cache(self.cfg, self.batch, self.max_len, device=dev, mesh=self.mesh)
         first = torch.zeros(self.batch, dtype=torch.int32, device=dev)
         rows_of: dict = {}  # length -> rows, in order of first appearance
         for j, p in enumerate(prompts):
@@ -117,7 +128,7 @@ class RunToCompletionEngine:
                 torch.full((len(rows),), n - 1, dtype=torch.long, device=dev))
             first[torch.tensor(rows, device=dev)] = f
             for i, j in enumerate(rows):
-                kv_cache.insert_prompt_rows(caches, pref, j, row=i)
+                kv_cache.insert_prompt_rows(caches, pref, j, row=i, mesh=self.mesh)
         return first, caches, len(rows_of)
 
     def run(self, requests: List[Request]) -> List[Request]:

@@ -1286,6 +1286,80 @@ def test_cuda_tp_plans_launch_scores_only(nccl_mesh, cuda):
     assert rel < 1e-5 and math.isfinite(float(m["grad_norm"]))
 
 
+def _mesh_serve(cuda, cfg, params, runtime, prompts, steps=4):
+    """Prefill and ``steps`` greedy decode steps through ``runtime``:
+    (logits of every call, tokens fed, launches of the prefill, of decode)."""
+    from repro_torch.serve import greedy_sample
+
+    B, S = prompts.shape
+    ops.reset_launch_counts()
+    logits, caches = runtime.prefill_step(cfg, S + steps)(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    pre = ops.launch_counts()
+    ops.reset_launch_counts()
+    outs, fed = [logits], []
+    cur = greedy_sample(logits[:, -1:])
+    for i in range(steps):
+        fed.append(cur)
+        logits, caches = runtime.decode_step(cfg)(params, caches, cur, S + i)
+        outs.append(logits)
+        cur = greedy_sample(logits)
+    torch.cuda.synchronize()
+    return outs, fed, pre, ops.launch_counts()
+
+
+def test_cuda_one_rank_mesh_serving_equals_single_device(nccl_mesh, cuda):
+    """chip_smoke phase 20 (a) at a small width: ``attn_impl="pallas"``
+    prefill and decode under the (1, 1) NCCL mesh launch one flash kernel
+    per layer in the prefill and none in decode, and give the single
+    device's logits and tokens bit for bit."""
+    import numpy as np
+
+    from repro_torch.api import ExecutionConfig, Runtime
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models import lm
+
+    cfg = _dist_arch().replace(attn_impl="pallas")
+    params = lm.init_params(3, cfg, device=cuda)
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab, (4, 96))
+    single = _mesh_serve(cuda, cfg, params, Runtime(device=cuda), prompts)
+    meshed = _mesh_serve(cuda, cfg, shard_params(params, nccl_mesh),
+                         Runtime(device=cuda, execution=ExecutionConfig(mesh=nccl_mesh)), prompts)
+    assert meshed[2]["flash_attention"] == cfg.n_layers == single[2]["flash_attention"]
+    assert sum(meshed[2].values()) == cfg.n_layers and not any(meshed[3].values())
+    for a, b in zip(meshed[0] + meshed[1], single[0] + single[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["gemma3_1b", "zamba2_7b"])
+def test_cuda_one_rank_mesh_engine_equals_single_device(nccl_mesh, cuda, arch):
+    """chip_smoke phase 20 (c) at smoke size: the contiguous engine under the
+    (1, 1) NCCL mesh (gemma3's rings, zamba2's recurrent states) emits the
+    single-device engine's tokens and launches no kernel."""
+    import numpy as np
+
+    from repro_torch.api import ExecutionConfig, Runtime, ServeConfig
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request
+
+    cfg = smoke_config(arch).replace(attn_impl="pallas")
+    params = lm.init_params(3, cfg, device=cuda)
+    rng = np.random.default_rng(2)
+    specs = [(rng.integers(1, cfg.vocab, size=n).astype(np.int32), m)
+             for n, m in ((11, 5), (23, 3), (7, 8), (17, 6))]
+    sv = ServeConfig(n_slots=2, max_len=64, page_size=None)
+    got = []
+    for rt in (Runtime(device=cuda),
+               Runtime(device=cuda, execution=ExecutionConfig(mesh=nccl_mesh))):
+        reqs = [Request(prompt=p.copy(), max_new=m) for p, m in specs]
+        ops.reset_launch_counts()
+        rt.serve(params, cfg, serve=sv).run(reqs)
+        assert not any(ops.launch_counts().values())
+        got.append([r.out.tolist() for r in reqs])
+    assert got[0] == got[1]
+
+
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "zamba2_7b"])
 def test_cuda_one_rank_mesh_family_step_equals_single_device(nccl_mesh, cuda, arch):
     """chip_smoke phase 19 (a) at smoke size: the MoE layer's expert-parallel

@@ -2,7 +2,10 @@
 
 One module fixture spawns 4 ranks once (``torch.multiprocessing``, a
 ``file://`` store under ``tmp_path``: no ports, so no clash between xdist
-workers; one intra-op thread per rank). Every rank runs every scenario on the
+workers; one intra-op thread per rank) through the gloo files' shared
+harness (``test_torch_distributed_families.spawn_ranks``: one rank group at
+a time, a deadline from the group's time alone, a time-out naming each
+rank's part). Every rank runs every scenario on the
 meshes (2, 2) and (1, 4) ``("data", "model")``; rank 0 saves what they
 produced, and the tests compare it here: with JAX on the same numpy inputs
 (``make_mesh(..., devices=jax.devices()[:4])``, weights carried by
@@ -20,12 +23,15 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_distributed_families import (gather_whole, init_group, lead_rank, progress,
+                                             spawn_ranks)
+
 MESHES = ((2, 2), (1, 4))
 TAGS = tuple(f"{a}x{b}" for a, b in MESHES)
 ELASTIC = (((4, 1), ("data", "model")), ((2, 2), ("data", "model")),
            ((1, 4), ("data", "model")), ((1, 2, 2), ("pod", "data", "model")))
 WORLD = 4
-JOIN_TIMEOUT_S = 240
+ALONE_S = 150  # the rank group's time alone (spawning included; see SLOWDOWN)
 N_MC = 480  # draws of the unbiasedness tests (JAX's)
 N_PROBE = 384  # draws of the probe tests (JAX's)
 B, S, DIN, N = 4, 8, 16, 32  # the TP linear tests' shapes (JAX's)
@@ -102,7 +108,6 @@ def _steps(mesh, tag, inp, out):
     from repro_torch.api import ExecutionConfig
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.launch import sharding
     from repro_torch.optim import sgd
     from repro_torch.train.train_step import init_state, make_train_step
     from repro_torch.tree import tree_leaves
@@ -117,13 +122,12 @@ def _steps(mesh, tag, inp, out):
         meshlib.reset_collective_bytes()
         new, m = step(st, shard_batch(batch, mesh=mesh), STEP_SEED)
         out[f"{tag}/step/{name}/bytes"] = meshlib.collective_bytes()["total"]
-        whole = sharding.gather_tree(new.params, mesh)
-        out[f"{tag}/step/{name}/params"] = [_np(t) for t in tree_leaves(whole)]
+        out[f"{tag}/step/{name}/params"] = list(gather_whole(new.params, mesh).values())
         out[f"{tag}/step/{name}/loss"] = float(m["loss"])
         out[f"{tag}/step/{name}/grad_norm"] = float(m["grad_norm"])
         if name == "exact" and tag == TAGS[0]:
             out["ckpt_state"] = new
-    for name in ("exact", "mask"):
+    for name in ("exact", "mask") if lead_rank() else ():
         if f"single/{name}/params" in out:
             continue
         opt = sgd(0.1)
@@ -342,7 +346,6 @@ def _data_only(inp, out):
     plan-carry backends with their carry leaves)."""
     from repro_torch.api import ExecutionConfig, SketchConfig, SketchPolicy
     from repro_torch.data.pipeline import shard_batch
-    from repro_torch.launch import sharding
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.optim import sgd
     from repro_torch.train.train_step import init_state, make_train_step
@@ -353,15 +356,16 @@ def _data_only(inp, out):
     batch = {"tokens": inp["tokens"], "labels": inp["tokens"]}
     for backend in DATA_ONLY_BACKENDS:
         pol = SketchPolicy(base=SketchConfig(method="l1", budget=0.5, backend=backend, block=4))
-        for ex in (None, ExecutionConfig(mesh=mesh)):
+        # the single-device reference on rank 0 alone, which saves it
+        for ex in ((None,) if lead_rank() else ()) + (ExecutionConfig(mesh=mesh),):
             opt = sgd(0.1)
             st = init_state(0, cfg, opt, params=_clone(inp["params"]), device="cpu",
                             policy=pol, execution=ex)
             new, m = make_train_step(cfg, opt, pol, execution=ex, device="cpu")(
                 st, batch if ex is None else shard_batch(batch, mesh=mesh), STEP_SEED)
-            tree = new.params if ex is None else sharding.gather_tree(new.params, mesh)
             key = f"data_only/{backend}/{'single' if ex is None else 'mesh'}"
-            out[key + "/params"] = [_np(t) for t in tree_leaves(tree)]
+            out[key + "/params"] = ([_np(t) for t in tree_leaves(new.params)] if ex is None
+                                    else list(gather_whole(new.params, mesh).values()))
             out[key + "/loss"] = float(m["loss"])
 
 
@@ -495,9 +499,7 @@ def _elastic(inp, out, work, rank):
 def _worker(rank, world, store, work):
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=world)
+    init_group(rank, world, store)
     try:
         from repro_torch.launch.mesh import make_mesh
 
@@ -507,16 +509,20 @@ def _worker(rank, world, store, work):
             mesh = make_mesh(shape, ("data", "model"), device="cpu")
             tag = "x".join(map(str, shape))
             for part in (_steps, _toy, _budget_one, _mc, _plans):
+                progress(work, rank, f"{tag}/{part.__name__}")
                 t0 = time.perf_counter()
                 part(mesh, tag, inp, out)
                 out[f"time/{tag}/{part.__name__}"] = time.perf_counter() - t0
         for part in (_data_only, _trainer):
+            progress(work, rank, part.__name__)
             t0 = time.perf_counter()
             part(inp, out)
             out[f"time/{part.__name__}"] = time.perf_counter() - t0
+        progress(work, rank, "_resilience")
         t0 = time.perf_counter()
         _resilience(inp, out, work)
         out["time/_resilience"] = time.perf_counter() - t0
+        progress(work, rank, "_elastic")
         _elastic(inp, out, work, rank)
         if rank == 0:
             torch.save(out, os.path.join(work, "results.pt"))
@@ -564,23 +570,7 @@ def inputs(jax_init):
 @pytest.fixture(scope="module")
 def ranks(inputs, tmp_path_factory):
     """Spawn the 4 ranks once; their results (rank 0's), and the wall time."""
-    import torch.multiprocessing as mp
-
-    work = str(tmp_path_factory.mktemp("ranks"))
-    torch.save(inputs, os.path.join(work, "inputs.pt"))
-    t0 = time.perf_counter()
-    pc = mp.start_processes(_worker, args=(WORLD, os.path.join(work, "store"), work),
-                            nprocs=WORLD, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
-    while not pc.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in pc.processes:
-                if p.is_alive():
-                    p.kill()
-            pytest.fail(f"the {WORLD} ranks did not finish within {JOIN_TIMEOUT_S} s")
-    out = torch.load(os.path.join(work, "results.pt"), weights_only=False)
-    out["wall_s"] = time.perf_counter() - t0
-    return out
+    return spawn_ranks(_worker, inputs, tmp_path_factory, alone_s=ALONE_S)
 
 
 def _jax_mesh(tag):

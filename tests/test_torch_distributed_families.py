@@ -2,8 +2,9 @@
 JAX's sharded step and the port's single device.
 
 One module fixture spawns 4 ranks once (a ``file://`` store under
-``tmp_path``, one intra-op thread per rank), as ``test_torch_distributed.py``
-does; each rank runs the smoke configs of gemma3-1b (tied embeddings, the 5
+``tmp_path``, one intra-op thread per rank) through the gloo files' shared
+harness (:func:`spawn_ranks`: one rank group at a time, a deadline from the
+group's time alone, a time-out naming each rank's part); each rank runs the smoke configs of gemma3-1b (tied embeddings, the 5
 local : 1 global plan), rwkv6-3b, zamba2-7b (Mamba2 with its shared block),
 qwen2-vl-2b (M-RoPE over stub embeddings, 6:2 heads that do not divide 4
 ranks) and seamless-m4t-large-v2 (the encoder-decoder) on the meshes (2, 2)
@@ -36,7 +37,7 @@ import pytest
 import torch
 
 WORLD = 4
-JOIN_TIMEOUT_S = 240
+ALONE_S = 50  # the rank group's time alone (spawning included; see SLOWDOWN)
 STEP_SEED = 2
 B, S, S_ENC = 8, 16, 12
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
@@ -125,20 +126,62 @@ def flat(tree, path="") -> dict:
 
 
 def whole_leaves(state, mesh=None) -> dict:
-    from repro_torch.launch.sharding import gather_tree
+    return flat(state.params) if mesh is None else gather_whole(state.params, mesh)
 
-    return flat(state.params if mesh is None else gather_tree(state.params, mesh))
+
+def gather_whole(tree, mesh) -> dict:
+    """A tree of this rank's marked shards as whole float32 arrays by path
+    (:func:`flat`'s), in one collective: every rank's shards are
+    all-gathered as one object and each is put where its rank's coordinates
+    place it (``launch.sharding.gather_tree`` runs a collective per leaf and
+    sharded dimension, which a loaded box makes the ranks' slowest part)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import _unravel
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    mine = {}
+
+    def walk(t, path=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, f"{path}/{i}")
+        elif isinstance(t, torch.Tensor):
+            mine[path] = (np32(t), spec_of(t))
+
+    walk(tree)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out = {}
+    for path, (local, spec) in mine.items():
+        spec = spec or (None,) * local.ndim
+        sizes = [mesh.axis_size(dim_axes(e)) for e in spec]
+        whole = np.empty(tuple(n * k for n, k in zip(local.shape, sizes)), np.float32)
+        for rank, shards in enumerate(every):
+            coords = dict(zip(mesh.axis_names, _unravel(rank, mesh.devices_shape)))
+            at = []
+            for n, e in zip(local.shape, spec):
+                i = 0
+                for a in mesh.axes(dim_axes(e)):
+                    i = i * mesh.shape[a] + coords[a]
+                at.append(slice(i * n, (i + 1) * n))
+            whole[tuple(at)] = shards[path][0]
+        out[path] = whole
+    return out
 
 
 def family_runs(name, inp, out, meshes):
-    """The single-device steps (exact, both masks) and on each mesh: exact,
-    ``mask_pc`` (and ``mask_l1`` on (1, 4)), the exact TP step and the
-    compact TP step."""
+    """The single-device steps (exact, both masks; rank 0 alone, which saves
+    them) and on each mesh: exact, ``mask_pc`` (and ``mask_l1`` on (1, 4)),
+    the exact TP step and the compact TP step."""
     from repro_torch.configs.registry import smoke_config
 
     cfg = smoke_config(name)
     params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
-    for kind in ("exact", "mask_pc", "mask_l1"):
+    for kind in ("exact", "mask_pc", "mask_l1") if lead_rank() else ():
         new, m, _ = one_step(cfg, params, batch, kind=kind)
         out[f"{name}/single/{kind}/params"] = whole_leaves(new)
         out[f"{name}/single/{kind}/loss"] = float(m["loss"])
@@ -159,8 +202,9 @@ def family_runs(name, inp, out, meshes):
 
 def runtime_train(name, inp, out, mesh):
     """``Runtime.train`` for two steps over two batches (l1@0.5 mask, the
-    per_column plans), on one device and under ``ExecutionConfig(mesh=)``,
-    from the same initial state: the loss histories."""
+    per_column plans), on one device (rank 0 alone) and under
+    ``ExecutionConfig(mesh=)``, from the same initial state: the loss
+    histories."""
     from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.configs.registry import smoke_config
     from repro_torch.optim import sgd
@@ -168,7 +212,8 @@ def runtime_train(name, inp, out, mesh):
 
     cfg = smoke_config(name)
     data = [inp[f"{name}/batch"], {k: v.flip(0) for k, v in inp[f"{name}/batch"].items()}]
-    for tag, ex in (("single", ExecutionConfig()), ("mesh", ExecutionConfig(mesh=mesh))):
+    runs = (("single", ExecutionConfig()),) if lead_rank() else ()
+    for tag, ex in runs + (("mesh", ExecutionConfig(mesh=mesh)),):
         rt = Runtime(policy=policy("mask_pc"), device="cpu", execution=ex)
         opt = sgd(0.1)
         state = rt.init_state(0, cfg, opt, params=clone(inp[f"{name}/params"]))
@@ -184,25 +229,95 @@ def make_meshes(shapes):
             for tag, shape in shapes.items()}
 
 
-def spawn_ranks(worker, inputs, work):
-    """Run ``worker(rank, world, store, work)`` on 4 spawned ranks once;
-    rank 0's saved results, and the wall time."""
+# The rank groups of the four gloo files (this one, the MoE, the distributed
+# and the serving file) take turns: a group holds an exclusive lock on one
+# file under the session's base temp while its ranks run, so at most one
+# group of 4 ranks competes with the suite's workers for the cores. The
+# deadline starts when the lock is taken and is SLOWDOWN times the group's
+# time alone (``alone_s``, spawning included). The groups wait on gloo's
+# loopback collectives, whose latency varies more than their compute: the
+# same group ran alone on one 8-core host in 40 s at ~1 ms per 4-rank
+# all-reduce and in 146 s at 6-11 ms, so each ALONE_S is the slower reading.
+GROUP_LOCK = "torch_gloo_rank_groups.lock"
+GROUP_LOG = "torch_gloo_rank_groups.log"
+SLOWDOWN = 4
+
+
+def group_dir(tmp_path_factory) -> str:
+    """The directory every pytest worker of this session shares: the base
+    temp (under xdist each worker's base temp is its child)."""
+    base = tmp_path_factory.getbasetemp()
+    return str(base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base)
+
+
+def progress(work, rank, part) -> None:
+    """Record that ``rank`` entered ``part`` (the file's mtime says when)."""
+    with open(os.path.join(work, f"progress.{rank}"), "w") as f:
+        f.write(part)
+
+
+def _where(work) -> str:
+    """Each rank's last recorded part and how long it has been in it."""
+    now, said = time.time(), []
+    for rank in range(WORLD):
+        path = os.path.join(work, f"progress.{rank}")
+        if not os.path.exists(path):
+            said.append(f"rank {rank} never started a part")
+            continue
+        with open(path) as f:
+            part = f.read()
+        said.append(f"rank {rank} in {part} for {now - os.path.getmtime(path):.0f} s")
+    return "; ".join(said)
+
+
+def spawn_ranks(worker, inputs, tmp_path_factory, *, alone_s: float):
+    """Run ``worker(rank, world, store, work)`` on 4 spawned ranks once, when
+    no other group runs (:data:`GROUP_LOCK`); rank 0's saved results, the
+    wall time of the run and the wait for the lock. A run past its deadline
+    (``SLOWDOWN * alone_s`` from the lock) fails, naming where each rank
+    was (:func:`progress`)."""
+    import fcntl
+
     import torch.multiprocessing as mp
 
+    work = str(tmp_path_factory.mktemp("ranks"))
     torch.save(inputs, os.path.join(work, "inputs.pt"))
-    t0 = time.perf_counter()
-    pc = mp.start_processes(worker, args=(WORLD, os.path.join(work, "store"), work),
-                            nprocs=WORLD, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOIN_TIMEOUT_S
-    while not pc.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in pc.processes:
-                if p.is_alive():
-                    p.kill()
-            pytest.fail(f"the {WORLD} ranks did not finish within {JOIN_TIMEOUT_S} s")
+    shared = group_dir(tmp_path_factory)
+    limit = SLOWDOWN * alone_s
+    t_wait = time.perf_counter()
+    with open(os.path.join(shared, GROUP_LOCK), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            t0 = time.perf_counter()
+            pc = mp.start_processes(worker, args=(WORLD, os.path.join(work, "store"), work),
+                                    nprocs=WORLD, join=False, start_method="spawn")
+            deadline = time.monotonic() + limit
+            while not pc.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    where = _where(work)
+                    for p in pc.processes:
+                        if p.is_alive():
+                            p.kill()
+                    pytest.fail(f"the {WORLD} ranks did not finish within {limit:.0f} s "
+                                f"({SLOWDOWN} x their {alone_s:.0f} s alone): {where}")
+            wall = time.perf_counter() - t0
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    waited = t0 - t_wait
+    with open(os.path.join(shared, GROUP_LOG), "a") as log:
+        log.write(f"{worker.__module__} waited {waited:.1f} s ran {wall:.1f} s "
+                  f"(limit {limit:.0f} s)\n")
     out = torch.load(os.path.join(work, "results.pt"), weights_only=False)
-    out["wall_s"] = time.perf_counter() - t0
+    out["wall_s"], out["wait_s"] = wall, waited
     return out
+
+
+def lead_rank() -> bool:
+    """Whether this rank saves the results: the single-device references,
+    the same on every rank, are computed there alone."""
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
 
 
 def init_group(rank, world, store):
@@ -236,6 +351,7 @@ def _worker(rank, world, store, work):
         inp = torch.load(os.path.join(work, "inputs.pt"))
         meshes = make_meshes(MESHES)
         for name in FAMILIES:
+            progress(work, rank, name)
             t0 = time.perf_counter()
             family_runs(name, inp, out, meshes)
             runtime_train(name, inp, out, meshes["2x2"])
@@ -331,7 +447,7 @@ def inputs():
 
 @pytest.fixture(scope="module")
 def ranks(inputs, tmp_path_factory):
-    return spawn_ranks(_worker, inputs, str(tmp_path_factory.mktemp("ranks")))
+    return spawn_ranks(_worker, inputs, tmp_path_factory, alone_s=ALONE_S)
 
 
 @pytest.mark.parametrize("name,tag", JAX_CASES)
@@ -394,20 +510,18 @@ def test_runtime_trains_the_family_under_a_mesh(ranks, name):
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_serving_under_a_mesh_raises_naming_the_next_slice(name):
-    """Prefill and decode under a mesh stay for the next distributed slice
-    (ROADMAP.md Queue 1 item 2b): they raise before any collective."""
+    """Serving under a mesh runs for every family since the eighteenth slice
+    (``test_torch_distributed_serve.py``); what stays for the next
+    distributed slice (ROADMAP.md Queue 1 item 2b) still raises when the
+    serving Runtime is built, before any collective: an activation layout
+    other than the port's fixed one."""
+    from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.mesh import layout
-    from repro_torch.models import lm
-    from repro_torch.nn.common import Ctx
 
     cfg = smoke_config(name)
-    params = lm.init_params(0, cfg, device="cpu")
-    batch = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
-    ctx = Ctx(mesh=layout((2, 2), ("data", "model")))
+    mesh = layout((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-        lm.prefill(params, batch, ctx, cfg, max_len=S + 4)
-    tok = batch["tokens"][:, :1] if "tokens" in batch else batch["embeds"][:, :1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2b"):
-        lm.decode_step(params, lm.init_cache(cfg, B, S + 4, enc_len=S_ENC, device="cpu"), tok,
-                       0, ctx, cfg)
+        Runtime(device="cpu", execution=ExecutionConfig(mesh=mesh,
+                                                        act_sharding=(None, None, "model"))
+                ).prefill_step(cfg, S + 4)

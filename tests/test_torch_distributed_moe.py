@@ -33,10 +33,11 @@ import torch
 
 from test_torch_distributed_families import (assert_close_leaves, family_inputs, family_runs,
                                              finish, init_group, jax_mesh,
-                                             jax_sharded_exact_step, make_meshes, np32,
-                                             runtime_train, spawn_ranks)
+                                             jax_sharded_exact_step, lead_rank, make_meshes,
+                                             np32, progress, runtime_train, spawn_ranks)
 
 MESHES = {"2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1)}
+ALONE_S = 15  # the rank group's time alone (spawning included; see SLOWDOWN)
 FAMILY_MESHES = ("2x2", "1x4")
 FAMILIES = ("olmoe_1b_7b", "mixtral_8x22b")
 JAX_CASES = (("olmoe_1b_7b", "2x2"), ("olmoe_1b_7b", "1x4"), ("mixtral_8x22b", "2x2"))
@@ -234,15 +235,20 @@ def _worker(rank, world, store, work):
         meshes = make_meshes(MESHES)
         t0 = time.perf_counter()
         for name, (tag, *_rest) in MOE_CASES.items():
+            progress(work, rank, f"moe_ffn/{name}")
             _moe_case(name, meshes[tag], inp, out)
-            _moe_local(name, inp, out)
+            if lead_rank():
+                _moe_local(name, inp, out)
         out["time/moe_ffn"] = time.perf_counter() - t0
         for name in FAMILIES:
+            progress(work, rank, name)
             t0 = time.perf_counter()
             family_runs(name, inp, out, {t: meshes[t] for t in FAMILY_MESHES})
             runtime_train(name, inp, out, meshes["2x2"])
             out[f"time/{name}"] = time.perf_counter() - t0
+        progress(work, rank, "expert_seeds")
         _expert_seeds(meshes, out)
+        progress(work, rank, "ckpt")
         t0 = time.perf_counter()
         _ckpt(meshes, out, work, rank)
         out["time/ckpt"] = time.perf_counter() - t0
@@ -281,7 +287,7 @@ def inputs():
 
 @pytest.fixture(scope="module")
 def ranks(inputs, tmp_path_factory):
-    return spawn_ranks(_worker, inputs, str(tmp_path_factory.mktemp("ranks")))
+    return spawn_ranks(_worker, inputs, tmp_path_factory, alone_s=ALONE_S)
 
 
 def _jax_moe(name):
