@@ -137,13 +137,13 @@ which raises on failure:
    gemma3-1b's l1@0.2 shapes (expert buckets of 320 rows, an all-zero bucket
    among them) and flash at their prefills, against the plain versions;
    olmoe-1b-7b (d 2048, 64 experts top-8, expert d_ff 1024, vocab 50,304;
-   cut to 4 of 16 layers and float32) and gemma3-1b (its full 26 layers,
+   cut to 2 of 16 layers and float32) and gemma3-1b (its full 26 layers,
    vocab 262,144; float32), each at batch 4 x 512: one gradient at budget
    0.999 equal to exact backprop's for every leaf (olmoe under ``pallas``,
    ``onepass`` and ``stale``, gemma3 under ``pallas``), then
    ``Runtime.train`` for 3 steps at l1@0.2 block 128 under each of those
    backends with the launch counts set to 0 before and read after (olmoe
-   784 per kernel per step, 4 x (4 + 3 x 64) sites; gemma3 182), finite
+   392 per kernel per step, 2 x (4 + 3 x 64) sites; gemma3 182), finite
    losses and aux, the replicas dropped by the capacity printed; one exact
    step beside one pallas step (ms, device-busy ms, device ops, idle share,
    peak memory; olmoe's pallas step timed but not profiled); serving
@@ -158,13 +158,13 @@ which raises on failure:
    and stream kernels at rwkv6-3b's and zamba2-7b's l1@0.2 shapes (G up to
    [2048, 14336]) and flash at zamba's prefill (dh 112, run padded to 128),
    against the plain versions; rwkv6-3b (d 2560, 40 heads of 64, channel
-   mix 8960, vocab 65,536; cut to 8 of 32 layers) and zamba2-7b (81 Mamba2
+   mix 8960, vocab 65,536; cut to 4 of 32 layers) and zamba2-7b (81 Mamba2
    layers at d 3584 with one shared attention block every 6; cut to 13
    layers, two periods and a one-layer remainder), each at batch 4 x 512
    and the full configs' chunk of 256: one gradient at budget 0.999 equal
    to exact backprop's for every leaf under ``pallas``, ``onepass`` and
    ``stale``, every exact gradient finite; ``Runtime.train`` for 3 steps per
-   backend with the launch counts set to 0 before and read after (rwkv 64
+   backend with the launch counts set to 0 before and read after (rwkv 32
    sites per step, zamba 53); one profiled ``pallas`` step each (ms,
    device-busy ms, device ops, idle share, peak memory); serving at full
    depth (rwkv 32 layers, zamba 81 with 13 shared applications) of 4 x 512
@@ -178,24 +178,26 @@ which raises on failure:
    their prefills (qwen causal GQA 12:2 at dh 128; seamless's encoder
    without the causal mask at 768 x 768, its decoder's causal 512 x 512 and
    its cross-attention without the mask at Sq 512, Skv 768), against the
-   plain versions; qwen2-vl-2b (28 layers, d 1536, M-RoPE, the vision
+   plain versions; qwen2-vl-2b (14 of 28 layers, d 1536, M-RoPE, the vision
    stub's embeds and a 16 x 16 grid's positions [3, B, S]) and
-   seamless-m4t-large-v2 (24 encoder + 24 decoder layers, d 1024, the audio
-   stub's 768 frames) at batch 4 x 512, full depth: one gradient at budget
+   seamless-m4t-large-v2 (12 + 12 of 24 encoder + 24 decoder layers, d 1024,
+   the audio stub's 768 frames) at batch 4 x 512 (the depths halved since
+   layer remat, PR 29): one gradient at budget
    0.999 equal to exact backprop's for every leaf under each backend, every
    exact gradient finite; ``Runtime.train`` for 3 steps per backend with the
-   launch counts set to 0 before and read after (qwen 196 sites per step,
-   seamless 384), and a qwen ``stale`` step at accum 2 whose split takes
-   the positions on axis 1 (2 x 196); one exact and one profiled ``pallas``
+   launch counts set to 0 before and read after (qwen 98 sites per step,
+   seamless 192), and a qwen ``stale`` step at accum 2 whose split takes
+   the positions on axis 1 (2 x 98); one exact and one profiled ``pallas``
    step each; serving of 4 x 512 prompts (seamless over its 768 frames) and
    16 greedy decode steps: 28 (qwen) and 72 (seamless) flash launches per
    prefill and none in decode, logits against plain attention
    (teacher-forced), and prefill + one decode step against the forward;
-16. the serving engines over every decoder family at full width and depth
-   (float32, random weights from a seed), one family at a time: olmoe-1b-7b
-   (16 layers, paged), gemma3-1b (26 layers, contiguous over its 512-slot
-   rings), rwkv6-3b (32 layers) and zamba2-7b (81 layers), each prompt
-   prefilled alone at its exact length, and qwen2-vl-2b (28 layers, paged,
+16. the serving engines over every decoder family at full width and about
+   a quarter of its depth (``FE_LAYERS``; float32, random weights from a
+   seed), one family at a time: olmoe-1b-7b (4 of 16 layers, paged),
+   gemma3-1b (8 of 26, contiguous over its 512-slot rings), rwkv6-3b (8 of
+   32) and zamba2-7b (21 of 81), each prompt prefilled alone at its exact
+   length, and qwen2-vl-2b (7 of 28, paged,
    text prompts at ``[3, 1, S]`` positions); 10 requests each from numpy
    (prompts of 16-768 tokens, the first two longer than 512, max_new 4-24)
    through ``Runtime.serve(..., ServeConfig(n_slots=4, max_len=1024,
@@ -240,7 +242,23 @@ which raises on failure:
    shapes; phase 11's paged and run-to-completion engines and one
    contiguous engine per phase-16 family (at its depth) on the mesh, their
    tokens equal to the single-device engines';
-21. one JSON line listing the ported kernels, then the last line
+21. the dry run (``dry_run(dev)``; ``repro_torch.launch.dryrun``), run in a
+   child process on the host CPU on fake tensors over a fake process group
+   (started after the kernel checks, so it runs beside the card's phases):
+   (a) lm-100m's training cell (batch 8 x 256, block-128 l1@0.2 ``pallas``,
+   AdamW, a one-rank mesh) at remat "full" and "none", held against the
+   same step on the card: payload equal to phase 17's formula and to the
+   card's to the byte, 84 + 84 launches of rows 1 and 4, FlopCounterMode
+   totals equal, the peak within ``DRY_PEAK_RTOL`` of the card's
+   ``max_memory_allocated`` above what was allocated before the state, the
+   card's steps at remat "full", "dots" and "none" bit for bit, with each
+   one's ms per step, device-busy ms and peak side by side; the roofline
+   terms beside them; (b) llama3-405b's
+   ``train_4k`` cell on the (16, 16) mesh, ``mask``, sequence-parallel,
+   from the depth model: per-rank peak GB, whether it fits the card's
+   usable bytes (``HW.hbm_bytes``; the card's own ``total_memory`` printed
+   beside it), the dominant term, the wire GB and the seconds it took;
+22. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -2914,9 +2932,10 @@ def resilience(dev):
 # then ceil(2048 * 8 * 1.25 / 64) = 320 rows per bucket)
 FAM_BATCH, FAM_SEQ = 4, 512
 FAM_STEPS = 3
-# olmoe trains at 4 of its 16 layers: float32 weights, gradients and AdamW's
-# two moments take 16 B per parameter, ~30 GB at 4 layers (~110 GB at 16)
-OLMOE_TRAIN_LAYERS = 4
+# olmoe trains at 2 of its 16 layers: float32 weights, gradients and AdamW's
+# two moments take 16 B per parameter (~110 GB at 16); 4 until layer remat
+# (PR 29), whose recompute of the host-bound steps took the script's time
+OLMOE_TRAIN_LAYERS = 2
 # serving (prompts, tokens per prompt): olmoe at full depth; gemma3 with
 # prompts four times its 512-token window
 FAM_SERVE = {"olmoe-1b-7b": (4, 512), "gemma3-1b": (2, 2048), "rwkv6-3b": (4, 512),
@@ -2930,11 +2949,11 @@ FAM_SEED = 41
 # plain run is below ROUTER_TIE is a near tie; a larger one fails the run
 ROUTER_TIE = 1e-5
 # the shapes of the families' kernels at l1@0.2, block 128, and their calls
-# per step: (N, n, d, rb) -> calls (olmoe: 4 layers, 4 attention and 3 x 64
+# per step: (N, n, d, rb) -> calls (olmoe: 2 layers, 4 attention and 3 x 64
 # expert sites each; gemma3: 26 layers of 7 sites)
 FAM_BLOCK_SHAPES = {
-    "olmoe-1b-7b": {(2048, 2048, 2048, 3): 16, (320, 1024, 2048, 2): 512,
-                    (320, 2048, 1024, 3): 256},
+    "olmoe-1b-7b": {(2048, 2048, 2048, 3): 8, (320, 1024, 2048, 2): 256,
+                    (320, 2048, 1024, 3): 128},
     "gemma3-1b": {(2048, 1024, 1152, 2): 26, (2048, 256, 1152, 1): 52,
                   (2048, 1152, 1024, 2): 26, (2048, 6912, 1152, 11): 52,
                   (2048, 1152, 6912, 2): 26}}
@@ -3628,17 +3647,19 @@ def families(dev, gen):
 
 # float32 AdamW takes 16 B per parameter: rwkv6-3b's 32 layers (~3.1 B
 # parameters, ~50 GB of state before activations) and zamba2-7b's 81 (~6.7 B)
-# do not fit 80 GB. rwkv trains at 8 layers; zamba at 13: two periods of 6
+# do not fit 80 GB. rwkv trains at 4 layers; zamba at 13: two periods of 6
 # Mamba layers and the shared block, then a one-layer remainder, so both of
 # the full plan's segment kinds run
-SSM_TRAIN_LAYERS = {"rwkv6-3b": 8, "zamba2-7b": 13}
+# rwkv6-3b trains at 4 of 32 layers (8 until layer remat, PR 29, whose
+# recompute of its host-bound steps took the script's time)
+SSM_TRAIN_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 13}
 # the families' kernel shapes at l1@0.2, block 128, and their calls per step:
-# (N, n, d, rb) -> calls (rwkv: 8 layers of r/k/v/g/o/cm_r, cm_k, cm_v; zamba:
+# (N, n, d, rb) -> calls (rwkv: 4 layers of r/k/v/g/o/cm_r, cm_k, cm_v; zamba:
 # 13 Mamba layers of in_z/in_x and out, 2 shared applications of q/k/v/o,
 # mlp in/gate and out)
 SSM_BLOCK_SHAPES = {
-    "rwkv6-3b": {(2048, 2560, 2560, 4): 48, (2048, 8960, 2560, 14): 8,
-                 (2048, 2560, 8960, 4): 8},
+    "rwkv6-3b": {(2048, 2560, 2560, 4): 24, (2048, 8960, 2560, 14): 4,
+                 (2048, 2560, 8960, 4): 4},
     "zamba2-7b": {(2048, 7168, 3584, 11): 26, (2048, 3584, 7168, 6): 13,
                   (2048, 3584, 3584, 6): 8, (2048, 14336, 3584, 22): 4,
                   (2048, 3584, 14336, 6): 2}}
@@ -3656,11 +3677,13 @@ SSM_LOGIT_RTOL = 1e-3
 
 def f32_cfg(name, layers=None):
     """The registry's config, float32 (published bfloat16), cut to ``layers``
-    (phases 14 and 15)."""
+    (phases 14 to 16 and 20)."""
     from repro_torch.configs.registry import get_config
 
     cfg = get_config(name).replace(dtype="float32", param_dtype="float32")
-    return cfg if layers is None else cfg.replace(n_layers=layers)
+    if layers is None:
+        return cfg
+    return cfg.replace(n_layers=layers, **({"enc_layers": layers} if cfg.is_encdec else {}))
 
 
 def ssm_families(dev, gen):
@@ -3719,17 +3742,21 @@ VLM_GRID = 16
 # cross-attention's keys
 AUDIO_FRAMES = 768
 VLM_AUDIO = ("qwen2-vl-2b", "seamless-m4t-large-v2")
+# the training depths: half of each (qwen 14 of 28 layers, seamless 12 + 12
+# of 24 + 24; full depth until layer remat, PR 29, whose recompute of the
+# host-bound steps took the script's time); serving stays at full depth
+VLM_TRAIN_LAYERS = {"qwen2-vl-2b": 14, "seamless-m4t-large-v2": 12}
 # the families' kernel shapes at l1@0.2, block 128, and their calls per step:
-# (N, n, d, rb) -> calls. qwen: 28 layers of q/o, k/v (GQA 12:2 of 128), mlp
-# in/gate and out. seamless: N 3,072 (4 x 768 frames) at the encoder's 24
+# (N, n, d, rb) -> calls. qwen: 14 layers of q/o, k/v (GQA 12:2 of 128), mlp
+# in/gate and out. seamless: N 3,072 (4 x 768 frames) at the encoder's 12
 # layers of q/k/v/o and mlp in/out and at the decoder's cross k/v; N 2,048
-# at the decoder's 24 layers of self q/k/v/o, cross q/o and mlp in/out
+# at the decoder's 12 layers of self q/k/v/o, cross q/o and mlp in/out
 VLM_BLOCK_SHAPES = {
-    "qwen2-vl-2b": {(2048, 1536, 1536, 2): 56, (2048, 256, 1536, 1): 56,
-                    (2048, 8960, 1536, 14): 56, (2048, 1536, 8960, 2): 28},
-    "seamless-m4t-large-v2": {(3072, 1024, 1024, 2): 144, (3072, 8192, 1024, 13): 24,
-                              (3072, 1024, 8192, 2): 24, (2048, 1024, 1024, 2): 144,
-                              (2048, 8192, 1024, 13): 24, (2048, 1024, 8192, 2): 24}}
+    "qwen2-vl-2b": {(2048, 1536, 1536, 2): 28, (2048, 256, 1536, 1): 28,
+                    (2048, 8960, 1536, 14): 28, (2048, 1536, 8960, 2): 14},
+    "seamless-m4t-large-v2": {(3072, 1024, 1024, 2): 72, (3072, 8192, 1024, 13): 12,
+                              (3072, 1024, 8192, 2): 12, (2048, 1024, 1024, 2): 72,
+                              (2048, 8192, 1024, 13): 12, (2048, 1024, 8192, 2): 12}}
 # flash per prefill: qwen's 28 causal layers; seamless's 24 encoder layers
 # (no causal mask, 768 x 768), 24 decoder self-attentions (causal 512 x 512)
 # and 24 cross-attentions (no causal mask, 512 queries over 768 frames)
@@ -3756,7 +3783,7 @@ def vlm_audio(dev, gen):
     rows = family_kernels(gen, dev, VLM_BLOCK_SHAPES, VLM_FLASH_SHAPES)
     print(f"[time]   VLM and audio kernels {time.perf_counter() - t0:.1f} s")
     for name in VLM_AUDIO:
-        cfg = f32_cfg(name)
+        cfg = f32_cfg(name, VLM_TRAIN_LAYERS[name])
         t0 = time.perf_counter()
         batch = batch_to_device(next(family_batches(cfg, FAM_SEED)), dev)
         family_grads(dev, cfg, BACKENDS, batch, FAM_SEED)
@@ -3789,8 +3816,17 @@ def vlm_audio(dev, gen):
 
 # ---------------------------------------------------------------------------
 # The serving engines over every decoder family (phase 16): olmoe-1b-7b,
-# gemma3-1b, rwkv6-3b, zamba2-7b and qwen2-vl-2b at full width and depth
+# gemma3-1b, rwkv6-3b, zamba2-7b and qwen2-vl-2b at full width, cut in depth
 # ---------------------------------------------------------------------------
+
+# each family's serving depth in phases 16 and 20: about a quarter of its
+# published depth, a periodic plan keeping its remainder (gemma3 one period
+# of 5 local + 1 global and 2 more; zamba2 three periods of 6 and 3 more). At
+# full depth these two phases took a fifth of the script's time, which layer
+# remat's recompute of the training phases needed to stay inside the time
+# limit on a slow host (at half depth the script still took 1,108 s on one)
+FE_LAYERS = {"olmoe-1b-7b": 4, "gemma3-1b": 8, "rwkv6-3b": 8, "zamba2-7b": 21,
+             "qwen2-vl-2b": 7}
 
 # (family, the layout the continuous engine plans at page_size FE_PAGE): paged
 # for full-length K/V, contiguous for rings, contiguous with exact-length
@@ -3871,7 +3907,7 @@ def family_engines_one(dev, name, want_layout, index):
     from repro_torch.serve.legacy import RunToCompletionEngine
 
     t_fam = time.perf_counter()
-    published = f32_cfg(name).replace(attn_impl="pallas")
+    published = f32_cfg(name, FE_LAYERS[name]).replace(attn_impl="pallas")
     cfg = (published.replace(capacity_factor=published.n_experts / published.top_k)
            if published.n_experts else published)
     plain_cfg = cfg.replace(attn_impl="chunked")
@@ -4012,11 +4048,15 @@ def dist_payload_a(cfg) -> int:
     sketched site's weight and the head's, all-gathered over model and over
     data in the forward and its gradient reduce-scattered over data (3 x its
     float32 bytes), and the embedded rows all-gathered over model (BATCH x
-    SEQ x d); the step's sum over data is skipped on one data rank."""
+    SEQ x d); the step's sum over data is skipped on one data rank. Under
+    layer remat (``cfg.remat``, "full" by default) the backward runs each
+    layer's forward again, so a layer's site weights are gathered twice
+    more (5 x; the head, outside the layers, stays 3 x)."""
     d, dh = cfg.d_model, cfg.head_dim
-    sites = cfg.n_layers * (d * (cfg.n_heads + 2 * cfg.n_kv) * dh + cfg.n_heads * dh * d
-                            + 3 * d * cfg.d_ff) + cfg.vocab * d
-    return 4 * (3 * sites + BATCH * SEQ * d)
+    layers = cfg.n_layers * (d * (cfg.n_heads + 2 * cfg.n_kv) * dh + cfg.n_heads * dh * d
+                             + 3 * d * cfg.d_ff)
+    per_layer_site = 5 if cfg.remat != "none" else 3
+    return 4 * (per_layer_site * layers + 3 * cfg.vocab * d + BATCH * SEQ * d)
 
 
 def dist_leaves(state):
@@ -4212,7 +4252,7 @@ def distributed_checks(dev, cfg, policy, mesh, tmp, total):
 # per step). The depths are the training phases' (float32 weights and
 # gradients must fit 80 GB: mixtral's one layer takes ~23 GB); yi-6b and
 # mixtral-8x22b run here for the first time at full width
-ANALYSIS_CFGS = (("lm-100m", None, 84), ("olmoe-1b-7b", OLMOE_TRAIN_LAYERS, 784),
+ANALYSIS_CFGS = (("lm-100m", None, 84), ("olmoe-1b-7b", 4, 784),
                  ("gemma3-1b", None, 182), ("rwkv6-3b", 8, 64), ("zamba2-7b", 13, 53),
                  ("qwen2-vl-2b", None, 196), ("seamless-m4t-large-v2", None, 384),
                  ("yi-6b", 4, 28), ("mixtral-8x22b", 1, 28))
@@ -4755,7 +4795,7 @@ def mesh_engines(dev, mesh):
     del params
     torch.cuda.empty_cache()
     for index, (name, _) in enumerate(FE_FAMILIES):
-        published = f32_cfg(name).replace(attn_impl="pallas")
+        published = f32_cfg(name, FE_LAYERS[name]).replace(attn_impl="pallas")
         fcfg = (published.replace(capacity_factor=published.n_experts / published.top_k)
                 if published.n_experts else published)
         fparams = lm.init_params(FE_PARAM_SEED, fcfg, device=dev)
@@ -4831,6 +4871,241 @@ def kernel_entry(name, route, source, replaces, launches, rows, err_rows, librar
                 library_ms=per_step(rows, "library_ms") if library else None)
 
 
+# -- phase 21: the dry run -------------------------------------------------------
+
+# the dry run's peak against the card's max_memory_allocated above the bytes
+# allocated before the state: the fake tracker rounds each storage to the
+# allocator's 512-byte block as the allocator does, and frees it when its
+# last tensor goes; what it cannot see (the kernels' own scratch, the
+# allocator's bookkeeping) is small beside lm-100m's ~2 GB step, so 5%
+# bounds the difference (stated before the first run; PERF.md §6, PR 29)
+DRY_PEAK_RTOL = 0.05
+DRY_CHILD_TIMEOUT_S = 600
+
+
+def dry_child_cells():
+    """The dry run's side of phase 21 (in the child, no card): (a) the
+    lm-100m cell at remat full and none on a one-rank fake mesh; (b)
+    llama3-405b train_4k on (16, 16), mask, SP, from the depth model."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.hlo_analysis import HW, roofline_terms
+
+    torch.set_num_threads(1)
+    out = {"a": {}}
+    cell = ShapeCell("lm100m_train", SEQ, BATCH, "train")
+    with dryrun.fake_group(1):
+        mesh = meshlib.make_mesh((1, 1), ("data", "model"), device="cpu")
+        for remat in ("full", "none"):
+            t0 = time.perf_counter()
+            c, _, _ = dryrun._run(lm100m().replace(remat=remat), cell, mesh,
+                                  (slice_policy(0.2), False), False, 1, "cpu")
+            keep = ("payload", "coll_bytes", "flops", "flops_aten", "bytes", "peak_bytes",
+                    "resident_bytes", "launches")
+            out["a"][remat] = dict({k: c[k] for k in keep}, seconds=time.perf_counter() - t0,
+                                   roofline=roofline_terms(c["flops"], c["bytes"],
+                                                           c["coll_bytes"], 1, HW(),
+                                                           dtype="float32"))
+    t0 = time.perf_counter()
+    rec = dryrun.record_or_error("llama3_405b", "train_4k", policy_name="mask", sp=True,
+                                 full_depth=False, coverage=False)
+    rec.pop("cost_attribution", None)
+    out["b"] = dict(rec, seconds=time.perf_counter() - t0)
+    return out
+
+
+def start_dry_child():
+    """Start phase 21's dry run in a child process on the host CPU (no
+    card visible to it): (Popen, its output file)."""
+    import tempfile
+
+    f = tempfile.NamedTemporaryFile("w+", suffix=".json", delete=False)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dry-run-child"],
+                            stdout=f, stderr=subprocess.PIPE, env=env, text=True)
+    return proc, f
+
+
+def dry_real_step(dev, mesh, cfg, full, batch, flop_count=False):
+    """One lm-100m step on the card on the one-rank mesh from ``full``'s
+    parameters: (state, counts, launches, payload, peak bytes above what was
+    allocated before the state, FlopCounterMode total or None)."""
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import collective_bytes, reset_collective_bytes
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ex = ExecutionConfig(mesh=mesh)
+    opt = adamw(cosine_warmup(3e-4, 2000, 100_000), weight_decay=0.1, clip=1.0)
+    st = init_state(0, cfg, opt, params=tree_map(lambda t: t.detach().clone(), full),
+                    device=dev, execution=ex)
+    fn = make_train_step(cfg, opt, slice_policy(0.2), execution=ex, device=dev)
+    b = shard_batch(batch, mesh=mesh)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    reset_collective_bytes()
+    flops = None
+    if flop_count:
+        fc = FlopCounterMode(display=False)
+        with fc:
+            st, m = fn(st, b, 21)
+        flops = fc.get_total_flops()
+    else:
+        st, m = fn(st, b, 21)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return st, m, ops.launch_counts(), collective_bytes()["total"], peak, flops, fn, b
+
+
+def dry_run(dev, child):
+    """Phase 21 (module docstring). ``child``: :func:`start_dry_child`'s.
+    Returns the launches of the card's steps that count."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    total = {}
+    real = {}
+    cfg0 = lm100m()
+    full = lm.init_params(21, cfg0, device=dev)
+    batch = next(iter(LMStream(vocab=cfg0.vocab, seed=21).batches(BATCH, SEQ)))
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = dist_group(tmp)
+        try:
+            for remat in ("full", "dots", "none"):
+                cfg = cfg0.replace(remat=remat)
+                st, m, counts, payload, peak, _, fn, b = dry_real_step(dev, mesh, cfg, full,
+                                                                        batch)
+                add_counts(total, counts)
+                leaves = [t.detach().clone() for t in tree_leaves(st.params)
+                          + tree_leaves(st.opt_state)]
+                t0 = time.perf_counter()
+                for i in range(DIST_TIMED):
+                    st, m2 = fn(st, b, 30 + i)
+                float(m2["loss"])
+                torch.cuda.synchronize(dev)
+                step_ms = 1e3 * (time.perf_counter() - t0) / DIST_TIMED
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    st, m2 = fn(st, b, 40)
+                    float(m2["loss"])
+                    torch.cuda.synchronize(dev)
+                kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                busy_ms = sum(_device_us(e) for e in kern) / 1e3
+                del st
+                st2, _, counts2, _, _, flops, _, _ = dry_real_step(dev, mesh, cfg, full, batch,
+                                                                   flop_count=True)
+                add_counts(total, counts2)
+                del st2
+                real[remat] = dict(loss=float(m["loss"]), counts=counts, payload=payload,
+                                   peak=peak, flops=flops, leaves=leaves, step_ms=step_ms,
+                                   busy_ms=busy_ms)
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    for remat in ("full", "dots"):
+        if not all(torch.equal(x, y) for x, y in zip(real[remat]["leaves"],
+                                                      real["none"]["leaves"])):
+            raise AssertionError(f"[dry] the card's remat {remat} and none steps differ")
+        if real[remat]["loss"] != real["none"]["loss"]:
+            raise AssertionError(f"[dry] the card's remat {remat} and none losses differ")
+    print(f"[dry] (a) the card's lm-100m mesh step at remat full, dots and none: bit for bit "
+          f"(loss {real['full']['loss']:.6f}, {len(real['full']['leaves'])} state leaves)")
+    print("[dry] (a) remat on the card (phase 17's cell): "
+          + "; ".join(f"{r} {real[r]['step_ms']:.2f} ms/step, busy {real[r]['busy_ms']:.2f} ms, "
+                      f"peak {real[r]['peak'] / 2**30:.4f} GiB" for r in ("none", "dots", "full"))
+          + f" ({smi_line()})")
+    t_wait = time.perf_counter()
+    proc, f = child
+    try:
+        _, err = proc.communicate(timeout=max(1.0, DRY_CHILD_TIMEOUT_S))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"[dry] the dry run's child did not finish in "
+                             f"{DRY_CHILD_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"[dry] the dry run's child failed:\n{err[-4000:]}")
+    f.seek(0)
+    dry = json.loads(f.read().strip().splitlines()[-1])
+    f.close()
+    os.unlink(f.name)
+    print(f"[dry] waited {time.perf_counter() - t_wait:.1f} s for the child")
+    for remat in ("full", "none"):
+        d, r = dry["a"][remat], real[remat]
+        want_payload = dist_payload_a(lm100m().replace(remat=remat))
+        if not d["payload"] == r["payload"] == want_payload:
+            raise AssertionError(f"[dry] remat {remat}: payload dry {d['payload']} B, card "
+                                 f"{r['payload']} B, phase 17's formula {want_payload} B")
+        if not (d["launches"]["col_l1_scores"] == r["counts"]["col_l1_scores"] == 84
+                and d["launches"]["block_gather_matmul_fused"]
+                == r["counts"]["block_gather_matmul_fused"] == 84):
+            raise AssertionError(f"[dry] remat {remat}: launches dry {d['launches']}, card "
+                                 f"{r['counts']}, want 84 + 84")
+        if d["flops_aten"] != r["flops"]:
+            raise AssertionError(f"[dry] remat {remat}: FlopCounterMode dry {d['flops_aten']}, "
+                                 f"card {r['flops']}")
+        rel = abs(d["peak_bytes"] - r["peak"]) / r["peak"]
+        if not rel <= DRY_PEAK_RTOL:
+            raise AssertionError(f"[dry] remat {remat}: peak dry {d['peak_bytes']} B, card "
+                                 f"{r['peak']} B ({100 * rel:.2f}% > {100 * DRY_PEAK_RTOL}%)")
+        rf = d["roofline"]
+        print(f"[dry] (a) remat {remat}: payload {d['payload']:,} B (= card = phase 17's "
+              f"formula), wire {d['coll_bytes']:,.0f} B (one rank: none), launches 84 + 84 "
+              f"(= card), FlopCounterMode {d['flops_aten']:,} (= card), modelled kernel "
+              f"operations {d['flops'] - d['flops_aten']:,}, bytes accessed {d['bytes']:,}; "
+              f"peak {d['peak_bytes'] / 2**30:.4f} GiB dry, {r['peak'] / 2**30:.4f} GiB card "
+              f"({100 * rel:.2f}%, within {100 * DRY_PEAK_RTOL:.0f}%); roofline compute "
+              f"{1e3 * rf['compute_s']:.3f} ms (float32 FFMA peak), memory "
+              f"{1e3 * rf['memory_s']:.3f} ms, dominant {rf['dominant']}; card "
+              f"{r['step_ms']:.2f} ms/step over {DIST_TIMED} steps, device busy "
+              f"{r['busy_ms']:.2f} ms in a profiled step; dry run {d['seconds']:.1f} s "
+              f"({smi_line()})")
+    if dry["a"]["full"]["peak_bytes"] >= dry["a"]["none"]["peak_bytes"]:
+        raise AssertionError("[dry] remat full's dry peak is not below none's")
+    rec = dry["b"]
+    if rec.get("status") != "ok":
+        raise AssertionError(f"[dry] (b) llama3-405b train_4k: {rec.get('error')}")
+    from repro_torch.launch.hlo_analysis import HW
+
+    mem, rf = rec["memory"], rec["roofline"]
+    usable = HW.from_device(dev).hbm_bytes
+    print(f"[dry] (b) llama3-405b train_4k on 16x16, mask, SP, accum {rec['accum']} "
+          f"({rec['depth_used']}: depth points {[p['n_full'] for p in rec['cost_points']]} "
+          f"layers, the full depth's 126 predicted): peak {mem['peak_GB_per_dev']:.2f} GB per "
+          f"rank, fits HW.hbm_bytes {HW().hbm_bytes / 1e9:.2f} GB: {mem['fits_hbm']} (this "
+          f"card's total_memory {usable:,.0f} B); dominant "
+          f"{rf['dominant']} (compute "
+          f"{rf['compute_s']:.3f} s, memory {rf['memory_s']:.3f} s, collective "
+          f"{rf['collective_s']:.3f} s per step); wire "
+          f"{rec['cost_full_depth']['coll_bytes'] / 1e9:.2f} GB per rank; payload "
+          f"{rec['cost_full_depth']['payload'] / 1e9:.2f} GB; "
+          f"{rec['seconds']:.1f} s on the host CPU")
+    print(f"[time]   dry run {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4862,7 +5137,20 @@ def main() -> int:
     check_scores_wide(gen, dev)
     check_score_streams(gen, dev)
     print(f"[kernel] checks and timings {time.perf_counter() - t0:.1f} s")
+    # phase 21's dry run runs on the host CPU beside the card's phases
+    child = start_dry_child()
+    try:
+        return run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows,
+                          stream_rows, flash_rows)
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].communicate()
 
+
+def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, stream_rows,
+               flash_rows) -> int:
+    """Phases 4 to 22 (module docstring)."""
     t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
@@ -4954,6 +5242,11 @@ def main() -> int:
     for name, n in serve_mesh_counts.items():
         launches[name] += n
     print(f"[time] serving under a mesh {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry_counts = dry_run(dev, child)
+    for name, n in dry_counts.items():
+        launches[name] += n
+    print(f"[time] the dry run {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -5007,7 +5300,8 @@ def main() -> int:
           f"{json.dumps(an_counts)}; the families under a mesh (phase 19: every sketched "
           f"single-device and one-rank mesh step): {json.dumps(mesh_fam_counts)}; serving "
           f"under a mesh (phase 20: the one-rank mesh's two lm-100m waves and engines): "
-          f"{json.dumps(serve_mesh_counts)}")
+          f"{json.dumps(serve_mesh_counts)}; the dry run (phase 21: the card's four lm-100m "
+          f"mesh steps it is held against): {json.dumps(dry_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "
@@ -5023,4 +5317,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dry-run-child"]:
+        import warnings
+
+        warnings.filterwarnings("ignore")
+        print(json.dumps(dry_child_cells(), default=str))
+        sys.exit(0)
     sys.exit(main())

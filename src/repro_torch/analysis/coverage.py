@@ -294,6 +294,26 @@ class CoverageReport:
     def escapes(self) -> List[SiteCoverage]:
         return [s for s in self.sites if s.category in ("escaped", "unresolved")]
 
+    def escaped_frac_vs_hlo(self, hlo_flops: float) -> Optional[float]:
+        """Escaped modelled FLOPs over a counted total (the dry run's FLOPs,
+        where JAX passes its HLO cost summary's)."""
+        return self.escaped_flops / hlo_flops if hlo_flops else None
+
+    def summary(self) -> dict:
+        """JAX's summary record (``launch/dryrun.py``'s ``coverage``)."""
+        cats = {k: len(v) for k, v in self.by_category().items()}
+        return {
+            "n_sites": len(self.sites),
+            "categories": cats,
+            "total_dot_flops": self.total_dot_flops,
+            "escaped_flops": self.escaped_flops,
+            "escaped_flop_frac": self.escaped_flop_frac,
+            "unresolved_flop_frac": self.unresolved_flop_frac,
+            "escapes": [{"param": s.param, "provenance": s.provenance,
+                         "category": s.category, "flops": s.flops}
+                        for s in self.escapes()],
+        }
+
 
 def _leaves_with_path(tree, path=()):
     """(path tuple, leaf) of every tensor, in ``tree_leaves`` order."""

@@ -23,11 +23,16 @@ class ExecutionConfig:
         Under a mesh every rank holds its shards of the state and its rows
         of the batch (docs/port.md, "Distributed"), and its shards of the
         serving caches (docs/port.md, "Serving under a mesh").
-      act_sharding: the residual stream's spec. The port's SPMD code fixes
-        it (batch over the data axes, replicated over model:
-        ``launch.sharding.logical_rules(mesh)["activations"]``), so only None
-        or that spec is taken; any other layout raises (ROADMAP.md, Queue 1
-        item 2b).
+      act_sharding: the residual stream's spec, one of two layouts: the
+        fixed one (batch over the data axes, replicated over model:
+        ``launch.sharding.logical_rules(mesh)["activations"]``, the default
+        for None), or JAX's sequence-parallel one (``launch/dryrun.py``'s
+        ``_act_sharding(..., sp=True)``): ``(dp, model, None)``, the
+        sequence over the model axis between the blocks, gathered at each
+        block's entry and reduce-scattered at its exit (docs/port.md, "Dry
+        run"). Either may hold the batch replicated (``None`` for dp) where
+        it does not divide the data axes. Any other layout raises
+        (ROADMAP.md, Queue 1 item 2b).
       data_axes / model_axes: the mesh axes carrying data parallelism and
         tensor parallelism (axes the mesh lacks are dropped).
       tp_sketch: sites that can take the TP plans run them (``tp_column``,
@@ -95,11 +100,24 @@ class ExecutionConfig:
 
         fixed = logical_rules(self.mesh)["activations"]
         act = tuple(self.act_sharding)
-        if tuple(map(dim_axes, act)) != tuple(map(dim_axes, fixed)):
+        dp, mp = self.axes_in_mesh()
+        got = tuple(map(dim_axes, act))
+        if len(got) != 3 or got[0] not in (dim_axes(fixed[0]), ()) or got[2] \
+                or got[1] not in ((), mp):
             raise NotImplementedError(
                 f"act_sharding {act}: the port's residual stream is laid out as {fixed} "
-                "(batch over the data axes, replicated over model); another layout is not "
+                "(batch over the data axes, replicated over model) or sequence-parallel "
+                f"({fixed[0]}, {mp[0] if mp else None!r}, None); another layout is not "
                 "ported (ROADMAP.md, Queue 1 item 2b)")
+
+    @property
+    def seq_parallel(self) -> bool:
+        """The residual stream is sequence-parallel (``act_sharding``)."""
+        if self.act_sharding is None or self.mesh is None:
+            return False
+        from repro_torch.launch.sharding import dim_axes
+
+        return bool(dim_axes(tuple(self.act_sharding)[1]))
 
     def replace(self, **kw) -> "ExecutionConfig":
         return dataclasses.replace(self, **kw)
@@ -140,4 +158,4 @@ class ExecutionConfig:
         dp, mp = self.axes_in_mesh()
         return Ctx(policy=policy, key=key, layer_index=layer_index, n_layers=n_layers,
                    mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch,
-                   rows_sharded=rows_sharded)
+                   rows_sharded=rows_sharded, seq_parallel=self.seq_parallel)

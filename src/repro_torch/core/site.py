@@ -425,11 +425,16 @@ class _GatherParam(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w, spec, mesh, data_axes):
-        from repro_torch.launch.sharding import gather_tensor
+        from repro_torch.launch.sharding import dim_axes, gather_tensor
 
         ctx.spec, ctx.mesh, ctx.data_axes = spec, mesh, data_axes
         out = gather_tensor(w, spec, mesh)
-        return w.view_as(w) if out.data_ptr() == w.data_ptr() else out
+        # no axis of the spec has two ranks: the gather was the identity
+        # (decided from the mesh, not from storage: a fake tensor's data
+        # pointer is 0 whatever it holds)
+        if all(mesh.axis_size(dim_axes(e)) == 1 for e in spec):
+            return w.view_as(w)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -538,8 +543,8 @@ def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gsl
     if (mesh.axis_size(model_axes) > 1 and cfg.backend != "mask"):
         raise NotImplementedError(
             f"backend {cfg.backend!r} on a local-plan site with a model axis of "
-            f"{mesh.axis_size(model_axes)} ranks is not ported (ROADMAP.md, the next "
-            "distributed slice): use tp_sketch=True, the mask backend, or a data-only mesh")
+            f"{mesh.axis_size(model_axes)} ranks is not ported (ROADMAP.md, Queue 1 "
+            "item 2b): use tp_sketch=True, the mask backend, or a data-only mesh")
     if gslot is not None and compact_rows != gslot.r:
         raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
                          f"{compact_rows} compact rows ({cfg.backend!r})")
@@ -580,7 +585,7 @@ class TPSiteFn(torch.autograd.Function):
     bias (replicated)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, pslot, spec, seed, gslot):
+    def forward(ctx, x, w, b, pslot, spec, seed, gslot, partial=False):
         from repro_torch.launch import mesh as m
         from repro_torch.launch.sharding import dim_axes, spec_of
 
@@ -591,16 +596,23 @@ class TPSiteFn(torch.autograd.Function):
         # the weight's model shard stays; its FSDP dimension (d_in for the
         # column and exact plans, d_out for the row plan) is gathered
         fsdp = 1 if column else 0
+        leave_partial = partial is True  # a Python flag, never a tensor
         w_l = m.all_gather(w, dim_axes(wspec[fsdp]), mesh, axis=fsdp)
         y = torch.matmul(x, w_l.t())
         if column:
             if b is not None:
                 y = y + m.chunk_of(b, mp, mesh, 0)
+        elif leave_partial:
+            # this rank's partial sum, which a sequence-parallel mover
+            # reduce-scatters; the bias joins one rank's part
+            if b is not None and m.axis_index(mesh, mp) == 0:
+                y = y + b
         else:
             y = m.psum(y, mp, mesh)
             if b is not None:
                 y = y + b
         ctx.save_for_backward(x, w_l)
+        ctx.partial = leave_partial
         ctx.spec, ctx.seed, ctx.gslot, ctx.wspec = spec, seed, gslot, wspec
         ctx.has_b, ctx.want_probe = b is not None, pslot is not None
         ctx.w_shape, ctx.w_dtype = tuple(w.shape), w.dtype
@@ -616,7 +628,7 @@ class TPSiteFn(torch.autograd.Function):
             outs = _tp_row_exact_bwd(ctx, x, w_l, g)
         else:
             outs = _tp_sketch_bwd(ctx, x, w_l, g)
-        return outs + (None, None, None)
+        return outs + (None, None, None, None)
 
 
 def _din_scatter_axes(ctx, data_axes):
@@ -633,7 +645,9 @@ def _tp_exact_bwd(ctx, x, w_l, g):
     mesh, dp, mp = plan.mesh, plan.data_axes, plan.model_axis
     G2d = g.reshape(-1, g.shape[-1])
     X2d = x.reshape(-1, x.shape[-1])
-    dx = m.psum(torch.matmul(g, w_l), mp, mesh)
+    dx = torch.matmul(g, w_l)
+    if not ctx.partial:
+        dx = m.psum(dx, mp, mesh)
     dW = G2d.t().to(torch.float32) @ X2d.to(torch.float32)
     sc = _din_scatter_axes(ctx, dp)
     dW = (m.psum_scatter(dW, sc, mesh, scatter_dimension=1) if sc
@@ -700,7 +714,7 @@ def _tp_sketch_bwd(ctx, x, w_l, g):
     cplan = _plan_via_registry(est, lcfg, G2d, w_l, gen, Axes(mesh, dp))
     Gc, Wc, idx = _gather_compact(lcfg, G2d, w_l, cplan.indices, cplan.scales)
     dx = torch.matmul(Gc, Wc).reshape(x.shape)
-    if column:
+    if column and not ctx.partial:
         dx = m.psum(dx, mp, mesh)  # the standard TP backward all-reduce
     dWc = Gc.t().to(torch.float32) @ X2d.to(torch.float32)
     # the compressed DP gradient collective: the COMPACT block (about budget
@@ -722,9 +736,7 @@ def _tp_sketch_bwd(ctx, x, w_l, g):
             0, idx, dWc.to(ctx.w_dtype))
     else:
         lo = m.axis_index(mesh, dim_axes(ctx.wspec[0])) * ctx.w_shape[0]
-        rows, li = _rows_in(dWc, idx, lo, ctx.w_shape[0], spec.d_out)
-        dw = torch.zeros(ctx.w_shape, dtype=ctx.w_dtype, device=g.device).index_add_(
-            0, li, rows.to(ctx.w_dtype))
+        dw = _rows_into_shard(dWc, idx, lo, ctx.w_shape, spec.d_out, ctx.w_dtype)
     db = None
     if ctx.has_b:
         # db from the same kept-column stream: unbiased, E[Ĝ | G] = G
@@ -750,23 +762,34 @@ def _tp_sketch_bwd(ctx, x, w_l, g):
     return dx, dw, db, probe
 
 
-def _rows_in(rows, idx, lo: int, size: int, total: int):
-    """The rows whose global index lies in ``[lo, lo + size)``, re-indexed
-    from ``lo``: the rows a rank's shard holds (all of them, untouched, when
-    the shard is the whole of ``total`` rows)."""
+def _rows_into_shard(rows, idx, lo: int, shape, total: int, dtype):
+    """The dense gradient of a shard holding rows ``[lo, lo + shape[0])``
+    of ``total``: each row of ``rows`` whose global index ``idx`` lies in
+    the shard added at ``idx - lo``, the others dropped (JAX's scatter of
+    out-of-range indices). Static shapes: the dropped rows land on one
+    extra row past the shard, which is cut off, so the number of rows a
+    shard keeps never sizes a tensor."""
+    size = shape[0]
     if lo == 0 and size == total:
-        return rows, idx
-    keep = (idx >= lo) & (idx < lo + size)
-    return rows[keep], idx[keep] - lo
+        return torch.zeros(shape, dtype=dtype, device=rows.device).index_add_(
+            0, idx, rows.to(dtype))
+    li = torch.where((idx >= lo) & (idx < lo + size), idx - lo, size)
+    buf = torch.zeros((size + 1,) + tuple(shape[1:]), dtype=dtype, device=rows.device)
+    return buf.index_add_(0, li, rows.to(dtype))[:size]
 
 
-def tp_site(spec: SiteSpec, x, w, b, seed, *, gslot=None, pslot=None, sslot=None):
+def tp_site(spec: SiteSpec, x, w, b, seed, *, gslot=None, pslot=None, sslot=None,
+            partial: bool = False):
     """Run one site on its TP plan (``spec.cfg`` None: the exact backward of
     the plan's layout). ``seed``: the site's integer seed.
-    ``sslot`` is not read: a plan-carry estimator is never TP-shardable."""
+    ``sslot`` is not read: a plan-carry estimator is never TP-shardable.
+    ``partial`` (the sequence-parallel layout's blocks, ``models/lm.py``):
+    the column plans leave dX this rank's partial sum and the row plan its
+    output, for the block's mover to reduce-scatter, where the fixed layout
+    all-reduces them here."""
     if spec.cfg is not None and tp_estimator(spec.cfg) is None:
         raise RuntimeError("TP sketched site on a non-tp_shardable backend")
     if gslot is not None and spec.compact_rows != gslot.r:
         raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
                          f"{spec.compact_rows} compact rows")
-    return TPSiteFn.apply(x, w, b, pslot, spec, seed, gslot)
+    return TPSiteFn.apply(x, w, b, pslot, spec, seed, gslot, partial)

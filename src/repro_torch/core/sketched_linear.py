@@ -59,7 +59,7 @@ def _no_shared_plan(cfg, score_psum_axes) -> None:
             and cfg.method not in COLUMN_METHODS and not cfg.is_noop):
         raise NotImplementedError(
             f"method {cfg.method!r} on a data-sharded mesh is not ported (ROADMAP.md, "
-            "the next distributed slice): only the column-family methods share one plan "
+            "Queue 1 item 2b): only the column-family methods share one plan "
             "across data replicas")
 
 

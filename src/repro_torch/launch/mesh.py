@@ -29,7 +29,12 @@ or not the axes have other ranks (so a one-rank mesh still shows what a
 step would move: :func:`gather_replicated` and :func:`slice_replicated`
 too, in their forward and backward), as
 ``kernels/ops.launch_counts()`` counts launches: that counter is how the
-tests and the card see the compressed DP gradient collective.
+tests and the card see the compressed DP gradient collective. Beside the
+payload it counts the WIRE bytes of each call under its HLO kind, JAX's
+ring model at the call's group size (``launch.hlo_analysis.wire_bytes``:
+all-reduce 2(n-1)/n of the buffer, ``pmax`` included; all-gather (n-1)/n
+of the gathered output; reduce-scatter (n-1) x the scattered output); a
+call on a one-rank group puts nothing on the wire.
 
 Defined as functions: importing this module touches no process group.
 """
@@ -48,20 +53,31 @@ __all__ = ["Mesh", "Axes", "layout", "make_mesh", "make_production_mesh", "dp_ax
            "psum", "pmax", "psum_scatter", "all_gather", "axis_index", "chunk_of", "collective_bytes",
            "reset_collective_bytes", "gather_replicated",
            "slice_replicated", "copy_to", "reduce_from", "psum_partial", "pmean_shared",
-           "split_partial", "gather_partial"]
+           "split_partial", "gather_partial", "scatter_partial"]
 
 _BYTES: Dict[str, int] = {"psum": 0, "pmax": 0, "psum_scatter": 0, "all_gather": 0}
+# the HLO kind each wrapper is, for its wire bytes
+_KIND = {"psum": "all-reduce", "pmax": "all-reduce", "psum_scatter": "reduce-scatter",
+         "all_gather": "all-gather"}
+_WIRE: Dict[str, float] = {k: 0.0 for k in set(_KIND.values())}
+_CALLS: Dict[str, int] = {k: 0 for k in _WIRE}
 
 
-def collective_bytes() -> Dict[str, int]:
+def collective_bytes() -> dict:
     """Payload bytes handed to each collective on this rank since the last
-    reset, and their ``total``."""
-    return dict(_BYTES, total=sum(_BYTES.values()))
+    reset and their ``total``; ``wire``: the wire bytes per HLO kind
+    (module docstring) with their ``total``; ``calls``: the calls per kind
+    on groups of more than one rank."""
+    return dict(_BYTES, total=sum(_BYTES.values()),
+                wire=dict(_WIRE, total=sum(_WIRE.values())), calls=dict(_CALLS))
 
 
 def reset_collective_bytes() -> None:
     for k in _BYTES:
         _BYTES[k] = 0
+    for k in _WIRE:
+        _WIRE[k] = 0.0
+        _CALLS[k] = 0
 
 
 class Mesh:
@@ -211,8 +227,18 @@ def mp_axes(mesh) -> tuple:
 # -- collectives under JAX's names ------------------------------------------
 
 
-def _count(op: str, t: torch.Tensor) -> None:
-    _BYTES[op] += t.numel() * t.element_size()
+def _count(op: str, t: torch.Tensor, n: int = 1) -> None:
+    """Count ``t``, the payload handed to ``op`` over a group of ``n``
+    ranks: its bytes, and its wire bytes under the op's HLO kind."""
+    size = t.numel() * t.element_size()
+    _BYTES[op] += size
+    if n > 1:
+        from repro_torch.launch.hlo_analysis import wire_bytes
+
+        kind = _KIND[op]
+        result = {"psum_scatter": size // n, "all_gather": size * n}.get(op, size)
+        _WIRE[kind] += wire_bytes(kind, result, n)
+        _CALLS[kind] += 1
 
 
 def axis_index(mesh: Mesh, axes) -> int:
@@ -227,7 +253,7 @@ def psum(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
     """The sum of ``x`` over ``axes`` (a new tensor; ``x`` itself on one rank)."""
     if not mesh.axes(axes):
         return x
-    _count("psum", x)
+    _count("psum", x, mesh.axis_size(axes))
     if mesh.axis_size(axes) == 1:
         return x
     out = x.contiguous().clone()
@@ -239,7 +265,7 @@ def pmax(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
     """The elementwise maximum of ``x`` over ``axes`` (``x`` itself on one rank)."""
     if not mesh.axes(axes):
         return x
-    _count("pmax", x)
+    _count("pmax", x, mesh.axis_size(axes))
     if mesh.axis_size(axes) == 1:
         return x
     out = x.contiguous().clone()
@@ -254,8 +280,8 @@ def psum_scatter(x: torch.Tensor, axes, mesh: Mesh, *, scatter_dimension: int = 
         raise NotImplementedError("psum_scatter is ported with tiled=True only")
     if not mesh.axes(axes):
         return x
-    _count("psum_scatter", x)
     n = mesh.axis_size(axes)
+    _count("psum_scatter", x, n)
     if n == 1:
         return x
     d = scatter_dimension % x.dim()
@@ -275,8 +301,8 @@ def all_gather(x: torch.Tensor, axes, mesh: Mesh, *, axis: int = 0,
         raise NotImplementedError("all_gather is ported with tiled=True only")
     if not mesh.axes(axes):
         return x
-    _count("all_gather", x)
     n = mesh.axis_size(axes)
+    _count("all_gather", x, n)
     if n == 1:
         return x
     d = axis % x.dim()
@@ -444,6 +470,18 @@ class _GatherPartial(torch.autograd.Function):
         return psum_scatter(g, ctx.axes, ctx.mesh, scatter_dimension=ctx.dim), None, None, None
 
 
+class _ScatterPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        out = psum_scatter(x, axes, mesh, scatter_dimension=dim)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axes, ctx.mesh, axis=ctx.dim), None, None, None
+
+
 def psum_partial(x, axes, mesh: Mesh):
     """The sum over ``axes`` replicated on their ranks, each of which reads
     it for its own part of the work (a norm's sum of squares over a model
@@ -475,7 +513,20 @@ def split_partial(x, axes, mesh: Mesh, dim: int = 0):
 def gather_partial(x, axes, mesh: Mesh, dim: int = 0):
     """The chunks of ``axes``' ranks all-gathered along ``dim``; backward:
     the ranks' partial cotangents summed and this rank's chunk kept
-    (a reduce-scatter). The inverse of :func:`split_partial`."""
+    (a reduce-scatter). The inverse of :func:`split_partial`, and the
+    sequence-parallel layout's entry into a tensor-parallel block (the
+    sequence all-gathered over model; Megatron-SP's ``g``)."""
     if not mesh.axes(axes):
         return x
     return _GatherPartial.apply(x, mesh.axes(axes), mesh, dim)
+
+
+def scatter_partial(x, axes, mesh: Mesh, dim: int = 1):
+    """The ranks' partial results summed over ``axes``, this rank keeping
+    its chunk along ``dim`` (a reduce-scatter); backward: the chunks'
+    cotangents all-gathered. The sequence-parallel layout's exit from a
+    tensor-parallel block (Megatron-SP's ``g-bar``), where
+    :func:`reduce_from` all-reduces in the fixed layout."""
+    if not mesh.axes(axes):
+        return x
+    return _ScatterPartial.apply(x, mesh.axes(axes), mesh, dim)

@@ -51,7 +51,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
 from repro_torch.nn import ssm
-from repro_torch.nn.attention import AttnCfg, attention, attn_init, init_kv_cache
+from repro_torch.nn.attention import (_MODEL_SHARDED_OUT, AttnCfg, attention, attn_init,
+                                      init_kv_cache)
 from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init, trunc_normal
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.nn.moe import MoECfg, moe_ffn, moe_init
@@ -356,12 +357,12 @@ def _mesh_head(w, x, ctx: Ctx, hcfg, tied: bool):
     return _mesh_dense({"w": w}, x, ctx, "lm_head", hcfg)
 
 
-def _cross(p, x, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
-    """The decoder's cross-attention sub-block's output. Training and
-    prefill project the memory (prefill writes its keys and values into
-    ``cache["cross"]``); decode attends to the whole of that cache."""
+def _cross(p, h, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
+    """The decoder's cross-attention sub-block's output from its normed
+    input ``h``. Training and prefill project the memory (prefill writes
+    its keys and values into ``cache["cross"]``); decode attends to the
+    whole of that cache."""
     ccfg = cross_cfg(cfg)
-    h = rmsnorm(p["norm_c"], x)
     if cache is not None and pos is not None:
         from repro_torch.launch.mesh import all_gather
         from repro_torch.nn import attention as attn
@@ -382,20 +383,79 @@ def _cross(p, x, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
     return o if cache is None else o[0]
 
 
+def _norm(p, x, ctx: Ctx):
+    """``rmsnorm`` of the residual stream; under the sequence-parallel
+    layout on this rank's chunk of the sequence, so its gain's gradient is
+    this rank's share and the gain enters through ``launch.mesh.copy_to``
+    (backward: the all-reduce over model that completes it)."""
+    if ctx.seq_parallel:
+        from repro_torch.launch.mesh import copy_to
+
+        p = dict(p, g=copy_to(p["g"], ctx.model_axes, ctx.mesh))
+    return rmsnorm(p, x)
+
+
+def _sp_block(ctx: Ctx, h, fn, ins=(), out=None, partial_out=None):
+    """One block under the sequence-parallel layout (``ctx.seq_parallel``):
+    ``h``, this rank's chunk of the sequence, gathered whole over model at
+    the entry and the block's output ``fn(h, ctx)`` reduce-scattered (or
+    sliced) back to the chunk at the exit. ``ins``: the (role, site params)
+    that read ``h``; where every one runs a column plan their dX are left
+    partial and the entry's backward reduce-scatters them
+    (``launch.mesh.gather_partial``), else the entry's backward slices a
+    whole cotangent (``gather_replicated``). ``out``: the (role, site
+    params) whose output is the block's; a row plan leaves it partial for
+    the exit's reduce-scatter (``scatter_partial``), else the exit slices
+    it (``slice_replicated``). ``partial_out`` overrides that test (the MoE
+    layer, whose experts' sum is partial). Off the layout: ``fn(h, ctx)``."""
+    if not ctx.seq_parallel:
+        return fn(h, ctx)
+    from repro_torch.launch import mesh as m
+
+    mp, mesh = ctx.model_axes, ctx.mesh
+    p_in = bool(ins) and all(ctx.plan_kind(r, sp) in _MODEL_SHARDED_OUT for r, sp in ins)
+    p_out = (partial_out if partial_out is not None
+             else out is not None and ctx.plan_kind(*out) == "tp_row")
+    roles = ({r for r, _ in ins} if p_in else set()) | ({out[0]} if p_out and out else set())
+    if p_out and partial_out:
+        roles.add("moe")
+    bctx = dataclasses.replace(ctx, sp_partial=frozenset(roles))
+    h = m.gather_partial(h, mp, mesh, 1) if p_in else m.gather_replicated(h, mp, mesh, 1)
+    o = fn(h, bctx)
+
+    def exit_(t):
+        return m.scatter_partial(t, mp, mesh, 1) if p_out else m.slice_replicated(t, mp, mesh, 1)
+
+    # a block that also returns a state, an aux loss or its cache: (out, extra)
+    return (exit_(o[0]), o[1]) if isinstance(o, tuple) else exit_(o)
+
+
 def _attn_layer(p, kind: LayerKind, x, ctx: Ctx, cfg: ArchConfig, positions, cache, pos,
                 segs, memory=None):
     """A pre-norm attention layer (a decoder's cross-attention and then its
-    MLP or MoE after it): (x, aux or None)."""
-    o = attention(p["attn"], rmsnorm(p["norm1"], x), ctx, attn_cfg(cfg, kind), positions,
-                  cache=cache, pos=pos, segs=segs)
+    MLP or MoE after it): (x, aux or None). Under the sequence-parallel
+    layout ``x`` is this rank's chunk of the sequence and each sub-block
+    runs through :func:`_sp_block`."""
+    a_ = p["attn"]
+    o = _sp_block(ctx, _norm(p["norm1"], x, ctx),
+                  lambda h, c: attention(a_, h, c, attn_cfg(cfg, kind), positions, cache=cache,
+                                         pos=pos, segs=segs),
+                  ins=[(f"attn_{n}", a_[n]) for n in ("q", "k", "v")], out=("attn_o", a_["o"]))
     x = x + (o if cache is None else o[0])  # with a cache: (out, cache)
     if kind.cross:
-        x = x + _cross(p, x, ctx, cfg, memory, cache, pos)
-    h2 = rmsnorm(p["norm2"], x)
+        c_ = p["cross"]
+        x = x + _sp_block(ctx, _norm(p["norm_c"], x, ctx),
+                          lambda h, c: _cross(p, h, c, cfg, memory, cache, pos),
+                          ins=[("cross_q", c_["q"])], out=("cross_o", c_["o"]))
+    h2 = _norm(p["norm2"], x, ctx)
     if kind.moe:
-        o, a = moe_ffn(p["moe"], h2, ctx, _moe_cfg(cfg))
+        o, a = _sp_block(ctx, h2, lambda h, c: moe_ffn(p["moe"], h, c, _moe_cfg(cfg)),
+                         partial_out=True)
         return x + o, a
-    return x + mlp(p["mlp"], h2, ctx, cfg.mlp_type), None
+    m_ = p["mlp"]
+    ins = [(f"mlp_{n}", m_[n]) for n in ("in", "gate") if n in m_]
+    return x + _sp_block(ctx, h2, lambda h, c: mlp(m_, h, c, cfg.mlp_type), ins=ins,
+                         out=("mlp_out", m_["out"])), None
 
 
 def _write_state(cache, state: dict) -> None:
@@ -406,12 +466,15 @@ def _write_state(cache, state: dict) -> None:
 
 def _mamba_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache, pos):
     mcfg = _mamba_cfg(cfg)
-    h = rmsnorm(p["norm1"], x)
+    h = _norm(p["norm1"], x, ctx)
     if cache is None:
-        return x + ssm.mamba_block(p["mamba"], h, ctx, mcfg)
+        return x + _sp_block(ctx, h, lambda t, c: ssm.mamba_block(p["mamba"], t, c, mcfg),
+                             out=("ssm_out", p["mamba"]["out"]))
     if pos is None:
         # the cached state holds every head (cache_specs: batch over data only)
-        o, state = ssm.mamba_prefill(p["mamba"], h, ctx, mcfg, whole_heads=True)
+        o, state = _sp_block(ctx, h, lambda t, c: ssm.mamba_prefill(p["mamba"], t, c, mcfg,
+                                                                    whole_heads=True),
+                             out=("ssm_out", p["mamba"]["out"]))
     else:
         o, state = ssm.mamba_decode(p["mamba"], h, ctx, mcfg, cache)
     _write_state(cache, state)
@@ -421,10 +484,13 @@ def _mamba_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache, pos):
 def _rwkv_layer(p, x, ctx: Ctx, cfg: ArchConfig, cache):
     rcfg = _rwkv_cfg(cfg)
     tm = None if cache is None else {"wkv": cache["wkv"], "shift": cache["shift_tm"]}
-    o, new_tm = ssm.rwkv_time_mix(p["rwkv"], rmsnorm(p["norm1"], x), ctx, rcfg, tm)
+    o, new_tm = _sp_block(ctx, _norm(p["norm1"], x, ctx),
+                          lambda h, c: ssm.rwkv_time_mix(p["rwkv"], h, c, rcfg, tm),
+                          out=("attn_o", p["rwkv"]["out"]))
     x = x + o
-    o, new_cm = ssm.rwkv_channel_mix(p["rwkv"], rmsnorm(p["norm2"], x), ctx, rcfg,
-                                     None if cache is None else cache["shift_cm"])
+    o, new_cm = _sp_block(ctx, _norm(p["norm2"], x, ctx),
+                          lambda h, c: ssm.rwkv_channel_mix(
+                              p["rwkv"], h, c, rcfg, None if cache is None else cache["shift_cm"]))
     if cache is not None:
         _write_state(cache, {"wkv": new_tm["wkv"], "shift_tm": new_tm["shift"],
                              "shift_cm": new_cm})
@@ -463,37 +529,127 @@ def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, cache
         check_recurrent_segments(cfg, segs)
     stack = params["encoder"]["layers"] if encoder else params["layers"]
     base = ENCODER_UID_BASE if encoder else 0
+    remat = _remat_fn(cfg) if caches is None and torch.is_grad_enabled() else None
     for i, (kind, p) in enumerate(zip(kinds, stack)):
         lctx = ctx.for_layer(step_key, base + i)
         cache = caches[i] if caches is not None else None
-        if kind.kind in ("attn", "shared_attn"):
-            if kind.kind == "shared_attn":
-                p = params["shared"]
-            x, a = _attn_layer(p, kind, x, lctx, cfg, positions, cache, pos, segs, memory)
-            if a is not None:
-                aux = aux + a
-            continue
-        if kind.kind == "mamba":
-            x = _mamba_layer(p, x, lctx, cfg, cache, pos)
+        if kind.kind == "shared_attn":
+            p = params["shared"]
+
+        def body(x, p=p, kind=kind, lctx=lctx, cache=cache):
+            return _layer(p, kind, x, lctx, cfg, positions, cache, pos, segs, memory)
+
+        if remat is None:
+            x, a = body(x)
         else:
-            x = _rwkv_layer(p, x, lctx, cfg, cache)
+            x, a = remat(body, x)
+        if a is not None:
+            aux = aux + a
     return x, aux
+
+
+def _layer(p, kind: LayerKind, x, ctx: Ctx, cfg: ArchConfig, positions, cache, pos, segs,
+           memory):
+    """One layer of any kind: (x, aux or None)."""
+    if kind.kind in ("attn", "shared_attn"):
+        return _attn_layer(p, kind, x, ctx, cfg, positions, cache, pos, segs, memory)
+    if kind.kind == "mamba":
+        return _mamba_layer(p, x, ctx, cfg, cache, pos), None
+    return _rwkv_layer(p, x, ctx, cfg, cache), None
+
+
+# the outputs the "dots" policy keeps (JAX's dots_with_no_batch_dims_saveable
+# keeps the matmuls; the port keeps the batched ones too)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_fn(cfg: ArchConfig):
+    """``cfg.remat`` as a wrapper of one layer body under differentiation
+    (JAX's ``jax.checkpoint`` of the scanned body, ``models/lm.py``; serving
+    steps, which carry caches, skip it as JAX's do): ``"full"`` keeps each
+    layer's input and recomputes the layer in the backward, ``"dots"`` keeps
+    its matmul outputs too, ``"none"`` keeps everything (None).
+
+    The recompute runs the layer's forward again with the same inputs:
+    every site draws its randomness from its own seeded generator in the
+    backward alone, so the global RNG state is not saved; the backward runs
+    once, on the recomputed graph, so each site's backward (its kernels,
+    its compact-gradient slot, its probe, its plan carry) runs once. What
+    runs twice is the forward's side: the sites' generators are built again
+    from the same seeds, and under a mesh the forward's collectives run
+    again (their payload counts twice, as a rematerialised all-gather does
+    in JAX)."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}: full | dots | none")
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, **kw)
+
+
+def _sp_ctx(ctx: Ctx, S: int) -> Ctx:
+    """``ctx`` with the sequence-parallel layout on for a sequence of ``S``
+    positions where the runtime asks for it and ``S`` divides the model
+    axis (else the fixed layout for this call, as JAX's ``_act_sharding``
+    leaves a sequence that does not divide unsharded)."""
+    if not ctx.seq_parallel:
+        return ctx
+    on = ctx.mesh is not None and bool(ctx.model_axes) and S % ctx.n_mp == 0
+    return ctx if on else dataclasses.replace(ctx, seq_parallel=False)
+
+
+def _sp_split(x, ctx: Ctx):
+    """The residual stream entering the sequence-parallel layout: this
+    rank's chunk of the sequence (backward: the chunks' cotangents
+    all-gathered)."""
+    if not ctx.seq_parallel:
+        return x
+    from repro_torch.launch.mesh import slice_replicated
+
+    return slice_replicated(x, ctx.model_axes, ctx.mesh, 1)
+
+
+def _sp_join(x, ctx: Ctx):
+    """The residual stream leaving the sequence-parallel layout: the whole
+    sequence on every model rank (backward: this rank's chunk)."""
+    if not ctx.seq_parallel:
+        return x
+    from repro_torch.launch.mesh import gather_replicated
+
+    return gather_replicated(x, ctx.model_axes, ctx.mesh, 1)
 
 
 def encode(params, src_embeds, ctx: Ctx, cfg: ArchConfig, step_key=None):
     """The encoder stack of an encoder-decoder config: ``src_embeds`` [B,
     S_enc, d] (the stub frontend's frames) in the compute type, the
-    bidirectional layers, the encoder's final norm."""
+    bidirectional layers, the encoder's final norm. Under the
+    sequence-parallel layout the layers run on this rank's chunk of the
+    frames and the memory leaves whole."""
     B, S, _ = src_embeds.shape
-    x = src_embeds.to(getattr(torch, cfg.dtype))
+    ctx = _sp_ctx(ctx, S)
+    x = _sp_split(src_embeds.to(getattr(torch, cfg.dtype)), ctx)
     x, _ = _run_layers(params, x, ctx, cfg, step_key,
                        _default_positions(cfg, B, S, src_embeds.device), encoder=True)
-    return rmsnorm(params["encoder"]["final_norm"], x)
+    return _sp_join(_norm(params["encoder"]["final_norm"], x, ctx), ctx)
 
 
 def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
-    """(embedded inputs, positions, encoder memory or None) of a forward or
-    prefill batch."""
+    """(embedded inputs, positions, encoder memory or None, ctx) of a
+    forward or prefill batch; under the sequence-parallel layout the
+    embedded inputs are this rank's chunk of the sequence."""
     check_decoder(cfg)
     inp = _inputs(batch)
     B, S = inp.shape[0], inp.shape[1]
@@ -505,7 +661,8 @@ def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
     memory = (encode(params, batch["src_embeds"], ctx, cfg, step_key) if cfg.is_encdec
               else None)
     x = _embed(params, inp, cfg) if ctx.mesh is None else _mesh_embed(params, inp, ctx, cfg)
-    return x, positions, memory
+    ctx = _sp_ctx(ctx, S)
+    return _sp_split(x, ctx), positions, memory, ctx
 
 
 def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -517,10 +674,10 @@ def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     self-attention stays within a segment). ``step_key``: the step's integer
     seed (None = no sketching). ``aux``: the MoE layers' summed
     load-balance loss (float32 zero without them)."""
-    x, positions, memory = _prologue(params, batch, ctx, cfg, step_key)
+    x, positions, memory, ctx = _prologue(params, batch, ctx, cfg, step_key)
     x, aux = _run_layers(params, x, ctx, cfg, step_key, positions,
                          segs=batch.get("segments"), memory=memory)
-    return _head(params, x, ctx, cfg), aux
+    return _head(params, _sp_join(x, ctx), ctx, cfg), aux
 
 
 def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -583,13 +740,13 @@ def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=Non
     (``ctx.rows_sharded``; the whole batch otherwise), the logits are this
     rank's rows over the whole vocabulary, and the caches this rank's shards
     (:func:`init_cache` with ``mesh``)."""
-    x, positions, memory = _prologue(params, batch, ctx, cfg, step_key)
+    x, positions, memory, ctx = _prologue(params, batch, ctx, cfg, step_key)
     caches = init_cache(cfg, _global_rows(x.shape[0], ctx), max_len,
                         enc_len=0 if memory is None else memory.shape[1], device=x.device,
                         mesh=ctx.mesh)
     x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches,
                        segs=batch.get("segments"), memory=memory)
-    return _head(params, x, ctx, cfg), caches
+    return _head(params, _sp_join(x, ctx), ctx, cfg), caches
 
 
 def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -601,6 +758,7 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
     [B, 1, V], caches). Under a mesh: this rank's rows of ``tokens`` and
     ``pos``, and this rank's shards of the caches (:func:`prefill`'s)."""
     check_decoder(cfg)
+    ctx = dataclasses.replace(ctx, seq_parallel=False)  # one position: the fixed layout
     positions = _default_positions(cfg, tokens.shape[0], 1, tokens.device, offset=pos)
     x = _embed(params, tokens, cfg) if ctx.mesh is None else _mesh_embed(params, tokens, ctx,
                                                                          cfg)

@@ -46,6 +46,15 @@ class Ctx:
     # under a mesh: this rank's rows are its share of the batch over the data
     # axes (False: every data rank holds the whole batch, which did not divide)
     rows_sharded: bool = True
+    # the residual stream is sequence-parallel between the blocks
+    # (ExecutionConfig.act_sharding; models/lm.py turns it off for a call
+    # whose sequence does not divide the model axis)
+    seq_parallel: bool = False
+    # roles whose TP plan leaves its result partial over the model axis for a
+    # sequence-parallel mover to complete (the column plans' dX, the row
+    # plan's output; "moe": the MoE layer's expert sum), set per block by
+    # models/lm.py
+    sp_partial: frozenset = frozenset()
 
     @property
     def n_mp(self) -> int:
@@ -180,13 +189,13 @@ def _mesh_dense(params, x, ctx: Ctx, role: str, cfg):
     if cfg is None or cfg.is_noop or seed is None:
         spec = ctx.exact_spec(role, w, has_bias=b is not None, x_ndim=x.dim())
         if spec is not None:
-            return site.tp_site(spec, x, w, b, None)
+            return site.tp_site(spec, x, w, b, None, partial=role in ctx.sp_partial)
         return site.mesh_site(None, x, w, b, None, ctx.mesh, ctx.data_axes, ctx.model_axes)
     spec = ctx.site_spec(role, cfg, w, has_bias=b is not None, x_ndim=x.dim())
     slots = dict(gslot=params.get(GRAD_SLOT), pslot=params.get(PROBE_SLOT),
                  sslot=params.get(PLAN_SLOT))
     if spec.plan.is_tp:
-        return site.tp_site(spec, x, w, b, seed, **slots)
+        return site.tp_site(spec, x, w, b, seed, partial=role in ctx.sp_partial, **slots)
     return site.mesh_site(spec.cfg, x, w, b, rng.generator(seed, x.device), ctx.mesh,
                           ctx.data_axes, ctx.model_axes, compact_rows=spec.compact_rows,
                           **slots)

@@ -128,10 +128,12 @@ def _moe_local(router_w, wi, wg, wo, x2d, ctx: Ctx, cfg: MoECfg, e_offset: int,
                n_total_experts: int, cap: int, model=None):
     """Dispatch, expert compute and combine over the experts in ``wi``/``wo``.
 
-    x2d: [N, d]; wi: [E_loc, F, d]. ``model``: (mesh, model axes) under a
-    mesh, where the experts' tokens and combine weights enter through
-    ``launch.mesh.copy_to`` and the output leaves through ``reduce_from``.
-    Returns (y2d [N, d], {"me", "disp"})."""
+    x2d: [N, d]; wi: [E_loc, F, d]. ``model``: (mesh, model axes, reduce)
+    under a mesh, where the experts' tokens and combine weights enter through
+    ``launch.mesh.copy_to`` and the output leaves through ``reduce_from``
+    (``reduce``), or as this rank's partial sum for the sequence-parallel
+    layout's reduce-scatter (``models/lm.py``). Returns (y2d [N, d],
+    {"me", "disp"})."""
     N, d = x2d.shape
     E_loc = wi.shape[0]
     k = cfg.top_k
@@ -156,7 +158,7 @@ def _moe_local(router_w, wi, wg, wo, x2d, ctx: Ctx, cfg: MoECfg, e_offset: int,
 
     xin = x2d
     if model is not None:
-        mesh, mp = model
+        mesh, mp, reduce = model
         xin, flat_w = meshlib.copy_to(x2d, mp, mesh), meshlib.copy_to(flat_w, mp, mesh)
     # each token's k replicas: a broadcast whose backward sums over k
     xrep = xin[:, None, :].expand(N, k, d).reshape(N * k, d)
@@ -175,12 +177,16 @@ def _moe_local(router_w, wi, wg, wo, x2d, ctx: Ctx, cfg: MoECfg, e_offset: int,
     rows = ye_flat[slot] * torch.where(keep, flat_w, 0.0)[:, None].to(ye.dtype)
     # the k replicas of token i are rows i*k .. i*k + k - 1
     y = rows.reshape(N, k, d).sum(1)
-    if model is not None:
+    if model is not None and reduce:
         y = meshlib.reduce_from(y, mp, mesh)
 
     # Switch-style load-balance stats (fractions over all experts)
     me = probs.mean(0)  # [E] mean router probability
-    disp = torch.bincount(flat_ids, minlength=n_total_experts).to(torch.float32) / (N * k)
+    # the replicas per expert, at a static length (bincount sizes its output
+    # from the data)
+    counts = torch.zeros(n_total_experts, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
+    disp = counts.to(torch.float32) / (N * k)
     return y, {"me": me, "disp": disp}
 
 
@@ -234,7 +240,8 @@ def _moe_mesh(params, x2d, ctx: Ctx, cfg: MoECfg):
     e_off = meshlib.axis_index(mesh, mp) * (E // n_mp) if mode == "ep" else 0
     body = dataclasses.replace(ctx, mesh=None)
     y, stats = _moe_local(params["router"]["w"], wi, wg, wo, rows, body, cfg, e_off, E,
-                          capacity(rows.shape[0], cfg), model=(mesh, mp))
+                          capacity(rows.shape[0], cfg),
+                          model=(mesh, mp, "moe" not in ctx.sp_partial))
     if split:
         y = meshlib.gather_partial(y, dp, mesh)
     me, disp = stats["me"], stats["disp"]

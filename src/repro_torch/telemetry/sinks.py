@@ -157,12 +157,14 @@ def build_sinks(tcfg) -> Optional[MultiSink]:
 # ---------------------------------------------------------------------------
 
 
-def site_cost_table(params, policy, n_tokens: int, *, n_layers: int = 1) -> Dict[str, dict]:
+def site_cost_table(params, policy, n_tokens: int, *, n_layers: int = 1, layer_paths=None,
+                    encoder_paths=None) -> Dict[str, dict]:
     """Analytic per-site backward-FLOP attribution for one train step.
 
     Walks ``params`` with the slot builders' path matching; rows are keyed by
-    the JAX site path (:func:`~repro_torch.telemetry.probes.site_key`), so a
-    site of the dense stack sums its ``layers`` as JAX's stacked leaf does.
+    the JAX site path (:func:`~repro_torch.telemetry.probes.site_key`, with
+    ``layer_paths`` / ``encoder_paths``: ``lm.jax_layer_paths``), so a
+    site of a stack sums its ``layers`` as JAX's stacked leaf does.
     Per linear site ``w: [n, d]`` the backward is two matmuls:
 
       * exact:    ``4 · T · n · d`` FLOPs per layer (dX + dW),
@@ -191,7 +193,7 @@ def site_cost_table(params, policy, n_tokens: int, *, n_layers: int = 1) -> Dict
             sketched = 4.0 * n_tokens * r * d
             if cfg.method in COLUMN_METHODS and cfg.method != "per_column":
                 sketched += float(n_tokens) * n  # score pass over G
-            key = site_key("/".join(map(str, path)))
+            key = site_key("/".join(map(str, path)), layer_paths, encoder_paths)
             row = table.get(key)
             if row is None:
                 table[key] = {"role": role, "n": n, "d": d, "layers": 1, "r": r,

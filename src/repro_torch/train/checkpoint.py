@@ -380,7 +380,12 @@ class CheckpointManager:
         err = None
         if t is not None:
             t.join()
-            err = t.error
+            # taken off the writer: the error's traceback holds the writer's
+            # frame, so a writer still holding the error would make a cycle
+            # that keeps every frame the re-raise passes through (the train
+            # loop's, with its state on the device) alive until the cyclic
+            # collector runs
+            err, t.error = t.error, None
         if self.mesh is not None and self.mesh.size > 1:
             import torch.distributed as dist
 
@@ -389,9 +394,14 @@ class CheckpointManager:
             if err is None and int(flag.item()):
                 raise CheckpointError("rank 0's async checkpoint write failed")
         if err is not None:
-            if isinstance(err, CheckpointError):
-                raise err
-            raise CheckpointError(f"async checkpoint write failed: {err!r}") from err
+            try:
+                if isinstance(err, CheckpointError):
+                    raise err
+                raise CheckpointError(f"async checkpoint write failed: {err!r}") from err
+            finally:
+                # this frame, which the raised error's traceback holds, must
+                # not hold the error in turn (a cycle, as above)
+                del err
 
     def restore_or_none(self, tree_like, device=None, shardings=None):
         if latest_step(self.dir) is None:

@@ -44,7 +44,7 @@ def surviving_mesh(old_mesh, shape, *, axes=None, device=None):
     if math.prod(shape) != world:
         raise NotImplementedError(
             f"surviving mesh {shape} on {world} ranks: a mesh on fewer ranks than the "
-            "process group is not ported (ROADMAP.md, the next distributed slice)")
+            "process group is not ported (ROADMAP.md, Queue 1 item 2b)")
     if device is None:
         device = old_mesh.device if old_mesh is not None else "cuda"
     return meshlib.make_mesh(shape, tuple(axes), device=device)

@@ -267,3 +267,40 @@ def test_port_written_checkpoint_passes_jaxs_verify(tmp_path):
         _assert_same(t, out)
     _corrupt_leaf(tmp_path, 7, truncate=True)
     assert not jck.verify(str(tmp_path), 7) and jck.latest_verified_step(str(tmp_path)) == 6
+
+
+def test_failed_async_write_leaves_no_reference_cycle(tmp_path):
+    """A failed async write re-raised by ``wait`` and handled by the caller
+    leaves nothing for the cyclic collector: the error is taken off the
+    writer and ``wait``'s frame drops it, so the frames its traceback holds
+    (the caller's, with its state) go when the handler ends. A cycle there
+    kept a rolled-back attempt's whole state on the card until a collection
+    (``chip_smoke.py`` phase 12's drill under layer remat)."""
+    import gc
+
+    mgr = ck.CheckpointManager(str(tmp_path), every=1)
+
+    def loop(state):
+        mgr.maybe_save(1, state)
+        try:
+            mgr.wait()
+        except ck.CheckpointError:
+            return True
+        return False
+
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        ck.inject_fault_once()
+        assert loop({"w": torch.ones(64, 64)})
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        leaked = [o for o in gc.garbage if isinstance(o, torch.Tensor)
+                  or type(o).__name__ == "frame"]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        if enabled:
+            gc.enable()
+    assert leaked == []

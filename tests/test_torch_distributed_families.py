@@ -37,13 +37,22 @@ import pytest
 import torch
 
 WORLD = 4
-ALONE_S = 50  # the rank group's time alone (spawning included; see SLOWDOWN)
+ALONE_S = 65  # the rank group's time alone (spawning included; see SLOWDOWN)
 STEP_SEED = 2
 B, S, S_ENC = 8, 16, 12
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 FAMILIES = ("gemma3_1b", "rwkv6_3b", "zamba2_7b", "qwen2_vl_2b", "seamless_m4t_large_v2")
 # (family, mesh) pairs held to JAX's sharded exact step
 JAX_CASES = tuple((n, "2x2") for n in FAMILIES) + (("zamba2_7b", "1x4"),)
+# the sequence-parallel layout (act_sharding (dp, "model", None)): the dense
+# decoder, one MoE, one SSM (the hybrid's Mamba2 layers) and the
+# encoder-decoder, against the fixed layout and JAX's sp=True sharded step
+SP_FAMILIES = ("yi_6b", "olmoe_1b_7b", "zamba2_7b", "seamless_m4t_large_v2")
+# the sequence-parallel step against the fixed layout and JAX's sp=True step:
+# loss and every parameter within rtol / atol 1e-5 (the layouts sum the same
+# partial products in another order: the reduce-scatter over model where the
+# fixed layout all-reduces)
+SP_RTOL = 1e-5
 EXPERT_ROLES = ("expert_in", "expert_gate", "expert_out")
 
 
@@ -97,9 +106,12 @@ def policy(kind):
                         exclude_roles=tuple(_DEFAULT_EXCLUDE) + EXPERT_ROLES)
 
 
-def one_step(cfg, params, batch, *, mesh=None, tp=False, kind="exact", opt=None):
+def one_step(cfg, params, batch, *, mesh=None, tp=False, kind="exact", opt=None, sp=False,
+             wire=False):
     """One step from ``params`` (whole): (new state, metrics, collective
-    bytes). Under ``mesh`` the state and batch are this rank's shards."""
+    bytes). Under ``mesh`` the state and batch are this rank's shards;
+    ``sp``: the sequence-parallel residual layout; ``wire``: the bytes are
+    (payload, wire)."""
     from repro_torch.api import ExecutionConfig
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import mesh as meshlib
@@ -107,12 +119,14 @@ def one_step(cfg, params, batch, *, mesh=None, tp=False, kind="exact", opt=None)
     from repro_torch.train.train_step import init_state, make_train_step
 
     opt = opt or sgd(0.1)
-    ex = None if mesh is None else ExecutionConfig(mesh=mesh, tp_sketch=tp)
+    act = None if mesh is None or not sp else (("data",), "model", None)
+    ex = None if mesh is None else ExecutionConfig(mesh=mesh, tp_sketch=tp, act_sharding=act)
     st = init_state(0, cfg, opt, params=clone(params), device="cpu", execution=ex)
     step = make_train_step(cfg, opt, policy(kind), execution=ex, device="cpu")
     meshlib.reset_collective_bytes()
     new, m = step(st, batch if mesh is None else shard_batch(batch, mesh=mesh), STEP_SEED)
-    return new, m, meshlib.collective_bytes()["total"]
+    cb = meshlib.collective_bytes()
+    return new, m, (cb["total"], cb["wire"]["total"]) if wire else cb["total"]
 
 
 def flat(tree, path="") -> dict:
@@ -198,6 +212,24 @@ def family_runs(name, inp, out, meshes):
             out[key + "/aux"] = float(m["aux"])
             out[key + "/grad_norm"] = float(m["grad_norm"])
             out[key + "/bytes"] = nbytes
+
+
+def sp_runs(name, inp, out, meshes):
+    """On each mesh, the exact step and the exact TP step in the fixed and
+    the sequence-parallel layouts: parameters, loss, payload and wire bytes."""
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config(name)
+    params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
+    for tag, mesh in meshes.items():
+        for run, tp in (("exact", False), ("exact_tp", True)):
+            for layout, sp in (("fixed", False), ("sp", True)):
+                new, m, (nbytes, wire) = one_step(cfg, params, batch, mesh=mesh, tp=tp, sp=sp,
+                                                  wire=True)
+                key = f"{name}/{tag}/{layout}/{run}"
+                out[key + "/params"] = whole_leaves(new, mesh)
+                out[key + "/loss"] = float(m["loss"])
+                out[key + "/bytes"] = (nbytes, wire)
 
 
 def runtime_train(name, inp, out, mesh):
@@ -356,6 +388,11 @@ def _worker(rank, world, store, work):
             family_runs(name, inp, out, meshes)
             runtime_train(name, inp, out, meshes["2x2"])
             out[f"time/{name}"] = time.perf_counter() - t0
+        for name in SP_FAMILIES:
+            progress(work, rank, f"sp/{name}")
+            t0 = time.perf_counter()
+            sp_runs(name, inp, out, meshes)
+            out[f"time/sp/{name}"] = time.perf_counter() - t0
     finally:
         finish(rank, out, work)
 
@@ -398,10 +435,12 @@ def jax_mesh(tag):
                             ("data", "model"), devices=jax.devices()[:4])
 
 
-def jax_sharded_exact_step(name, tag, batch):
+def jax_sharded_exact_step(name, tag, batch, sp=False):
     """JAX's sharded exact step (``tests/test_distributed.py``'s): the
-    parameter shardings of its rules, activations over ("data",), the batch's
-    rows over data; its new parameters as the port's leaves, and the loss."""
+    parameter shardings of its rules, activations over ("data",) (with
+    ``sp``, the sequence over "model": its dry run's ``_act_sharding(...,
+    sp=True)``), the batch's rows over data; its new parameters as the
+    port's leaves, and the loss."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -417,7 +456,7 @@ def jax_sharded_exact_step(name, tag, batch):
     pspecs = shard.param_shardings(state.params, mesh)
     sshard = TrainState(params=pspecs, opt_state={k: pspecs for k in state.opt_state},
                         step=NamedSharding(mesh, P()))
-    act = NamedSharding(mesh, P(("data",), None, None))
+    act = NamedSharding(mesh, P(("data",), "model" if sp else None, None))
     step = make_train_step(jcfg, sgd(0.1), None, mesh=mesh, act_sharding=act,
                            data_axes=("data",), model_axes=("model",))
 
@@ -442,7 +481,7 @@ def assert_close_leaves(got: dict, want: dict, rtol, atol):
 
 @pytest.fixture(scope="module")
 def inputs():
-    return family_inputs(FAMILIES)
+    return family_inputs(FAMILIES + tuple(n for n in SP_FAMILIES if n not in FAMILIES))
 
 
 @pytest.fixture(scope="module")
@@ -506,6 +545,58 @@ def test_runtime_trains_the_family_under_a_mesh(ranks, name):
     got, want = ranks[f"{name}/train/mesh"], ranks[f"{name}/train/single"]
     assert len(got) == len(want) == 2
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("run", ["exact", "exact_tp"])
+@pytest.mark.parametrize("tag", list(MESHES))
+@pytest.mark.parametrize("name", SP_FAMILIES)
+def test_sequence_parallel_step_matches_the_fixed_layout(ranks, name, tag, run):
+    """The sequence-parallel step (the residual stream's sequence over
+    model between the blocks, gathered at each block's entry and
+    reduce-scattered at its exit) against the fixed-layout step, with the
+    local plans and with the TP plans: loss and every parameter within
+    SP_RTOL."""
+    sp, fixed = (f"{name}/{tag}/{lay}/{run}" for lay in ("sp", "fixed"))
+    np.testing.assert_allclose(ranks[sp + "/loss"], ranks[fixed + "/loss"], rtol=SP_RTOL)
+    assert_close_leaves(ranks[sp + "/params"], ranks[fixed + "/params"], SP_RTOL, SP_RTOL)
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+@pytest.mark.parametrize("name", SP_FAMILIES)
+def test_sequence_parallel_step_matches_jax(ranks, inputs, name, tag):
+    """The port's sequence-parallel exact step against JAX's sharded exact
+    step with ``sp=True`` on the same mesh: loss and every parameter within
+    SP_RTOL."""
+    want, loss = jax_sharded_exact_step(name, tag, inputs[f"{name}/batch"], sp=True)
+    key = f"{name}/{tag}/sp/exact"
+    np.testing.assert_allclose(ranks[key + "/loss"], loss, rtol=SP_RTOL)
+    assert_close_leaves(ranks[key + "/params"], want, SP_RTOL, SP_RTOL)
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_sequence_parallel_payload_and_wire_formulas(ranks, inputs, tag):
+    """The dense decoder's exact step (local plans, remat "full"): the
+    sequence-parallel layout adds to the fixed layout's collectives exactly
+    its movers. Each block (attention, MLP) gathers its input's chunk ``c``
+    (B_local x S/n x d float32) in the forward, again in the recompute, and
+    gathers its output's chunk cotangent in the backward; each of the two
+    norms per layer all-reduces its gain's gradient (d float32) over model;
+    the embedding's slice gathers a chunk cotangent and the head's join a
+    chunk. Wire: an all-gather of ``c`` over n ranks moves (n - 1) c, an
+    all-reduce of b moves 2 (n - 1) / n b."""
+    from repro_torch.configs.registry import smoke_config
+
+    cfg = smoke_config("yi_6b")
+    n_dp, n = MESHES[tag]
+    c = (B // n_dp) * (S // n) * cfg.d_model * 4
+    r = 1 if cfg.remat != "none" else 0
+    L, gain = cfg.n_layers, cfg.d_model * 4
+    pay = L * (2 * (2 + r) * c + 2 * gain) + 2 * c
+    wire = L * (2 * (2 + r) * (n - 1) * c + 2 * 2 * (n - 1) / n * gain) + 2 * (n - 1) * c
+    (p_sp, w_sp), (p_fix, w_fix) = (ranks[f"yi_6b/{tag}/{lay}/exact/bytes"]
+                                    for lay in ("sp", "fixed"))
+    assert p_sp - p_fix == pay
+    assert w_sp - w_fix == pytest.approx(wire, rel=1e-12)
 
 
 @pytest.mark.parametrize("name", FAMILIES)

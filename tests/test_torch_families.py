@@ -461,14 +461,19 @@ def test_expert_weight_sketch_is_unbiased():
 def test_expert_sites_never_share_a_seed(monkeypatch):
     """One sketched olmoe smoke step: every sketched site (4 attention + 3
     per expert, in each of 2 layers) draws from a generator of its own seed,
-    derived layer → 1000 → expert → role."""
+    derived layer → 1000 → expert → role. Under layer remat (``cfg.remat``,
+    "full" by default) the backward runs each layer's forward again, which
+    builds each site's generator a second time from the same seed."""
     _, cfg, _, batch = _setup("olmoe_1b_7b")
     seeds = []
     real = rng.generator
     monkeypatch.setattr(rng, "generator", lambda s, d: seeds.append(s) or real(s, d))
     _grads(cfg, _port("olmoe_1b_7b"), batch, _policy("torch", 0.5, "pallas", 16), key=13)
     E = cfg.n_experts
-    assert len(seeds) == len(set(seeds)) == cfg.n_layers * (4 + 3 * E)
+    n_sites = cfg.n_layers * (4 + 3 * E)
+    builds = 1 if cfg.remat == "none" else 2
+    assert len(set(seeds)) == n_sites and len(seeds) == builds * n_sites
+    assert all(seeds.count(s) == builds for s in set(seeds))
     layer = rng.fold_in(13, 1)
     want = rng.fold_in(rng.fold_in(rng.fold_in(layer, 1000), E - 1), ROLES.index("expert_out"))
     assert want in seeds

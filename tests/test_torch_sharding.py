@@ -242,17 +242,22 @@ def test_shard_slices_tile_the_array_on_every_rank(shape, axes):
 
 
 def test_act_sharding_takes_only_the_fixed_layout():
-    """The port's residual stream is always batch over the data axes and
-    replicated over model, so ``act_sharding`` takes None or that spec (in
-    either spelling) and refuses any other layout, or a spec without a mesh,
-    instead of ignoring it."""
+    """The port's residual stream is batch over the data axes and replicated
+    over model (the fixed layout), or JAX's sequence-parallel layout with
+    the sequence over model; either may hold the batch replicated. So
+    ``act_sharding`` takes None or one of those specs (in either spelling)
+    and refuses any other layout, or a spec without a mesh, instead of
+    ignoring it."""
     from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.launch.mesh import layout
 
     mesh = layout((2, 2), ("data", "model"))
-    for act in (None, ("data", None, None), (("data",), None, None)):
-        ExecutionConfig(mesh=mesh, act_sharding=act)
-    for act in ((None, None, "model"), ("data", "model", None), ("data", None)):
+    for act in (None, ("data", None, None), (("data",), None, None), (None, None, None)):
+        assert not ExecutionConfig(mesh=mesh, act_sharding=act).seq_parallel
+    for act in (("data", "model", None), (("data",), "model", None), (None, "model", None)):
+        assert ExecutionConfig(mesh=mesh, act_sharding=act).seq_parallel
+    for act in ((None, None, "model"), ("model", None, None), ("data", None),
+                ("data", "data", None)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ExecutionConfig(mesh=mesh, act_sharding=act)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
