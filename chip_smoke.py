@@ -137,13 +137,14 @@ which raises on failure:
    gemma3-1b's l1@0.2 shapes (expert buckets of 320 rows, an all-zero bucket
    among them) and flash at their prefills, against the plain versions;
    olmoe-1b-7b (d 2048, 64 experts top-8, expert d_ff 1024, vocab 50,304;
-   cut to 2 of 16 layers and float32) and gemma3-1b (its full 26 layers,
-   vocab 262,144; float32), each at batch 4 x 512: one gradient at budget
+   cut to 2 of 16 layers and float32) and gemma3-1b (12 of its 26 layers:
+   two 5 local : 1 global periods; vocab 262,144; float32), each at batch 4
+   x 512: one gradient at budget
    0.999 equal to exact backprop's for every leaf (olmoe under ``pallas``,
    ``onepass`` and ``stale``, gemma3 under ``pallas``), then
    ``Runtime.train`` for 3 steps at l1@0.2 block 128 under each of those
    backends with the launch counts set to 0 before and read after (olmoe
-   392 per kernel per step, 2 x (4 + 3 x 64) sites; gemma3 182), finite
+   392 per kernel per step, 2 x (4 + 3 x 64) sites; gemma3 84), finite
    losses and aux, the replicas dropped by the capacity printed; one exact
    step beside one pallas step (ms, device-busy ms, device ops, idle share,
    peak memory; olmoe's pallas step timed but not profiled); serving
@@ -159,13 +160,13 @@ which raises on failure:
    [2048, 14336]) and flash at zamba's prefill (dh 112, run padded to 128),
    against the plain versions; rwkv6-3b (d 2560, 40 heads of 64, channel
    mix 8960, vocab 65,536; cut to 4 of 32 layers) and zamba2-7b (81 Mamba2
-   layers at d 3584 with one shared attention block every 6; cut to 13
-   layers, two periods and a one-layer remainder), each at batch 4 x 512
+   layers at d 3584 with one shared attention block every 6; cut to 7
+   layers, one period and a one-layer remainder), each at batch 4 x 512
    and the full configs' chunk of 256: one gradient at budget 0.999 equal
    to exact backprop's for every leaf under ``pallas``, ``onepass`` and
    ``stale``, every exact gradient finite; ``Runtime.train`` for 3 steps per
    backend with the launch counts set to 0 before and read after (rwkv 32
-   sites per step, zamba 53); one profiled ``pallas`` step each (ms,
+   sites per step, zamba 28); one profiled ``pallas`` step each (ms,
    device-busy ms, device ops, idle share, peak memory); serving at full
    depth (rwkv 32 layers, zamba 81 with 13 shared applications) of 4 x 512
    prompts and 16 greedy decode steps: zamba's 13 flash launches per
@@ -178,16 +179,17 @@ which raises on failure:
    their prefills (qwen causal GQA 12:2 at dh 128; seamless's encoder
    without the causal mask at 768 x 768, its decoder's causal 512 x 512 and
    its cross-attention without the mask at Sq 512, Skv 768), against the
-   plain versions; qwen2-vl-2b (14 of 28 layers, d 1536, M-RoPE, the vision
+   plain versions; qwen2-vl-2b (7 of 28 layers, d 1536, M-RoPE, the vision
    stub's embeds and a 16 x 16 grid's positions [3, B, S]) and
-   seamless-m4t-large-v2 (12 + 12 of 24 encoder + 24 decoder layers, d 1024,
-   the audio stub's 768 frames) at batch 4 x 512 (the depths halved since
-   layer remat, PR 29): one gradient at budget
+   seamless-m4t-large-v2 (6 + 6 of 24 encoder + 24 decoder layers, d 1024,
+   the audio stub's 768 frames) at batch 4 x 512 (a quarter of the depths:
+   halved for layer remat's recompute, and again for the chunked
+   attention's host ops): one gradient at budget
    0.999 equal to exact backprop's for every leaf under each backend, every
    exact gradient finite; ``Runtime.train`` for 3 steps per backend with the
-   launch counts set to 0 before and read after (qwen 98 sites per step,
-   seamless 192), and a qwen ``stale`` step at accum 2 whose split takes
-   the positions on axis 1 (2 x 98); one exact and one profiled ``pallas``
+   launch counts set to 0 before and read after (qwen 49 sites per step,
+   seamless 96), and a qwen ``stale`` step at accum 2 whose split takes
+   the positions on axis 1 (2 x 49); one exact and one profiled ``pallas``
    step each; serving of 4 x 512 prompts (seamless over its 768 frames) and
    16 greedy decode steps: 28 (qwen) and 72 (seamless) flash launches per
    prefill and none in decode, logits against plain attention
@@ -258,7 +260,23 @@ which raises on failure:
    from the depth model: per-rank peak GB, whether it fits the card's
    usable bytes (``HW.hbm_bytes``; the card's own ``total_memory`` printed
    beside it), the dominant term, the wire GB and the seconds it took;
-22. one JSON line listing the ported kernels, then the last line
+22. JAX's chunked attention (``chunked_attention(dev, gen)``): (a) yi-6b's
+   attention geometry (H 32, Kv 4, dh 128, causal, float32, 1 x 4096, Cq
+   512, ck 1024): the chunked core against the einsum's, outputs and q/k/v
+   gradients within ``ATTN_RTOL``, forward FlopCounterMode totals equal,
+   and the peak of a forward and backward below the einsum's by at least
+   the [1, 32, 4096, 4096] float32 score tensor; (b) gemma3-1b's local
+   layer (window 512, H 4, Kv 1, dh 256): the chunked forward's FLOPs
+   exactly (512 + 512) / 4096 of the einsum's, outputs within
+   ``ATTN_RTOL``; (c) the flash kernel against the chunked forward at both
+   shapes; (d) yi-6b at full width cut to 2 of 32 layers (batch 1 x 4096,
+   block-128 l1@0.2 ``pallas``, AdamW): one chunked and one einsum step
+   after a warm-up step each, each launching 14 + 14 score and fused
+   kernels (set to 0 just before, read just after), with the loss, the peak
+   and the ms printed, and the two impls' exact gradients within
+   ``GRAD_RTOL``; (e) lm-100m's main-path step with each impl, interleaved,
+   84 + 84 launches per step, and the ms per step;
+23. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -2936,6 +2954,10 @@ FAM_STEPS = 3
 # two moments take 16 B per parameter (~110 GB at 16); 4 until layer remat
 # (PR 29), whose recompute of the host-bound steps took the script's time
 OLMOE_TRAIN_LAYERS = 2
+# gemma3-1b trains at 12 of its 26 layers, two 5 local : 1 global periods
+# (all 26 until the chunked attention's host ops took the script's time);
+# it serves at its full depth
+GEMMA_TRAIN_LAYERS = 12
 # serving (prompts, tokens per prompt): olmoe at full depth; gemma3 with
 # prompts four times its 512-token window
 FAM_SERVE = {"olmoe-1b-7b": (4, 512), "gemma3-1b": (2, 2048), "rwkv6-3b": (4, 512),
@@ -2950,13 +2972,13 @@ FAM_SEED = 41
 ROUTER_TIE = 1e-5
 # the shapes of the families' kernels at l1@0.2, block 128, and their calls
 # per step: (N, n, d, rb) -> calls (olmoe: 2 layers, 4 attention and 3 x 64
-# expert sites each; gemma3: 26 layers of 7 sites)
+# expert sites each; gemma3: 12 layers of 7 sites)
 FAM_BLOCK_SHAPES = {
     "olmoe-1b-7b": {(2048, 2048, 2048, 3): 8, (320, 1024, 2048, 2): 256,
                     (320, 2048, 1024, 3): 128},
-    "gemma3-1b": {(2048, 1024, 1152, 2): 26, (2048, 256, 1152, 1): 52,
-                  (2048, 1152, 1024, 2): 26, (2048, 6912, 1152, 11): 52,
-                  (2048, 1152, 6912, 2): 26}}
+    "gemma3-1b": {(2048, 1024, 1152, 2): 12, (2048, 256, 1152, 1): 24,
+                  (2048, 1152, 1024, 2): 12, (2048, 6912, 1152, 11): 24,
+                  (2048, 1152, 6912, 2): 12}}
 # flash per prefill: (B, Sq, Skv, H, Kv, dh, causal, window) -> calls
 FAM_FLASH_SHAPES = {
     "olmoe-1b-7b": {(4, 512, 512, 16, 16, 128, True, None): 16},
@@ -2965,15 +2987,16 @@ FAM_FLASH_SHAPES = {
 
 
 def family_cfgs():
-    """(olmoe training, olmoe serving, gemma3) configs from the registry:
-    float32 (published bfloat16); olmoe's training depth cut to
-    OLMOE_TRAIN_LAYERS; gemma3 at its full config."""
+    """(olmoe training, olmoe serving, gemma3 training, gemma3 serving)
+    configs from the registry: float32 (published bfloat16); the training
+    depths cut to OLMOE_TRAIN_LAYERS and GEMMA_TRAIN_LAYERS."""
     from repro_torch.configs.registry import get_config
 
     f32 = dict(dtype="float32", param_dtype="float32")
     olmoe = get_config("olmoe-1b-7b").replace(**f32)
+    gemma = get_config("gemma3-1b").replace(**f32)
     return (olmoe.replace(n_layers=OLMOE_TRAIN_LAYERS), olmoe,
-            get_config("gemma3-1b").replace(**f32))
+            gemma.replace(n_layers=GEMMA_TRAIN_LAYERS), gemma)
 
 
 def family_registry(dev):
@@ -3613,8 +3636,8 @@ def families(dev, gen):
     t0 = time.perf_counter()
     rows = family_kernels(gen, dev, FAM_BLOCK_SHAPES, FAM_FLASH_SHAPES)
     print(f"[time]   family kernels {time.perf_counter() - t0:.1f} s")
-    olmoe_train, olmoe_serve, gemma = family_cfgs()
-    for cfg, backends in ((olmoe_train, BACKENDS), (gemma, ("pallas",))):
+    olmoe_train, olmoe_serve, gemma_train, gemma = family_cfgs()
+    for cfg, backends in ((olmoe_train, BACKENDS), (gemma_train, ("pallas",))):
         t0 = time.perf_counter()
         batch = batch_to_device(next(LMStream(vocab=cfg.vocab, seed=FAM_SEED).batches(
             FAM_BATCH, FAM_SEQ)), dev)
@@ -3647,22 +3670,23 @@ def families(dev, gen):
 
 # float32 AdamW takes 16 B per parameter: rwkv6-3b's 32 layers (~3.1 B
 # parameters, ~50 GB of state before activations) and zamba2-7b's 81 (~6.7 B)
-# do not fit 80 GB. rwkv trains at 4 layers; zamba at 13: two periods of 6
+# do not fit 80 GB. rwkv trains at 4 layers; zamba at 7: one period of 6
 # Mamba layers and the shared block, then a one-layer remainder, so both of
 # the full plan's segment kinds run
 # rwkv6-3b trains at 4 of 32 layers (8 until layer remat, PR 29, whose
-# recompute of its host-bound steps took the script's time)
-SSM_TRAIN_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 13}
+# recompute of its host-bound steps took the script's time); zamba2-7b at 7
+# (13 until the chunked attention's host ops took it too)
+SSM_TRAIN_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 7}
 # the families' kernel shapes at l1@0.2, block 128, and their calls per step:
 # (N, n, d, rb) -> calls (rwkv: 4 layers of r/k/v/g/o/cm_r, cm_k, cm_v; zamba:
-# 13 Mamba layers of in_z/in_x and out, 2 shared applications of q/k/v/o,
+# 7 Mamba layers of in_z/in_x and out, 1 shared application of q/k/v/o,
 # mlp in/gate and out)
 SSM_BLOCK_SHAPES = {
     "rwkv6-3b": {(2048, 2560, 2560, 4): 24, (2048, 8960, 2560, 14): 4,
                  (2048, 2560, 8960, 4): 4},
-    "zamba2-7b": {(2048, 7168, 3584, 11): 26, (2048, 3584, 7168, 6): 13,
-                  (2048, 3584, 3584, 6): 8, (2048, 14336, 3584, 22): 4,
-                  (2048, 3584, 14336, 6): 2}}
+    "zamba2-7b": {(2048, 7168, 3584, 11): 14, (2048, 3584, 7168, 6): 7,
+                  (2048, 3584, 3584, 6): 4, (2048, 14336, 3584, 22): 2,
+                  (2048, 3584, 14336, 6): 1}}
 # flash per prefill at full depth: the shared block's 13 applications (dh 112
 # runs padded to 128)
 SSM_FLASH_SHAPES = {"zamba2-7b": {(4, 512, 512, 32, 32, 112, True, None): 13}}
@@ -3742,21 +3766,22 @@ VLM_GRID = 16
 # cross-attention's keys
 AUDIO_FRAMES = 768
 VLM_AUDIO = ("qwen2-vl-2b", "seamless-m4t-large-v2")
-# the training depths: half of each (qwen 14 of 28 layers, seamless 12 + 12
-# of 24 + 24; full depth until layer remat, PR 29, whose recompute of the
-# host-bound steps took the script's time); serving stays at full depth
-VLM_TRAIN_LAYERS = {"qwen2-vl-2b": 14, "seamless-m4t-large-v2": 12}
+# the training depths: a quarter of each (qwen 7 of 28 layers, seamless 6 +
+# 6 of 24 + 24): full depth until layer remat's recompute of the host-bound
+# steps took the script's time, half until the chunked attention's host ops
+# took it too; serving stays at full depth
+VLM_TRAIN_LAYERS = {"qwen2-vl-2b": 7, "seamless-m4t-large-v2": 6}
 # the families' kernel shapes at l1@0.2, block 128, and their calls per step:
-# (N, n, d, rb) -> calls. qwen: 14 layers of q/o, k/v (GQA 12:2 of 128), mlp
-# in/gate and out. seamless: N 3,072 (4 x 768 frames) at the encoder's 12
+# (N, n, d, rb) -> calls. qwen: 7 layers of q/o, k/v (GQA 12:2 of 128), mlp
+# in/gate and out. seamless: N 3,072 (4 x 768 frames) at the encoder's 6
 # layers of q/k/v/o and mlp in/out and at the decoder's cross k/v; N 2,048
-# at the decoder's 12 layers of self q/k/v/o, cross q/o and mlp in/out
+# at the decoder's 6 layers of self q/k/v/o, cross q/o and mlp in/out
 VLM_BLOCK_SHAPES = {
-    "qwen2-vl-2b": {(2048, 1536, 1536, 2): 28, (2048, 256, 1536, 1): 28,
-                    (2048, 8960, 1536, 14): 28, (2048, 1536, 8960, 2): 14},
-    "seamless-m4t-large-v2": {(3072, 1024, 1024, 2): 72, (3072, 8192, 1024, 13): 12,
-                              (3072, 1024, 8192, 2): 12, (2048, 1024, 1024, 2): 72,
-                              (2048, 8192, 1024, 13): 12, (2048, 1024, 8192, 2): 12}}
+    "qwen2-vl-2b": {(2048, 1536, 1536, 2): 14, (2048, 256, 1536, 1): 14,
+                    (2048, 8960, 1536, 14): 14, (2048, 1536, 8960, 2): 7},
+    "seamless-m4t-large-v2": {(3072, 1024, 1024, 2): 36, (3072, 8192, 1024, 13): 6,
+                              (3072, 1024, 8192, 2): 6, (2048, 1024, 1024, 2): 36,
+                              (2048, 8192, 1024, 13): 6, (2048, 1024, 8192, 2): 6}}
 # flash per prefill: qwen's 28 causal layers; seamless's 24 encoder layers
 # (no causal mask, 768 x 768), 24 decoder self-attentions (causal 512 x 512)
 # and 24 cross-attentions (no causal mask, 512 queries over 768 frames)
@@ -5106,6 +5131,276 @@ def dry_run(dev, child):
     return total
 
 
+# -- phase 22: JAX's chunked attention --------------------------------------------
+
+# (B, S, H, Kv, dh, window): yi-6b's attention geometry (GQA 32:4, causal,
+# full) and gemma3-1b's local layer (window 512); the configs' q_chunk and
+# kv_chunk
+ATTN_YI = (1, 4096, 32, 4, 128, None)
+ATTN_GEMMA = (1, 4096, 4, 1, 256, 512)
+ATTN_CHUNKS = (512, 1024)
+# float32 chunked against einsum (and flash against chunked): the same
+# products, summed in another order (the online softmax rescales partial sums
+# over 4 tiles of 1,024 keys). An output is a softmax-weighted mean over up to
+# 4,096 keys and a gradient a sum over as many queries: ~sqrt(K) 2^-24 of the
+# scale, 4e-6 at K = 4,096, so 2e-5 of each tensor's largest entry
+ATTN_RTOL = 2e-5
+# yi-6b trained at full width, cut to 2 of its 32 layers: 7 sketched sites a
+# layer (the head stays exact), batch 1 x 4,096
+YI_LAYERS, YI_SEQ = 2, 4096
+# (e): lm-100m's timed steps per attention impl
+LM_IMPL_REPS = 4
+
+
+def attn_pass(dev, cfg, q, k, v, ct):
+    """One forward and backward of ``cfg``'s core on fresh leaves: (out,
+    grads, peak bytes above the inputs, ms)."""
+    from repro_torch.nn.attention import multi_head_attention
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = multi_head_attention(*leaves, cfg)
+    (out * ct).sum().backward()
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return out.detach(), [t.grad for t in leaves], peak, start.elapsed_time(end)
+
+
+def attn_flops(cfg, q, k, v) -> int:
+    """FlopCounterMode's count of one forward of ``cfg``'s core."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.nn.attention import multi_head_attention
+
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        multi_head_attention(q, k, v, cfg)
+    return fc.get_total_flops()
+
+
+def attn_case(dev, gen, shape, grads):
+    """Phase 22 (a)/(b)/(c) at ``shape``: chunked against einsum (outputs,
+    with ``grads`` the q/k/v gradients too, FLOPs, peaks) and the flash
+    kernel against chunked; returns the printed numbers."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.nn.attention import AttnCfg, multi_head_attention
+
+    B, S, H, Kv, dh, window = shape
+    q, ct = (torch.randn(B, S, H, dh, generator=gen, device=dev) for _ in range(2))
+    k, v = (torch.randn(B, S, Kv, dh, generator=gen, device=dev) for _ in range(2))
+    cfg = AttnCfg(n_heads=H, n_kv=Kv, d_head=dh, window=window, q_chunk=ATTN_CHUNKS[0],
+                  kv_chunk=ATTN_CHUNKS[1])
+    ein = dataclasses.replace(cfg, impl="einsum")
+    res = {"flops": attn_flops(cfg, q, k, v), "flops_einsum": attn_flops(ein, q, k, v)}
+    if grads:
+        runs = {}
+        for name, c in (("einsum", ein), ("chunked", cfg)):
+            attn_pass(dev, c, q, k, v, ct)  # warm-up
+            runs[name] = attn_pass(dev, c, q, k, v, ct)
+        (o_e, g_e, res["peak_einsum"], res["ms_einsum"]), (o_c, g_c, res["peak"], res["ms"]) = (
+            runs["einsum"], runs["chunked"])
+        res["err"] = [max_err(a, b, ATTN_RTOL)[0] for a, b in zip([o_c] + g_c, [o_e] + g_e)]
+        del runs, g_e, g_c
+    else:
+        with torch.no_grad():
+            o_c = multi_head_attention(q, k, v, cfg)
+            res["err"] = [max_err(o_c, multi_head_attention(q, k, v, ein), ATTN_RTOL)[0]]
+    # (c) the flash kernel, forward, against the chunked path (a comparison:
+    # its launches count on no main path)
+    with torch.no_grad():
+        res["flash_err"] = max_err(ops.flash_attention(q, k, v, causal=True, window=window),
+                                   o_c, ATTN_RTOL)[0]
+    del q, k, v, ct, o_c
+    torch.cuda.empty_cache()
+    return res
+
+
+def yi_step(dev, cfg, policy, params, batch, opt):
+    """A warm-up step, then one yi-6b training step, from a copy of
+    ``params``: the second step's (loss, launches, peak bytes above the
+    state, ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    st = init_state(0, cfg, opt, params=tree_map(lambda t: t.detach().clone(), params),
+                    device=dev)
+    fn = make_train_step(cfg, opt, policy, device=dev)
+    st, _ = fn(st, batch, 21)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, m = fn(st, batch, 22)
+    loss = float(m["loss"])
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del st, fn
+    torch.cuda.empty_cache()
+    return loss, counts, peak, ms
+
+
+def yi_exact_grads(dev, cfg, params, batch):
+    """Exact gradients of yi-6b's loss (a plain forward and backward)."""
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+    from repro_torch.tree import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    loss, _ = lm.lm_loss(p, batch, Ctx(), cfg)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    del p
+    return loss.detach(), grads
+
+
+def chunked_attention(dev, gen):
+    """Phase 22 (module docstring). Returns the launches of (d)'s and (e)'s
+    steps."""
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.train_step import batch_to_device
+
+    t_phase = time.perf_counter()
+    # (a) + (c): yi-6b's geometry, forward and backward
+    B, S, H, Kv, dh, _ = ATTN_YI
+    a = attn_case(dev, gen, ATTN_YI, grads=True)
+    score = 4 * B * H * S * S
+    tile = 4 * B * H * ATTN_CHUNKS[0] * ATTN_CHUNKS[1]
+    if a["flops"] != a["flops_einsum"]:
+        raise AssertionError(f"[attn] (a) chunked forward FLOPs {a['flops']} != einsum's "
+                             f"{a['flops_einsum']}")
+    if not a["peak_einsum"] - a["peak"] >= score:
+        raise AssertionError(f"[attn] (a) chunked peak {a['peak']} B is not below the "
+                             f"einsum's {a['peak_einsum']} B by the {score} B score tensor")
+    print(f"[attn] (a) yi-6b geometry (B {B}, S {S}, H {H}, Kv {Kv}, dh {dh}, causal, float32, "
+          f"Cq {ATTN_CHUNKS[0]}, ck {ATTN_CHUNKS[1]}): chunked against einsum, max |err| "
+          f"out {a['err'][0]:.3e}, dq {a['err'][1]:.3e}, dk {a['err'][2]:.3e}, dv "
+          f"{a['err'][3]:.3e} (tol {ATTN_RTOL} of each's largest); forward FlopCounterMode "
+          f"{a['flops']:,} = einsum's; peak of a forward and backward {a['peak']:,} B chunked, "
+          f"{a['peak_einsum']:,} B einsum (score tensor {score:,} B, a tile {tile:,} B); "
+          f"{a['ms']:.2f} ms chunked, {a['ms_einsum']:.2f} ms einsum ({smi_line()})")
+    # (b) + (c): gemma3-1b's local layer, forward
+    B, S, H, Kv, dh, W = ATTN_GEMMA
+    b = attn_case(dev, gen, ATTN_GEMMA, grads=False)
+    if b["flops"] * S != b["flops_einsum"] * (W + ATTN_CHUNKS[0]):
+        raise AssertionError(f"[attn] (b) window FLOPs {b['flops']} are not (W + Cq) / S of "
+                             f"the einsum's {b['flops_einsum']}")
+    print(f"[attn] (b) gemma3-1b local layer (S {S}, H {H}, Kv {Kv}, dh {dh}, window {W}): "
+          f"forward FLOPs {b['flops']:,} = ({W} + {ATTN_CHUNKS[0]}) / {S} of the einsum's "
+          f"{b['flops_einsum']:,}; out max |err| {b['err'][0]:.3e} (tol {ATTN_RTOL})")
+    print(f"[attn] (c) flash_attention against the chunked forward: yi-6b geometry max |err| "
+          f"{a['flash_err']:.3e}, gemma3-1b local layer {b['flash_err']:.3e} (tol {ATTN_RTOL} "
+          f"of the largest output)")
+    # (d) yi-6b at full width, 2 layers, one pallas step per impl, and the
+    # exact gradients of both impls
+    cfg = f32_cfg("yi_6b", YI_LAYERS)
+    if (cfg.q_chunk, cfg.kv_chunk, cfg.attn_impl) != (*ATTN_CHUNKS, "chunked"):
+        raise AssertionError(f"[attn] yi-6b's config chunks {cfg.q_chunk}/{cfg.kv_chunk}, "
+                             f"impl {cfg.attn_impl}")
+    params = lm.init_params(22, cfg, device=dev)
+    batch = batch_to_device(next(LMStream(vocab=cfg.vocab, seed=22).batches(1, YI_SEQ)), dev)
+    sites = 7 * YI_LAYERS
+    want = {name: (sites if name in SITE_KERNELS["pallas"] else 0) for name in ops.KERNELS}
+    total, steps = {}, {}
+    for impl in ("chunked", "einsum"):
+        c = cfg.replace(attn_impl=impl)
+        opt = adamw(cosine_warmup(3e-4, 2000, 100_000), weight_decay=0.1, clip=1.0)
+        loss, counts, peak, ms = yi_step(dev, c, slice_policy(0.2), params, batch, opt)
+        if counts != want:
+            raise AssertionError(f"[attn] (d) yi-6b {impl} step launches {counts}, want {want}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"[attn] (d) yi-6b {impl} step loss {loss}")
+        add_counts(total, counts)
+        steps[impl] = (loss, peak, ms)
+    ops.reset_launch_counts()
+    (l_c, g_c), (l_e, g_e) = (yi_exact_grads(dev, cfg.replace(attn_impl=i), params, batch)
+                              for i in ("chunked", "einsum"))
+    max_err(l_c, l_e, GRAD_RTOL)
+    errs = [max_err(x, y, GRAD_RTOL)[0] / max(y.abs().max().item(), 1e-30)
+            for x, y in zip(g_c, g_e)]
+    if any(ops.launch_counts().values()):
+        raise AssertionError("[attn] (d) an exact step launched a kernel")
+    print(f"[attn] (d) yi-6b ({YI_LAYERS} of 32 layers, d 4096, GQA 32:4, batch 1 x {YI_SEQ}, "
+          f"float32, pallas l1@0.2 block {BLOCK}, AdamW): "
+          + "; ".join(f"{i} loss {steps[i][0]:.6f}, peak {steps[i][1] / 2**30:.3f} GiB, "
+                      f"{steps[i][2]:.1f} ms for the step" for i in ("chunked", "einsum"))
+          + f"; launches per step {want['col_l1_scores']} col_l1_scores + "
+          f"{want['block_gather_matmul_fused']} block_gather_matmul_fused = {sites} sketched "
+          f"sites; exact gradients chunked against einsum: loss {float(l_c):.6f} / "
+          f"{float(l_e):.6f}, {len(errs)} leaves, largest max |err| {max(errs):.3e} of the "
+          f"leaf's scale (tol {GRAD_RTOL}) ({smi_line()})")
+    del params, batch, g_c, g_e
+    torch.cuda.empty_cache()
+    add_counts(total, lm100m_impls(dev))
+    print(f"[time]   chunked attention {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def lm100m_impls(dev):
+    """Phase 22 (e): lm-100m's main-path step (block-128 l1@0.2 ``pallas``,
+    AdamW, remat "full", 8 x 256) with the chunked and the einsum attention,
+    ``LM_IMPL_REPS`` synced steps each after a warm-up, the impls
+    interleaved (chunked, einsum, einsum, chunked, ...), each step's
+    launches 84 + 84. Returns the timed steps' launches."""
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, cosine_warmup
+    from repro_torch.train.train_step import batch_to_device, init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = lm100m()
+    params = lm.init_params(22, cfg, device=dev)
+    batch = batch_to_device(next(LMStream(vocab=cfg.vocab, seed=22).batches(BATCH, SEQ)), dev)
+    runs = {}
+    for impl in ("chunked", "einsum"):
+        c = cfg.replace(attn_impl=impl)
+        opt = adamw(cosine_warmup(3e-4, 2000, 100_000), weight_decay=0.1, clip=1.0)
+        st = init_state(0, c, opt, params=tree_map(lambda t: t.detach().clone(), params),
+                        device=dev)
+        fn = make_train_step(c, opt, slice_policy(0.2), device=dev)
+        st, _ = fn(st, batch, 21)  # warm-up
+        runs[impl] = [fn, st, []]
+    want = expected_counts("pallas", 1)
+    total = {}
+    order = [("chunked", "einsum")[(i + i // 2) % 2] for i in range(2 * LM_IMPL_REPS)]
+    for i, impl in enumerate(order):
+        fn, st, ms = runs[impl]
+        sync(dev)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, m = fn(st, batch, 30 + i)
+        float(m["loss"])
+        sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        counts = ops.launch_counts()
+        if counts != want:
+            raise AssertionError(f"[attn] (e) lm-100m {impl} step launches {counts}, want {want}")
+        add_counts(total, counts)
+        runs[impl][1] = st
+    med = {k: float(np.median(v[2])) for k, v in runs.items()}
+    print(f"[attn] (e) lm-100m main-path step (pallas l1@0.2 block {BLOCK}, AdamW, remat full, "
+          f"{BATCH} x {SEQ}, q_chunk {cfg.q_chunk}, kv_chunk {cfg.kv_chunk}), ms per synced "
+          f"step in the order {' '.join(o[0] for o in order)}: chunked "
+          f"{[round(x, 2) for x in runs['chunked'][2]]} (median {med['chunked']:.2f}), einsum "
+          f"{[round(x, 2) for x in runs['einsum'][2]]} (median {med['einsum']:.2f}); 84 + 84 "
+          f"launches each ({smi_line()})")
+    del runs
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5247,6 +5542,11 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
     for name, n in dry_counts.items():
         launches[name] += n
     print(f"[time] the dry run {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    attn_counts = chunked_attention(dev, gen)
+    for name, n in attn_counts.items():
+        launches[name] += n
+    print(f"[time] the chunked attention {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -5301,7 +5601,9 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
           f"single-device and one-rank mesh step): {json.dumps(mesh_fam_counts)}; serving "
           f"under a mesh (phase 20: the one-rank mesh's two lm-100m waves and engines): "
           f"{json.dumps(serve_mesh_counts)}; the dry run (phase 21: the card's four lm-100m "
-          f"mesh steps it is held against): {json.dumps(dry_counts)}")
+          f"mesh steps it is held against): {json.dumps(dry_counts)}; the chunked attention "
+          f"(phase 22 (d), (e): yi-6b's and lm-100m's chunked and einsum steps): "
+          f"{json.dumps(attn_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

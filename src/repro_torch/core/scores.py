@@ -68,12 +68,13 @@ def column_scores(method: str, G: torch.Tensor, W: torch.Tensor | None = None) -
     return s.square() if squared else s
 
 
-def summed_column_scores(method: str, G: torch.Tensor, W, psum) -> torch.Tensor:
+def summed_column_scores(method: str, G: torch.Tensor, W, psum, w_sum=None) -> torch.Tensor:
     """:func:`column_scores` of the rows of ``G`` on every rank of a data
     axis together: ``psum`` sums a tensor over those ranks, and each score is
     rebuilt from summed column reductions (sums of |G|, G and G², or GᵀG), so
     the l2 family's square root runs after the sum and the result is the
-    score of the whole batch."""
+    score of the whole batch. ``w_sum`` completes ``W``'s row norms where
+    ``W`` holds a chunk of d_in (a row-parallel site, ``core/site.py``)."""
     squared = method.endswith("_sq")
     base = method[:-3] if squared else method
     G32 = _f32(G)
@@ -90,7 +91,8 @@ def summed_column_scores(method: str, G: torch.Tensor, W, psum) -> torch.Tensor:
         else:
             if W is None:
                 raise ValueError("DS score requires the layer weight W.")
-            s = torch.sqrt(sq * _f32(W).square().sum(-1))
+            wsq = _f32(W).square().sum(-1)
+            s = torch.sqrt(sq * (wsq if w_sum is None else w_sum(wsq)))
     elif base == "gsv":
         evals, evecs = torch.linalg.eigh(psum(G32.T @ G32))
         s = evecs.square() @ torch.sqrt(evals.clamp_min(0.0))

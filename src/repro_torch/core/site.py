@@ -43,12 +43,25 @@ estimator emitted none. A site can hold a ``gslot``, a ``pslot`` and an
 Under a mesh (``launch/mesh.py``) a site runs on this rank's shards. Its
 :class:`ExecutionPlan` says how, as in JAX:
 
-* ``local``: the site gathers its weight whole (:func:`gather_param`: over
-  the data axes, FSDP, and over the model axis) and runs the estimator on this
-  rank's rows of the batch; the scores are summed over the data axes before
-  the plan is drawn from the shared seed, so every replica draws the plan of
-  the whole batch and the step equals the single-device step. The weight's
-  gradient is reduce-scattered back to its shard.
+* ``local``: the site runs the estimator on this rank's rows of the batch;
+  the scores are summed over the data axes before the plan is drawn from the
+  shared seed, so every replica draws the plan of the whole batch and the
+  step equals the single-device step. On a model axis of one rank, or for a
+  weight the sharding rules leave whole over model, the weight is gathered
+  whole (:func:`gather_param`: over the data axes, FSDP, and over model) and
+  its gradient reduce-scattered back to its shard. On a model axis of
+  several ranks (``tp_sketch`` off) the site computes on its stored model
+  shard, as GSPMD partitions JAX's local plan (:func:`split_kind`): only the
+  FSDP dimension is gathered; where d_out is over model it is
+  column-parallel (this rank's output columns; dX summed over model by
+  ``launch.mesh.copy_to``), where d_in is over model row-parallel (the
+  output summed over model by ``launch.mesh.reduce_from``). Its backward
+  draws the local plan over the WHOLE width from the unfolded seed, so every
+  model rank keeps exactly the columns one device would keep: the column
+  scores of a column-parallel site are all-gathered over model after their
+  sum over data and each rank keeps its chunk of the gate; a row-parallel
+  site holds the whole G (``launch.mesh.Axes``' ``cols`` and ``rows``).
+  Only the ``mask`` backend and exact sites run there.
 * ``tp_column`` / ``tp_row`` / ``tp_exact``: JAX's ``shard_map`` bodies
   (``repro/core/site.py:420-628``) on local tensors (:class:`TPSiteFn`): the
   weight's model shard stays local; the column plan folds the site seed with
@@ -79,7 +92,7 @@ from repro_torch.core.sketching import SketchConfig, effective_cfg, static_block
 
 __all__ = ["ExecutionPlan", "SiteSpec", "resolve_site", "resolve_tree_site", "site_role",
            "sketched_site", "tp_estimator", "tp_site", "mesh_site", "gather_param", "gather_fsdp",
-           "TP_OUT_ROLES", "TP_ROW_ROLES"]
+           "split_kind", "TP_OUT_ROLES", "TP_ROW_ROLES"]
 
 # roles whose d_out (column-parallel) / d_in (row-parallel) is sharded over
 # the model axis under tp_sketch
@@ -275,22 +288,46 @@ def _matmul(x, w, b):
 @dataclasses.dataclass(frozen=True)
 class MeshEnv:
     """A local-plan site's place on a mesh: the data axes its batch is
-    sharded over and the stored spec of its weight."""
+    sharded over, the stored spec of its weight, and where it computes on
+    its model shard, the split (``"column"`` or ``"row"``,
+    :func:`split_kind`) and the model axes of it."""
 
     mesh: object
     data_axes: Tuple[str, ...]
     w_spec: Optional[tuple]
+    split: Optional[str] = None
+    model_axes: Tuple[str, ...] = ()
 
     @property
     def n_dp(self) -> int:
         return self.mesh.axis_size(self.data_axes)
 
     def score_axes(self):
-        """The axes the scores are summed over (None on one data rank, so a
-        one-rank mesh runs the single-device arithmetic)."""
+        """The axes the scores are summed over, with the split's (None on
+        one data rank without a split, so a one-rank mesh runs the
+        single-device arithmetic)."""
         from repro_torch.launch.mesh import Axes
 
-        return Axes(self.mesh, self.data_axes) if self.n_dp > 1 else None
+        names = self.data_axes if self.n_dp > 1 else ()
+        if self.split is None:
+            return Axes(self.mesh, names) if names else None
+        column = self.split == "column"
+        return Axes(self.mesh, names, cols=self.model_axes if column else (),
+                    rows=() if column else self.model_axes)
+
+    def probe(self, rows: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """The probe of the whole batch and width from this rank's sketched
+        dW rows (partial over the data axes) and their marginals."""
+        from repro_torch.launch.mesh import psum
+        from repro_torch.telemetry.probes import probe_from_rows
+
+        if self.n_dp > 1:
+            rows = psum(rows, self.data_axes, self.mesh)
+        kw = {}
+        if self.split is not None:
+            kw = {"col_sum" if self.split == "column" else "row_sum":
+                  lambda t: psum(t, self.model_axes, self.mesh)}
+        return probe_from_rows(rows, p, **kw)
 
     def rows_to_shard(self, rows: torch.Tensor) -> torch.Tensor:
         """Compact rows ``[r, d_in]`` of this rank's batch (the weight's
@@ -343,8 +380,9 @@ class SketchedLinearFn(torch.autograd.Function):
         est = estimators.get_estimator(cfg.backend)
         want_probe = ctx.want_probe
         kw = {}
-        if env is not None and env.n_dp > 1:
-            kw["score_psum_axes"] = env.score_axes()
+        axes = None if env is None else env.score_axes()
+        if axes is not None:
+            kw["score_psum_axes"] = axes
         if getattr(est, "plan_carry", False):
             # the plan comes from the carried scores (None: uniform prior);
             # the refreshed scores come back in out.state, the probe from the
@@ -362,14 +400,11 @@ class SketchedLinearFn(torch.autograd.Function):
                         else torch.zeros_like(sslot))
         probe_ct = None
         if want_probe:
-            from repro_torch.telemetry.probes import PROBE_WIDTH, probe_from_rows
+            from repro_torch.telemetry.probes import PROBE_WIDTH
 
             if out.probe is not None and kw:
                 # the probe squares rows: it needs the rows of the whole batch
-                from repro_torch.launch.mesh import psum
-
-                rows = out.rows if out.is_compact else out.dw
-                out.probe = probe_from_rows(psum(rows, env.data_axes, env.mesh), out.probe_p)
+                out.probe = env.probe(out.rows if out.is_compact else out.dw, out.probe_p)
             probe_ct = (out.probe if out.probe is not None
                         else torch.zeros(PROBE_WIDTH, dtype=torch.float32, device=g.device))
         dX = out.dx.reshape(x.shape)
@@ -523,33 +558,89 @@ def _gather_model(w, mesh, data_axes):
     return w
 
 
+def split_kind(w, mesh, data_axes, model_axes) -> Optional[str]:
+    """The layout a local-plan site computes in on its model shard, from its
+    weight's stored spec, as GSPMD partitions JAX's local plan over the
+    weight's sharding (``launch.sharding``'s rules): ``"column"`` where
+    d_out is sharded over a model axis, ``"row"`` where d_in is. None (the
+    weight gathered whole) on a model axis of one rank, for an unmarked
+    weight, or where the rules left the model dimension replicated."""
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    if not model_axes or mesh.axis_size(model_axes) == 1:
+        return None
+    spec = spec_of(w)
+    if spec is None or len(spec) != 2:
+        return None
+    for kind, e in zip(("column", "row"), spec):
+        if any(a not in data_axes for a in dim_axes(e)):
+            return kind
+    return None
+
+
 def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gslot=None,
-              pslot=None, compact_rows=None, reduce_grad=True):
-    """A local-plan site under a mesh: the weight gathered whole, this rank's
-    rows of the batch, the single-device numbers (module docstring). Exact
-    (``cfg`` None or no generator) through plain autograd on the gathered
-    weight. A sketched site on a model axis of several ranks runs the
-    ``mask`` backend only (or raises). ``reduce_grad=False`` (a tied head's
-    table, sharded over model only): the weight is gathered over model and
-    its gradient left this rank's partial sum over data, for the train step
+              pslot=None, compact_rows=None, reduce_grad=True, split=None, partial=False):
+    """A local-plan site under a mesh: this rank's rows of the batch, the
+    single-device numbers (module docstring). Exact (``cfg`` None or no
+    generator) through plain autograd. A sketched site on a model axis of
+    several ranks runs the ``mask`` backend only (or raises).
+
+    ``split`` (:func:`split_kind`): the site computes on its stored model
+    shard, column- or row-parallel (:func:`_split_site`); ``partial``: the
+    column-parallel dX or the row-parallel output is left this rank's
+    partial sum for the block's mover (``models/lm.py``). Otherwise the
+    weight is gathered whole. ``reduce_grad=False`` (a tied head's table,
+    sharded over model only): the weight is not gathered over data and its
+    gradient is left this rank's partial sum over data, for the train step
     to sum with the table's other uses."""
     from repro_torch.launch.sharding import spec_of
 
+    if (cfg is not None and not cfg.is_noop and gen is not None
+            and mesh.axis_size(model_axes) > 1 and cfg.backend != "mask"):
+        raise NotImplementedError(
+            f"backend {cfg.backend!r} on a local-plan site with a model axis of "
+            f"{mesh.axis_size(model_axes)} ranks is not ported (ROADMAP.md, Queue 1 "
+            "item 2b): use tp_sketch=True, the mask backend, or a data-only mesh")
+    if split is not None:
+        return _split_site(cfg, x, w, b, gen, mesh, tuple(data_axes), split, pslot=pslot,
+                           reduce_grad=reduce_grad, partial=partial)
     wf = gather_param(w, mesh, data_axes) if reduce_grad else _gather_model(w, mesh,
                                                                             data_axes)
     bf = None if b is None else _SumOverData.apply(b, mesh, tuple(data_axes))
     if cfg is None or cfg.is_noop or gen is None:
         return _matmul(x, wf, bf)
-    if (mesh.axis_size(model_axes) > 1 and cfg.backend != "mask"):
-        raise NotImplementedError(
-            f"backend {cfg.backend!r} on a local-plan site with a model axis of "
-            f"{mesh.axis_size(model_axes)} ranks is not ported (ROADMAP.md, Queue 1 "
-            "item 2b): use tp_sketch=True, the mask backend, or a data-only mesh")
     if gslot is not None and compact_rows != gslot.r:
         raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
                          f"{compact_rows} compact rows ({cfg.backend!r})")
     env = MeshEnv(mesh, tuple(data_axes), spec_of(w))
     return SketchedLinearFn.apply(x, wf, bf, sslot, pslot, cfg, gen, gslot, env)
+
+
+def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, pslot, reduce_grad, partial):
+    """:func:`mesh_site` on the weight's model shard. Column-parallel: ``x``
+    whole (replicated over model) enters through ``copy_to`` (dX summed over
+    model in the backward) and the output is this rank's columns.
+    Row-parallel: ``x`` is this rank's chunk of d_in and the output is
+    summed over model by ``reduce_from``. A sketched backward (the ``mask``
+    backend: no gradient slot or carry) draws the whole width's plan
+    (:class:`MeshEnv`). The sharding rules split no biased weight."""
+    from repro_torch.launch import mesh as m
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    if b is not None:
+        raise NotImplementedError("a biased site split over the model axis")
+    spec = spec_of(w)
+    column = split == "column"
+    mp = tuple(a for a in dim_axes(spec[0 if column else 1]) if a not in data_axes)
+    wl = gather_fsdp(w, mesh, data_axes) if reduce_grad else w
+    if column and not partial:
+        x = m.copy_to(x, mp, mesh)
+    if cfg is None or cfg.is_noop or gen is None:
+        y = _matmul(x, wl, None)
+    else:
+        env = MeshEnv(mesh, data_axes, spec, split, mp)
+        y = SketchedLinearFn.apply(x, wl, None, None, pslot, cfg, gen, None, env)
+    return y if column or partial else m.reduce_from(y, mp, mesh)
 
 
 def _gather_compact(lcfg, G2d, w_l, idx, scales):

@@ -52,15 +52,17 @@ def _same(t):
 
 
 def _no_shared_plan(cfg, score_psum_axes) -> None:
-    """Raise for a method whose draws follow the local batch's shape
-    (per-element masks, per-sample gates, rcs) on a data axis of several
-    ranks: its plan cannot be the one of the whole batch."""
-    if (score_psum_axes is not None and score_psum_axes.size > 1
+    """Raise for a method whose draws follow the local batch's or weight's
+    shape (per-element masks, per-sample gates, rcs) on a data axis of
+    several ranks or on a site split over model: its plan cannot be the one
+    of the whole batch and width."""
+    if (score_psum_axes is not None
+            and (score_psum_axes.size > 1 or score_psum_axes.split)
             and cfg.method not in COLUMN_METHODS and not cfg.is_noop):
         raise NotImplementedError(
-            f"method {cfg.method!r} on a data-sharded mesh is not ported (ROADMAP.md, "
-            "Queue 1 item 2b): only the column-family methods share one plan "
-            "across data replicas")
+            f"method {cfg.method!r} on a data-sharded mesh or a model-split local plan is not "
+            "ported (ROADMAP.md, Queue 1 item 2b): only the column-family methods share one "
+            "plan across data replicas and model shards")
 
 
 class _MaskEstimator(estimators.Estimator):
@@ -95,10 +97,13 @@ class _MaskEstimator(estimators.Estimator):
 
         plan = column_plan(cfg, G2d, w, gen, want_compact=False,
                            score_psum_axes=score_psum_axes)
-        Ghat = G2d * plan.gate[None, :].to(G2d.dtype)
+        gate, probs = plan.gate, plan.probs
+        if score_psum_axes is not None:  # this rank's columns of a split site
+            gate, probs = score_psum_axes.narrow(gate), score_psum_axes.narrow(probs)
+        Ghat = G2d * gate[None, :].to(G2d.dtype)
         dw = Ghat.T @ X2d
         return EstimatorVJP(dx=Ghat @ w, dw=dw, db=Ghat.sum(0) if has_b else None,
-                            probe=probe_from_rows(dw, plan.probs), probe_p=plan.probs)
+                            probe=probe_from_rows(dw, probs), probe_p=probs)
 
 
 class _CompactEstimator(estimators.Estimator):

@@ -146,22 +146,39 @@ def _proxy_scores(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor
     summed over them before the score is formed (the l2 mode's square root
     after the sum), so every replica scores the whole batch and draws the
     SAME plan from the shared seed: the paper's batch-shared sketch, which
-    the compressed gradient collective needs."""
+    the compressed gradient collective needs. A site split over model (its
+    ``cols`` or ``rows``) gets the whole width's scores: each column's score
+    is its own, so this rank's are all-gathered; ``gsv`` mixes columns and
+    is not ported there."""
     base = cfg.method[:-3] if cfg.method.endswith("_sq") else cfg.method
-    psum = (lambda t: t) if score_psum_axes is None else score_psum_axes.psum
+    axes = score_psum_axes
+    if axes is not None and axes.n_cols > 1 and base == "gsv":
+        raise NotImplementedError(
+            "the gsv score on a column-split local plan is not ported (ROADMAP.md, Queue 1 "
+            "item 2b): its GᵀG spans every column")
+    psum = (lambda t: t) if axes is None else axes.psum
     if cfg.backend == "pallas" and base in ("l1", "l2"):
         from repro_torch.kernels import ops as kops
 
         red = psum(kops.col_l1_scores(G2d, mode=base))
         s = red if base == "l1" else torch.sqrt(red)
-        return s.square() if cfg.method.endswith("_sq") else s
-    if score_psum_axes is None:
+        s = s.square() if cfg.method.endswith("_sq") else s
+    elif axes is None:
         return column_scores(cfg.method, G2d, W)
-    return summed_column_scores(cfg.method, G2d, W, psum)
+    else:
+        s = summed_column_scores(cfg.method, G2d, W, psum,
+                                 axes.row_sum if axes.rows else None)
+    return s if axes is None else axes.widen(s)
+
+
+def _width(G2d: torch.Tensor, score_psum_axes) -> int:
+    """The plan's width: G's columns, times the model ranks they are split
+    over (:func:`_proxy_scores`)."""
+    return G2d.shape[-1] * (1 if score_psum_axes is None else score_psum_axes.n_cols)
 
 
 def _column_probs(cfg: SketchConfig, G2d, W, r: int, score_psum_axes=None) -> torch.Tensor:
-    n = G2d.shape[-1]
+    n = _width(G2d, score_psum_axes)
     if cfg.method == "per_column":
         return torch.full((n,), r / n, dtype=torch.float32, device=G2d.device)
     s = _proxy_scores(cfg, G2d, W, score_psum_axes)
@@ -180,8 +197,10 @@ def column_plan(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
                 score_psum_axes=None) -> ColumnPlan:
     """Sample a column sketch for gradient matrix ``G2d`` ([N, n]) from the
     site's generator ``gen``; ``score_psum_axes``: the data axes whose
-    ranks pool their scores (:func:`_proxy_scores`)."""
-    n = G2d.shape[-1]
+    ranks pool their scores (:func:`_proxy_scores`), and where a site is
+    split over model, the axes of the split: the plan then spans the whole
+    width."""
+    n = _width(G2d, score_psum_axes)
     cfg = effective_cfg(cfg, n)
     if cfg.block > 1:
         return _block_plan(cfg, G2d, W, gen, want_compact=want_compact,
@@ -206,7 +225,7 @@ def _block_plan(cfg: SketchConfig, G2d, W, gen, *, want_compact: bool,
                 score_psum_axes=None) -> ColumnPlan:
     """Block-granular sketch: pool proxy weights per block, sample blocks.
     Every column of a kept block is rescaled by ``1/p_block``."""
-    n = G2d.shape[-1]
+    n = _width(G2d, score_psum_axes)
     bs = cfg.block
     nb = n // bs
     rb = static_block_rank(cfg, n)
@@ -376,4 +395,6 @@ def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor]
             raise ValueError("RCS requires the layer weight W")
         return apply_rcs(cfg, G2d, W, gen)
     gate = column_gate(cfg, G2d, W, gen, score_psum_axes)
+    if score_psum_axes is not None:
+        gate = score_psum_axes.narrow(gate)  # this rank's columns of a split site
     return G2d * gate[None, :].to(G2d.dtype)

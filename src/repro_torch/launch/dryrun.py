@@ -181,7 +181,9 @@ class _Counts(torch.utils._python_dispatch.TorchDispatchMode):
     output tensor bytes) and the live bytes of every storage an op makes or
     ``track`` is given, each rounded up to the allocator's 512-byte block
     and freed when its last tensor goes (a finalizer on the storage): the
-    peak is the most live at once."""
+    peak is the most live at once. A ``meta`` tensor (``lm.init_cache``'s
+    whole caches, cut into this rank's shards by their specs) has no
+    storage on any device and is not counted."""
 
     _SKIP = {"empty", "empty_like", "new_empty", "empty_strided", "new_empty_strided",
              "detach", "alias", "lift_fresh", "set_"}
@@ -198,6 +200,8 @@ class _Counts(torch.utils._python_dispatch.TorchDispatchMode):
         self._ids = set()
 
     def track(self, t) -> None:
+        if t.device.type == "meta":
+            return  # a shape computation (a cache layout's whole tree): no storage
         st = t.untyped_storage()
         key = id(st)
         if key in self._ids:

@@ -129,18 +129,46 @@ class Mesh:
 
 class Axes:
     """Some of a mesh's axes, as a body names them in JAX (``psum(x,
-    ("data",))``): what ``score_psum_axes`` carries into the sketch."""
+    ("data",))``): what ``score_psum_axes`` carries into the sketch.
 
-    def __init__(self, mesh: Mesh, names):
+    A local-plan site on its model shard (``core/site.py``) adds the model
+    axes it is split over. ``cols``: its output columns are (column-parallel):
+    the column scores are all-gathered over them (:meth:`widen`), the plan is
+    drawn over the whole width, and each rank keeps its chunk of the gate
+    (:meth:`narrow`). ``rows``: its weight's d_in is (row-parallel): G is
+    whole, and sums over d_in (the ``ds`` score's row norms) are completed
+    over them (:meth:`row_sum`)."""
+
+    def __init__(self, mesh: Mesh, names, *, cols=(), rows=()):
         self.mesh = mesh
         self.names = mesh.axes(names)
         self.size = mesh.axis_size(self.names)
+        self.cols = mesh.axes(cols)
+        self.rows = mesh.axes(rows)
+        self.n_cols = mesh.axis_size(self.cols)
+
+    @property
+    def split(self) -> bool:
+        """Whether the site computes on a model shard."""
+        return bool(self.cols or self.rows)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         return psum(x, self.names, self.mesh)
 
+    def widen(self, s: torch.Tensor) -> torch.Tensor:
+        """This rank's column scores [n / n_cols] -> the whole width's [n]."""
+        return all_gather(s, self.cols, self.mesh) if self.cols else s
+
+    def narrow(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole-width [n] vector -> this rank's column chunk."""
+        return chunk_of(t, self.cols, self.mesh, 0) if self.cols else t
+
+    def row_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A partial sum over this rank's chunk of d_in, completed."""
+        return psum(t, self.rows, self.mesh)
+
     def __repr__(self):
-        return f"Axes({self.names})"
+        return f"Axes({self.names}, cols={self.cols}, rows={self.rows})"
 
 
 def _unravel(i: int, shape) -> tuple:

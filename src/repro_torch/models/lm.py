@@ -51,9 +51,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import linear
 from repro_torch.device import resolve_device
 from repro_torch.nn import ssm
-from repro_torch.nn.attention import (_MODEL_SHARDED_OUT, AttnCfg, attention, attn_init,
-                                      init_kv_cache)
-from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init, trunc_normal
+from repro_torch.nn.attention import AttnCfg, attention, attn_init, init_kv_cache
+from repro_torch.nn.common import (MODEL_SHARDED_IN, MODEL_SHARDED_OUT, Ctx, dense, dense_init,
+                                   rmsnorm, rmsnorm_init, trunc_normal)
 from repro_torch.nn.mlp import mlp, mlp_init
 from repro_torch.nn.moe import MoECfg, moe_ffn, moe_init
 from repro_torch.tree import tree_leaves
@@ -154,14 +154,16 @@ def attn_cfg(cfg: ArchConfig, kind: LayerKind) -> AttnCfg:
     and its cache's geometry (``nn.attention.init_kv_cache``)."""
     return AttnCfg(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim,
                    causal=kind.causal, window=kind.window, rope=cfg.rope,
-                   theta=kind.theta or cfg.rope_theta, impl=cfg.attn_impl)
+                   theta=kind.theta or cfg.rope_theta, q_chunk=cfg.q_chunk,
+                   kv_chunk=cfg.kv_chunk, impl=cfg.attn_impl)
 
 
 def cross_cfg(cfg: ArchConfig) -> AttnCfg:
     """The decoder's cross-attention config (JAX's ``_cross_cfg``):
     bidirectional, no rotation."""
     return AttnCfg(n_heads=cfg.n_heads, n_kv=cfg.n_kv, d_head=cfg.head_dim, causal=False,
-                   rope="none", impl=cfg.attn_impl, cross=True)
+                   rope="none", q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                   impl=cfg.attn_impl, cross=True)
 
 
 def _moe_cfg(cfg: ArchConfig) -> MoECfg:
@@ -319,42 +321,89 @@ def _inputs(batch):
 
 
 def _head(params, x, ctx: Ctx, cfg: ArchConfig):
+    """The final norm and the head: (logits, axes), ``axes`` the model axes
+    the logits' vocabulary is split over (this rank's chunk), or None (the
+    whole vocabulary; :func:`_whole_vocab` gathers a split one)."""
     x = rmsnorm(params["final_norm"], x)
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]["w"]
     hcfg = ctx.cfg_for("lm_head")
     if ctx.mesh is not None:
         return _mesh_head(w, x, ctx, hcfg, cfg.tie_embeddings)
     key = ctx.site_key("lm_head", x.device) if hcfg is not None else None
-    return linear(x, w, key=key, cfg=hcfg)
+    return linear(x, w, key=key, cfg=hcfg), None
 
 
 def _mesh_head(w, x, ctx: Ctx, hcfg, tied: bool):
-    """The head on a mesh: under ``tp_sketch`` an exact untied head whose
-    vocabulary divides the model axis runs the Megatron column-parallel
-    ``tp_exact`` plan (JAX's ``tp_exact_linear``, ``models/lm.py:403-414``),
-    and its vocab-sharded logits are all-gathered over model for the loss
-    (the numbers of a vocab-parallel softmax); otherwise the local plan on
-    the gathered weight. A tied head (the embedding table: JAX's local plan
-    on it) gathers the table over model only: its gradient stays this
-    rank's partial sum over data, which the train step sums once with the
-    lookup's."""
+    """The head on a mesh: (logits, vocabulary axes) as :func:`_head`.
+
+    * Under ``tp_sketch`` an exact untied head whose vocabulary divides the
+      model axis runs the Megatron column-parallel ``tp_exact`` plan (JAX's
+      ``tp_exact_linear``, ``models/lm.py:403-414``); on a model axis of
+      one rank its logits are all-gathered (the identity) for the loss.
+    * Otherwise the untied head is a ``dense`` site: on a model axis of
+      several ranks column-parallel over the vocabulary (its rule is
+      ``("mp", "dp")``), its logits this rank's chunk.
+    * A tied head (the embedding table: JAX's local plan on it) follows the
+      table's ``(None, "mp")`` spec: row-parallel over d on a model axis of
+      several ranks (this rank's chunk of ``x``'s d, the logits summed over
+      model), else the table gathered over model. Either way the table's
+      gradient stays this rank's partial sum over data, which the train
+      step sums once with the lookup's."""
     from repro_torch.core import site
     from repro_torch.core.sharded_sketch import tp_exact_linear
-    from repro_torch.launch.mesh import gather_replicated
-    from repro_torch.launch.sharding import global_shape
+    from repro_torch.launch.mesh import gather_replicated, slice_replicated
+    from repro_torch.launch.sharding import dim_axes, global_shape, spec_of
     from repro_torch.nn.common import _mesh_dense
 
     if tied:
+        split = ctx.split_kind("lm_head", w)
+        if split == "row":
+            x = slice_replicated(x, dim_axes(spec_of(w)[1]), ctx.mesh, -1)
         seed = ctx.site_seed("lm_head") if hcfg is not None else None
         args = (ctx.mesh, ctx.data_axes, ctx.model_axes)
         if hcfg is None or hcfg.is_noop or seed is None:
-            return site.mesh_site(None, x, w, None, None, *args, reduce_grad=False)
+            return site.mesh_site(None, x, w, None, None, *args, reduce_grad=False,
+                                  split=split), None
         spec = ctx.site_spec("lm_head", hcfg, w)
         return site.mesh_site(spec.cfg, x, w, None, rng.generator(seed, x.device), *args,
-                              reduce_grad=False)
+                              reduce_grad=False, split=split), None
     if ctx.tp_sketch and hcfg is None and global_shape(w, ctx.mesh)[0] % ctx.n_mp == 0:
-        return gather_replicated(tp_exact_linear(x, w, ctx), ctx.model_axes, ctx.mesh, -1)
-    return _mesh_dense({"w": w}, x, ctx, "lm_head", hcfg)
+        logits = tp_exact_linear(x, w, ctx)
+        if ctx.n_mp > 1:
+            return logits, tuple(ctx.model_axes)
+        return gather_replicated(logits, ctx.model_axes, ctx.mesh, -1), None
+    logits = _mesh_dense({"w": w}, x, ctx, "lm_head", hcfg)
+    return logits, (tuple(ctx.model_axes) if ctx.split_kind("lm_head", w) == "column" else None)
+
+
+def _whole_vocab(logits, axes, ctx: Ctx):
+    """Logits over the whole vocabulary: a split one all-gathered over
+    ``axes`` (backward: this rank's chunk)."""
+    if axes is None:
+        return logits
+    from repro_torch.launch.mesh import gather_replicated
+
+    return gather_replicated(logits, axes, ctx.mesh, -1)
+
+
+def _vocab_parallel_nll(logits, labels, axes, ctx: Ctx):
+    """``logsumexp(logits) - logits[label]`` per token from this rank's
+    chunk of the vocabulary (split over ``axes``), without gathering the
+    logits: the max by ``pmax`` (no gradient flows through it), the sum of
+    exponentials and the label's logit (from the rank whose chunk holds it,
+    0 elsewhere) summed over ``axes`` by ``reduce_from``, whose identity
+    backward leaves every rank the whole cotangent of the sum."""
+    from repro_torch.launch.mesh import axis_index, pmax, reduce_from
+
+    lg = logits.to(torch.float32)
+    V = lg.shape[-1]
+    m = pmax(lg.detach().amax(-1), axes, ctx.mesh)
+    se = reduce_from(torch.exp(lg - m[..., None]).sum(-1), axes, ctx.mesh)
+    lab = labels.long() - axis_index(ctx.mesh, axes) * V
+    mine = (lab >= 0) & (lab < V)
+    t = lg.gather(-1, lab.clamp(0, V - 1)[..., None])[..., 0]
+    t = reduce_from(torch.where(mine, t, torch.zeros_like(t)), axes, ctx.mesh)
+    return torch.log(se) + m - t
 
 
 def _cross(p, h, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
@@ -370,7 +419,7 @@ def _cross(p, h, ctx: Ctx, cfg: ArchConfig, memory, cache, pos):
         B, S, _ = h.shape
         q = dense(p["cross"]["q"], h, ctx, "cross_q")
         # q on all heads; the memory's last position, the global one
-        if ctx.plan_kind("cross_q", p["cross"]["q"]) in attn._MODEL_SHARDED_OUT:
+        if ctx.plan_kind("cross_q", p["cross"]["q"]) in MODEL_SHARDED_OUT:
             q = all_gather(q, ctx.model_axes, ctx.mesh, axis=-1)
         q = q.reshape(B, S, ccfg.n_heads, ccfg.d_head)
         kc, vc = cache["cross"]["k"], cache["cross"]["v"]
@@ -407,15 +456,23 @@ def _sp_block(ctx: Ctx, h, fn, ins=(), out=None, partial_out=None):
     params) whose output is the block's; a row plan leaves it partial for
     the exit's reduce-scatter (``scatter_partial``), else the exit slices
     it (``slice_replicated``). ``partial_out`` overrides that test (the MoE
-    layer, whose experts' sum is partial). Off the layout: ``fn(h, ctx)``."""
-    if not ctx.seq_parallel:
-        return fn(h, ctx)
+    layer, whose experts' sum is partial). Off the layout: ``fn(h, ctx)``,
+    and where every site in ``ins`` computes column-parallel on its model
+    shard (``local_column``, ``core.site.split_kind``), ``h`` enters
+    through one ``launch.mesh.copy_to`` whose backward all-reduces their
+    partial dX once (Megatron's ``f``) instead of once per site."""
     from repro_torch.launch import mesh as m
 
+    if not ctx.seq_parallel:
+        if not ins or not all(ctx.plan_kind(r, sp) == "local_column" for r, sp in ins):
+            return fn(h, ctx)
+        bctx = dataclasses.replace(ctx, sp_partial=frozenset(r for r, _ in ins))
+        return fn(m.copy_to(h, ctx.model_axes, ctx.mesh), bctx)
+
     mp, mesh = ctx.model_axes, ctx.mesh
-    p_in = bool(ins) and all(ctx.plan_kind(r, sp) in _MODEL_SHARDED_OUT for r, sp in ins)
+    p_in = bool(ins) and all(ctx.plan_kind(r, sp) in MODEL_SHARDED_OUT for r, sp in ins)
     p_out = (partial_out if partial_out is not None
-             else out is not None and ctx.plan_kind(*out) == "tp_row")
+             else out is not None and ctx.plan_kind(*out) in MODEL_SHARDED_IN)
     roles = ({r for r, _ in ins} if p_in else set()) | ({out[0]} if p_out and out else set())
     if p_out and partial_out:
         roles.add("moe")
@@ -674,10 +731,16 @@ def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     self-attention stays within a segment). ``step_key``: the step's integer
     seed (None = no sketching). ``aux``: the MoE layers' summed
     load-balance loss (float32 zero without them)."""
+    logits, axes, aux = _forward(params, batch, ctx, cfg, step_key)
+    return _whole_vocab(logits, axes, ctx), aux
+
+
+def _forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
+    """(logits, their vocabulary axes as :func:`_head`, aux)."""
     x, positions, memory, ctx = _prologue(params, batch, ctx, cfg, step_key)
     x, aux = _run_layers(params, x, ctx, cfg, step_key, positions,
                          segs=batch.get("segments"), memory=memory)
-    return _head(params, _sp_join(x, ctx), ctx, cfg), aux
+    return (*_head(params, _sp_join(x, ctx), ctx, cfg), aux)
 
 
 def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -746,7 +809,7 @@ def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=Non
                         mesh=ctx.mesh)
     x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches,
                        segs=batch.get("segments"), memory=memory)
-    return _head(params, _sp_join(x, ctx), ctx, cfg), caches
+    return _whole_vocab(*_head(params, _sp_join(x, ctx), ctx, cfg), ctx), caches
 
 
 def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -763,12 +826,14 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
     x = _embed(params, tokens, cfg) if ctx.mesh is None else _mesh_embed(params, tokens, ctx,
                                                                          cfg)
     x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches, pos=pos)
-    return _head(params, x, ctx, cfg), caches
+    return _whole_vocab(*_head(params, x, ctx, cfg), ctx), caches
 
 
 def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     """Next-token cross-entropy plus the MoE aux loss. Returns (loss + aux,
-    {"loss", "aux", "nll"}), as in JAX (aux is 0 without MoE layers).
+    {"loss", "aux", "nll"}), as in JAX (aux is 0 without MoE layers). Under
+    a mesh whose head splits the vocabulary over model, a vocab-parallel
+    log-sum-exp (:func:`_vocab_parallel_nll`) reads this rank's chunk.
 
     ``family="mlp"`` configs dispatch to the §5 classification MLP instead:
     the batch is ``{"x", "y"}`` and the metrics gain ``acc``, as in JAX."""
@@ -777,11 +842,15 @@ def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
 
         loss, acc = mlpmod.mlp_loss(params, batch, ctx)
         return loss, {"loss": loss, "acc": acc, "nll": loss}
-    logits, aux = forward_with_aux(params, batch, ctx, cfg, step_key)
-    lg32 = logits.to(torch.float32)
-    lse = torch.logsumexp(lg32, dim=-1)
-    true_logit = lg32.gather(-1, batch["labels"][..., None].long())[..., 0]
-    nll = lse - true_logit
+    logits, axes, aux = _forward(params, batch, ctx, cfg, step_key)
+    if axes is not None:
+        # vocab-sharded logits (a head split over model): no [B, S, V] gather
+        nll = _vocab_parallel_nll(logits, batch["labels"], axes, ctx)
+    else:
+        lg32 = logits.to(torch.float32)
+        lse = torch.logsumexp(lg32, dim=-1)
+        true_logit = lg32.gather(-1, batch["labels"][..., None].long())[..., 0]
+        nll = lse - true_logit
     mask = batch.get("mask")
     n_dp = 1 if ctx.mesh is None else ctx.mesh.axis_size(ctx.data_axes)
     if n_dp > 1:

@@ -21,9 +21,21 @@ from repro_torch.core.policy import ROLES
 from repro_torch.telemetry.probes import PROBE_SLOT
 
 __all__ = ["Ctx", "dense", "dense_init", "rmsnorm", "rmsnorm_init", "layernorm",
-           "layernorm_init", "ACTIVATIONS", "trunc_normal"]
+           "layernorm_init", "ACTIVATIONS", "trunc_normal", "MODEL_SHARDED_OUT",
+           "MODEL_SHARDED_IN"]
 
 _ROLE_IDS = {r: i for i, r in enumerate(ROLES)}
+
+# the plan kinds (Ctx.plan_kind) whose output is sharded over the model axis,
+# and those whose input is
+MODEL_SHARDED_OUT = ("tp_column", "tp_exact", "local_column")
+MODEL_SHARDED_IN = ("tp_row", "local_row")
+# roles whose local-plan sites keep the gathered weight on a model split:
+# Mamba2's in/out projections. Split, zamba2's random-init hybrid amplifies
+# the reordered float32 sums ~1e3-fold through its recurrence (PERF.md §7),
+# and its sketched mesh step leaves the 1e-5 of the single device's that it
+# is held to (ROADMAP.md Queue 1 item 2b)
+GATHERED_ROLES = frozenset({"ssm_in", "ssm_out"})
 
 
 @dataclasses.dataclass
@@ -106,19 +118,35 @@ class Ctx:
         return site.SiteSpec(role=role, cfg=None, plan=plan, has_bias=has_bias, d_out=n,
                              d_in=d_in)
 
+    def split_kind(self, role: str, w) -> Optional[str]:
+        """Where a local-plan site ``role`` of weight ``w`` computes on its
+        model shard (``tp_sketch`` off, a model axis of several ranks):
+        ``"column"`` or ``"row"`` (``core.site.split_kind``); else None.
+        Mamba2's projections (:data:`GATHERED_ROLES`) keep the gathered
+        weight."""
+        if self.mesh is None or self.tp_sketch or role in GATHERED_ROLES:
+            return None
+        from repro_torch.core.site import split_kind
+
+        return split_kind(w, self.mesh, tuple(self.data_axes), tuple(self.model_axes))
+
     def plan_kind(self, role: str, params, x_ndim: int = 3) -> str:
-        """The plan ``dense`` runs the site of ``params`` on: ``tp_column``
-        and ``tp_exact`` give an output sharded over the model axis,
-        ``tp_row`` takes an input sharded over it; ``local`` reads and gives
-        whole tensors."""
+        """The plan ``dense`` runs the site of ``params`` on: ``tp_column``,
+        ``tp_exact`` and ``local_column`` give an output sharded over the
+        model axis, ``tp_row`` and ``local_row`` take an input sharded over
+        it (``MODEL_SHARDED_OUT``, ``MODEL_SHARDED_IN``); ``local`` reads
+        and gives whole tensors."""
         if self.mesh is None:
             return "local"
         cfg = self.cfg_for(role)
         if cfg is None or cfg.is_noop or self.key is None:
             spec = self.exact_spec(role, params["w"], x_ndim=x_ndim)
-            return "local" if spec is None else spec.plan.kind
-        return self.site_spec(role, cfg, params["w"], has_bias="b" in params,
-                              x_ndim=x_ndim).plan.kind
+            kind = "local" if spec is None else spec.plan.kind
+        else:
+            kind = self.site_spec(role, cfg, params["w"], has_bias="b" in params,
+                                  x_ndim=x_ndim).plan.kind
+        split = self.split_kind(role, params["w"]) if kind == "local" else None
+        return kind if split is None else f"local_{split}"
 
     def site_seed(self, role: str) -> Optional[int]:
         if self.key is None:
@@ -181,24 +209,28 @@ def dense(params, x, ctx: Ctx, role: str):
 
 def _mesh_dense(params, x, ctx: Ctx, role: str, cfg):
     """``dense`` on this rank's shards: the resolved plan's site
-    (``core/site.py``): a TP plan, or the local plan on the gathered weight."""
+    (``core/site.py``): a TP plan, or the local plan, on the weight's model
+    shard where :meth:`Ctx.split_kind` says so, else on the gathered weight."""
     from repro_torch.core import site
 
     w, b = params["w"], params.get("b")
     seed = ctx.site_seed(role) if cfg is not None else None
+    partial = role in ctx.sp_partial
+    local = dict(split=ctx.split_kind(role, w), partial=partial)
     if cfg is None or cfg.is_noop or seed is None:
         spec = ctx.exact_spec(role, w, has_bias=b is not None, x_ndim=x.dim())
         if spec is not None:
-            return site.tp_site(spec, x, w, b, None, partial=role in ctx.sp_partial)
-        return site.mesh_site(None, x, w, b, None, ctx.mesh, ctx.data_axes, ctx.model_axes)
+            return site.tp_site(spec, x, w, b, None, partial=partial)
+        return site.mesh_site(None, x, w, b, None, ctx.mesh, ctx.data_axes, ctx.model_axes,
+                              **local)
     spec = ctx.site_spec(role, cfg, w, has_bias=b is not None, x_ndim=x.dim())
     slots = dict(gslot=params.get(GRAD_SLOT), pslot=params.get(PROBE_SLOT),
                  sslot=params.get(PLAN_SLOT))
     if spec.plan.is_tp:
-        return site.tp_site(spec, x, w, b, seed, partial=role in ctx.sp_partial, **slots)
+        return site.tp_site(spec, x, w, b, seed, partial=partial, **slots)
     return site.mesh_site(spec.cfg, x, w, b, rng.generator(seed, x.device), ctx.mesh,
                           ctx.data_axes, ctx.model_axes, compact_rows=spec.compact_rows,
-                          **slots)
+                          **local, **slots)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device="cpu"):

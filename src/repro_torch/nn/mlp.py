@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.nn.common import ACTIVATIONS, Ctx, dense, dense_init
+from repro_torch.nn.common import ACTIVATIONS, MODEL_SHARDED_OUT, Ctx, dense, dense_init
 
 __all__ = ["mlp_init", "mlp"]
 
@@ -25,7 +25,7 @@ def mlp(params, x, ctx: Ctx, mlp_type: str, role_prefix: str = "mlp"):
     other mix gathers or slices it over the model axis."""
     h = dense(params["in"], x, ctx, f"{role_prefix}_in")
     local = (ctx.mesh is not None
-             and ctx.plan_kind(f"{role_prefix}_in", params["in"]) in ("tp_column", "tp_exact"))
+             and ctx.plan_kind(f"{role_prefix}_in", params["in"]) in MODEL_SHARDED_OUT)
     if mlp_type in _GLU:
         g = dense(params["gate"], x, ctx, f"{role_prefix}_gate")
         if ctx.mesh is not None:
@@ -46,7 +46,7 @@ def _same_layout(ctx: Ctx, params, prefix: str, h, g, h_local: bool):
     or both whole."""
     from repro_torch.launch.mesh import gather_replicated
 
-    g_local = ctx.plan_kind(f"{prefix}_gate", params["gate"]) in ("tp_column", "tp_exact")
+    g_local = ctx.plan_kind(f"{prefix}_gate", params["gate"]) in MODEL_SHARDED_OUT
     if h_local == g_local:
         return h, g, h_local
     if h_local:

@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.nn.common import Ctx, dense, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.nn.common import (MODEL_SHARDED_OUT, Ctx, dense, dense_init, rmsnorm,
+                                   rmsnorm_init)
 
 __all__ = ["MambaCfg", "mamba_init", "mamba_block", "mamba_prefill", "mamba_decode",
            "mamba_state_init", "RWKVCfg", "rwkv_init", "rwkv_time_mix", "rwkv_channel_mix",
@@ -186,9 +187,7 @@ def _ssd(x, dt, A, B, C, cfg: MambaCfg, state0):
 
 def _sharded_out(ctx: Ctx, p, role: str) -> bool:
     """Whether the plan of ``p``'s site gives an output sharded over model."""
-    from repro_torch.nn.attention import _MODEL_SHARDED_OUT
-
-    return ctx.plan_kind(role, p) in _MODEL_SHARDED_OUT
+    return ctx.plan_kind(role, p) in MODEL_SHARDED_OUT
 
 
 def _heads_local(ctx: Ctx, params, roles: dict, n_heads: int) -> bool:

@@ -54,19 +54,28 @@ PROBE_WIDTH = len(PROBE_FIELDS)
 PROBE_SLOT = "pslot"
 
 
-def probe_from_rows(rows: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+def probe_from_rows(rows: torch.Tensor, probs: torch.Tensor, *, row_sum=None,
+                    col_sum=None) -> torch.Tensor:
     """The probe vector from materialised dW rows and their keep marginals.
 
     rows: ``[r, d_in]`` kept (rescaled) dW rows, or the dense ``[n, d_in]``
     sketched dW whose dropped rows are zero. probs: the matching ``[r]`` (or
-    ``[n]``) keep marginals ``p_j``.
+    ``[n]``) keep marginals ``p_j``. A site split over model
+    (``core/site.py``) completes its partial sums: ``row_sum`` the squared
+    row norms over the ranks holding the rest of d_in, ``col_sum`` the three
+    statistics over the ranks holding the other rows.
     """
     r32 = rows.to(torch.float32)
     rs = (r32 * r32).sum(-1)  # ‖rows_j‖²
+    if row_sum is not None:
+        rs = row_sum(rs)
     p = probs.to(torch.float32)
     # one small product gives all three statistics: rs · [p, 1 − p, 1]
     w3 = torch.stack([p, 1.0 - p, torch.ones_like(p)], dim=-1)
-    return torch.cat([rs @ w3, torch.ones(1, dtype=torch.float32, device=rs.device)])
+    v3 = rs @ w3
+    if col_sum is not None:
+        v3 = col_sum(v3)
+    return torch.cat([v3, torch.ones(1, dtype=torch.float32, device=rs.device)])
 
 
 def probe_capable(cfg) -> bool:

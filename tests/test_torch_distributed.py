@@ -496,6 +496,82 @@ def _elastic(inp, out, work, rank):
                                                      tree_leaves(moments))))
 
 
+def _split(mesh, tag, inp, out):
+    """The local plans split over model (``tp_sketch`` off): the ``mask``
+    step's plans on every rank against the single device's, its probes
+    against the single device's, the vocab-parallel loss against the loss
+    of the gathered logits, and rank 0's FlopCounterMode FLOPs of the exact
+    step against the gathered layout's (every weight whole on every
+    rank)."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.core import site, sketching
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import sharding
+    from repro_torch.models import lm
+    from repro_torch.optim import sgd
+    from repro_torch.telemetry import TelemetryConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = _arch()
+    batch = {"tokens": inp["tokens"], "labels": inp["tokens"]}
+    ex = ExecutionConfig(mesh=mesh)
+    shard = shard_batch(batch, mesh=mesh)
+
+    def step(execution, name, b):
+        opt = sgd(0.1)
+        st = init_state(0, cfg, opt, params=_clone(inp["params"]), device="cpu",
+                        execution=execution)
+        fn = make_train_step(cfg, opt, _policy(name), execution=execution, device="cpu")
+        return fn(st, b, STEP_SEED)
+
+    plans, real_plan = [], sketching.column_plan
+
+    def spy(*a, **kw):
+        plan = real_plan(*a, **kw)
+        plans.append(plan.indices.tolist())
+        return plan
+
+    sketching.column_plan = spy
+    try:
+        step(None, "mask", batch)
+        single = list(plans)
+        plans.clear()
+        step(ex, "mask", shard)
+    finally:
+        sketching.column_plan = real_plan
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (plans == single, len(plans)))
+    out[f"{tag}/split/plans"] = every
+    probed = [step(ExecutionConfig(mesh=m, telemetry=TelemetryConfig()), "mask", b)[1]
+              for m, b in ((None, batch), (mesh, shard))]
+    out[f"{tag}/split/probes"] = [{k: _np(v) for k, v in p["probe_sites"].items()}
+                                  for p in probed]
+    ctx = ex.make_ctx()
+    params = sharding.shard_params(_clone(inp["params"]), mesh)
+    with torch.no_grad():
+        loss, _ = lm.lm_loss(params, shard, ctx, cfg)
+        logits = lm.forward(params, shard, ctx, cfg)
+    labels = shard["labels"].long()
+    nll = torch.logsumexp(logits, -1) - logits.gather(-1, labels[..., None])[..., 0]
+    out[f"{tag}/split/loss"] = (float(loss), float(nll.mean() / mesh.axis_size("data")))
+
+    def flops():
+        with FlopCounterMode(display=False) as fc:
+            step(ex, "exact", shard)
+        return fc.get_total_flops()
+
+    split = flops()
+    real_kind = site.split_kind
+    site.split_kind = lambda *a, **k: None  # the gathered layout
+    try:
+        out[f"{tag}/split/flops"] = (split, flops())
+    finally:
+        site.split_kind = real_kind
+
+
 def _worker(rank, world, store, work):
     import torch.distributed as dist
 
@@ -508,7 +584,7 @@ def _worker(rank, world, store, work):
         for shape in MESHES:
             mesh = make_mesh(shape, ("data", "model"), device="cpu")
             tag = "x".join(map(str, shape))
-            for part in (_steps, _toy, _budget_one, _mc, _plans):
+            for part in (_steps, _split, _toy, _budget_one, _mc, _plans):
                 progress(work, rank, f"{tag}/{part.__name__}")
                 t0 = time.perf_counter()
                 part(mesh, tag, inp, out)
@@ -634,6 +710,101 @@ def test_mesh_step_matches_port_single_device(ranks, tag, name):
                                rtol=1e-5)
     for a, b in zip(ranks[f"{tag}/step/{name}/params"], ranks[f"single/{name}/params"]):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_split_exact_step_matches_jax_mesh_step(ranks, jax_init, inputs, tag):
+    """The exact step on the local plans split over model against JAX's
+    sharded exact step (GSPMD's partition of its local plan): loss and
+    every parameter within 1e-5."""
+    new, loss = _jax_sharded_exact_step(tag, jax_init, inputs["tokens"])
+    np.testing.assert_allclose(ranks[f"{tag}/step/exact/loss"], loss, rtol=1e-5)
+    for a, b in zip(ranks[f"{tag}/step/exact/params"], _port_leaves_from_jax(new.params)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_split_sites_draw_the_single_device_plans_on_every_rank(ranks, tag):
+    """Every rank of the ``mask`` step (l1, the local plans split over
+    model) draws each site's plan over the whole width from the unfolded
+    seed: the single device's kept columns, site for site (14 sites: 2
+    layers of q, k, v, o, in, gate, out; the head stays exact)."""
+    assert ranks[f"{tag}/split/plans"] == [(True, 14)] * WORLD
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_split_sites_probes_equal_the_single_device_probes(ranks, tag):
+    """The telemetry probe of every split site (its three statistics summed
+    over the ranks holding the other columns, or its row norms over the
+    ranks holding the rest of d_in, ``core/site.py`` ``MeshEnv.probe``)
+    equals the single-device step's, site for site, within 1e-5."""
+    single, mesh = ranks[f"{tag}/split/probes"]
+    assert sorted(mesh) == sorted(single) and len(single) == 7
+    for k in single:
+        np.testing.assert_allclose(mesh[k], single[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_vocab_parallel_loss_equals_the_gathered_logits_loss(ranks, tag):
+    """The untied head's logits stay split over the vocabulary and
+    ``lm_loss`` reads them by a vocab-parallel log-sum-exp: equal to the
+    loss of the gathered logits (rank 0's share, rtol 1e-6)."""
+    got, want = ranks[f"{tag}/split/loss"]
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_split_step_flops_fall_with_the_model_axis(ranks, tag):
+    """Rank 0's FlopCounterMode FLOPs of the exact step: each site computes
+    its model shard and attention its heads, so the split layout's are 1 /
+    n_model of the gathered layout's (1/4 on (1, 4), 1/2 on (2, 2), where
+    the data axis already halves both)."""
+    split, gathered = ranks[f"{tag}/split/flops"]
+    n_mp = int(tag.split("x")[1])
+    assert split * n_mp == pytest.approx(gathered, rel=1e-3)
+
+
+def split_payload(D: int, M: int, r: int = 1) -> int:
+    """The exact step's collective payload (bytes) on the local plans split
+    over model, on a (D, M) ``("data", "model")`` mesh, from the shapes of
+    the arch (2 layers, d 32, 4 heads, 2 kv of 8, d_ff 64 SwiGLU, vocab 64,
+    untied) at batch 8 x 16 and remat "full" (``r`` recomputes), float32:
+
+    * each site's shard (q, k, v, in, gate, the head: (model, data); o,
+      out: (data, model)) all-gathered over data along d_in in the forward
+      and the layer's recompute, its d_in-whole gradient reduce-scattered
+      over data in the backward; the embedded rows' model chunks gathered;
+    * per layer, each block's input entering its column sites through one
+      ``copy_to`` (all-reduce of dX, backward) and o's and out's partial
+      outputs all-reduced (forward; o's again in the recompute, which stops
+      before out, the layer's last op); the head's ``copy_to``;
+    * where the kv heads do not divide the model axis (the "flat" head
+      layout): k and v gathered over model (forward and recompute) and
+      their partial cotangents all-reduced;
+    * the vocab-parallel loss: a ``pmax`` and two ``psum`` of [rows, S];
+    * the step: the unsited leaves' gradients (5 norm gains, the table's
+      [V, d / M]) and three metrics summed over data where it has ranks,
+      and the squared norms of the 15 leaves sharded over both axes and of
+      the one over model alone."""
+    L, d, H, Kv, dh, F, V = 2, 32, 4, 2, 8, 64, 64
+    rows, S = 8 // D, 16
+    shards = (2 * H * dh + 2 * Kv * dh + 3 * F) * d // (M * D)
+    head = V * d // (M * D)
+    weights = (1 + r) * L * shards + head + D * (L * shards + head)
+    acts = (L * (4 + r) + 1) * rows * S * d + rows * S * d // M
+    kv = rows * S * 2 * Kv * dh
+    flat = 0 if Kv % M == 0 else (1 + r) * L * kv // M + L * kv
+    loss = 3 * rows * S
+    step = (5 * d + V * d // M + 3 if D > 1 else 0) + 7 * L + 1 + 1
+    return 4 * (weights + acts + flat + loss + step)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_split_exact_step_payload_from_the_shapes(ranks, tag):
+    """The exact step's payload on the split local plans equals
+    :func:`split_payload`'s count from the shapes, to the byte."""
+    D, M = (int(a) for a in tag.split("x"))
+    assert ranks[f"{tag}/step/exact/bytes"] == split_payload(D, M)
 
 
 @pytest.mark.parametrize("name", ["exact_tp", "compact", "block", "block_cg"])

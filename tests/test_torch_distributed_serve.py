@@ -20,9 +20,10 @@ Runtime). Each rank's cache and pool leaves have the shapes
 ``cache_specs`` / ``paged_cache_specs`` give, and a decode step moves the
 payload the shapes predict (:func:`decode_payload`).
 
-"lm" is ``test_distributed``'s arch (4 heads, 2 kv): under ``tp_sketch`` its
-attention runs on local heads on (2, 2) and on gathered heads on (1, 4),
-where the 2 kv heads do not divide the model axis.
+"lm" is ``test_distributed``'s arch (4 heads, 2 kv): with ``tp_sketch`` on
+(TP plans) or off (local plans split over model) its attention runs on local
+heads on (2, 2); on (1, 4), where the 2 kv heads do not divide the model
+axis, a decode step gathers every head.
 """
 from __future__ import annotations
 
@@ -123,29 +124,27 @@ def serve_inputs(cfg, seed=0) -> dict:
 
 def decode_payload(cfg, mesh_shape) -> int:
     """The collective payload of one decode step of ``cfg`` (a dense
-    decoder) at ``tp_sketch`` off on a (data, model) mesh, from the shapes:
-    every linear weight all-gathered whole (over its first sharded dimension,
-    then its second: ``launch.sharding``'s rules cut q/k/v/mlp-in/gate and the
-    head (model, data), o and mlp-out (data, model)), the embedded rows
-    all-gathered over model, and where the cache's positions split over
-    model each attention layer's combine (``pmax`` of [rows, heads] and one
-    ``psum`` of [rows, heads, d_head + 1]); float32."""
+    decoder) at ``tp_sketch`` off on a (data, model) mesh, from the shapes.
+    Each linear site computes on its model shard (``core.site.split_kind``:
+    ``launch.sharding``'s rules cut q/k/v/mlp-in/gate and the head
+    (model, data), o and mlp-out (data, model)) and all-gathers only its
+    shard's FSDP dimension over data; the embedded rows are all-gathered
+    over model; q, k and v are all-gathered over model onto every head (a
+    decode step keeps q's heads with their kv heads); o's and mlp-out's
+    partial outputs are all-reduced over model; where the cache's positions
+    split over model each attention layer combines (``pmax`` of [rows,
+    heads] and one ``psum`` of [rows, heads, d_head + 1]); the head's
+    vocabulary chunks of the logits are all-gathered over model; float32."""
     D, M = mesh_shape
     d, dh, H, Kv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     rows = B // D if B % D == 0 else B
-
-    def md(n, k):  # (model, data): n/M x k/D in, then n x k/D
-        return n * k // (M * D) + n * k // D
-
-    def dm(n, k):  # (data, model): n/D x k/M in, then n x k/M
-        return n * k // (D * M) + n * k // M
-
     gates = 2 if cfg.mlp_type in ("swiglu", "geglu") else 1
-    layer = (md(H * dh, d) + 2 * md(Kv * dh, d) + dm(d, H * dh) + gates * md(cfg.d_ff, d)
-             + dm(d, cfg.d_ff))
+    shards = (2 * H * dh + 2 * Kv * dh + (gates + 1) * cfg.d_ff) * d // (M * D)
+    heads = rows * (H + 2 * Kv) * dh // M
     combine = rows * H + rows * H * (dh + 1) if M > 1 and MAX_LEN % M == 0 else 0
-    total = cfg.n_layers * (layer + combine) + md(cfg.vocab, d) + rows * d // M
-    return 4 * total
+    layer = shards + heads + 2 * rows * d + combine
+    head = cfg.vocab * d // (M * D) + rows * cfg.vocab // M
+    return 4 * (cfg.n_layers * layer + head + rows * d // M)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +202,7 @@ def _steps(name, inp, out, meshes):
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharding
     from repro_torch.models import lm
+    from repro_torch.nn.common import MODEL_SHARDED_OUT
     from repro_torch.serve.serve_step import whole_rows
     from repro_torch.tree import tree_leaves
 
@@ -253,7 +253,7 @@ def _steps(name, inp, out, meshes):
                 ctx = ex.make_ctx()
                 w = params["layers"][0]["attn"]
                 out[key + "/local_heads"] = (
-                    all(ctx.plan_kind(f"attn_{n}", w[n]) in ("tp_column", "tp_exact")
+                    all(ctx.plan_kind(f"attn_{n}", w[n]) in MODEL_SHARDED_OUT
                         for n in "qkv") and ctx.heads_local(cfg.n_heads, cfg.n_kv))
 
 
@@ -464,13 +464,13 @@ def test_decode_payload_equals_the_shape_formula(ranks, tag):
 
 @pytest.mark.parametrize("tag,local", [("2x2", True), ("1x4", False)])
 def test_lm_arch_takes_local_heads_on_2x2_and_gathered_on_1x4(ranks, tag, local):
-    """Under tp_sketch the 4 query and 2 kv heads divide a model axis of 2
-    (local heads) but not of 4 (gathered heads); both layouts' steps match
-    JAX (``test_mesh_prefill_and_decode_match_jax``), and the local layout
-    moves its heads over model where the gathered one moved the
-    projections."""
+    """With ``tp_sketch`` on (TP plans) and off (the local plans split over
+    model) the 4 query and 2 kv heads divide a model axis of 2 (local
+    heads) but not of 4 (a decode step's heads gathered; a prefill keeps
+    its queries' heads, ``nn.attention._mesh_heads``' "flat" layout); both
+    layouts' steps match JAX (``test_mesh_prefill_and_decode_match_jax``)."""
     assert ranks[f"lm/{tag}/tp/local_heads"] is local
-    assert ranks[f"lm/{tag}/exact/local_heads"] is False
+    assert ranks[f"lm/{tag}/exact/local_heads"] is local
 
 
 @pytest.mark.parametrize("name,tag,tp,kinds", ENGINE_RUNS,

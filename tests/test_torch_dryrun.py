@@ -15,7 +15,9 @@ tests read their JSON:
 * prefill and decode cells, a refused cell recorded with the port's
   ``NotImplementedError``, the record's keys against JAX's;
 * the kernels' fake branch both ways, and the gather a fake weight lost
-  before ``core/site.py``'s ``_GatherParam`` decided from the mesh.
+  before ``core/site.py``'s ``_GatherParam`` decided from the mesh;
+* the chunked attention's peak and FLOPs against the einsum's on a fake
+  rank.
 """
 import json
 import os
@@ -227,6 +229,23 @@ def _remat_peaks():
     return out
 
 
+def _attn_peaks():
+    """The fake tracker's peak and FlopCounterMode FLOPs of one exact step
+    (remat "full", one fake rank) with the chunked and the einsum
+    attention."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+
+    out = {}
+    with dryrun.fake_group(1):
+        mesh = meshlib.make_mesh((1, 1), ("data", "model"), device="cpu")
+        for impl in ("chunked", "einsum"):
+            c, _, _ = dryrun._run(_smoke("yi_6b", attn_impl=impl), _cell("train", S=256), mesh,
+                                  dryrun._POLICIES["exact"], False, 1, "cpu")
+            out[impl] = {k: c[k] for k in ("peak_bytes", "flops_aten")}
+    return out
+
+
 def _sp_one_rank():
     """On a real one-rank gloo group: the sequence-parallel mesh step and
     the single-device step, bit for bit (every mover is the identity)."""
@@ -286,6 +305,7 @@ def _all() -> dict:
            "fake_vs_real": {"yi_2x2_mask": _fake_vs_real("yi_6b", (2, 2), "mask"),
                             "yi_1x4_exact": _fake_vs_real("yi_6b", (1, 4), "exact")},
            "gather": _fake_gather(), "kernels": _kernels(), "remat": _remat_peaks(),
+           "attn": _attn_peaks(),
            "sp_one_rank": _sp_one_rank()}
     recs = {
         "train_depth_yi": _record("yi_6b", (2, 2), "train", cfg=_smoke("yi_6b", n_layers=4),
@@ -472,3 +492,32 @@ def test_sequence_parallel_one_rank_mesh_is_bit_for_bit(results):
     hybrid)."""
     assert results["sp_one_rank"] == {a: True for a in ("yi_6b", "olmoe_1b_7b",
                                                          "seamless_m4t_large_v2", "zamba2_7b")}
+
+
+def test_chunked_attention_peak_and_flops(results):
+    """yi-6b's smoke config (2 layers, 8 heads of 8, ``q_chunk`` 16) at 8 x
+    256 on a fake rank, exact, remat "full": the chunked step's peak is
+    below the einsum step's by at least one [8, 8, 256, 256] float32 score
+    tensor, and its FLOPs exceed the einsum's by exactly one attention
+    forward per layer (each query chunk recomputed in the backward, the
+    masked tiles computed as the einsum computes them): 4 B H S^2 dh each."""
+    r = results["attn"]
+    L, B, H, S, dh = 2, 8, 8, 256, 8
+    assert r["einsum"]["peak_bytes"] - r["chunked"]["peak_bytes"] >= 4 * B * H * S * S
+    assert r["chunked"]["flops_aten"] - r["einsum"]["flops_aten"] == L * 4 * B * H * S * S * dh
+
+
+def test_meta_tensors_take_no_bytes():
+    """The peak counts storages an op makes, but not a ``meta`` tensor's:
+    ``lm.init_cache(mesh=)`` lays out every layer's whole cache on ``meta``
+    to cut this rank's shards, and those never exist on a device."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    def run():
+        whole = torch.zeros(1 << 28, device="meta")
+        return torch.ones(1024) + whole.numel()
+
+    _, counts = dryrun.count_run(run, ())
+    assert counts["peak_bytes"] == 2 * 4096
