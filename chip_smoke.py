@@ -276,7 +276,27 @@ which raises on failure:
    and the ms printed, and the two impls' exact gradients within
    ``GRAD_RTOL``; (e) lm-100m's main-path step with each impl, interleaved,
    84 + 84 launches per step, and the ms per step;
-23. one JSON line listing the ported kernels, then the last line
+23. the compact backends on split local-plan sites
+   (``split_compact(dev, gen)``; ``core.sketched_linear.split_backward``,
+   the rank's part of a backward on a site split over model): at yi-6b's
+   ``mlp_in`` (d 4096 -> 11,008, split over 16 emulated model ranks into
+   column shards of 688: kept blocks of 128 straddle two shards, and some
+   shards keep none) and at a row shard of its ``mlp_out`` (d_in 688 of
+   11,008), N 2048 float32 rows, the whole width's block-128 l1@0.1 plan
+   drawn from the score kernel's scores: for ``pallas``, ``onepass`` and
+   ``stale``, every emulated rank's part on the card, its launches counted
+   (set to 0 just before the ranks' calls, read just after: one fused or
+   stream launch per rank, and the score kernel per column shard under
+   ``pallas``), each held to its plain twin (the same window through the
+   plain versions) within ``TOL``, and to the whole width's kernel call:
+   each column shard's rows of dWc and db bit for bit and zeros elsewhere,
+   the shards' dX summed within ``SPLIT_DX_RTOL``, the refreshed scores of
+   its columns (``onepass`` within ``SPLIT_SCORE_RTOL``, ``stale``'s kept
+   ones bit for bit), a shard's scores within ``TOL`` of the plain column
+   reduction; a row shard's dX,
+   dWc and db bit for bit; the ms of the ranks' calls beside the whole
+   call's and the plain twins';
+24. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -974,6 +994,111 @@ def _device_us(evt) -> float:
     return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
 
 
+class TraceKey:
+    """One name's events in a trace, as ``key_averages()`` lists them: the
+    fields the phases read (times in microseconds)."""
+
+    __slots__ = ("key", "device_type", "count", "self_device_time_total",
+                 "self_cpu_time_total")
+
+    def __init__(self, key, device_type):
+        self.key, self.device_type = key, device_type
+        self.count = 0
+        self.self_device_time_total = self.self_cpu_time_total = 0.0
+
+
+def trace_averages(prof):
+    """``prof.key_averages()``'s entries by (name, device type) from the
+    profiler's raw events: the count, a device event's time, a host event's
+    self time (its duration less its direct children's on its thread). The
+    function-event tree ``key_averages`` builds first takes seconds per
+    lm-100m step on a slow host, most of a profiled step's cost; the names,
+    the filtered events and the nesting are its own (``profiler_util``'s
+    ``_rewrite_name`` and ``_filter_name``). Checked against
+    ``key_averages`` once per run (phase 6)."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    out, names, host = {}, {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        raw = ev.name()
+        if _filter_name(raw) or getattr(ev, "is_hidden_event", lambda: False)():
+            continue
+        key = names.get(raw)
+        if key is None:
+            key = names[raw] = _rewrite_name(name=raw, with_wildcard=True)
+        dt = ev.device_type()
+        entry = out.get((key, dt))
+        if entry is None:
+            entry = out[(key, dt)] = TraceKey(key, dt)
+        entry.count += 1
+        dur = ev.duration_ns() / 1e3
+        if dt != DeviceType.CPU:
+            entry.self_device_time_total += dur
+        elif not (ev.is_async() or ev.start_thread_id() != ev.end_thread_id()):
+            host.setdefault(ev.start_thread_id(), []).append((ev.start_ns(), ev.end_ns(), entry))
+    nodes = []  # host events nested per thread: [entry, parent, children]
+    for evs in host.values():
+        evs.sort(key=lambda e: (e[0], -e[1]))
+        stack = []  # open events: [end, entry, duration less children, node]
+        for start, end, entry in evs:
+            while stack and stack[-1][0] <= start:
+                _, done, self_us, _ = stack.pop()
+                done.self_cpu_time_total += self_us
+            dur = (end - start) / 1e3
+            node = [entry, stack[-1][3] if stack else None, []]
+            if stack:
+                stack[-1][2] -= dur
+                stack[-1][3][2].append(node)
+            nodes.append(node)
+            stack.append([end, entry, dur, node])
+        for _, done, self_us, _ in stack:
+            done.self_cpu_time_total += self_us
+    # key_averages drops an op's only child of its own name (EventList's
+    # _remove_dup_nodes), handing its children up; the self times per name
+    # stay the same
+    changed = True
+    while changed:
+        changed = False
+        for node in nodes:
+            entry, parent, children = node
+            if parent is not None and parent[0] is entry and len(parent[2]) == 1 \
+                    and parent[2][0] is node:
+                parent[2] = children
+                for ch in children:
+                    ch[1] = parent
+                node[1] = None
+                entry.count -= 1
+                changed = True
+    return list(out.values())
+
+
+def check_trace_averages(prof, evts):
+    """:func:`trace_averages` against ``prof.key_averages()`` on one trace:
+    every device entry's count and time equal, the host's op counts and
+    self times side by side."""
+    from torch.autograd import DeviceType
+
+    t0 = time.perf_counter()
+    ref = prof.key_averages()
+    ref_s = time.perf_counter() - t0
+    pick = lambda es, dt: {e.key: (e.count, _device_us(e))  # noqa: E731
+                           for e in es if e.device_type == dt}
+    got, want = pick(evts, DeviceType.CUDA), pick(ref, DeviceType.CUDA)
+    if ({k: c for k, (c, _) in got.items()} != {k: c for k, (c, _) in want.items()}
+            or any(not math.isclose(got[k][1], us, rel_tol=1e-6, abs_tol=0.01)
+                   for k, (_, us) in want.items())):
+        raise AssertionError(f"[trace] trace_averages' device entries {got} differ from "
+                             f"key_averages' {want}")
+    host = [e for e in evts if e.device_type == DeviceType.CPU]
+    ref_host = [e for e in ref if e.device_type == DeviceType.CPU]
+    print(f"[trace] trace_averages = key_averages on {sum(c for c, _ in got.values())} device "
+          f"events; host events {sum(e.count for e in host)} / {sum(e.count for e in ref_host)}, "
+          f"self host ms {sum(e.self_cpu_time_total for e in host) / 1e3:.1f} / "
+          f"{sum(e.self_cpu_time_total for e in ref_host) / 1e3:.1f}; key_averages took "
+          f"{ref_s:.1f} s")
+
+
 def traced_step(run, want, label, tries=3):
     """Profile ``run(attempt)`` (one step, synchronised) and return its
     device events, once the trace holds ``want[name]`` events of each
@@ -991,7 +1116,7 @@ def traced_step(run, want, label, tries=3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(attempt)
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kern = [e for e in trace_averages(prof) if e.device_type == DeviceType.CUDA]
         seen = {name: sum(e.count for e in kern if KERNEL_SYMBOLS[name] in e.key)
                 for name in want}
         if seen == want:
@@ -1059,10 +1184,12 @@ def step_breakdown(dev, replay, reps=3):
             float(m["loss"])
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        evts = prof.key_averages()
+        evts = trace_averages(prof)
         kern = [e for e in evts if e.device_type == DeviceType.CUDA]
         busy_ms = sum(_device_us(e) for e in kern) / 1e3
         host = [e for e in evts if e.device_type == DeviceType.CPU]
+        if label == "exact":
+            check_trace_averages(prof, evts)
         peak = torch.cuda.max_memory_allocated(dev)
         print(f"[breakdown] {label}: {step_ms:.1f} ms/step over {reps} steps; profiled step: "
               f"{wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms in "
@@ -1235,7 +1362,7 @@ def serve_breakdown(dev, reps=3):
             fn()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        evts = prof.key_averages()
+        evts = trace_averages(prof)
         kern = [e for e in evts if e.device_type == DeviceType.CUDA]
         busy_ms = sum(_device_us(e) for e in kern) / 1e3
         host = [e for e in evts if e.device_type == DeviceType.CPU]
@@ -1805,7 +1932,7 @@ def profiled_step(dev, fn, state, batch, key):
         state, m = fn(state, batch, key)
         float(m["loss"])
         sync(dev)
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in trace_averages(prof) if e.device_type == DeviceType.CUDA]
     return state, m, sum(e.count for e in kern), sum(_device_us(e) for e in kern) / 1e3
 
 
@@ -2379,7 +2506,7 @@ def engine_decode_trace(dev, params, cfg, specs, plain):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng._decode_one_step()
         sync(dev)
-    evts = prof.key_averages()
+    evts = trace_averages(prof)
     kern = [e for e in evts if e.device_type == DeviceType.CUDA]
     d2h = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
     # every copy the profiler saw on the device, by kind (small pageable
@@ -3903,7 +4030,7 @@ def family_decode_trace(dev, params, cfg, specs):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng._decode_one_step()
         sync(dev)
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in trace_averages(prof) if e.device_type == DeviceType.CUDA]
     d2h = sum(e.count for e in kern if e.key.startswith("Memcpy DtoH"))
     n_ops = sum(e.count for e in kern)
     busy = sum(_device_us(e) for e in kern) / 1e3
@@ -4503,7 +4630,7 @@ def device_step(dev, fn, state, batch, key):
         state, m = fn(state, batch, key)
         float(m["loss"])
         sync(dev)
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in trace_averages(prof) if e.device_type == DeviceType.CUDA]
     return state, m, sum(e.count for e in kern), sum(_device_us(e) for e in kern) / 1e3
 
 
@@ -5035,7 +5162,7 @@ def dry_run(dev, child):
                     st, m2 = fn(st, b, 40)
                     float(m2["loss"])
                     torch.cuda.synchronize(dev)
-                kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                kern = [e for e in trace_averages(prof) if e.device_type == DeviceType.CUDA]
                 busy_ms = sum(_device_us(e) for e in kern) / 1e3
                 del st
                 st2, _, counts2, _, _, flops, _, _ = dry_real_step(dev, mesh, cfg, full, batch,
@@ -5347,6 +5474,174 @@ def chunked_attention(dev, gen):
     return total
 
 
+# -- phase 23: the compact backends on split local-plan sites ----------------------
+
+# yi-6b's mlp_in / mlp_out over 16 model ranks: d 4096, d_ff 11,008 (688 per
+# rank, not a multiple of 128), N rows of float32
+SPLIT_N, SPLIT_D, SPLIT_FF, SPLIT_RANKS = 2048, 4096, 11_008, 16
+SPLIT_BUDGET = 0.1
+# the shards' dX summed against the whole call's: each straddling block's
+# product is summed in two parts (the CPU test's tolerance,
+# tests/test_torch_split_compact.py)
+SPLIT_DX_RTOL = 1e-5
+# a one-pass shard's scores against the whole call's (the CPU test's)
+SPLIT_SCORE_RTOL = 1e-6
+
+
+class PlainTwin:
+    """A backend's ``_kernel`` through the plain versions of its kernels, on
+    the card: ``split_backward`` with it runs the same windows and slots as
+    with the backend itself."""
+
+    def __init__(self, backend):
+        from repro_torch.core import estimators
+
+        self.backend = backend
+        self.refresh = estimators.get_estimator(backend).refresh
+
+    def _kernel(self, cfg, G, idx, scales, w, X):
+        from repro_torch.kernels import ref as kref
+
+        d = w.shape[1]
+        if self.backend == "onepass":
+            dX, dWc, db, red = kref.block_stream_matmul_onepass_ref(G, idx, scales, w, X,
+                                                                     block=cfg.block)
+            return dX, dWc.reshape(-1, d), db.reshape(-1), red
+        outs = kref.block_gather_matmul_fused_ref(G, idx, scales, w, X, block=cfg.block,
+                                                  with_scores=self.backend == "stale")
+        return (outs[0], outs[1].reshape(-1, d), outs[2].reshape(-1),
+                outs[3].reshape(-1) if self.backend == "stale" else None)
+
+
+def split_plan(cfg, scores, seed, dev):
+    """The whole width's plan from column scores (the site's draw)."""
+    from repro_torch import rng
+    from repro_torch.core.sketching import column_plan_from_scores
+
+    plan = column_plan_from_scores(cfg, scores, rng.generator(seed, dev))
+    return plan.indices, plan.scales
+
+
+def split_compact(dev, gen):
+    """Phase 23 (module docstring). Returns the launches of the emulated
+    ranks' parts."""
+    from repro_torch.core import estimators
+    from repro_torch.core.sketched_linear import split_backward
+    from repro_torch.core.sketching import SketchConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    t_phase = time.perf_counter()
+    N, D, F, M = SPLIT_N, SPLIT_D, SPLIT_FF, SPLIT_RANKS
+    n_loc = F // M
+    G = torch.randn((N, F), generator=gen, device=dev)
+    G = G * torch.rand((F,), generator=gen, device=dev)  # uneven column scores
+    X = torch.randn((N, D), generator=gen, device=dev)
+    W = torch.randn((F, D), generator=gen, device=dev) * D ** -0.5
+    # mlp_out: [d 4096, d_ff 11,008]; its G is [N, 4096], its input [N, 11,008]
+    G_out = torch.randn((N, D), generator=gen, device=dev)
+    X_out = torch.randn((N, F), generator=gen, device=dev)
+    W_out = torch.randn((D, F), generator=gen, device=dev) * F ** -0.5
+    total = {}
+    for i, backend in enumerate(BACKENDS):
+        est = estimators.get_estimator(backend)
+        plain = PlainTwin(backend)
+        cfg = SketchConfig(method="l1", budget=SPLIT_BUDGET, backend=backend, block=BLOCK)
+        whole_scores = ops.col_l1_scores(G)
+        idx, sc = split_plan(cfg, whole_scores, 230 + i, dev)
+        idx_out, sc_out = split_plan(cfg, ops.col_l1_scores(G_out), 240 + i, dev)
+        shards = [(k * n_loc, G[:, k * n_loc:(k + 1) * n_loc].contiguous(),
+                   W[k * n_loc:(k + 1) * n_loc].contiguous()) for k in range(M)]
+        chunks = [(X_out[:, k * n_loc:(k + 1) * n_loc].contiguous(),
+                   W_out[:, k * n_loc:(k + 1) * n_loc].contiguous()) for k in range(M)]
+        torch.cuda.synchronize()
+        # the emulated ranks' parts, counted
+        ops.reset_launch_counts()
+        parts, part_scores, rows_out = [], [], []
+        for lo, Gk, Wk in shards:
+            if backend == "pallas":
+                part_scores.append(ops.col_l1_scores(Gk))
+            parts.append(split_backward(est, cfg, Gk, X, Wk, idx, sc, lo=lo, n=F))
+        for Xk, Wk in chunks:
+            if backend == "pallas":  # a row rank scores the whole G it holds
+                ops.col_l1_scores(G_out)
+            rows_out.append(est._kernel(cfg, G_out, idx_out, sc_out, Wk, Xk))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        kern = SITE_KERNELS[backend][-1]
+        want = {name: 0 for name in counts}
+        want[kern] = 2 * M
+        if backend == "pallas":
+            want["col_l1_scores"] = 2 * M
+        if counts != want:
+            raise AssertionError(f"[split] {backend} launches {counts}, want {want}")
+        add_counts(total, counts)
+        # each part against its plain twin (the same window and slots)
+        errs = []
+        for (lo, Gk, Wk), (out, red) in zip(shards, parts):
+            p_out, p_red = split_backward(plain, cfg, Gk, X, Wk, idx, sc, lo=lo, n=F)
+            errs += [max_err(out.dx, p_out.dx, TOL[torch.float32])[0],
+                     max_err(out.rows, p_out.rows, TOL[torch.float32])[0],
+                     max_err(out.db_c, p_out.db_c, TOL[torch.float32])[0]]
+            if red is not None:
+                errs.append(max_err(red, p_red, TOL[torch.float32])[0])
+        for (Xk, Wk), got in zip(chunks, rows_out):
+            want_p = plain._kernel(cfg, G_out, idx_out, sc_out, Wk, Xk)
+            errs += [max_err(got[k], want_p[k], TOL[torch.float32])[0] for k in range(3)]
+        for (_, Gk, _), s_k in zip(shards, part_scores):
+            errs.append(max_err(s_k, kref.col_scores_ref(Gk), TOL[torch.float32])[0])
+        # against the whole width's kernel call
+        dX, rows, db, extra = est._kernel(cfg, G, idx, sc, W, X)
+        cols = (idx[:, None] * BLOCK + torch.arange(BLOCK, device=dev)[None, :]).reshape(-1)
+        dx_sum = torch.zeros_like(dX)
+        kept_shards = 0
+        for (lo, _, _), (out, red) in zip(shards, parts):
+            mine = (cols >= lo) & (cols < lo + n_loc)
+            kept_shards += bool(mine.any())
+            if not (torch.equal(out.cols, cols) and torch.equal(out.rows[mine], rows[mine])
+                    and torch.equal(out.db_c[mine], db[mine])
+                    and not out.rows[~mine].any() and not out.db_c[~mine].any()):
+                raise AssertionError(f"[split] {backend} shard at {lo}: rows or db differ "
+                                     "from the whole width's call")
+            dx_sum += out.dx
+            if est.refresh == "all":
+                max_err(red, extra[lo:lo + n_loc], SPLIT_SCORE_RTOL)
+            elif est.refresh == "kept":
+                full = torch.zeros(F, device=dev)
+                full[cols] = extra
+                if not torch.equal(red, full[lo:lo + n_loc]):
+                    raise AssertionError(f"[split] {backend} shard at {lo}: kept scores differ")
+        dx_err = max_err(dx_sum, dX, SPLIT_DX_RTOL)[0]
+        dX_o, rows_o, db_o, _ = est._kernel(cfg, G_out, idx_out, sc_out, W_out, X_out)
+        for k, (got_dx, got_rows, got_db, _) in enumerate(rows_out):
+            c = slice(k * n_loc, (k + 1) * n_loc)
+            if not (torch.equal(got_dx, dX_o[:, c]) and torch.equal(got_rows, rows_o[:, c])
+                    and torch.equal(got_db, db_o)):
+                raise AssertionError(f"[split] {backend} row shard {k}: not the whole call's "
+                                     "chunk bit for bit")
+        if not 0 < kept_shards < M:
+            raise AssertionError(f"[split] {backend}: {kept_shards} of {M} shards keep a "
+                                 "block; the phase wants some that keep none")
+        ms_parts = sum(cuda_ms(lambda lo=lo, Gk=Gk, Wk=Wk: split_backward(
+            est, cfg, Gk, X, Wk, idx, sc, lo=lo, n=F), iters=5) for lo, Gk, Wk in shards)
+        ms_plain = sum(cuda_ms(lambda lo=lo, Gk=Gk, Wk=Wk: split_backward(
+            plain, cfg, Gk, X, Wk, idx, sc, lo=lo, n=F), iters=5) for lo, Gk, Wk in shards)
+        ms_whole = cuda_ms(lambda: est._kernel(cfg, G, idx, sc, W, X), iters=5)
+        print(f"[split] {backend} mlp_in [{N}, {F}] x d {D} over {M} column shards of "
+              f"{n_loc} (rb {idx.numel()} of {F // BLOCK} blocks, {kept_shards} shards keep "
+              f"one): launches {counts}; every part within {TOL[torch.float32]} of its "
+              f"plain twin (largest max |err| {max(errs):.3e}); rows and db of each shard "
+              f"= the whole call's bit for bit, dX summed max |err| {dx_err:.3e} (tol "
+              f"{SPLIT_DX_RTOL} of the largest); mlp_out row shards of d_in {n_loc} = the "
+              f"whole call's chunks bit for bit; ms: the {M} parts {ms_parts:.3f}, their "
+              f"plain twins {ms_plain:.3f}, the whole width's call {ms_whole:.3f} "
+              f"({smi_line()})")
+        del parts, rows_out, shards, chunks
+    torch.cuda.empty_cache()
+    print(f"[time]   split compact {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def lm100m_impls(dev):
     """Phase 22 (e): lm-100m's main-path step (block-128 l1@0.2 ``pallas``,
     AdamW, remat "full", 8 x 256) with the chunked and the einsum attention,
@@ -5445,7 +5740,7 @@ def main() -> int:
 
 def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, stream_rows,
                flash_rows) -> int:
-    """Phases 4 to 22 (module docstring)."""
+    """Phases 4 to 23 (module docstring)."""
     t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
@@ -5547,6 +5842,11 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
     for name, n in attn_counts.items():
         launches[name] += n
     print(f"[time] the chunked attention {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    split_counts = split_compact(dev, gen)
+    for name, n in split_counts.items():
+        launches[name] += n
+    print(f"[time] the split compact backends {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -5603,7 +5903,9 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
           f"{json.dumps(serve_mesh_counts)}; the dry run (phase 21: the card's four lm-100m "
           f"mesh steps it is held against): {json.dumps(dry_counts)}; the chunked attention "
           f"(phase 22 (d), (e): yi-6b's and lm-100m's chunked and einsum steps): "
-          f"{json.dumps(attn_counts)}")
+          f"{json.dumps(attn_counts)}; the split compact backends (phase 23: the 16 "
+          f"emulated ranks' parts, column and row shards, per backend): "
+          f"{json.dumps(split_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -61,7 +61,15 @@ Under a mesh (``launch/mesh.py``) a site runs on this rank's shards. Its
   scores of a column-parallel site are all-gathered over model after their
   sum over data and each rank keeps its chunk of the gate; a row-parallel
   site holds the whole G (``launch.mesh.Axes``' ``cols`` and ``rows``).
-  Only the ``mask`` backend and exact sites run there.
+  The ``mask`` backend runs there, and the compact ones (``compact``,
+  ``pallas``, ``onepass``, ``stale``): a row-parallel site's backward is
+  the single device's on its chunk of d_in; a column-parallel site runs
+  its part of the whole width's plan
+  (``core.sketched_linear.split_backward``), its dense dW the rows of its
+  shard, its gradient slot the whole plan's rows with zeros where another
+  shard's columns lie (``core.compact_grad.localize_compact`` keeps its
+  own), and a plan carry is the whole width's, refreshed from every
+  shard's columns.
 * ``tp_column`` / ``tp_row`` / ``tp_exact``: JAX's ``shard_map`` bodies
   (``repro/core/site.py:420-628``) on local tensors (:class:`TPSiteFn`): the
   weight's model shard stays local; the column plan folds the site seed with
@@ -92,7 +100,7 @@ from repro_torch.core.sketching import SketchConfig, effective_cfg, static_block
 
 __all__ = ["ExecutionPlan", "SiteSpec", "resolve_site", "resolve_tree_site", "site_role",
            "sketched_site", "tp_estimator", "tp_site", "mesh_site", "gather_param", "gather_fsdp",
-           "split_kind", "TP_OUT_ROLES", "TP_ROW_ROLES"]
+           "split_kind", "TP_OUT_ROLES", "TP_ROW_ROLES", "MODEL_SPLIT_BACKENDS"]
 
 # roles whose d_out (column-parallel) / d_in (row-parallel) is sharded over
 # the model axis under tp_sketch
@@ -331,9 +339,10 @@ class MeshEnv:
 
     def rows_to_shard(self, rows: torch.Tensor) -> torch.Tensor:
         """Compact rows ``[r, d_in]`` of this rank's batch (the weight's
-        whole d_in) -> summed over the data axes, in the weight's d_in
-        layout (reduce-scattered where d_in is sharded over data, the model
-        chunk where it is sharded over model)."""
+        whole d_in; a row-parallel split's: its model chunk of it) -> summed
+        over the data axes, in the weight's d_in layout (reduce-scattered
+        where d_in is sharded over data, the model chunk where it is
+        sharded over model)."""
         from repro_torch.launch import mesh as m
         from repro_torch.launch.sharding import dim_axes
 
@@ -342,7 +351,20 @@ class MeshEnv:
         rows = (m.psum_scatter(rows, dpa, self.mesh, scatter_dimension=1) if dpa
                 else m.psum(rows, self.data_axes, self.mesh))
         mpa = tuple(a for a in e if a not in self.data_axes)
-        return m.chunk_of(rows, mpa, self.mesh, 1) if mpa else rows
+        return m.chunk_of(rows, mpa, self.mesh, 1) if mpa and self.split != "row" else rows
+
+    def shard_rows(self, rows, cols, w):
+        """The dense gradient of the weight shard ``w`` from compact rows at
+        the whole width's row indices ``cols``: a column-parallel split
+        keeps the rows of its shard (``_rows_into_shard``)."""
+        if self.split != "column":
+            return torch.zeros_like(w).index_add_(0, cols, rows.to(w.dtype))
+        from repro_torch.launch.mesh import axis_index
+
+        n_loc = w.shape[0]
+        lo = axis_index(self.mesh, self.model_axes) * n_loc
+        return _rows_into_shard(rows, cols, lo, w.shape, n_loc * self.mesh.axis_size(
+            self.model_axes), w.dtype)
 
 
 class SketchedLinearFn(torch.autograd.Function):
@@ -425,7 +447,10 @@ class SketchedLinearFn(torch.autograd.Function):
             ctx.gslot.put(rows, out.cols)
             return (dX, None, db, state_ct, probe_ct) + rest
         # kept rows are distinct, so the scatter-add writes each row once
-        dW = torch.zeros_like(w).index_add_(0, out.cols, out.rows.to(w.dtype))
+        if env is None:
+            dW = torch.zeros_like(w).index_add_(0, out.cols, out.rows.to(w.dtype))
+        else:
+            dW = env.shard_rows(out.rows, out.cols, w)
         return (dX, dW, db, state_ct, probe_ct) + rest
 
 
@@ -578,12 +603,17 @@ def split_kind(w, mesh, data_axes, model_axes) -> Optional[str]:
     return None
 
 
+# the backends a local-plan site runs on a model axis of several ranks
+MODEL_SPLIT_BACKENDS = frozenset({"mask", "compact", "pallas", "onepass", "stale"})
+
+
 def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gslot=None,
               pslot=None, compact_rows=None, reduce_grad=True, split=None, partial=False):
     """A local-plan site under a mesh: this rank's rows of the batch, the
     single-device numbers (module docstring). Exact (``cfg`` None or no
     generator) through plain autograd. A sketched site on a model axis of
-    several ranks runs the ``mask`` backend only (or raises).
+    several ranks runs the backends of :data:`MODEL_SPLIT_BACKENDS` (any
+    other raises), split or gathered.
 
     ``split`` (:func:`split_kind`): the site computes on its stored model
     shard, column- or row-parallel (:func:`_split_site`); ``partial``: the
@@ -596,34 +626,36 @@ def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gsl
     from repro_torch.launch.sharding import spec_of
 
     if (cfg is not None and not cfg.is_noop and gen is not None
-            and mesh.axis_size(model_axes) > 1 and cfg.backend != "mask"):
+            and mesh.axis_size(model_axes) > 1 and cfg.backend not in MODEL_SPLIT_BACKENDS):
         raise NotImplementedError(
             f"backend {cfg.backend!r} on a local-plan site with a model axis of "
             f"{mesh.axis_size(model_axes)} ranks is not ported (ROADMAP.md, Queue 1 "
-            "item 2b): use tp_sketch=True, the mask backend, or a data-only mesh")
+            "item 2b): use tp_sketch=True, a built-in backend, or a data-only mesh")
+    sketched = cfg is not None and not cfg.is_noop and gen is not None
+    if sketched and gslot is not None and compact_rows != gslot.r:
+        raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
+                         f"{compact_rows} compact rows ({cfg.backend!r})")
     if split is not None:
-        return _split_site(cfg, x, w, b, gen, mesh, tuple(data_axes), split, pslot=pslot,
-                           reduce_grad=reduce_grad, partial=partial)
+        return _split_site(cfg, x, w, b, gen, mesh, tuple(data_axes), split, sslot=sslot,
+                           gslot=gslot, pslot=pslot, reduce_grad=reduce_grad, partial=partial)
     wf = gather_param(w, mesh, data_axes) if reduce_grad else _gather_model(w, mesh,
                                                                             data_axes)
     bf = None if b is None else _SumOverData.apply(b, mesh, tuple(data_axes))
-    if cfg is None or cfg.is_noop or gen is None:
+    if not sketched:
         return _matmul(x, wf, bf)
-    if gslot is not None and compact_rows != gslot.r:
-        raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
-                         f"{compact_rows} compact rows ({cfg.backend!r})")
     env = MeshEnv(mesh, tuple(data_axes), spec_of(w))
     return SketchedLinearFn.apply(x, wf, bf, sslot, pslot, cfg, gen, gslot, env)
 
 
-def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, pslot, reduce_grad, partial):
+def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, sslot, gslot, pslot, reduce_grad,
+                partial):
     """:func:`mesh_site` on the weight's model shard. Column-parallel: ``x``
     whole (replicated over model) enters through ``copy_to`` (dX summed over
     model in the backward) and the output is this rank's columns.
     Row-parallel: ``x`` is this rank's chunk of d_in and the output is
-    summed over model by ``reduce_from``. A sketched backward (the ``mask``
-    backend: no gradient slot or carry) draws the whole width's plan
-    (:class:`MeshEnv`). The sharding rules split no biased weight."""
+    summed over model by ``reduce_from``. A sketched backward draws the
+    whole width's plan (:class:`MeshEnv`); the slots are the whole width's
+    (module docstring). The sharding rules split no biased weight."""
     from repro_torch.launch import mesh as m
     from repro_torch.launch.sharding import dim_axes, spec_of
 
@@ -639,7 +671,7 @@ def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, pslot, reduce_grad
         y = _matmul(x, wl, None)
     else:
         env = MeshEnv(mesh, data_axes, spec, split, mp)
-        y = SketchedLinearFn.apply(x, wl, None, None, pslot, cfg, gen, None, env)
+        y = SketchedLinearFn.apply(x, wl, None, sslot, pslot, cfg, gen, gslot, env)
     return y if column or partial else m.reduce_from(y, mp, mesh)
 
 

@@ -24,11 +24,11 @@ import torch
 from repro_torch.core import estimators
 from repro_torch.core.estimators import EstimatorVJP
 from repro_torch.core.scores import kernel_reduction_mode, scores_from_kernel_reduction
-from repro_torch.core.sketching import (COLUMN_METHODS, SketchConfig, column_plan,
+from repro_torch.core.sketching import (COLUMN_METHODS, SketchConfig, _width, column_plan,
                                         column_plan_from_scores, effective_cfg,
                                         sketch_dense, static_block_rank, static_rank)
 
-__all__ = ["sketched_linear", "linear", "block_cols"]
+__all__ = ["sketched_linear", "linear", "block_cols", "split_backward"]
 
 
 def with_probe(out: EstimatorVJP, plan) -> EstimatorVJP:
@@ -108,11 +108,19 @@ class _MaskEstimator(estimators.Estimator):
 
 class _CompactEstimator(estimators.Estimator):
     """Exact-r compact backend: gather kept columns, reduced-shape matmuls
-    (the fused plain version on block-granular configs)."""
+    (the fused plain version on block-granular configs).
+
+    On a site split over model (``score_psum_axes`` with ``cols``, a column
+    shard of G) the plan is the whole width's and the backward the rank's
+    part of it (:func:`split_backward`); the block granularity and the rank
+    follow the whole width (:func:`~repro_torch.core.sketching._width`)."""
 
     name = "compact"
     supports_compact_grad = True
     tp_shardable = True  # plan() is valid on a model shard of G
+    # what the kernel's extra output refreshes: None, "all" the columns of
+    # G (onepass), "kept" the kept columns (stale)
+    refresh: Optional[str] = None
 
     def validate(self, cfg) -> None:
         if cfg.method not in COLUMN_METHODS:
@@ -134,10 +142,12 @@ class _CompactEstimator(estimators.Estimator):
                            score_psum_axes=score_psum_axes)
 
     def _apply_planned(self, cfg, G2d, X2d, w, gen, score_psum_axes=None):
-        cfg = effective_cfg(cfg, G2d.shape[-1])
+        n = _width(G2d, score_psum_axes)
+        cfg = effective_cfg(cfg, n)
         plan = column_plan(cfg, G2d, w, gen, want_compact=True,
                            score_psum_axes=score_psum_axes)
-        return self.apply_plan(cfg, G2d, X2d, w, plan.indices, plan.scales), plan
+        lo = _col_offset(G2d, score_psum_axes)
+        return self.apply_plan(cfg, G2d, X2d, w, plan.indices, plan.scales, lo=lo, n=n), plan
 
     def apply(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
         return self._apply_planned(cfg, G2d, X2d, w, gen, score_psum_axes)[0]
@@ -148,18 +158,31 @@ class _CompactEstimator(estimators.Estimator):
         probe needs: one ``[r]`` reduction after the same backward."""
         return with_probe(*self._apply_planned(cfg, G2d, X2d, w, gen, score_psum_axes))
 
-    def apply_plan(self, cfg, G2d, X2d, w, indices, scales) -> EstimatorVJP:
+    def apply_plan(self, cfg, G2d, X2d, w, indices, scales, *, lo: int = 0,
+                   n: Optional[int] = None) -> EstimatorVJP:
         """The backward for a given plan (kept indices and ``1/p`` scales;
-        block ids when ``cfg`` is block-granular on this width)."""
-        cfg = effective_cfg(cfg, G2d.shape[-1])
+        block ids when ``cfg`` is block-granular on the width ``n``). ``G2d``
+        holds the columns ``[lo, lo + G2d.shape[-1])`` of the whole width
+        ``n`` (default: all of them); a part of it takes
+        :func:`split_backward`."""
+        n = G2d.shape[-1] if n is None else n
+        cfg = effective_cfg(cfg, n)
+        if lo != 0 or n != G2d.shape[-1]:
+            return split_backward(self, cfg, G2d, X2d, w, indices, scales, lo=lo, n=n)[0]
+        dX2d, rows, db_c, _ = self._kernel(cfg, G2d, indices, scales, w, X2d)
+        return EstimatorVJP(dx=dX2d, rows=rows, cols=_cols(indices, cfg.block), db_c=db_c)
+
+    def _kernel(self, cfg, G2d, idx, scales, w, X2d):
+        """One launch of the plan ``(idx, scales)`` on ``G2d``: ``(dX, rows
+        [k, d_in], db_c [k], extra)``, ``k`` the kept columns; ``extra`` is
+        what :attr:`refresh` names (None here)."""
         if cfg.block > 1:
             # fused backward: dX, compact dW rows and compact db from G's
             # kept column blocks
-            dX2d, dWc, db_blk = self._fused(cfg, G2d, indices, scales, w, X2d)
-            return EstimatorVJP(dx=dX2d, rows=dWc.reshape(-1, w.shape[1]),
-                                cols=block_cols(indices, cfg.block),
-                                db_c=db_blk.reshape(-1))
-        return self._per_column(G2d, indices, scales, w, X2d)
+            dX2d, dWc, db_blk = self._fused(cfg, G2d, idx, scales, w, X2d)
+            return dX2d, dWc.reshape(-1, w.shape[1]), db_blk.reshape(-1), None
+        out = self._per_column(G2d, idx, scales, w, X2d)
+        return out.dx, out.rows, out.db_c, None
 
     def _fused(self, cfg, G2d, idx, scales, w, X2d):
         from repro_torch.kernels import ref as kref
@@ -168,11 +191,91 @@ class _CompactEstimator(estimators.Estimator):
                                                   block=cfg.block)
 
     def _per_column(self, G2d, idx, scales, w, X2d):
+        from repro_torch.kernels.ref import col_sum
+
         # one gather of G shared by dX, dW and db
         Gc = G2d[:, idx] * scales[None, :].to(G2d.dtype)
         Wc = w[idx]
-        return EstimatorVJP(dx=Gc @ Wc, rows=Gc.T @ X2d, cols=idx,
-                            db_c=Gc.sum(0))
+        return EstimatorVJP(dx=Gc @ Wc, rows=Gc.T @ X2d, cols=idx, db_c=col_sum(Gc))
+
+
+def _cols(indices: torch.Tensor, block: int) -> torch.Tensor:
+    """The per-column indices of a plan's kept indices (block ids when
+    ``block > 1``)."""
+    return block_cols(indices, block) if block > 1 else indices
+
+
+def _col_offset(G2d: torch.Tensor, score_psum_axes) -> int:
+    """The whole width's index of ``G2d``'s first column (0 unless the site
+    is split over model by its columns)."""
+    return 0 if score_psum_axes is None else score_psum_axes.col_offset(G2d.shape[-1])
+
+
+def split_backward(est, cfg, G2d, X2d, w, indices, scales, *, lo: int, n: int):
+    """The rank's part of a compact backward whose plan spans a whole width
+    ``n`` of which this rank holds the columns ``[lo, lo + n_loc)``: ``G2d
+    [N, n_loc]`` and ``w [n_loc, d_in]`` (its shard), ``X2d [N, d_in]``;
+    ``indices``/``scales`` the whole width's plan (ascending block ids where
+    ``cfg`` is block-granular on ``n``, column ids otherwise).
+
+    Static shapes: the shard's kept blocks are one run of the plan's sorted
+    indices, found by ``searchsorted``, and are at most ``m = min(r,
+    n_win)`` of them, ``n_win`` the blocks the shard touches. The kernel
+    (``est._kernel``) runs ``m`` slots on a block-aligned window of the
+    shard (the shard's columns at ``lo mod block``, zeros beside them, so a
+    block that straddles two shards is each rank's part of it); an unfilled
+    slot has scale 0 at a valid block and adds exact zeros.
+
+    Returns ``(out, red)``. ``out.dx`` is this rank's partial dX (the sum
+    over the ranks that split the width is the whole); ``out.rows`` and
+    ``out.db_c`` are in the whole plan's layout ``[r * block]``, with zero
+    rows where another shard's columns lie, and ``out.cols`` the plan's
+    global column indices (the single device's). ``red``: this rank's
+    ``[n_loc]`` raw column reductions, every column (``refresh == "all"``)
+    or the kept ones and zeros elsewhere (``"kept"``), else None."""
+    N, n_loc = G2d.shape
+    bs = max(cfg.block, 1)
+    first = lo // bs
+    nw = -(-(lo + n_loc) // bs) - first
+    off = lo - first * bs
+    r = indices.shape[0]
+    m = min(r, nw)
+    dev = G2d.device
+    # made on the device: no copy from the host, so a CUDA graph can hold it
+    span = first + nw * torch.arange(2, dtype=indices.dtype, device=dev)
+    i0, i1 = torch.searchsorted(indices, span).unbind(0)
+    pos = i0 + torch.arange(m, dtype=indices.dtype, device=dev)
+    valid = pos < i1
+    at = indices[pos.clamp(max=r - 1)]
+    blocks = torch.where(valid, at - first, torch.zeros_like(at))
+    sc = torch.where(valid, scales[pos.clamp(max=r - 1)].to(torch.float32),
+                     torch.zeros((), dtype=torch.float32, device=dev))
+    Gw, Ww = G2d, w
+    if off or nw * bs != n_loc:
+        Gw = G2d.new_zeros(N, nw * bs)
+        Gw[:, off:off + n_loc] = G2d
+        Ww = w.new_zeros(nw * bs, w.shape[1])
+        Ww[off:off + n_loc] = w
+    dx, rows, db_c, extra = est._kernel(cfg, Gw, blocks, sc, Ww, X2d)
+    # each slot's rows at its plan position; an unfilled slot's on a dump
+    # block past the plan, cut off
+    dest = _cols(torch.where(valid, pos, torch.full_like(pos, r)), bs)
+    rows = rows.new_zeros((r + 1) * bs, rows.shape[1]).index_copy_(0, dest, rows)[:r * bs]
+    db_c = db_c.new_zeros((r + 1) * bs).index_copy_(0, dest, db_c)[:r * bs]
+    red = None
+    if est.refresh == "all":
+        red = extra[off:off + n_loc]
+    elif est.refresh == "kept":
+        wdest = _cols(torch.where(valid, blocks, torch.full_like(blocks, nw)), bs)
+        red = extra.new_zeros((nw + 1) * bs).index_copy_(0, wdest, extra)[off:off + n_loc]
+    return EstimatorVJP(dx=dx, rows=rows, cols=_cols(indices, bs), db_c=db_c), red
+
+
+def _kept_mask(indices: torch.Tensor, block: int, n: int) -> torch.Tensor:
+    """``[n]`` bool: the columns a plan keeps."""
+    nb = n // max(block, 1)
+    keep = torch.zeros(nb, dtype=torch.bool, device=indices.device).index_fill_(0, indices, True)
+    return keep.repeat_interleave(block) if block > 1 else keep
 
 
 class _PallasEstimator(_CompactEstimator):
@@ -190,10 +293,11 @@ class _PallasEstimator(_CompactEstimator):
     def _per_column(self, G2d, idx, scales, w, X2d):
         # arbitrary column gathers have no kernel in either package
         from repro_torch.kernels import ops as kops
+        from repro_torch.kernels.ref import col_sum
 
         dX2d = kops.gather_cols_matmul(G2d, idx, scales, w)
         rows = kops.gather_cols_matmul_dw(G2d, idx, scales, X2d)
-        db_c = (G2d[:, idx] * scales[None, :].to(G2d.dtype)).sum(0)
+        db_c = col_sum(G2d[:, idx] * scales[None, :].to(G2d.dtype))
         return EstimatorVJP(dx=dX2d, rows=rows, cols=idx, db_c=db_c)
 
 
@@ -208,6 +312,11 @@ class _PlanCarryEstimator(_PallasEstimator):
     relative floor and the all-zero guard of ``column_plan_from_scores``) and
     kept columns are rescaled by 1/p, so ``E[dW | carry] = GᵀX`` exactly;
     staleness moves only the variance.
+
+    On a site split over model the carry is the whole width's: every rank
+    samples the same plan from it, runs its part (:func:`split_backward`),
+    and the fresh reductions of its columns, summed over data, are
+    all-gathered over model into the whole width's refreshed scores.
     """
 
     plan_carry = True
@@ -236,18 +345,40 @@ class _PlanCarryEstimator(_PallasEstimator):
                          score_psum_axes=None):
         """``score_psum_axes``: the kernel's column reductions of this rank's
         rows are summed over those data axes before they become the fresh
-        scores (the carry is replicated: every replica samples alike)."""
-        n = G2d.shape[-1]
+        scores (the carry is replicated: every replica samples alike), and
+        on a column split widened to the whole width."""
+        axes = score_psum_axes
+        n = _width(G2d, axes)
         cfg = effective_cfg(cfg, n)
         if state is None:
             state = torch.ones(n, dtype=torch.float32, device=G2d.device)  # uniform prior
         plan = column_plan_from_scores(cfg, state, gen, want_compact=True)
-        psum = _same if score_psum_axes is None else score_psum_axes.psum
-        out = self._one_pass(cfg, G2d, plan, w, X2d, state, psum)
+        lo = _col_offset(G2d, axes)
+        if lo != 0 or n != G2d.shape[-1]:
+            out, red = split_backward(self, cfg, G2d, X2d, w, plan.indices, plan.scales,
+                                      lo=lo, n=n)
+            out.state = self._refresh_split(cfg, plan, state, axes.widen(axes.psum(red)))
+        else:
+            out = self._one_pass(cfg, G2d, plan, w, X2d, state,
+                                 _same if axes is None else axes.psum)
         # the probe reads the one sweep's rows: no second kernel launch
         return with_probe(out, plan) if want_probe else out
 
     def _one_pass(self, cfg, G2d, plan, w, X2d, state, psum=_same) -> EstimatorVJP:
+        """The one sweep over the whole width: the gradients and the
+        refreshed carry, from the kernel's reductions summed by ``psum``."""
+        dX2d, rows, db_c, extra = self._kernel(cfg, G2d, plan.indices, plan.scales, w, X2d)
+        cols = _cols(plan.indices, cfg.block)
+        return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c,
+                            state=self._refresh(cfg, cols, state, psum(extra)))
+
+    def _refresh(self, cfg, cols, state, red) -> torch.Tensor:
+        """The refreshed carry from the sweep's (data-summed) reductions."""
+        raise NotImplementedError
+
+    def _refresh_split(self, cfg, plan, state, red) -> torch.Tensor:
+        """The refreshed carry from the whole width's ``[n]`` reductions of a
+        split sweep (:func:`split_backward`'s ``red``, summed and widened)."""
         raise NotImplementedError
 
 
@@ -258,25 +389,24 @@ class _OnePassEstimator(_PlanCarryEstimator):
     launch: a full score refresh per step."""
 
     name = "onepass"
+    refresh = "all"
 
-    def _one_pass(self, cfg, G2d, plan, w, X2d, state, psum=_same):
+    def _kernel(self, cfg, G2d, idx, scales, w, X2d):
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
 
         mode = kernel_reduction_mode(cfg.method)
-        idx, scales = plan.indices, plan.scales
         if cfg.block > 1:
             dX2d, dWc, db_blk, red = kops.block_stream_matmul_fused(
                 G2d, idx, scales, w, X2d, block=cfg.block, score_mode=mode)
-            rows, cols, db_c = (dWc.reshape(-1, w.shape[1]), block_cols(idx, cfg.block),
-                                db_blk.reshape(-1))
-        else:
-            # arbitrary column gathers have no kernel in either package
-            dX2d, rows, db_c, red = kref.gather_cols_onepass_ref(G2d, idx, scales, w, X2d,
-                                                                 score_mode=mode)
-            cols = idx
-        return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c,
-                            state=scores_from_kernel_reduction(cfg.method, psum(red)))
+            return dX2d, dWc.reshape(-1, w.shape[1]), db_blk.reshape(-1), red
+        # arbitrary column gathers have no kernel in either package
+        return kref.gather_cols_onepass_ref(G2d, idx, scales, w, X2d, score_mode=mode)
+
+    def _refresh(self, cfg, cols, state, red):
+        return scores_from_kernel_reduction(cfg.method, red)
+
+    _refresh_split = _refresh  # every column's reduction either way
 
 
 class _StalePlanEstimator(_PlanCarryEstimator):
@@ -286,28 +416,30 @@ class _StalePlanEstimator(_PlanCarryEstimator):
     keep their carried score until they are sampled."""
 
     name = "stale"
+    refresh = "kept"
 
-    def _one_pass(self, cfg, G2d, plan, w, X2d, state, psum=_same):
+    def _kernel(self, cfg, G2d, idx, scales, w, X2d):
         from repro_torch.kernels import ops as kops
         from repro_torch.kernels import ref as kref
 
         mode = kernel_reduction_mode(cfg.method)
-        idx, scales = plan.indices, plan.scales
         if cfg.block > 1:
             dX2d, dWc, db_blk, kept = kops.block_gather_matmul_fused(
                 G2d, idx, scales, w, X2d, block=cfg.block, with_scores=True,
                 score_mode=mode)
-            rows, cols, db_c = (dWc.reshape(-1, w.shape[1]), block_cols(idx, cfg.block),
-                                db_blk.reshape(-1))
-            kept = kept.reshape(-1)
-        else:
-            dX2d, rows, db_c, kept = kref.gather_cols_fused_scores_ref(
-                G2d, idx, scales, w, X2d, score_mode=mode)
-            cols = idx
+            return dX2d, dWc.reshape(-1, w.shape[1]), db_blk.reshape(-1), kept.reshape(-1)
+        return kref.gather_cols_fused_scores_ref(G2d, idx, scales, w, X2d, score_mode=mode)
+
+    def _refresh(self, cfg, cols, state, kept):
         # out of place: the carry passed in stays as it was
         fresh = state.detach().to(torch.float32, copy=True)
-        fresh[cols] = scores_from_kernel_reduction(cfg.method, psum(kept))
-        return EstimatorVJP(dx=dX2d, rows=rows, cols=cols, db_c=db_c, state=fresh)
+        fresh[cols] = scores_from_kernel_reduction(cfg.method, kept)
+        return fresh
+
+    def _refresh_split(self, cfg, plan, state, red):
+        keep = _kept_mask(plan.indices, cfg.block, state.shape[-1])
+        return torch.where(keep, scores_from_kernel_reduction(cfg.method, red),
+                           state.detach().to(torch.float32))
 
 
 estimators.register_estimator(_MaskEstimator())

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["COL_SCORE_MODES", "col_scores_ref", "col_l1_scores_ref",
+__all__ = ["COL_SCORE_MODES", "col_sum", "col_scores_ref", "col_l1_scores_ref",
            "block_gather_matmul_ref", "block_gather_matmul_dw_ref",
            "block_gather_matmul_fused_ref", "block_stream_matmul_onepass_ref",
            "gather_cols_matmul_ref", "gather_cols_matmul_dw_ref",
@@ -17,6 +17,16 @@ __all__ = ["COL_SCORE_MODES", "col_scores_ref", "col_l1_scores_ref",
 
 # The one table mapping a score mode to its elementwise column reduction.
 COL_SCORE_MODES = {"l1": torch.abs, "l2": torch.square}
+
+
+def col_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t.sum(0)`` of a ``[N, k]`` tensor whose every column's bits depend on
+    that column alone: ATen's reduction over rows vectorizes across columns,
+    so there a column's order of additions depends on where it falls in the
+    width, and a shard of the kept columns (``core.sketched_linear.
+    split_backward``) would sum its columns in another order than the whole
+    width does. Each column is summed as a contiguous row instead."""
+    return t.t().contiguous().sum(1)
 
 
 def _gathered_blocks(G, block_idx, scales, block):
@@ -59,9 +69,9 @@ def block_gather_matmul_fused_ref(G, block_idx, scales, W, X, *, block: int,
     Gc = Gc0 * scales.to(torch.float32).repeat_interleave(block)[None, :]
     dX = (Gc @ W[cols].to(torch.float32)).to(G.dtype)
     dWc = (Gc.T @ X.to(torch.float32).reshape(N, -1)).to(G.dtype)
-    out = (dX, dWc.reshape(rb, block, -1), Gc.sum(0).reshape(rb, block))
+    out = (dX, dWc.reshape(rb, block, -1), col_sum(Gc).reshape(rb, block))
     if with_scores:
-        return out + (COL_SCORE_MODES[score_mode](Gc0).sum(0).reshape(rb, block),)
+        return out + (col_sum(COL_SCORE_MODES[score_mode](Gc0)).reshape(rb, block),)
     return out
 
 
@@ -82,11 +92,11 @@ def gather_cols_fused_scores_ref(G, idx, scales, W, X, *, score_mode: str = "l1"
     """Per-column compact backward with the kept columns' raw scores: (dX
     [N, d], dW rows [r, d_in], db rows [r] f32, kept scores [r] f32)."""
     Gc0 = G[:, idx].to(torch.float32)
-    kept = COL_SCORE_MODES[score_mode](Gc0).sum(0)
+    kept = col_sum(COL_SCORE_MODES[score_mode](Gc0))
     Gc = Gc0 * scales[None, :].to(torch.float32)
     dX = (Gc @ W[idx].to(torch.float32)).to(G.dtype)
     rows = (Gc.T @ X.to(torch.float32)).to(G.dtype)
-    return dX, rows, Gc.sum(0), kept
+    return dX, rows, col_sum(Gc), kept
 
 
 def gather_cols_onepass_ref(G, idx, scales, W, X, *, score_mode: str = "l1"):

@@ -163,6 +163,11 @@ class Axes:
         """A whole-width [n] vector -> this rank's column chunk."""
         return chunk_of(t, self.cols, self.mesh, 0) if self.cols else t
 
+    def col_offset(self, n_loc: int) -> int:
+        """The whole width's index of this rank's first column (its chunk
+        holds ``n_loc``); 0 without a column split."""
+        return axis_index(self.mesh, self.cols) * n_loc if self.cols else 0
+
     def row_sum(self, t: torch.Tensor) -> torch.Tensor:
         """A partial sum over this rank's chunk of d_in, completed."""
         return psum(t, self.rows, self.mesh)

@@ -14,6 +14,9 @@ tests read their JSON:
   payload exactly, the peak within ``PEAK_RTOL``;
 * prefill and decode cells, a refused cell recorded with the port's
   ``NotImplementedError``, the record's keys against JAX's;
+* the ``compact`` policy on local plans split over a model axis of 4: its
+  FLOPs per rank below the gathered layout's, and a ``pallas`` step's fake
+  launches one score and one fused launch per sketched site;
 * the kernels' fake branch both ways, and the gather a fake weight lost
   before ``core/site.py``'s ``_GatherParam`` decided from the mesh;
 * the chunked attention's peak and FLOPs against the einsum's on a fake
@@ -152,8 +155,14 @@ def _fake_vs_real(arch, shape, policy):
 
 
 def _record(arch, shape, kind, policy="mask", **kw):
+    from repro_torch.api import SketchConfig, SketchPolicy
     from repro_torch.launch import dryrun
 
+    # a policy the port still refuses on a data axis of several ranks
+    # (ROADMAP.md Queue 1 item 2b): per-element masks draw from the local
+    # batch's shape
+    dryrun._POLICIES.setdefault("per_element", (SketchPolicy(
+        base=SketchConfig(method="per_element", budget=0.1, backend="mask")), False))
     cfg = kw.pop("cfg", None) or _smoke(arch)
     return dryrun.record_or_error(arch, _cell(kind).name, cfg=cfg, cell=_cell(kind),
                                   mesh_shape=shape, policy_name=policy, **kw)
@@ -212,6 +221,40 @@ def _kernels():
     return {"fake": fake, "real_launches": ops.launch_counts(),
             "real_equal": bool(torch.equal(plain, Gr.abs().sum(0))),
             "attended": ops.attended_pairs(16, 16, True, None)}
+
+
+def _split_compact():
+    """yi-6b's ``compact`` step on (1, 4) (its sites split over model) and
+    on the gathered layout (every weight gathered whole), FLOPs per rank;
+    and the same split step on the ``pallas`` backend: its fake launches
+    and the sketched sites it ran."""
+    from repro_torch.api import SketchConfig, SketchPolicy
+    from repro_torch.core import site
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+
+    cfg, cell = _smoke("yi_6b"), _cell("train")
+    out = {}
+    with dryrun.fake_group(4):
+        mesh = meshlib.make_mesh((1, 4), ("data", "model"), device="cpu")
+        c, _, _ = dryrun._run(cfg, cell, mesh, dryrun._POLICIES["compact"], False, 1, "cpu")
+        out["split"] = c["flops"]
+        real_kind = site.split_kind
+        site.split_kind = lambda *a, **k: None  # the gathered layout
+        try:
+            c, _, _ = dryrun._run(cfg, cell, mesh, dryrun._POLICIES["compact"], False, 1,
+                                  "cpu")
+            out["gathered"] = c["flops"]
+        finally:
+            site.split_kind = real_kind
+        pallas = SketchPolicy(base=SketchConfig(method="l1", budget=0.1, backend="pallas",
+                                                block=16))
+        ops.reset_fake_costs()
+        c, _, _ = dryrun._run(cfg, cell, mesh, (pallas, False), False, 1, "cpu")
+        out["launches"] = c["launches"]
+        out["sites"] = cfg.n_layers * 7  # q, k, v, o, in, gate, out per layer
+    return out
 
 
 def _remat_peaks():
@@ -305,7 +348,7 @@ def _all() -> dict:
            "fake_vs_real": {"yi_2x2_mask": _fake_vs_real("yi_6b", (2, 2), "mask"),
                             "yi_1x4_exact": _fake_vs_real("yi_6b", (1, 4), "exact")},
            "gather": _fake_gather(), "kernels": _kernels(), "remat": _remat_peaks(),
-           "attn": _attn_peaks(),
+           "attn": _attn_peaks(), "split_compact": _split_compact(),
            "sp_one_rank": _sp_one_rank()}
     recs = {
         "train_depth_yi": _record("yi_6b", (2, 2), "train", cfg=_smoke("yi_6b", n_layers=4),
@@ -318,7 +361,8 @@ def _all() -> dict:
         "prefill_zamba": _record("zamba2_7b", (2, 2), "prefill", skip_cost=True),
         "decode_seamless": _record("seamless_m4t_large_v2", (2, 2), "decode"),
         "decode_rwkv": _record("rwkv6_3b", (1, 4), "decode", skip_cost=True),
-        "refused": _record("yi_6b", (1, 4), "train", policy="compact", skip_cost=True),
+        "refused": _record("yi_6b", (2, 4), "train", policy="per_element", skip_cost=True),
+        "compact_1x4": _record("yi_6b", (1, 4), "train", policy="compact", skip_cost=True),
     }
     res["records"] = recs
     return res
@@ -427,11 +471,27 @@ def test_prefill_and_decode_cells_run(results):
 
 
 def test_refused_cell_is_recorded(results):
-    """The ``compact`` policy on local plans with a model axis of 4: the
-    port's own NotImplementedError, naming the ROADMAP item."""
+    """A ``per_element`` policy on a data axis of 2: the port's own
+    NotImplementedError, naming the ROADMAP item."""
     rec = results["records"]["refused"]
     assert rec["status"] == "error"
     assert rec["error"].startswith("NotImplementedError") and "Queue 1 item 2b" in rec["error"]
+
+
+def test_compact_cell_on_split_sites_is_recorded(results):
+    """The ``compact`` policy on local plans with a model axis of 4 (the
+    cell the port refused before its compact backends ran on split sites):
+    an ``ok`` record whose FLOPs per rank are below the gathered layout's,
+    and on the ``pallas`` backend the kernels' fake branch launches one
+    score and one fused kernel per sketched site, no other kernel."""
+    rec = results["records"]["compact_1x4"]
+    assert rec["status"] == "ok", rec.get("error")
+    r = results["split_compact"]
+    assert rec["cost_measured"]["flops"] == r["split"]
+    assert 0 < r["split"] < r["gathered"]
+    want = dict.fromkeys(r["launches"], 0)
+    want.update(col_l1_scores=r["sites"], block_gather_matmul_fused=r["sites"])
+    assert r["launches"] == want
 
 
 def test_record_has_jax_keys(results):
