@@ -72,20 +72,21 @@ which raises on failure:
    just after, every loss finite; ``benchmarks/torch/quickstart.py``'s exact
    and sketched runs on seed 0; and a step breakdown per model, exact against
    sketched;
-10. the trainer loop (``examples/train_lm.py``'s features) on lm-100m at
-   batch 8 x 256 with AdamW and cosine warm-up: ``Runtime.train`` for 12
-   steps under ``BudgetSchedule.adaptive`` (buckets exact, 1.0, 0.5, 0.1)
-   with the ``pallas`` policy and a JSONL sink, launch counts read after
-   every step: every budget one of the controller's buckets, two or more
-   sketched buckets, 84 score and 84 fused launches per sketched step and
-   none per exact step, a finite ``probe_snr`` at every sketched step, one
-   record per step with the same ``probe_sites`` keys; the controller's
-   per-step fetch against a constant schedule; one step of each backend
-   with probes on and off from the same state (bit for bit, the same
-   launches; device ops, busy and wall time, interleaved); a ``stale`` step
-   at accum 2 (168 fused launches) against the mean of its two
-   microbatches; and ``warmup_exact(2)`` for 6 steps straight against the
-   same run stopped at step 3 and resumed by a fresh Runtime (losses, both
+10. the trainer loop (``examples/train_lm.py``'s features) on lm-100m cut
+   to 4 of its 12 layers (``LOOP_LAYERS``) at batch 8 x 256 with AdamW and
+   cosine warm-up: ``Runtime.train`` for 8 steps under
+   ``BudgetSchedule.adaptive`` (buckets exact, 1.0, 0.5, 0.1) with the
+   ``pallas`` policy and a JSONL sink, launch counts read after every step:
+   every budget one of the controller's buckets, two or more sketched
+   buckets, 28 score and 28 fused launches per sketched step and none per
+   exact step, a finite ``probe_snr`` at every sketched step, one record per
+   step with the same ``probe_sites`` keys; the controller's per-step fetch
+   against a constant schedule; one step of each backend with probes on and
+   off from the same state (bit for bit, the same launches; under
+   ``pallas`` device ops, busy and wall time, interleaved); a ``stale`` step
+   at accum 2 (56 fused launches) against the mean of its two
+   microbatches; and ``warmup_exact(1)`` for 4 steps straight against the
+   same run stopped at step 2 and resumed by a fresh Runtime (losses, both
    checkpoints verified, a corrupted one refused with ``restore`` falling
    back, bytes and seconds per checkpoint);
 11. the serving engines on lm-100m (``attn_impl="pallas"``, random weights
@@ -110,7 +111,8 @@ which raises on failure:
    0); and a profiler trace of one engine decode step (device ops, busy
    time, exactly one device-to-host copy, the page gather's and scatter's
    device time and bytes) beside phase 8's plain decode step;
-12. resilience around the lm-100m trainer (batch 8 x 256, block-128 l1@0.2,
+12. resilience around the lm-100m trainer (4 of its 12 layers,
+   ``LOOP_LAYERS``; batch 8 x 256, block-128 l1@0.2,
    ``examples/train_lm.py``'s AdamW, ``ResilienceConfig(max_grad_norm=1e13)``:
    the sketched estimator's own norm reaches ~1e9-1e11 at this budget): under
    ``pallas`` and ``stale``, 4 steps with resilience off (``Runtime.train``)
@@ -120,7 +122,7 @@ which raises on failure:
    and a ``spike`` fault through ``Supervisor``: each trips, the parameters,
    moments and carry are bit-identical through each tripped step, the next
    ``escalate_steps`` steps run exact with 0 launches, every leaf finite at
-   the end; then ``FaultPlan.drill(ckpt_every=3)`` over 18 ``pallas`` steps
+   the end; then ``FaultPlan.drill(ckpt_every=3)`` over 15 ``pallas`` steps
    with a checkpoint directory, a JSONL sink and ``ObsConfig`` on, against
    the same run with no fault: every fault fired, the failed checkpoint write
    retried synchronously and verified, one rollback to step 12 (3 steps
@@ -234,7 +236,8 @@ which raises on failure:
    seamless-m4t-large-v2 (2 + 2) at full width, float32, block-128 l1@0.2:
    one mesh step bit for bit the single-device step with equal score and
    fused launches; the TP plans' sites, launches and loss; olmoe's mesh
-   checkpoint restored bit for bit; ms per step, single against mesh;
+   checkpoint restored bit for bit; ms per step, single against mesh (one
+   timed and one profiled step each);
 20. serving under a one-rank NCCL mesh (``serving_mesh(dev)``): lm-100m's
    serving main path (``attn_impl="pallas"``, waves 8 x 1024 and 4 x 1000,
    32 greedy steps) through ``Runtime(execution=ExecutionConfig(mesh=))``:
@@ -296,7 +299,27 @@ which raises on failure:
    reduction; a row shard's dX,
    dWc and db bit for bit; the ms of the ranks' calls beside the whole
    call's and the plain twins';
-24. one JSON line listing the ported kernels, then the last line
+24. every sketch method on split local-plan sites (``split_methods(dev,
+   gen)``), over 16 emulated column ranks of yi-6b's ``attn_q`` (d 4096 ->
+   4096, 256 columns per rank, N 2048 float32 rows), through the functions
+   the mesh path runs with each rank's offsets: (a) ``gsv`` on ``pallas``,
+   block 128, budget 0.1: the whole width's scores from G's gathered columns
+   (``summed_column_scores``), the plan, and each rank's part
+   (``split_backward``), 16 ``block_gather_matmul_fused`` launches counted
+   (set to 0 just before the parts, read just after), each part within
+   ``TOL`` of its plain twin, the rows bit for bit the whole call's and the
+   parts' dX summed within ``SPLIT_DX_RTOL``; (b) ``rcs`` on ``mask``: one
+   plan from Γ and W Wᵀ of the whole batch and width (``rcs_plan_from``)
+   and each rank's columns of Ĝ (``apply_rcs_directions(lo=, n_loc=)``)
+   against the whole call's within ``SM_RCS_RTOL`` of max |Ĝ| (the
+   rounding bound of the two products whose widths differ printed
+   beside); (c) ``per_element`` and ``per_sample`` at a narrow site (256 x
+   512 x 512) over an emulated (4, 4) mesh by the fold rule
+   (``rng.fold_generator``), 300 draws: the mean within ``SM_SIGMAS``
+   standard errors of the exact dX and dW (projected on the exact gradient
+   and on random signs), the summed variance within ``SM_VAR_RTOL`` of the
+   analytic; the phase's seconds;
+25. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -742,10 +765,10 @@ def check_flash(gen, dev):
     return rows
 
 
-def lm100m():
+def lm100m(n_layers=12):
     from repro_torch.configs.base import ArchConfig
 
-    return ArchConfig(name="lm-100m", family="dense", n_layers=12, d_model=768,
+    return ArchConfig(name="lm-100m", family="dense", n_layers=n_layers, d_model=768,
                       n_heads=12, n_kv=12, d_ff=2048, vocab=32000,
                       q_chunk=128, kv_chunk=256)
 
@@ -757,12 +780,12 @@ def slice_policy(budget, backend="pallas"):
                                           block=BLOCK))
 
 
-def expected_counts(backend, per_site):
-    """Launches of every kernel, zeros included, when each sketched site runs
-    ``per_site`` backwards under ``backend``."""
+def expected_counts(backend, per_site, n_layers=12):
+    """Launches of every kernel, zeros included, when each sketched site of
+    lm-100m at ``n_layers`` runs ``per_site`` backwards under ``backend``."""
     from repro_torch.kernels import ops
 
-    return {name: per_site * 7 * lm100m().n_layers if name in SITE_KERNELS[backend] else 0
+    return {name: per_site * 7 * n_layers if name in SITE_KERNELS[backend] else 0
             for name in ops.KERNELS}
 
 
@@ -1770,9 +1793,13 @@ def paper_breakdown(dev, replay, reps=3):
 # exact bucket and walks down to the cheaper ones
 ADAPTIVE_BUDGETS = (None, 1.0, 0.5, 0.1)
 ADAPTIVE_SNR = 0.02
-LOOP_STEPS = 12
-COST_STEPS = 6  # each run of the controller's per-step fetch against a constant schedule
-CKPT_STEPS, CKPT_EVERY = 6, 3
+# phases 10 and 12 repeat ~110 lm-100m steps: they run it at a third of its
+# depth for the script's time (12 layers until PR 32; every check is per
+# layer or per step)
+LOOP_LAYERS = 4
+LOOP_STEPS = 8  # three buckets of the controller's walk (12 until PR 32)
+COST_STEPS = 4  # each run of the controller's per-step fetch against a constant schedule
+CKPT_STEPS, CKPT_EVERY = 4, 2
 RESUME_RTOL = 1e-5  # resumed losses against the straight run's
 # accumulation against the hand-averaged microbatches: the same operations
 # in the same order; float32 tolerances, should a library reduction on the
@@ -1816,7 +1843,7 @@ def adaptive_loop(dev, total):
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import TrainerConfig
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     schedule = BudgetSchedule.adaptive(target_snr=ADAPTIVE_SNR, budgets=ADAPTIVE_BUDGETS,
                                        window=2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1847,12 +1874,12 @@ def adaptive_loop(dev, total):
     for h, c in seen:
         delta = {k: c[k] - prev[k] for k in c}
         prev = c
-        want = (expected_counts("pallas", 1)
-                if h["budget"] is not None else expected_counts("pallas", 0))
+        want = (expected_counts("pallas", 1, cfg.n_layers)
+                if h["budget"] is not None else expected_counts("pallas", 0, cfg.n_layers))
         if delta != want:
             raise AssertionError(f"step {h['step']} (budget {h['budget']}) launched {delta}, "
                                  f"want {want}")
-    if counts != expected_counts("pallas", len(sketched)):
+    if counts != expected_counts("pallas", len(sketched), cfg.n_layers):
         raise AssertionError(f"the adaptive run launched {counts} over {len(sketched)} "
                              "sketched steps")
     if not all(math.isfinite(h.get("probe_snr", math.nan)) for h in sketched):
@@ -1877,7 +1904,7 @@ def adaptive_loop(dev, total):
 
     # the adaptive controller fetches the scalars after every step (a host
     # sync); a constant schedule does not. One bucket (0.1) in both, probes on
-    # in both, histories only at the first and last step; three interleaved
+    # in both, histories only at the first and last step; two interleaved
     # pairs, and the controller's fetches timed (the host waiting for the card)
     from repro_torch.train import trainer as trainer_mod
 
@@ -1895,7 +1922,7 @@ def adaptive_loop(dev, total):
 
     trainer_mod._host_metrics = timed_fetch
     try:
-        for name in ("adaptive", "constant", "constant", "adaptive", "adaptive", "constant"):
+        for name in ("adaptive", "constant", "constant", "adaptive"):
             runtime = Runtime(policy=slice_policy(0.2), schedule=runs[name], device=dev,
                               execution=ExecutionConfig(telemetry=TelemetryConfig(
                                   per_site=False)))
@@ -1913,10 +1940,10 @@ def adaptive_loop(dev, total):
             del state
     finally:
         trainer_mod._host_metrics = real_fetch
-    if len(waits) != 3 * COST_STEPS:
-        raise AssertionError(f"{len(waits)} per-step fetches in 3 adaptive runs")
+    if len(waits) != 2 * COST_STEPS:
+        raise AssertionError(f"{len(waits)} per-step fetches in 2 adaptive runs")
     print(f"[loop] the adaptive controller's per-step fetch (budget 0.1, probes on, "
-          f"{COST_STEPS} steps per run, order A C C A A C): ms/step adaptive "
+          f"{COST_STEPS} steps per run, order A C C A): ms/step adaptive "
           f"{[round(v, 1) for v in ms['adaptive']]}, constant "
           f"{[round(v, 1) for v in ms['constant']]}; the fetch waits {np.mean(waits):.2f} ms "
           f"per step (median {np.median(waits):.2f}, max {max(waits):.2f})")
@@ -1948,7 +1975,7 @@ def probes_on_off(dev, total):
     from repro_torch.models import lm
     from repro_torch.tree import tree_leaves
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     batches = [b for b, _ in zip(LMStream(vocab=cfg.vocab, seed=LOOP_SEED).batches(BATCH, SEQ),
                                  range(4))]
     for backend in BACKENDS:
@@ -1967,7 +1994,7 @@ def probes_on_off(dev, total):
             sync(dev)
             counts[probes] = ops.launch_counts()
             add_counts(total, counts[probes])
-        want = expected_counts(backend, 1)
+        want = expected_counts(backend, 1, cfg.n_layers)
         if counts[False] != want or counts[True] != want:
             raise AssertionError(f"{backend}: launches without / with probes {counts[False]} / "
                                  f"{counts[True]}, want {want}")
@@ -1983,6 +2010,17 @@ def probes_on_off(dev, total):
         snr = float(m["probe_snr"])
         if not math.isfinite(snr) or len(m["probe_sites"]) != 7:
             raise AssertionError(f"{backend}: probe summary {snr}, {len(m['probe_sites'])} sites")
+        print(f"[probes] {backend}: one lm-100m step with probes on and off: {len(pairs)} leaves "
+              f"(params, carry, AdamW moments) equal bit for bit, loss "
+              f"{float(metrics[True]['loss']):.6f}, launches {counts[True]} both; probe_snr "
+              f"{snr:.4f}, probe_var {float(m['probe_var']):.6g}, probe_gsq "
+              f"{float(m['probe_gsq']):.6g}")
+        if backend != "pallas":
+            # the timed pairs and the profiled steps on the main path's
+            # backend only (the script's time; each traced step takes seconds
+            # to summarise)
+            del states, fns
+            continue
         wall = {False: [], True: []}
         ops.reset_launch_counts()
         for i, probes in enumerate((False, True, True, False)):
@@ -1992,23 +2030,12 @@ def probes_on_off(dev, total):
             float(mm["loss"])
             sync(dev)
             wall[probes].append(1e3 * (time.perf_counter() - t0))
-        # the profiler, on the main path's backend only: each traced step
-        # takes seconds to summarise (~20,000 device ops)
         prof = {}
         for probes in (False, True):
-            if backend == "pallas":
-                states[probes], last, n_ops, busy = profiled_step(
-                    dev, fns[probes], states[probes], batches[3], 40)
-                prof[probes] = f"{n_ops} device ops, busy {busy:.2f} ms"
-            else:
-                states[probes], last = fns[probes](states[probes], batches[3], 40)
-                prof[probes] = "not traced"
+            states[probes], last, n_ops, busy = profiled_step(
+                dev, fns[probes], states[probes], batches[3], 40)
+            prof[probes] = f"{n_ops} device ops, busy {busy:.2f} ms"
         add_counts(total, ops.launch_counts())
-        print(f"[probes] {backend}: one lm-100m step with probes on and off: {len(pairs)} leaves "
-              f"(params, carry, AdamW moments) equal bit for bit, loss "
-              f"{float(metrics[True]['loss']):.6f}, launches {counts[True]} both; probe_snr "
-              f"{snr:.4f}, probe_var {float(m['probe_var']):.6g}, probe_gsq "
-              f"{float(m['probe_gsq']):.6g}")
         print(f"[probes]   wall ms off / on (order off, on, on, off): "
               f"{[round(v, 1) for v in wall[False]]} / {[round(v, 1) for v in wall[True]]}; "
               f"one more step off / on: {prof[False]} / {prof[True]}; at that step, the run's "
@@ -2040,7 +2067,7 @@ def accum_check(dev, total):
     from repro_torch.train.train_step import TrainState, micro_seed
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     opt = _capture_opt()
     policy = slice_policy(0.2, "stale")
     rt1 = Runtime(policy=policy, device=dev)
@@ -2061,7 +2088,7 @@ def accum_check(dev, total):
     sync(dev)
     counts = ops.launch_counts()
     add_counts(total, counts)
-    if counts != expected_counts("stale", 2):
+    if counts != expected_counts("stale", 2, cfg.n_layers):
         raise AssertionError(f"the accum=2 stale step launched {counts}")
     grads = [tree_leaves(s_acc.opt_state)]
     carries, losses = [], []
@@ -2114,7 +2141,7 @@ def accum_check(dev, total):
 
 
 def ckpt_resume(dev, total):
-    """``warmup_exact(2)``, ``stale`` l1@0.2, CKPT_STEPS steps straight; then
+    """``warmup_exact(1)``, ``stale`` l1@0.2, CKPT_STEPS steps straight; then
     the same run stopped at CKPT_EVERY (one checkpoint) and resumed by a fresh
     Runtime to CKPT_STEPS (a second): the resumed losses equal the straight
     run's within RESUME_RTOL; both checkpoints verify; one with a leaf
@@ -2128,7 +2155,7 @@ def ckpt_resume(dev, total):
     from repro_torch.train import checkpoint as ckmod
     from repro_torch.train.trainer import TrainerConfig
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     timings = []  # (what, step, seconds)
     real_snap, real_write = ckmod._snapshot, ckmod._write
 
@@ -2145,7 +2172,7 @@ def ckpt_resume(dev, total):
 
     def run(steps, ckpt_dir=None, start=0):
         runtime = Runtime(policy=slice_policy(0.2, "stale"),
-                          schedule=BudgetSchedule.warmup_exact(2), device=dev)
+                          schedule=BudgetSchedule.warmup_exact(1), device=dev)
         data = LMStream(vocab=cfg.vocab, seed=41).batches(BATCH, SEQ, start_step=start)
         ops.reset_launch_counts()
         state, hist = runtime.train(cfg, loop_opt(CKPT_STEPS), data,
@@ -2193,7 +2220,7 @@ def ckpt_resume(dev, total):
         del restored
     writes = [(s, t) for what, s, t in timings if what == "write"]
     snaps = [t for what, _, t in timings if what == "snapshot"]
-    print(f"[ckpt] stale l1@0.2, warmup_exact(2), {CKPT_STEPS} steps straight and resumed at "
+    print(f"[ckpt] stale l1@0.2, warmup_exact(1), {CKPT_STEPS} steps straight and resumed at "
           f"{CKPT_EVERY} by a fresh Runtime: budgets {[h['budget'] for h in straight]}; losses "
           f"{[round(h['loss'], 6) for h in straight]}; resumed "
           f"{[round(h['loss'], 6) for h in resumed]}, largest relative difference {worst:.3e} "
@@ -2734,6 +2761,7 @@ def serving_engines(dev, plain_decode):
 # the sentinel's norm threshold for lm-100m at l1@0.2: the sketched
 # estimator's own gradient norm spans ~4e3 (stale's first steps, sampled from
 # the uniform prior) to ~1e9-1e11 (1/p-scaled blocks, compounded over 84
+# sites at full depth; phase 12 runs LOOP_LAYERS, 28 sites, whose norms are lower)
 # sites), so JAX's default 1e3 would trip every sketched step; 1e13 sits two
 # orders above the largest, and a spike of RES_SPIKE lands four orders or
 # more beyond it, or overflows float32 (a non-finite norm: a trip too)
@@ -2741,7 +2769,7 @@ RES_MAX_GRAD_NORM = 1e13
 RES_SPIKE = 1e14
 RES_STEPS = 4  # steps of each run of the on/off comparison
 RES_FAULT_AT = 1  # the nonfinite fault; the spike follows the escalation window
-DRILL_STEPS, DRILL_EVERY = 18, 3
+DRILL_STEPS, DRILL_EVERY = 15, 3  # the drill's last fault is at 14 (18 steps until PR 32)
 RES_SEED = 61
 # a failed attempt left alive would hold its state, ~1.6 GB. After a run whose
 # final state is deleted the allocator must be back where it started (to a
@@ -2773,7 +2801,7 @@ def res_on_off(dev, total):
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import TrainerConfig
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     tcfg = TrainerConfig(steps=RES_STEPS, log_every=1, seed=RES_SEED)
     for backend in ("pallas", "stale"):
         finals, ms, norms = {}, {False: [], True: []}, []
@@ -2794,7 +2822,7 @@ def res_on_off(dev, total):
             ms[on].append(1e3 * (time.perf_counter() - t0) / RES_STEPS)
             counts = ops.launch_counts()
             add_counts(total, counts)
-            if counts != expected_counts(backend, RES_STEPS):
+            if counts != expected_counts(backend, RES_STEPS, cfg.n_layers):
                 raise AssertionError(f"{backend} resilience {on}: launched {counts}")
             if on and any(h["sentinel_trip"] != 0.0 for h in hist):
                 raise AssertionError(f"{backend}: the sentinel tripped with no fault: "
@@ -2812,7 +2840,7 @@ def res_on_off(dev, total):
         print(f"[res] {backend}: {RES_STEPS} lm-100m steps, resilience off (Runtime.train) and "
               f"on (Supervisor, no fault, max_grad_norm {RES_MAX_GRAD_NORM:g}): final states "
               f"equal bit for bit, sentinel_trip 0 at every step, launches "
-              f"{expected_counts(backend, RES_STEPS)} each; grad_norm "
+              f"{expected_counts(backend, RES_STEPS, cfg.n_layers)} each; grad_norm "
               f"{min(norms):.4g}..{max(norms):.4g}; ms per step (order off, on, on, off) off "
               f"{[round(v, 1) for v in ms[False]]}, on {[round(v, 1) for v in ms[True]]}")
 
@@ -2830,7 +2858,7 @@ def res_faults(dev, total):
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import TrainerConfig
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     rcfg = res_config()
     k = rcfg.escalate_steps
     spike_at = RES_FAULT_AT + 1 + k
@@ -2877,7 +2905,8 @@ def res_faults(dev, total):
         for h, c in seen:
             delta = {k2: c[k2] - prev[k2] for k2 in c}
             prev = c
-            if delta != expected_counts(backend, 0 if h["budget"] is None else 1):
+            if delta != expected_counts(backend, 0 if h["budget"] is None else 1,
+                                        cfg.n_layers):
                 raise AssertionError(f"{label} step {h['step']} (budget {h['budget']}) "
                                      f"launched {delta}")
         if [e["event"] for e in sup.events] != ["fault_injected", "sentinel_trip"] * 2:
@@ -2926,7 +2955,7 @@ def res_drill(dev, total):
     from repro_torch.train import checkpoint as ckmod
     from repro_torch.train.trainer import TrainerConfig
 
-    cfg = lm100m()
+    cfg = lm100m(LOOP_LAYERS)
     rcfg = res_config()
     plan = FaultPlan.drill(ckpt_every=DRILL_EVERY)
     real_save = ckmod.save
@@ -3007,8 +3036,9 @@ def res_drill(dev, total):
     got = [(h["step"], h["budget"]) for h in drill["hist"]]
     n_sketched = sum(b is not None for _, b in first + retry)
     if got_trips != trip_steps or rolled_at != rb[0]["step"] or again is not None or \
-            got != want or drill["counts"] != expected_counts("pallas", n_sketched) or \
-            clean["counts"] != expected_counts("pallas", DRILL_STEPS):
+            got != want or \
+            drill["counts"] != expected_counts("pallas", n_sketched, cfg.n_layers) or \
+            clean["counts"] != expected_counts("pallas", DRILL_STEPS, cfg.n_layers):
         raise AssertionError(f"trips {sorted(got_trips)} (faults {sorted(trip_steps)}), rollback "
                              f"at {rolled_at}; budgets {got}, by the rules {want}; launches "
                              f"{drill['counts']} for {n_sketched} sketched steps")
@@ -3016,7 +3046,7 @@ def res_drill(dev, total):
     for step, budget, c in drill["seen"]:
         delta = {k: c[k] - prev[k] for k in c}
         prev = c
-        if delta != expected_counts("pallas", 0 if budget is None else 1):
+        if delta != expected_counts("pallas", 0 if budget is None else 1, cfg.n_layers):
             raise AssertionError(f"drill step {step} (budget {budget}) launched {delta}")
     builds = drill["ob"].report()["compile"]["entries"]
     if len(builds) != 2:
@@ -4519,10 +4549,10 @@ def analysis(dev):
 
 # (config, depth cut, optimizer): olmoe and mixtral train with SGD, whose
 # state is the parameters alone (mixtral's float32 AdamW state at 1 layer is
-# 43.3 GiB, and the single-device step's results wait on the host while the
-# mesh step runs); the others with AdamW (parameters and both moments held
-# bit for bit); olmoe at one layer: its steps are host-bound (~35 s a layer
-# on the H100), and the script keeps inside its time limit
+# 43.3 GiB, and the single-device step's results wait beside the mesh step
+# for the comparison); the others with AdamW (parameters and both moments
+# held bit for bit); olmoe at one layer: its steps are host-bound (~35 s a
+# layer on the H100), and the script keeps inside its time limit
 MESH_FAMILIES = (
     ("olmoe-1b-7b", dict(n_layers=1), "sgd"),
     ("mixtral-8x22b", dict(n_layers=1), "sgd"),
@@ -4533,7 +4563,7 @@ MESH_FAMILIES = (
     ("seamless-m4t-large-v2", dict(n_layers=2, enc_layers=2), "adamw"),
 )
 MESH_BATCH, MESH_SEQ = 4, 256
-MESH_TIMED = 2  # synced steps timed per run, after one warm-up
+MESH_TIMED = 1  # synced steps timed per run, after (a)'s step (2 after a warm-up until PR 32)
 MESH_SEED = 19
 
 
@@ -4677,26 +4707,28 @@ def mesh_family(dev, mesh, name, cut, opt_name, tmp, total):
     # (a) tp_sketch off, pallas: the mesh step is the single-device step
     want_a = family_counts(cfg, "pallas", 1)
     single, m1, c1, _, fn1, b1 = run(None, policy)
-    host = [t.detach().cpu() for t in dist_leaves(single)]
-    loss1, gn1 = m1["loss"].detach().cpu(), m1["grad_norm"].detach().cpu()
+    # the single-device state waits on the card beside the mesh step
+    ref = [t.detach() for t in dist_leaves(single)]
+    loss1, gn1 = m1["loss"].detach(), m1["grad_norm"].detach()
     del single, m1
     ex_a = ExecutionConfig(mesh=mesh)
     mesh_a, m2, c2, bytes_a, fn_a, b_a = run(ex_a, policy)
     got = dist_leaves(mesh_a)
-    same = (len(got) == len(host) and torch.equal(loss1, m2["loss"].detach().cpu())
-            and torch.equal(gn1, m2["grad_norm"].detach().cpu())
-            and all(torch.equal(h, t.detach().cpu()) for h, t in zip(host, got)))
+    same = (len(got) == len(ref) and torch.equal(loss1, m2["loss"].detach())
+            and torch.equal(gn1, m2["grad_norm"].detach())
+            and all(torch.equal(h, t.detach()) for h, t in zip(ref, got)))
     if c1 != want_a or c2 != want_a:
         raise AssertionError(f"[mesh-fam] {name} (a) launches {c2} (single {c1}), want {want_a}")
     if not same:
         raise AssertionError(f"[mesh-fam] {name} (a) the one-rank mesh step differs from the "
                              "single-device step")
-    del host, got
+    del ref, got
     print(f"[mesh-fam] {name} ({n_params} params, {cut}, {opt_name}): (a) tp_sketch off, "
           f"pallas l1@0.2 block {BLOCK}: loss {float(m2['loss']):.6f}, aux "
           f"{float(m2['aux']):.6g}, grad_norm {float(m2['grad_norm']):.6g}; "
-          f"{len(dist_leaves(mesh_a))} leaves bit for bit the single-device step; launches "
-          f"{c2} (= single); collective payload {bytes_a} B")
+          f"{len(dist_leaves(mesh_a))} leaves bit for bit the single-device step; "
+          f"launches {c2} (= single); collective "
+          f"payload {bytes_a} B; {time.perf_counter() - t0:.1f} s")
 
     # (c) olmoe: the mesh state through CheckpointManager(mesh=)
     if name == "olmoe-1b-7b":
@@ -4737,9 +4769,8 @@ def mesh_family(dev, mesh, name, cut, opt_name, tmp, total):
     del full
     ms = {k: [] for k in runs}
     ops.reset_launch_counts()
-    for k, (fn, b, _) in runs.items():
-        states[k], _ = fn(states[k], b, MESH_SEED)  # warm-up
     sync(dev)
+    # each step function ran once in (a): no warm-up
     for rep in range(MESH_TIMED):
         for k, (fn, b, _) in runs.items():
             t1 = time.perf_counter()
@@ -4753,13 +4784,13 @@ def mesh_family(dev, mesh, name, cut, opt_name, tmp, total):
         prof[k] = (n_ops, busy)
     sync(dev)
     counts_d = ops.launch_counts()
-    want_d = family_counts(cfg, "pallas", 2 * (2 + MESH_TIMED))
+    want_d = family_counts(cfg, "pallas", 2 * (1 + MESH_TIMED))
     if counts_d != want_d:
         raise AssertionError(f"[mesh-fam] {name} (d) launches {counts_d}, want {want_d}")
     add_counts(total, counts_d)
     del states
     torch.cuda.empty_cache()
-    print(f"[mesh-fam] {name} (d) ms per step ({MESH_TIMED} synced steps after a warm-up, "
+    print(f"[mesh-fam] {name} (d) ms per step ({MESH_TIMED} synced step after (a)'s, "
           f"order single, mesh): " + ", ".join(
               f"{k} {[round(v, 2) for v in ms[k]]} (device ops {prof[k][0]}, busy "
               f"{prof[k][1]:.2f} ms)" for k in runs)
@@ -5642,6 +5673,224 @@ def split_compact(dev, gen):
     return total
 
 
+# -- phase 24: every sketch method on split local-plan sites -----------------------
+
+# yi-6b's attn_q over 16 model ranks: d 4096 -> 4096, 256 columns per rank, N
+# rows of float32 (phase 23's N and budget)
+SM_N, SM_D, SM_RANKS = 2048, 4096, 16
+SM_BUDGET = SPLIT_BUDGET
+# (c): a narrow site (N, d_in, n) over an emulated (4, 4) mesh, column split;
+# its draws: the fold rule's, one seed per draw
+SM_NARROW, SM_MESH, SM_DRAWS = (256, 512, 512), (4, 4), 300
+SM_SIGMAS = 4.0
+# the mean of SM_DRAWS draws' summed per-entry variance against the analytic
+# (i.i.d. Bernoulli) variance: a sum over >= 131,072 entries of 300-draw
+# variance estimates, whose relative spread is far below this
+SM_VAR_RTOL = 0.10
+U32 = 2.0 ** -24  # float32's unit roundoff
+# (b)'s limit on the shards' Ĝ against the whole call's, of max |Ĝ|: the CPU
+# test's (test_rcs_shards_are_the_whole_call); the card read 1.1e-6 of it
+# (PERF.md, PR 32), the rounding bound 2 (r + n) u max(|terms|) 3.7e-2
+SM_RCS_RTOL = 1e-5
+
+
+def sm_gsv(dev, G, X, W, total):
+    """Phase 24 (a): the gsv ``pallas`` plan over the whole width and the 16
+    column shards' parts of it; returns the parts' launches."""
+    from repro_torch.core import estimators
+    from repro_torch.core.scores import summed_column_scores
+    from repro_torch.core.sketched_linear import split_backward
+    from repro_torch.core.sketching import SketchConfig
+    from repro_torch.kernels import ops
+
+    n, M = G.shape[1], SM_RANKS
+    n_loc = n // M
+    est = estimators.get_estimator("pallas")
+    plain = PlainTwin("pallas")
+    cfg = SketchConfig(method="gsv", budget=SM_BUDGET, backend="pallas", block=BLOCK)
+    # what every column rank computes from G's gathered columns (one data rank)
+    scores = summed_column_scores("gsv", G, None, lambda t: t)
+    idx, sc = split_plan(cfg, scores, 250, dev)
+    shards = [(k * n_loc, G[:, k * n_loc:(k + 1) * n_loc].contiguous(),
+               W[k * n_loc:(k + 1) * n_loc].contiguous()) for k in range(M)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    parts = [split_backward(est, cfg, Gk, X, Wk, idx, sc, lo=lo, n=n)[0]
+             for lo, Gk, Wk in shards]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {name: 0 for name in counts}
+    want["block_gather_matmul_fused"] = M
+    if counts != want:
+        raise AssertionError(f"[split-methods] (a) gsv launches {counts}, want {want}")
+    add_counts(total, counts)
+    errs = []
+    for (lo, Gk, Wk), out in zip(shards, parts):
+        p_out, _ = split_backward(plain, cfg, Gk, X, Wk, idx, sc, lo=lo, n=n)
+        errs += [max_err(out.dx, p_out.dx, TOL[torch.float32])[0],
+                 max_err(out.rows, p_out.rows, TOL[torch.float32])[0]]
+    dX, rows, db, _ = est._kernel(cfg, G, idx, sc, W, X)
+    cols = (idx[:, None] * BLOCK + torch.arange(BLOCK, device=dev)[None, :]).reshape(-1)
+    dx_sum = torch.zeros_like(dX)
+    for (lo, _, _), out in zip(shards, parts):
+        mine = (cols >= lo) & (cols < lo + n_loc)
+        if not (torch.equal(out.cols, cols) and torch.equal(out.rows[mine], rows[mine])
+                and torch.equal(out.db_c[mine], db[mine]) and not out.rows[~mine].any()):
+            raise AssertionError(f"[split-methods] (a) gsv shard at {lo}: rows differ from "
+                                 "the whole width's call")
+        dx_sum += out.dx
+    dx_err = max_err(dx_sum, dX, SPLIT_DX_RTOL)[0]
+    ms_parts = sum(cuda_ms(lambda lo=lo, Gk=Gk, Wk=Wk: split_backward(
+        est, cfg, Gk, X, Wk, idx, sc, lo=lo, n=n), iters=5) for lo, Gk, Wk in shards)
+    ms_whole = cuda_ms(lambda: est._kernel(cfg, G, idx, sc, W, X), iters=5)
+    print(f"[split-methods] (a) gsv pallas block {BLOCK} at {SM_BUDGET}, attn_q [{SM_N}, {n}] x "
+          f"d {SM_D} over {M} column shards of {n_loc}: the whole width's scores from G's "
+          f"gathered columns, rb {idx.numel()} of {n // BLOCK} blocks; launches {counts}; "
+          f"every part within {TOL[torch.float32]} of its plain twin (largest max |err| "
+          f"{max(errs):.3e}); rows of each shard = the whole call's bit for bit, dX summed "
+          f"max |err| {dx_err:.3e} (tol {SPLIT_DX_RTOL} of the largest); ms: the {M} parts "
+          f"{ms_parts:.3f}, the whole call {ms_whole:.3f} ({smi_line()})")
+
+
+def sm_rcs(dev, G, W):
+    """Phase 24 (b): the rcs plan of the whole batch and width and each
+    column shard's columns of Ĝ against the whole call's."""
+    from repro_torch import rng
+    from repro_torch.core import solver
+    from repro_torch.core.sketching import SketchConfig, apply_rcs_directions, rcs_plan_from
+
+    N, n = G.shape
+    M, n_loc = SM_RANKS, G.shape[1] // SM_RANKS
+    cfg = SketchConfig(method="rcs", budget=SM_BUDGET)
+    t0 = time.perf_counter()
+    # every rank's plan inputs: Γ of the whole batch (one data rank) and W Wᵀ
+    # of W's gathered rows: the same bits on every rank
+    plan = rcs_plan_from(cfg, (G.T @ G) / N, W @ W.T)
+    idx = solver.sample_exact_r(rng.generator(260, dev), plan.probs, plan.r)
+    whole = apply_rcs_directions(G, plan, idx)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    got = torch.cat([apply_rcs_directions(G, plan, idx, lo=k * n_loc, n_loc=n_loc)
+                     for k in range(M)], dim=1)
+    # a shard's columns change two products' output widths: T = U_selᵀ Γ^½
+    # (sums over n) and A T (sums over the r kept directions), A = G Γ^-½
+    # U_sel / p_sel. Any order of a sum of K terms errs by at most (K - 1) u
+    # of the sum of their magnitudes (u = 2^-24), so the two calls differ by
+    # at most 2 (r + n) u max(|A| |U_sel|ᵀ |Γ^½|)
+    U_sel = plan.U[:, idx]
+    A = (G @ (plan.inv_half @ U_sel)) / plan.probs[idx].clamp_min(1e-20)[None, :]
+    mag = (A.abs() @ (U_sel.abs().T @ plan.half.abs())).max().item()
+    err = (got - whole).abs().max().item()
+    bound_ = 2 * (plan.r + n) * U32 * mag
+    top = whole.abs().max().item()
+    tol = SM_RCS_RTOL * top
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"[split-methods] (b) rcs shards' Ĝ max |err| {err:.3e} > tol "
+                             f"{tol:.3e} ({SM_RCS_RTOL} of max |Ĝ| {top:.4g})")
+    print(f"[split-methods] (b) rcs mask at {SM_BUDGET}, [{N}, {n}] x d {SM_D} over {M} column "
+          f"shards: one plan from Γ and W Wᵀ of the whole batch and width (r {plan.r}; "
+          f"plan and whole Ĝ {t_plan:.2f} s); the shards' columns of Ĝ against the whole "
+          f"call's max |err| {err:.3e} = {err / top:.3e} of max |Ĝ| {top:.4g} (tol "
+          f"{SM_RCS_RTOL} of it: {tol:.3e}; the rounding bound 2 (r + n) 2^-24 x {mag:.4g}, "
+          f"the largest sum of |terms|: {bound_:.3e})")
+
+
+def sm_drawn(dev):
+    """Phase 24 (c): per_element and per_sample over an emulated (4, 4) mesh
+    by the fold rule, SM_DRAWS draws, against the exact dX and dW."""
+    from repro_torch import rng
+    from repro_torch.core.sketched_linear import per_element
+    from repro_torch.core.sketching import SketchConfig, row_gate
+
+    N, d, n = SM_NARROW
+    n_dp, n_mp = SM_MESH
+    g = torch.Generator(device=dev)
+    g.manual_seed(270)
+    G = torch.randn((N, n), generator=g, device=dev)
+    X = torch.randn((N, d), generator=g, device=dev)
+    W = torch.randn((n, d), generator=g, device=dev) * d ** -0.5
+    rows = [slice(i * N // n_dp, (i + 1) * N // n_dp) for i in range(n_dp)]
+    cols = [slice(k * n // n_mp, (k + 1) * n // n_mp) for k in range(n_mp)]
+    exact = (G.double() @ W.double(), G.double().T @ X.double())
+    proj = [torch.randint(0, 2, e.shape, generator=g, device=dev).double() * 2 - 1
+            for e in exact]
+    lines = []
+    for method in ("per_element", "per_sample"):
+        cfg = SketchConfig(method=method, budget=0.5)
+        p = cfg.budget
+        t0 = time.perf_counter()
+        s1 = [torch.zeros(e.shape, dtype=torch.float64, device=dev) for e in exact]
+        s2 = [torch.zeros_like(a) for a in s1]
+        dots = [[], [], [], []]  # (dX, dW) x (exact direction, random signs)
+        for draw in range(SM_DRAWS):
+            dX, dW = torch.zeros_like(X), torch.zeros_like(W)
+            for i, rs in enumerate(rows):
+                for k, c in enumerate(cols):
+                    gk = rng.generator(280 + draw, dev)
+                    if method == "per_element":
+                        out = per_element(cfg, G[rs, c], X[rs], W[c], gk, has_b=False,
+                                          w_folds=(k,), x_folds=(i,))
+                        dx, dw = out.dx, out.dw
+                    else:
+                        Gh = G[rs, c] * row_gate(cfg, rs.stop - rs.start, gk, dev, (i,))[:, None]
+                        dx, dw = Gh @ W[c], Gh.T @ X[rs]
+                    dX[rs] += dx
+                    dW[c] += dw
+            for j, t in enumerate((dX.double(), dW.double())):
+                s1[j] += t
+                s2[j] += t * t
+                dots[2 * j].append((t * exact[j]).sum() / exact[j].norm())
+                dots[2 * j + 1].append((t * proj[j]).sum())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        f = (1 - p) / p
+        G2, X2, W2 = G.double() ** 2, X.double() ** 2, W.double() ** 2
+        var = ((f * G2 @ W2).sum() if method == "per_element"
+               else (f * (G.double() @ W.double()) ** 2).sum(), (f * G2.T @ X2).sum())
+        worst_t, ratios = 0.0, []
+        for j, name in enumerate(("dX", "dW")):
+            for q, ref in ((2 * j, (exact[j] * exact[j]).sum() / exact[j].norm()),
+                           (2 * j + 1, (exact[j] * proj[j]).sum())):
+                v = torch.stack(dots[q])
+                t = ((v.mean() - ref).abs() / (v.std() / SM_DRAWS ** 0.5)).item()
+                worst_t = max(worst_t, t)
+                if not t <= SM_SIGMAS:
+                    raise AssertionError(f"[split-methods] (c) {method} {name}: the mean of "
+                                         f"{SM_DRAWS} mesh draws is {t:.2f} sigma from exact")
+            mean = s1[j] / SM_DRAWS
+            tot = ((s2[j] / SM_DRAWS - mean * mean) * SM_DRAWS / (SM_DRAWS - 1)).sum().item()
+            ratios.append(tot / var[j].item())
+            if not abs(ratios[-1] - 1) <= SM_VAR_RTOL:
+                raise AssertionError(f"[split-methods] (c) {method} {name}: summed variance "
+                                     f"{ratios[-1]:.4f} x the analytic")
+        lines.append(f"{method} largest |mean - exact| {worst_t:.2f} sigma (limit "
+                     f"{SM_SIGMAS:g}), summed variance dX / dW {ratios[0]:.4f} / "
+                     f"{ratios[1]:.4f} x the analytic ({secs:.1f} s)")
+    print(f"[split-methods] (c) [{N}, {n}] x d {d}, budget 0.5, an emulated {SM_MESH} mesh, "
+          f"column split, {SM_DRAWS} draws by the fold rule (W masks folded by the model rank, "
+          f"X masks and row gates by the data rank), projected on the exact gradient and on "
+          f"random signs: " + "; ".join(lines))
+
+
+def split_methods(dev, gen):
+    """Phase 24 (module docstring). Returns the launches of the emulated
+    ranks' parts."""
+    t_phase = time.perf_counter()
+    N, D = SM_N, SM_D
+    G = torch.randn((N, D), generator=gen, device=dev)
+    G = G * torch.rand((D,), generator=gen, device=dev)  # uneven column scores
+    X = torch.randn((N, D), generator=gen, device=dev)
+    W = torch.randn((D, D), generator=gen, device=dev) * D ** -0.5
+    total = {}
+    sm_gsv(dev, G, X, W, total)
+    sm_rcs(dev, G, W)
+    del G, X, W
+    torch.cuda.empty_cache()
+    sm_drawn(dev)
+    print(f"[time]   split methods {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def lm100m_impls(dev):
     """Phase 22 (e): lm-100m's main-path step (block-128 l1@0.2 ``pallas``,
     AdamW, remat "full", 8 x 256) with the chunked and the einsum attention,
@@ -5740,7 +5989,7 @@ def main() -> int:
 
 def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, stream_rows,
                flash_rows) -> int:
-    """Phases 4 to 23 (module docstring)."""
+    """Phases 4 to 24 (module docstring)."""
     t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
@@ -5847,6 +6096,11 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
     for name, n in split_counts.items():
         launches[name] += n
     print(f"[time] the split compact backends {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    method_counts = split_methods(dev, gen)
+    for name, n in method_counts.items():
+        launches[name] += n
+    print(f"[time] the split sketch methods {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -5905,7 +6159,8 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
           f"(phase 22 (d), (e): yi-6b's and lm-100m's chunked and einsum steps): "
           f"{json.dumps(attn_counts)}; the split compact backends (phase 23: the 16 "
           f"emulated ranks' parts, column and row shards, per backend): "
-          f"{json.dumps(split_counts)}")
+          f"{json.dumps(split_counts)}; the split sketch methods (phase 24 (a): gsv's 16 "
+          f"emulated column shards' parts): {json.dumps(method_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -61,15 +61,18 @@ Under a mesh (``launch/mesh.py``) a site runs on this rank's shards. Its
   scores of a column-parallel site are all-gathered over model after their
   sum over data and each rank keeps its chunk of the gate; a row-parallel
   site holds the whole G (``launch.mesh.Axes``' ``cols`` and ``rows``).
-  The ``mask`` backend runs there, and the compact ones (``compact``,
-  ``pallas``, ``onepass``, ``stale``): a row-parallel site's backward is
-  the single device's on its chunk of d_in; a column-parallel site runs
-  its part of the whole width's plan
+  The ``mask`` backend runs there, with every method (``gsv`` gathers G's
+  columns, ``rcs`` the whole width's Γ and W Wᵀ, ``per_element`` and
+  ``per_sample`` draw by the fold rule, ``rng.fold_generator``), and the
+  compact ones (``compact``, ``pallas``, ``onepass``, ``stale``): a
+  row-parallel site's backward is the single device's on its chunk of
+  d_in; a column-parallel site runs its part of the whole width's plan
   (``core.sketched_linear.split_backward``), its dense dW the rows of its
   shard, its gradient slot the whole plan's rows with zeros where another
   shard's columns lie (``core.compact_grad.localize_compact`` keeps its
   own), and a plan carry is the whole width's, refreshed from every
-  shard's columns.
+  shard's columns. A site on any other registered backend keeps
+  the gathered weight (``nn.common.Ctx.split_kind``).
 * ``tp_column`` / ``tp_row`` / ``tp_exact``: JAX's ``shard_map`` bodies
   (``repro/core/site.py:420-628``) on local tensors (:class:`TPSiteFn`): the
   weight's model shard stays local; the column plan folds the site seed with
@@ -78,7 +81,9 @@ Under a mesh (``launch/mesh.py``) a site runs on this rank's shards. Its
   all-reduced over model on the column plan; the compact dW block is reduced
   over the data axes: reduce-scattered along d_in where the weight's d_in is
   sharded over data (the compressed DP gradient collective), all-reduced
-  otherwise and on the row plan, whose weight shards its rows over data;
+  otherwise; the row plan's, as JAX's, summed over ``dp[:-1]``,
+  reduce-scattered along d_in over ``dp[-1]`` and each kept row moved to
+  the data rank whose shard holds it (:func:`_rows_to_owners`);
   with a gradient slot the rows and their GLOBAL indices are all-gathered
   over model (the column plan) and the step keeps the rows of this rank's
   shard; db is all-reduced over data; the probe is computed in the body and
@@ -603,7 +608,8 @@ def split_kind(w, mesh, data_axes, model_axes) -> Optional[str]:
     return None
 
 
-# the backends a local-plan site runs on a model axis of several ranks
+# the backends a local-plan site runs on its model shard (split); a site on
+# any other registered backend keeps the gathered weight (nn.common.Ctx.split_kind)
 MODEL_SPLIT_BACKENDS = frozenset({"mask", "compact", "pallas", "onepass", "stale"})
 
 
@@ -611,32 +617,30 @@ def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gsl
               pslot=None, compact_rows=None, reduce_grad=True, split=None, partial=False):
     """A local-plan site under a mesh: this rank's rows of the batch, the
     single-device numbers (module docstring). Exact (``cfg`` None or no
-    generator) through plain autograd. A sketched site on a model axis of
-    several ranks runs the backends of :data:`MODEL_SPLIT_BACKENDS` (any
-    other raises), split or gathered.
+    generator) through plain autograd.
 
     ``split`` (:func:`split_kind`): the site computes on its stored model
-    shard, column- or row-parallel (:func:`_split_site`); ``partial``: the
-    column-parallel dX or the row-parallel output is left this rank's
-    partial sum for the block's mover (``models/lm.py``). Otherwise the
-    weight is gathered whole. ``reduce_grad=False`` (a tied head's table,
-    sharded over model only): the weight is not gathered over data and its
-    gradient is left this rank's partial sum over data, for the train step
-    to sum with the table's other uses."""
+    shard, column- or row-parallel (:func:`_split_site`; a backend outside
+    :data:`MODEL_SPLIT_BACKENDS` is never split); ``partial``: the column-parallel dX or
+    the row-parallel output is left this rank's partial sum for the block's
+    mover (``models/lm.py``). Otherwise the weight is gathered whole.
+    ``reduce_grad=False`` (a tied head's table, sharded over model only):
+    the weight is not gathered over data and its gradient is left this
+    rank's partial sum over data, for the train step to sum with the
+    table's other uses."""
     from repro_torch.launch.sharding import spec_of
 
-    if (cfg is not None and not cfg.is_noop and gen is not None
-            and mesh.axis_size(model_axes) > 1 and cfg.backend not in MODEL_SPLIT_BACKENDS):
-        raise NotImplementedError(
-            f"backend {cfg.backend!r} on a local-plan site with a model axis of "
-            f"{mesh.axis_size(model_axes)} ranks is not ported (ROADMAP.md, Queue 1 "
-            "item 2b): use tp_sketch=True, a built-in backend, or a data-only mesh")
     sketched = cfg is not None and not cfg.is_noop and gen is not None
     if sketched and gslot is not None and compact_rows != gslot.r:
         raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
                          f"{compact_rows} compact rows ({cfg.backend!r})")
     if split is not None:
-        return _split_site(cfg, x, w, b, gen, mesh, tuple(data_axes), split, sslot=sslot,
+        if b is not None:
+            raise NotImplementedError("a biased site split over the model axis")
+        if sketched and cfg.backend not in MODEL_SPLIT_BACKENDS:
+            raise ValueError(f"backend {cfg.backend!r} runs on the gathered weight, not "
+                             "split (nn.common.Ctx.split_kind)")
+        return _split_site(cfg, x, w, gen, mesh, tuple(data_axes), split, sslot=sslot,
                            gslot=gslot, pslot=pslot, reduce_grad=reduce_grad, partial=partial)
     wf = gather_param(w, mesh, data_axes) if reduce_grad else _gather_model(w, mesh,
                                                                             data_axes)
@@ -647,7 +651,14 @@ def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gsl
     return SketchedLinearFn.apply(x, wf, bf, sslot, pslot, cfg, gen, gslot, env)
 
 
-def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, sslot, gslot, pslot, reduce_grad,
+def _split_axes(w, data_axes, column):
+    """The model axes a split weight's model-sharded dimension is over."""
+    from repro_torch.launch.sharding import dim_axes, spec_of
+
+    return tuple(a for a in dim_axes(spec_of(w)[0 if column else 1]) if a not in data_axes)
+
+
+def _split_site(cfg, x, w, gen, mesh, data_axes, split, *, sslot, gslot, pslot, reduce_grad,
                 partial):
     """:func:`mesh_site` on the weight's model shard. Column-parallel: ``x``
     whole (replicated over model) enters through ``copy_to`` (dX summed over
@@ -657,13 +668,11 @@ def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, sslot, gslot, pslo
     whole width's plan (:class:`MeshEnv`); the slots are the whole width's
     (module docstring). The sharding rules split no biased weight."""
     from repro_torch.launch import mesh as m
-    from repro_torch.launch.sharding import dim_axes, spec_of
+    from repro_torch.launch.sharding import spec_of
 
-    if b is not None:
-        raise NotImplementedError("a biased site split over the model axis")
     spec = spec_of(w)
     column = split == "column"
-    mp = tuple(a for a in dim_axes(spec[0 if column else 1]) if a not in data_axes)
+    mp = _split_axes(w, data_axes, column)
     wl = gather_fsdp(w, mesh, data_axes) if reduce_grad else w
     if column and not partial:
         x = m.copy_to(x, mp, mesh)
@@ -841,25 +850,36 @@ def _tp_sketch_bwd(ctx, x, w_l, g):
         dx = m.psum(dx, mp, mesh)  # the standard TP backward all-reduce
     dWc = Gc.t().to(torch.float32) @ X2d.to(torch.float32)
     # the compressed DP gradient collective: the COMPACT block (about budget
-    # x the dense volume) reduced over the data axes; reduce-scattered along
-    # d_in where the weight shards d_in over them. The row plan's weight
-    # shards its ROWS over data, so its block is all-reduced and each rank
-    # keeps the rows it holds.
-    sc = _din_scatter_axes(ctx, dp) if column else ()
-    dWc = m.psum_scatter(dWc, sc, mesh, scatter_dimension=1) if sc else m.psum(dWc, dp, mesh)
+    # x the dense volume) reduced over the data axes, reduce-scattered along
+    # d_in where the weight shards d_in over them. The row plan's block, as
+    # in JAX: summed over dp[:-1], reduce-scattered along d_in over dp[-1],
+    # and each kept row moved to the data rank whose shard holds it
+    # (:func:`_rows_to_owners`); all-reduced where that cannot be, and for a
+    # gradient slot, which holds every kept row (docs/port.md, ``tp_row``)
+    if column:
+        sc = _din_scatter_axes(ctx, dp)
+        dWc = m.psum_scatter(dWc, sc, mesh, scatter_dimension=1) if sc else m.psum(dWc, dp, mesh)
+        rows = dWc
+    else:
+        sc = () if ctx.gslot is not None else _row_scatter_axes(ctx, dp, dWc.shape[1])
+        if sc:
+            dWc = m.psum_scatter(m.psum(dWc, dp[:-1], mesh), sc, mesh, scatter_dimension=1)
+            rows = _rows_to_owners(dWc, idx, mesh, dp, ctx.w_shape[0])
+        else:
+            dWc = rows = m.psum(dWc, dp, mesh)
     dw = None
     if ctx.gslot is not None:
         if column:
             gidx = mi * n_loc + idx
             ctx.gslot.put(m.all_gather(dWc, mp, mesh, axis=0), m.all_gather(gidx, mp, mesh))
         else:
-            ctx.gslot.put(dWc, idx)
+            ctx.gslot.put(rows, idx)
     elif column:
         dw = torch.zeros(ctx.w_shape, dtype=ctx.w_dtype, device=g.device).index_add_(
             0, idx, dWc.to(ctx.w_dtype))
     else:
         lo = m.axis_index(mesh, dim_axes(ctx.wspec[0])) * ctx.w_shape[0]
-        dw = _rows_into_shard(dWc, idx, lo, ctx.w_shape, spec.d_out, ctx.w_dtype)
+        dw = _rows_into_shard(rows, idx, lo, ctx.w_shape, spec.d_out, ctx.w_dtype)
     db = None
     if ctx.has_b:
         # db from the same kept-column stream: unbiased, E[Ĝ | G] = G
@@ -883,6 +903,52 @@ def _tp_sketch_bwd(ctx, x, w_l, g):
             v3 = m.psum(v3, mp, mesh)
         probe = torch.cat([v3, torch.ones(1, dtype=torch.float32, device=g.device)])
     return dx, dw, db, probe
+
+
+def _row_scatter_axes(ctx, dp, d_in_loc: int) -> tuple:
+    """The axis the row plan reduce-scatters its compact block over, as
+    JAX's ``_tp_sketch_bwd``: the last data axis, where it has several
+    ranks, divides the block's d_in and the weight's rows are sharded over
+    the data axes (the owners :func:`_rows_to_owners` moves them to); ()
+    otherwise (the block all-reduced)."""
+    from repro_torch.launch.sharding import dim_axes
+
+    mesh = ctx.spec.plan.mesh
+    if not dp or mesh.axis_size(dp[-1]) == 1 or d_in_loc % mesh.axis_size(dp[-1]):
+        return ()
+    return (dp[-1],) if mesh.axes(dim_axes(ctx.wspec[0])) == mesh.axes(dp) else ()
+
+
+def _rows_to_owners(part, idx, mesh, dp, size: int):
+    """The row plan's compact block ``part [R, d_in_loc / n]``, summed over
+    the data axes and reduce-scattered along d_in over ``dp[-1]`` (``n``
+    ranks), to the layout of the weight shards, which hold the rows
+    ``[k size, (k + 1) size)`` at their index ``k`` over ``dp``: each kept
+    row's chunks moved to the rank of ``dp[-1]`` whose shard holds it (the
+    reshard GSPMD performs after JAX's ``out_specs``), one all-to-all.
+
+    Static shapes: the plan's indices ``idx`` ascend, so a shard's kept rows
+    are one run of them (``searchsorted``), at most ``m = min(R, size)``;
+    each rank sends every owner ``m`` rows of its chunk, zeros past the run.
+    Returns ``[R, d_in_loc]`` in the plan's layout: this shard's rows, zero
+    rows where another shard's lie (``_rows_into_shard`` keeps this
+    shard's)."""
+    from repro_torch.launch import mesh as m
+
+    R, chunk = part.shape
+    n = mesh.axis_size(dp[-1])
+    cap = min(R, size)
+    dev = part.device
+    first = m.axis_index(mesh, dp[:-1]) * n  # the index over dp of the group's first shard
+    starts = (first + torch.arange(n + 1, dtype=idx.dtype, device=dev)) * size
+    bounds = torch.searchsorted(idx, starts)
+    pos = bounds[:-1, None] + torch.arange(cap, dtype=idx.dtype, device=dev)[None, :]
+    valid = pos < bounds[1:, None]  # [n, cap]: owner k's rows are a run of the plan
+    send = torch.where(valid[..., None], part[pos.clamp(max=R - 1)], part.new_zeros(()))
+    got = m.all_to_all(send.reshape(n * cap, chunk), dp[-1], mesh, split_axis=0, concat_axis=1)
+    me = m.axis_index(mesh, dp[-1])
+    dest = torch.where(valid[me], pos[me], torch.full_like(pos[me], R))
+    return got.new_zeros(R + 1, got.shape[1]).index_copy_(0, dest, got)[:R]
 
 
 def _rows_into_shard(rows, idx, lo: int, shape, total: int, dtype):

@@ -21,14 +21,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch import rng
 from repro_torch.core import estimators
 from repro_torch.core.estimators import EstimatorVJP
 from repro_torch.core.scores import kernel_reduction_mode, scores_from_kernel_reduction
-from repro_torch.core.sketching import (COLUMN_METHODS, SketchConfig, _width, column_plan,
-                                        column_plan_from_scores, effective_cfg,
-                                        sketch_dense, static_block_rank, static_rank)
+from repro_torch.core.sketching import (COLUMN_METHODS, TAG_MASK_W, TAG_MASK_X, SketchConfig,
+                                        _width, column_plan, column_plan_from_scores,
+                                        effective_cfg, sketch_dense, static_block_rank,
+                                        static_rank)
 
-__all__ = ["sketched_linear", "linear", "block_cols", "split_backward"]
+__all__ = ["sketched_linear", "linear", "block_cols", "split_backward", "per_element"]
 
 
 def with_probe(out: EstimatorVJP, plan) -> EstimatorVJP:
@@ -51,18 +53,22 @@ def _same(t):
     return t
 
 
-def _no_shared_plan(cfg, score_psum_axes) -> None:
-    """Raise for a method whose draws follow the local batch's or weight's
-    shape (per-element masks, per-sample gates, rcs) on a data axis of
-    several ranks or on a site split over model: its plan cannot be the one
-    of the whole batch and width."""
-    if (score_psum_axes is not None
-            and (score_psum_axes.size > 1 or score_psum_axes.split)
-            and cfg.method not in COLUMN_METHODS and not cfg.is_noop):
-        raise NotImplementedError(
-            f"method {cfg.method!r} on a data-sharded mesh or a model-split local plan is not "
-            "ported (ROADMAP.md, Queue 1 item 2b): only the column-family methods share one "
-            "plan across data replicas and model shards")
+def per_element(cfg, G2d, X2d, w, gen, *, has_b, w_folds=(), x_folds=()) -> EstimatorVJP:
+    """Alg. 3: independent Bernoulli(p) element masks on W (for dX) and X
+    (for dW), each rescaled by 1/p; the bias gradient stays exact. Under a
+    mesh the masks follow the fold rule (``rng.fold_generator``):
+    ``w_folds`` are this rank's indices along the axes that shard ``w`` (a
+    model split's rank; a weight gathered whole has none, its mask shared by
+    every rank), ``x_folds`` those that shard ``X2d`` (the data rank of its
+    rows, and the model rank of a row split's d_in chunk). With neither,
+    both masks come from ``gen`` in turn: the single device's draws."""
+    p = cfg.budget
+    mw = torch.bernoulli(torch.full_like(w, p),
+                         generator=rng.fold_generator(gen, TAG_MASK_W, w_folds))
+    mx = torch.bernoulli(torch.full_like(X2d, p),
+                         generator=rng.fold_generator(gen, TAG_MASK_X, x_folds))
+    return EstimatorVJP(dx=(G2d @ (w * mw)) / p, dw=(G2d.T @ (X2d * mx)) / p,
+                        db=G2d.sum(0) if has_b else None)
 
 
 class _MaskEstimator(estimators.Estimator):
@@ -72,16 +78,12 @@ class _MaskEstimator(estimators.Estimator):
     supports_compact_grad = False
 
     def apply(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
-        _no_shared_plan(cfg, score_psum_axes)
         if cfg.method == "per_element":
-            # Alg. 3: independent element masks on W (for dX) and X (for dW);
-            # the bias gradient stays exact.
-            p = cfg.budget
-            mw = torch.bernoulli(torch.full_like(w, p), generator=gen)
-            mx = torch.bernoulli(torch.full_like(X2d, p), generator=gen)
-            return EstimatorVJP(dx=(G2d @ (w * mw)) / p,
-                                dw=(G2d.T @ (X2d * mx)) / p,
-                                db=G2d.sum(0) if has_b else None)
+            axes, kw = score_psum_axes, {}
+            if axes is not None:  # this rank's place on the mesh
+                kw = {"w_folds": axes.model_fold(),
+                      "x_folds": axes.data_fold() + (axes.model_fold() if axes.rows else ())}
+            return per_element(cfg, G2d, X2d, w, gen, has_b=has_b, **kw)
         Ghat = sketch_dense(cfg, G2d, w, gen, score_psum_axes)
         return EstimatorVJP(dx=Ghat @ w, dw=Ghat.T @ X2d,
                             db=Ghat.sum(0) if has_b else None)

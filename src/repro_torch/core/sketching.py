@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import rng
 from repro_torch.core import solver
 from repro_torch.core.scores import SCORE_METHODS, column_scores, summed_column_scores
 
@@ -35,6 +36,9 @@ __all__ = [
     "sketch_dense",
     "RcsPlan",
     "rcs_plan",
+    "rcs_plan_from",
+    "rcs_mesh_plan",
+    "row_gate",
     "apply_rcs_directions",
     "apply_rcs",
 ]
@@ -148,15 +152,14 @@ def _proxy_scores(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor
     SAME plan from the shared seed: the paper's batch-shared sketch, which
     the compressed gradient collective needs. A site split over model (its
     ``cols`` or ``rows``) gets the whole width's scores: each column's score
-    is its own, so this rank's are all-gathered; ``gsv`` mixes columns and
-    is not ported there."""
+    is its own, so this rank's are all-gathered; ``gsv`` mixes columns (its
+    GᵀG spans the width), so on a column split G's columns are gathered
+    first and every rank scores the whole width."""
     base = cfg.method[:-3] if cfg.method.endswith("_sq") else cfg.method
     axes = score_psum_axes
-    if axes is not None and axes.n_cols > 1 and base == "gsv":
-        raise NotImplementedError(
-            "the gsv score on a column-split local plan is not ported (ROADMAP.md, Queue 1 "
-            "item 2b): its GᵀG spans every column")
     psum = (lambda t: t) if axes is None else axes.psum
+    if axes is not None and axes.n_cols > 1 and base == "gsv":
+        return summed_column_scores(cfg.method, axes.gather_cols(G2d), W, psum)
     if cfg.backend == "pallas" and base in ("l1", "l2"):
         from repro_torch.kernels import ops as kops
 
@@ -339,41 +342,97 @@ class RcsPlan:
     r: int
 
 
+def rcs_plan_from(cfg: SketchConfig, gamma: torch.Tensor, wwt: torch.Tensor) -> RcsPlan:
+    """:func:`rcs_plan` from G's column covariance ``gamma`` (``Γ = GᵀG /
+    N``, [n, n]) and ``wwt`` (``W Wᵀ``, [n, n]) of the whole batch and
+    width: the half of the plan that a mesh's ranks compute alike from
+    all-reduced inputs (:func:`rcs_mesh_plan`)."""
+    half, inv_half = _sym_sqrt_invsqrt(gamma, cfg.ridge)
+    # JᵀJ = W Wᵀ in the row convention
+    evals, U = torch.linalg.eigh(half @ wwt @ half)  # ascending
+    r = static_rank(cfg, gamma.shape[0])
+    probs = solver.optimal_probabilities(evals.clamp_min(0.0), r)
+    return RcsPlan(U=U, probs=probs, half=half, inv_half=inv_half, r=r)
+
+
 def rcs_plan(cfg: SketchConfig, G2d: torch.Tensor, W: torch.Tensor) -> RcsPlan:
     """Directions and probabilities of the minimal-distortion rank-r sketch
     (Prop. 3.3): the eigenvectors of ``A = Γ^{1/2} W Wᵀ Γ^{1/2}`` with ``Γ =
     GᵀG / N``, sampled with the optimal probabilities for their eigenvalues.
     ``eigh`` is a library call here as in JAX (``jnp.linalg.eigh``)."""
-    N, n = G2d.shape
-    Gf = G2d.to(torch.float32)
-    half, inv_half = _sym_sqrt_invsqrt((Gf.T @ Gf) / N, cfg.ridge)
+    N = G2d.shape[0]
+    Gf, Wf = G2d.to(torch.float32), W.to(torch.float32)
+    return rcs_plan_from(cfg, (Gf.T @ Gf) / N, Wf @ Wf.T)
+
+
+def rcs_mesh_plan(cfg: SketchConfig, G2d: torch.Tensor, W: torch.Tensor, axes):
+    """The whole batch's and width's :class:`RcsPlan` on a mesh rank, and
+    the whole width's columns of this rank's rows of G (float32). ``axes``
+    (:class:`~repro_torch.launch.mesh.Axes`): ``Γ``'s Gram and row count
+    summed over the data axes; on a column split G's columns and W's rows
+    all-gathered over model, on a row split ``W Wᵀ`` summed over model from
+    each rank's chunk of d_in. Every rank eigendecomposes the same
+    all-reduced bits, so all keep the same directions."""
+    from repro_torch.launch.mesh import all_gather
+
+    Gw = axes.gather_cols(G2d).to(torch.float32)
+    rows = axes.psum(torch.full((), float(G2d.shape[0]), dtype=torch.float32,
+                                device=G2d.device))
     Wf = W.to(torch.float32)
-    # JᵀJ = W Wᵀ in the row convention
-    evals, U = torch.linalg.eigh(half @ (Wf @ Wf.T) @ half)  # ascending
-    r = static_rank(cfg, n)
-    probs = solver.optimal_probabilities(evals.clamp_min(0.0), r)
-    return RcsPlan(U=U, probs=probs, half=half, inv_half=inv_half, r=r)
+    if axes.cols:
+        Wf = all_gather(Wf, axes.cols, axes.mesh, axis=0)
+    wwt = Wf @ Wf.T
+    if axes.rows:
+        wwt = axes.row_sum(wwt)
+    return rcs_plan_from(cfg, axes.psum(Gw.T @ Gw) / rows, wwt), Gw
 
 
-def apply_rcs_directions(G2d: torch.Tensor, plan: RcsPlan, idx: torch.Tensor) -> torch.Tensor:
+def apply_rcs_directions(G2d: torch.Tensor, plan: RcsPlan, idx: torch.Tensor, *,
+                         lo: int = 0, n_loc: Optional[int] = None) -> torch.Tensor:
     """``Ĝ = ((G Γ^{-1/2}) U_sel ⊙ 1/p_sel) (U_selᵀ Γ^{1/2})`` for the sampled
     directions ``idx`` ([r] int): O(N n r + n² r), never the n × n
-    operator."""
+    operator. ``lo``/``n_loc``: only Ĝ's columns ``[lo, lo + n_loc)`` (a
+    column shard's; ``G2d`` still the whole width's). An eigenvector's sign
+    cancels between the two factors."""
     d_sel = 1.0 / plan.probs[idx].clamp_min(1e-20)  # z/p on the kept directions
     U_sel = plan.U[:, idx]
+    half = plan.half if n_loc is None else plan.half[:, lo:lo + n_loc]
     Ghat = ((G2d.to(torch.float32) @ (plan.inv_half @ U_sel)) * d_sel[None, :]) \
-        @ (U_sel.T @ plan.half)
+        @ (U_sel.T @ half)
     return Ghat.to(G2d.dtype)
 
 
 def apply_rcs(cfg: SketchConfig, G2d: torch.Tensor, W: torch.Tensor,
-              gen: torch.Generator) -> torch.Tensor:
+              gen: torch.Generator, score_psum_axes=None) -> torch.Tensor:
     """``Ĝ = G R*ᵀ`` with ``R*`` from Prop. 3.3, directions drawn from ``gen``
-    (exact-r)."""
-    plan = rcs_plan(cfg, G2d, W)
-    if plan.r >= G2d.shape[1]:
+    (exact-r). Under a mesh (``score_psum_axes``) the plan is the whole
+    batch's and width's (:func:`rcs_mesh_plan`), the directions drawn from
+    the unfolded seed on every rank, and Ĝ this rank's rows and columns."""
+    if score_psum_axes is None:
+        plan, Gw, lo, n_loc = rcs_plan(cfg, G2d, W), G2d, 0, None
+    else:
+        plan, Gw = rcs_mesh_plan(cfg, G2d, W, score_psum_axes)
+        n_loc = G2d.shape[1]
+        lo = score_psum_axes.col_offset(n_loc)
+    if plan.r >= Gw.shape[1]:
         return G2d
-    return apply_rcs_directions(G2d, plan, solver.sample_exact_r(gen, plan.probs, plan.r))
+    idx = solver.sample_exact_r(gen, plan.probs, plan.r)
+    return apply_rcs_directions(Gw, plan, idx, lo=lo, n_loc=n_loc).to(G2d.dtype)
+
+
+# the fold rule's tags (``rng.fold_generator``): which of a site's random
+# tensors a folded seed draws
+TAG_MASK_W, TAG_MASK_X, TAG_ROW_GATE = 1, 2, 3
+
+
+def row_gate(cfg: SketchConfig, N: int, gen: torch.Generator, device, folds=()) -> torch.Tensor:
+    """Alg. 4's ``[N]`` gate ``z / p``, one Bernoulli draw per (flattened)
+    sample row. ``folds``: this rank's index over the data axes the rows
+    are sharded over (the fold rule; none on one device, where the gate is
+    ``gen``'s draw)."""
+    z = torch.bernoulli(torch.full((N,), cfg.budget, device=device),
+                        generator=rng.fold_generator(gen, TAG_ROW_GATE, folds))
+    return z / cfg.budget
 
 
 def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor],
@@ -381,19 +440,21 @@ def sketch_dense(cfg: SketchConfig, G2d: torch.Tensor, W: Optional[torch.Tensor]
     """The full-size unbiased surrogate ``Ĝ`` (``E[Ĝ|G] = G``).
 
     ``per_element`` masks W and X, not G, and is handled by the mask
-    estimator.
+    estimator. Under a mesh (``score_psum_axes``) ``per_sample``'s gate
+    follows the fold rule: drawn per data shard of the rows, shared by the
+    model ranks (G's rows are the same on each); ``rcs`` takes the whole
+    batch's and width's plan (:func:`apply_rcs`).
     """
     if cfg.is_noop:
         return G2d
-    N = G2d.shape[0]
     if cfg.method == "per_sample":
-        # Alg. 4: Bernoulli gate per (flattened) sample row.
-        z = torch.bernoulli(torch.full((N,), cfg.budget, device=G2d.device), generator=gen)
-        return G2d * (z / cfg.budget).to(G2d.dtype)[:, None]
+        folds = () if score_psum_axes is None else score_psum_axes.data_fold()
+        gate = row_gate(cfg, G2d.shape[0], gen, G2d.device, folds)
+        return G2d * gate.to(G2d.dtype)[:, None]
     if cfg.method == "rcs":
         if W is None:
             raise ValueError("RCS requires the layer weight W")
-        return apply_rcs(cfg, G2d, W, gen)
+        return apply_rcs(cfg, G2d, W, gen, score_psum_axes)
     gate = column_gate(cfg, G2d, W, gen, score_psum_axes)
     if score_psum_axes is not None:
         gate = score_psum_axes.narrow(gate)  # this rank's columns of a split site

@@ -18,6 +18,7 @@ JAX                       here
 ``pmax(x, axes)``         :func:`pmax`: ``all_reduce`` (max)
 ``psum_scatter(tiled)``   :func:`psum_scatter`: ``reduce_scatter_tensor``
 ``all_gather(tiled)``     :func:`all_gather`: ``all_gather_into_tensor``
+``all_to_all(tiled)``     :func:`all_to_all`: ``all_to_all_single``
 ``axis_index(axes)``      :func:`axis_index` (``get_local_rank`` per axis)
 ========================  ==========================================
 
@@ -33,8 +34,9 @@ tests and the card see the compressed DP gradient collective. Beside the
 payload it counts the WIRE bytes of each call under its HLO kind, JAX's
 ring model at the call's group size (``launch.hlo_analysis.wire_bytes``:
 all-reduce 2(n-1)/n of the buffer, ``pmax`` included; all-gather (n-1)/n
-of the gathered output; reduce-scatter (n-1) x the scattered output); a
-call on a one-rank group puts nothing on the wire.
+of the gathered output; reduce-scatter (n-1) x the scattered output;
+all-to-all (n-1)/n of the buffer); a call on a one-rank group puts nothing
+on the wire.
 
 Defined as functions: importing this module touches no process group.
 """
@@ -50,15 +52,16 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "Axes", "layout", "make_mesh", "make_production_mesh", "dp_axes", "mp_axes",
-           "psum", "pmax", "psum_scatter", "all_gather", "axis_index", "chunk_of", "collective_bytes",
-           "reset_collective_bytes", "gather_replicated",
+           "psum", "pmax", "psum_scatter", "all_gather", "all_to_all", "axis_index", "chunk_of",
+           "collective_bytes", "reset_collective_bytes", "gather_replicated",
            "slice_replicated", "copy_to", "reduce_from", "psum_partial", "pmean_shared",
            "split_partial", "gather_partial", "scatter_partial"]
 
-_BYTES: Dict[str, int] = {"psum": 0, "pmax": 0, "psum_scatter": 0, "all_gather": 0}
+_BYTES: Dict[str, int] = {"psum": 0, "pmax": 0, "psum_scatter": 0, "all_gather": 0,
+                          "all_to_all": 0}
 # the HLO kind each wrapper is, for its wire bytes
 _KIND = {"psum": "all-reduce", "pmax": "all-reduce", "psum_scatter": "reduce-scatter",
-         "all_gather": "all-gather"}
+         "all_gather": "all-gather", "all_to_all": "all-to-all"}
 _WIRE: Dict[str, float] = {k: 0.0 for k in set(_KIND.values())}
 _CALLS: Dict[str, int] = {k: 0 for k in _WIRE}
 
@@ -171,6 +174,24 @@ class Axes:
     def row_sum(self, t: torch.Tensor) -> torch.Tensor:
         """A partial sum over this rank's chunk of d_in, completed."""
         return psum(t, self.rows, self.mesh)
+
+    def gather_cols(self, G2d: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of G ``[N, n / n_cols]`` -> the whole
+        width's ``[N, n]``, all-gathered over the split's model axes (a
+        method whose statistics mix columns: ``gsv``, ``rcs``)."""
+        return all_gather(G2d, self.cols, self.mesh, axis=1) if self.cols else G2d
+
+    def data_fold(self) -> tuple:
+        """This rank's index over the data axes, folded into the seed of a
+        draw sharded over them (the fold rule, ``rng.fold_generator``); ()
+        on one data rank."""
+        return (axis_index(self.mesh, self.names),) if self.size > 1 else ()
+
+    def model_fold(self) -> tuple:
+        """This rank's index over the split's model axes, for a draw sharded
+        over them; () without a split."""
+        model = self.cols or self.rows
+        return (axis_index(self.mesh, model),) if model else ()
 
     def __repr__(self):
         return f"Axes({self.names}, cols={self.cols}, rows={self.rows})"
@@ -346,6 +367,28 @@ def all_gather(x: torch.Tensor, axes, mesh: Mesh, *, axis: int = 0,
     # contiguous in the input's layout, so what reads it reduces in the
     # single-device order
     return out.movedim(0, d).contiguous()
+
+
+def all_to_all(x: torch.Tensor, axes, mesh: Mesh, *, split_axis: int = 0,
+               concat_axis: int = 0, tiled: bool = True) -> torch.Tensor:
+    """``split_axis`` cut into one chunk per rank of ``axes``, chunk ``j``
+    sent to rank ``j``; the chunks received concatenated along
+    ``concat_axis`` in rank order (tiled)."""
+    if not tiled:
+        raise NotImplementedError("all_to_all is ported with tiled=True only")
+    if not mesh.axes(axes):
+        return x
+    n = mesh.axis_size(axes)
+    _count("all_to_all", x, n)
+    if n == 1:
+        return x
+    d = split_axis % x.dim()
+    src = x.movedim(d, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"all_to_all: dim {d} of {tuple(x.shape)} does not split {n} ways")
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group(axes))
+    return torch.cat([c.movedim(0, d) for c in out.chunk(n, 0)], dim=concat_axis % x.dim())
 
 
 def chunk_of(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:

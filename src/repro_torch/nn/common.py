@@ -122,11 +122,18 @@ class Ctx:
         """Where a local-plan site ``role`` of weight ``w`` computes on its
         model shard (``tp_sketch`` off, a model axis of several ranks):
         ``"column"`` or ``"row"`` (``core.site.split_kind``); else None.
-        Mamba2's projections (:data:`GATHERED_ROLES`) keep the gathered
-        weight."""
+        Mamba2's projections (:data:`GATHERED_ROLES`) and a site sketched on
+        a registered backend outside ``core.site.MODEL_SPLIT_BACKENDS``
+        keep the gathered weight (the whole width, as GSPMD runs JAX's
+        ``_local_bwd`` for any estimator in its registry)."""
         if self.mesh is None or self.tp_sketch or role in GATHERED_ROLES:
             return None
-        from repro_torch.core.site import split_kind
+        from repro_torch.core.site import MODEL_SPLIT_BACKENDS, split_kind
+
+        cfg = self.cfg_for(role)
+        if (cfg is not None and not cfg.is_noop and self.key is not None
+                and cfg.backend not in MODEL_SPLIT_BACKENDS):
+            return None
 
         return split_kind(w, self.mesh, tuple(self.data_axes), tuple(self.model_axes))
 

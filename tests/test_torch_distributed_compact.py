@@ -43,9 +43,25 @@ On (2, 2) the l1 scores are summed over the data ranks in another order
 than one device sums them, so a cumulative probability next to a sampling
 point could move a kept block (``test_torch_distributed_families.py``); with
 blocks of 16 the plans of these configs are the single device's.
+
+The same rank group runs the other sketch methods on yi-6b's split and
+data-sharded local plans (``METHODS``): ``gsv`` (mask, block 16), ``rcs``
+(mask) and a backend registered by the ranks (``TOY``, top-r columns by the
+data-summed l1 score: kept on the gathered weight by ``Ctx.split_kind``),
+one SGD step each
+within :data:`TOL` of the single device's; ``per_element`` and
+``per_sample`` steps whose draws follow the fold rule (a spy on
+``rng.fold_generator`` records each draw's generator state on every rank);
+and the row plan's compact block under ``tp_sketch``, reduce-scattered and
+moved to its owners against the all-reduce it replaced (the same step with
+``core.site._row_scatter_axes`` forced to ``()``), dense and with compact
+gradients (whose slot keeps the all-reduce), at budgets 0.75 and 0.5: the
+parameters within :data:`TOL`, and the row plan's backward wire bytes
+(``collective_bytes()["wire"]`` around each ``tp_row`` backward).
 """
 from __future__ import annotations
 
+import importlib
 import os
 import time
 
@@ -59,7 +75,7 @@ from test_torch_distributed_families import (STEP_SEED, assert_close_leaves, clo
                                              progress, spawn_ranks, updated_rows)
 
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
-ALONE_S = 45  # the rank group's time alone (spawning included; see SLOWDOWN)
+ALONE_S = 55  # the rank group's time alone (spawning included; see SLOWDOWN)
 FAMILIES = ("yi_6b", "zamba2_7b", "qwen2_vl_2b")
 BACKENDS = ("compact", "pallas", "onepass", "stale")
 CARRY = ("onepass", "stale")
@@ -240,6 +256,260 @@ def jax_case_run(inp, out, meshes):
     out["jax_case/loss"] = float(m["loss"])
 
 
+# -- the other sketch methods on the split and data-sharded local plans ----------
+
+METHOD_FAMILY = "yi_6b"
+METHODS = ("gsv", "rcs_step", "toy", "toy_compact", "toy_carry")  # held to the single device's
+# the registered copies of the compact and one-pass backends outside
+# MODEL_SPLIT_BACKENDS: the gathered weight's gradient slots (compact
+# gradients on) and plan carry (two steps)
+TOY_COMPACT, TOY_CARRY = "toy_compact_mesh", "toy_carry_mesh"
+DRAWN = ("per_element", "per_sample")  # held to the fold rule
+TOY = "toy_topr_mesh"
+ROW_BUDGETS = (0.75, 0.5)
+# rcs's plan is a discontinuous function of its inputs: float32 sums in
+# another order (the Gram over the data ranks, W Wᵀ over the d_in chunks, G
+# itself from the layers above) rotate the basis ``eigh`` returns inside a
+# near-degenerate eigenspace of A = Γ^½ W Wᵀ Γ^½, and move a direction's
+# probability across a systematic-sampling point: the same law, other
+# directions (docs/port.md, "Every sketch method on a mesh"). Every rank
+# draws the same directions (``test_rcs_ranks_draw_one_plan``); the step is
+# held to the single device's with rcs on the last layer (the layer below is
+# exact, so the departure cannot compound) and off the sites whose A is
+# rank-deficient (d_out > d_in, 128 x 64: a null space of dimension 64)
+RCS_DEGENERATE = ("mlp_in", "mlp_gate")
+# the second witness of that cause: the single device's step with Γ's Gram
+# summed over the mesh's data chunks of the rows and W Wᵀ over its model
+# chunks of d_in (``reordered_rcs_plan``), the same G and W otherwise. With
+# rcs on every site it departs from the plain single device's step by as
+# much as the mesh's does, within this factor either way; on ``rcs_step``'s
+# sites it stays within TOL, as the mesh's does
+WITNESS_FACTOR = 30
+
+
+class TopR:
+    """A registered backend outside ``MODEL_SPLIT_BACKENDS``: the r columns
+    of largest l1 score over the whole batch (summed over ``score_psum_axes``)
+    and the whole width, rescaled by n / r. Its plan mixes columns, so a
+    site that a split would shard keeps the gathered weight."""
+
+    name = TOY
+    supports_compact_grad = False
+    plan_carry = False
+    tp_shardable = False
+
+    def validate(self, cfg):
+        pass
+
+    def apply(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
+        from repro_torch.core.estimators import EstimatorVJP
+        from repro_torch.core.sketching import static_rank
+
+        n = G2d.shape[1]
+        r = static_rank(cfg, n)
+        s = G2d.abs().sum(0)
+        if score_psum_axes is not None:
+            s = score_psum_axes.psum(s)
+        keep = torch.zeros(n).index_fill_(0, torch.topk(s, r).indices, n / r)
+        Ghat = G2d * keep[None, :]
+        return EstimatorVJP(dx=Ghat @ w, dw=Ghat.T @ X2d, db=Ghat.sum(0) if has_b else None)
+
+    def apply_with_probe(self, cfg, G2d, X2d, w, gen, *, has_b, score_psum_axes=None):
+        return self.apply(cfg, G2d, X2d, w, gen, has_b=has_b, score_psum_axes=score_psum_axes)
+
+
+def method_policy(kind, budget=0.5):
+    from repro_torch.api import SketchConfig, SketchPolicy
+    from repro_torch.core import estimators
+    from repro_torch.core.policy import _DEFAULT_EXCLUDE
+
+    # the module (``repro_torch.core`` re-exports its function of that name)
+    sl = importlib.import_module("repro_torch.core.sketched_linear")
+
+    if kind.startswith("toy"):
+        name, make = {"toy": (TOY, TopR),
+                      "toy_compact": (TOY_COMPACT, sl._CompactEstimator),
+                      "toy_carry": (TOY_CARRY, sl._OnePassEstimator)}[kind]
+        if name not in estimators.registered_backends():
+            estimators.register_estimator(make(), name=name)
+        block = 0 if kind == "toy" else BLOCK
+        return SketchPolicy(base=SketchConfig(method="l1", budget=budget, backend=name,
+                                              block=block))
+    block = BLOCK if kind == "gsv" else 0
+    base = SketchConfig(method=kind.split("_step")[0], budget=budget, backend="mask",
+                        block=block)
+    if kind == "rcs_step":
+        return SketchPolicy(base=base, location="last",
+                            exclude_roles=tuple(_DEFAULT_EXCLUDE) + RCS_DEGENERATE)
+    return SketchPolicy(base=base)
+
+
+def method_step(cfg, params, batch, pol, mesh=None, steps=1, **ex_kw):
+    """``steps`` SGD steps (the batch, then its rows reversed): the
+    parameters after them (whole) and the last loss."""
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.optim import sgd
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    opt = sgd(0.1)
+    ex = ExecutionConfig(mesh=mesh, **ex_kw) if mesh is not None else None
+    st = init_state(0, cfg, opt, params=clone(params), device="cpu", execution=ex, policy=pol)
+    step = make_train_step(cfg, opt, pol, execution=ex, device="cpu")
+    for i, b in enumerate([batch, {k: v.flip(0) for k, v in batch.items()}][:steps]):
+        st, m = step(st, b if mesh is None else shard_batch(b, mesh=mesh), STEP_SEED + i)
+    params = flat(st.params) if mesh is None else gather_whole(st.params, mesh)
+    return {"params": params, "loss": float(m["loss"])}
+
+
+def reordered_rcs_plan(n_rows: int, n_cols: int):
+    """``core.sketching.rcs_plan`` with Γ's Gram summed over ``n_rows``
+    chunks of G's rows and W Wᵀ over ``n_cols`` chunks of d_in: the same
+    sums in a mesh's order, on one device."""
+    from repro_torch.core import sketching
+
+    def plan(cfg, G2d, W):
+        Gf, Wf = G2d.to(torch.float32), W.to(torch.float32)
+        gram = sum(c.T @ c for c in Gf.chunk(n_rows, 0))
+        wwt = sum(c @ c.T for c in Wf.chunk(n_cols, 1))
+        return sketching.rcs_plan_from(cfg, gram / G2d.shape[0], wwt)
+    return plan
+
+
+def method_kw(kind) -> dict:
+    """The toy copies' runs: compact gradients on, and two steps for the
+    carry."""
+    return {"toy_compact": {"compact_grads": True}, "toy_carry": {"steps": 2}}.get(kind, {})
+
+
+def method_runs(inp, out, meshes):
+    """gsv, rcs and the toy backend on one device (rank i the i-th) and on
+    each mesh; per_element and per_sample on one device and each mesh with
+    the fold rule's draws recorded: (tag, folds, a digest of the
+    generator's state when the draw starts) in call order, every rank's."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch import rng
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core import sketching
+
+    name = METHOD_FAMILY
+    cfg = smoke_config(name)
+    params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
+    single = {}
+    for i, kind in enumerate(METHODS + DRAWN + ("rcs",)):
+        if i % dist.get_world_size() == dist.get_rank():
+            single[f"methods/single/{kind}"] = method_step(cfg, params, batch,
+                                                           method_policy(kind),
+                                                           **method_kw(kind))
+    real_plan = sketching.rcs_plan
+    for i, (tag, kind) in enumerate((t, k) for k in ("rcs", "rcs_step") for t in meshes):
+        if i % dist.get_world_size() == dist.get_rank():
+            sketching.rcs_plan = reordered_rcs_plan(*MESHES[tag])
+            try:
+                single[f"witness/{tag}/{kind}"] = method_step(cfg, params, batch,
+                                                              method_policy(kind))
+            finally:
+                sketching.rcs_plan = real_plan
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, single)
+    if lead_rank():
+        for part in every:
+            out.update(part)
+    for kind in METHODS:
+        for tag, mesh in meshes.items():
+            out[f"methods/{tag}/{kind}"] = method_step(cfg, params, batch, method_policy(kind),
+                                                       mesh, **method_kw(kind))
+    # the gathered weight under the sequence-parallel layout: the blocks'
+    # entries and exits adapt to sites that are not split
+    out["methods/2x2/toy_sp"] = method_step(cfg, params, batch, method_policy("toy"),
+                                            meshes["2x2"], act_sharding=(("data",), "model", None))
+    real = rng.fold_generator
+    draws = []
+
+    def spy(gen, tag, folds):
+        g = real(gen, tag, folds)
+        draws.append((tag, tuple(folds), hashlib.sha1(g.get_state().numpy().tobytes())
+                      .hexdigest()))
+        return g
+
+    rng.fold_generator = spy
+    real_apply = sketching.apply_rcs_directions
+
+    def rcs_spy(G2d, plan, idx, **kw):
+        h = hashlib.sha1()
+        for t in (plan.U, plan.probs, plan.half, plan.inv_half, idx):
+            h.update(t.numpy().tobytes())
+        draws.append(("rcs", (), h.hexdigest()))
+        return real_apply(G2d, plan, idx, **kw)
+
+    sketching.apply_rcs_directions = rcs_spy
+    try:
+        for kind in DRAWN + ("rcs",):
+            for tag, mesh in (("single", None),) + tuple(meshes.items()):
+                draws.clear()
+                res = method_step(cfg, params, batch, method_policy(kind), mesh)
+                mine = {"coords": {} if mesh is None else dict(mesh.coords),
+                        "draws": list(draws)}
+                if mesh is not None:
+                    every = [None] * dist.get_world_size()
+                    dist.all_gather_object(every, mine)
+                    res["ranks"] = every
+                elif not lead_rank():
+                    continue
+                else:
+                    res["ranks"] = [mine]
+                out[f"methods/{tag}/{kind}"] = res
+    finally:
+        rng.fold_generator = real
+        sketching.apply_rcs_directions = real_apply
+
+
+def row_plan_runs(inp, out, meshes):
+    """yi-6b's compact step under ``tp_sketch`` on (2, 2), l1 block 16, at
+    each of :data:`ROW_BUDGETS`, dense and with compact gradients, with the
+    row plan's block reduce-scattered and moved (``new``) and all-reduced
+    (``allreduce``): the parameters, the loss and the wire bytes of the
+    ``tp_row`` backwards."""
+    from repro_torch.api import SketchConfig, SketchPolicy
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core import site
+    from repro_torch.launch import mesh as meshlib
+
+    name = METHOD_FAMILY
+    cfg = smoke_config(name)
+    params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
+    mesh = meshes["2x2"]
+    real_bwd, real_axes = site._tp_sketch_bwd, site._row_scatter_axes
+    wire = []
+
+    def counted(ctx, x, w_l, g):
+        before = meshlib.collective_bytes()["wire"]["total"]
+        outs = real_bwd(ctx, x, w_l, g)
+        if ctx.spec.plan.kind == "tp_row":
+            wire.append(meshlib.collective_bytes()["wire"]["total"] - before)
+        return outs
+
+    site._tp_sketch_bwd = counted
+    try:
+        for budget in ROW_BUDGETS:
+            pol = SketchPolicy(base=SketchConfig(method="l1", budget=budget, backend="compact",
+                                                 block=BLOCK))
+            for version in ("new", "allreduce"):
+                site._row_scatter_axes = (real_axes if version == "new"
+                                          else lambda ctx, dp, d_in_loc: ())
+                for compact in (False, True):
+                    wire.clear()
+                    res = method_step(cfg, params, batch, pol, mesh, tp_sketch=True,
+                                      compact_grads=compact)
+                    res["row_wire"] = list(wire)
+                    out[f"row/{budget}/{version}/{'compact' if compact else 'dense'}"] = res
+    finally:
+        site._tp_sketch_bwd, site._row_scatter_axes = real_bwd, real_axes
+
+
 def _worker(rank, world, store, work):
     init_group(rank, world, store)
     out = {}
@@ -253,6 +523,11 @@ def _worker(rank, world, store, work):
             out[f"time/{name}"] = time.perf_counter() - t0
         progress(work, rank, "jax_case")
         jax_case_run(inp, out, meshes)
+        for part in (method_runs, row_plan_runs):
+            progress(work, rank, part.__name__)
+            t0 = time.perf_counter()
+            part(inp, out, meshes)
+            out[f"time/{part.__name__}"] = time.perf_counter() - t0
     finally:
         finish(rank, out, work)
 
@@ -373,3 +648,140 @@ def test_split_compact_step_matches_jax_mesh_step(ranks, inputs):
     want = flat(interop.params_from_jax(new.params, smoke_config(name), device="cpu"))
     np.testing.assert_allclose(ranks["jax_case/loss"], float(m["loss"]), rtol=1e-4)
     assert_close_leaves(ranks["jax_case/params"], want, 2e-3, 2e-4)
+
+
+@pytest.mark.parametrize("kind", METHODS)
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_split_methods_step_is_the_single_device_step(ranks, tag, kind):
+    """gsv (mask, block 16), rcs (mask; on the last layer, off
+    :data:`RCS_DEGENERATE`) and the registered backends (the toy; copies of
+    ``compact`` with compact gradients and of ``onepass`` with its carry
+    over two steps) on yi-6b's split local plans, data-sharded on (2, 2):
+    the loss and parameters (the carry among them) within :data:`TOL` of
+    the single device's (every rank draws the whole batch's and width's plan
+    from the unfolded seed; the registered backends run on the gathered
+    route)."""
+    got, want = ranks[f"methods/{tag}/{kind}"], ranks[f"methods/single/{kind}"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=TOL)
+    assert_close_leaves(got["params"], want["params"], TOL, TOL)
+
+
+def test_registered_backend_gathered_route_under_the_sp_layout(ranks):
+    """The toy backend on (2, 2) in the sequence-parallel layout (its sites
+    on the gathered weight, so the blocks' entries gather the sequence and
+    their exits slice it, as for any unsplit site): one SGD step within
+    :data:`TOL` of the single device's."""
+    got, want = ranks["methods/2x2/toy_sp"], ranks["methods/single/toy"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=TOL)
+    assert_close_leaves(got["params"], want["params"], TOL, TOL)
+
+
+@pytest.mark.parametrize("kind", DRAWN)
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_drawn_methods_follow_the_fold_rule(ranks, tag, kind):
+    """per_element and per_sample steps on the mesh run (finite loss and
+    parameters), and every draw follows the fold rule on every rank:
+    per_element's W mask is folded by the model rank (every yi-6b site is
+    split) and shared by the data ranks, its X mask folded by the data rank
+    (where there are several) and, on a row split, by the model rank, and
+    shared by the other ranks; per_sample's row gate is folded by the data
+    rank alone. Ranks whose folds agree hold the same generator state;
+    ranks whose folds differ hold different ones. The row gate with no
+    fold (one data rank) is the single device's draw (the same state at the
+    same call)."""
+    from repro_torch.core.sketching import TAG_MASK_W, TAG_MASK_X, TAG_ROW_GATE
+
+    got, single = ranks[f"methods/{tag}/{kind}"], ranks[f"methods/single/{kind}"]
+    assert np.isfinite(got["loss"]) and all(np.isfinite(v).all()
+                                            for v in got["params"].values())
+    ranks_ = got["ranks"]
+    n_calls = len(single["ranks"][0]["draws"])
+    assert n_calls and all(len(r["draws"]) == n_calls for r in ranks_)
+    n_dp = MESHES[tag][0]
+    tags = {TAG_MASK_W, TAG_MASK_X} if kind == "per_element" else {TAG_ROW_GATE}
+    for i in range(n_calls):
+        calls = [(r["coords"], r["draws"][i]) for r in ranks_]
+        assert {c[1][0] for c in calls} <= tags
+        for coords, (t, folds, _) in calls:
+            d, k = coords["data"], coords["model"]
+            dfold = (d,) if n_dp > 1 else ()
+            if t == TAG_MASK_W:
+                assert folds == (k,), (i, coords, folds)
+            elif t == TAG_ROW_GATE:
+                assert folds == dfold, (i, coords, folds)
+            else:
+                assert folds in (dfold, dfold + (k,)), (i, coords, folds)
+        for a_coords, a in calls:
+            for b_coords, b in calls:
+                assert (a[2] == b[2]) == (a[1] == b[1]), (i, a_coords, b_coords)
+        if calls[0][1][0] == TAG_ROW_GATE and not calls[0][1][1]:
+            assert calls[0][1][2] == single["ranks"][0]["draws"][i][2], i
+
+
+@pytest.mark.parametrize("budget", ROW_BUDGETS)
+@pytest.mark.parametrize("slots", ["dense", "compact"])
+def test_row_plan_block_reduce_scattered_is_the_all_reduce_step(ranks, budget, slots):
+    """The row plan's compact block reduce-scattered over the last data
+    axis and moved to its owners: the dense step within :data:`TOL` of the
+    all-reduce version's, its backward wire bytes below the all-reduce's
+    where a data shard holds fewer rows than the plan keeps (budget 0.75 >
+    1 / 2: R = 48 kept rows, 32 a shard) and no more where it holds them
+    all (budget 0.5: equal). With compact gradients the slot holds every
+    kept row, all-reduced as before: the same step and wire bytes."""
+    new, old = (ranks[f"row/{budget}/{v}/{slots}"] for v in ("new", "allreduce"))
+    np.testing.assert_allclose(new["loss"], old["loss"], rtol=TOL)
+    assert_close_leaves(new["params"], old["params"], TOL, TOL)
+    assert len(new["row_wire"]) == len(old["row_wire"]) > 0
+    w_new, w_old = sum(new["row_wire"]), sum(old["row_wire"])
+    print(f"row plan wire bytes per step, budget {budget}, {slots}: all-reduce {w_old:.0f}, "
+          f"reduce-scatter + move {w_new:.0f}")
+    if budget > 0.5 and slots == "dense":
+        assert w_new < w_old
+    else:
+        assert w_new == w_old
+
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_rcs_ranks_draw_one_plan(ranks, tag):
+    """rcs (mask) on every sketched site of both layers: each rank's plan
+    (U, the probabilities, Γ^{±1/2}) and sampled directions are bit for bit
+    every other rank's at every site (the Gram summed over data and W Wᵀ
+    over the d_in chunks are all-reduced, so every rank eigendecomposes
+    the same bits), and the step's loss is the single device's (the
+    forward is exact)."""
+    got, single = ranks[f"methods/{tag}/rcs"], ranks["methods/single/rcs"]
+    np.testing.assert_allclose(got["loss"], single["loss"], rtol=TOL)
+    assert all(np.isfinite(v).all() for v in got["params"].values())
+    calls = [r["draws"] for r in got["ranks"]]
+    n = len(single["ranks"][0]["draws"])
+    assert n == 14 and all(len(c) == n for c in calls)  # 7 sites x 2 layers
+    for i in range(n):
+        assert len({c[i][2] for c in calls}) == 1, i
+
+
+def _departure(a, b) -> float:
+    return max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max()) for k in b)
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_rcs_departure_is_the_single_device_summed_in_the_mesh_order(ranks, tag):
+    """The second witness that rcs's mesh step departs by the order of its
+    float32 sums and not by a fault: the single device's step with Γ's Gram
+    summed over the mesh's data chunks and W Wᵀ over its model chunks
+    (``reordered_rcs_plan``). With rcs on every site, its largest parameter
+    departure from the plain single device's step and the mesh's lie
+    within :data:`WITNESS_FACTOR` of each other, both far above
+    :data:`TOL`; on ``rcs_step``'s sites (the last layer, off
+    :data:`RCS_DEGENERATE`) the reordered step stays within :data:`TOL`, as
+    the mesh's does (``test_split_methods_step_is_the_single_device_step``)."""
+    single = ranks["methods/single/rcs"]["params"]
+    mesh = _departure(ranks[f"methods/{tag}/rcs"]["params"], single)
+    witness = _departure(ranks[f"witness/{tag}/rcs"]["params"], single)
+    narrowed = _departure(ranks[f"witness/{tag}/rcs_step"]["params"],
+                          ranks["methods/single/rcs_step"]["params"])
+    print(f"rcs on every site, {tag}: the mesh departs {mesh:.3e}, the single device "
+          f"summed in its order {witness:.3e}; on rcs_step's sites the latter {narrowed:.3e}")
+    assert witness > TOL and mesh > TOL
+    assert witness / WITNESS_FACTOR <= mesh <= witness * WITNESS_FACTOR
+    assert narrowed <= TOL

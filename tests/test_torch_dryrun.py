@@ -155,17 +155,24 @@ def _fake_vs_real(arch, shape, policy):
 
 
 def _record(arch, shape, kind, policy="mask", **kw):
-    from repro_torch.api import SketchConfig, SketchPolicy
     from repro_torch.launch import dryrun
 
-    # a policy the port still refuses on a data axis of several ranks
-    # (ROADMAP.md Queue 1 item 2b): per-element masks draw from the local
-    # batch's shape
-    dryrun._POLICIES.setdefault("per_element", (SketchPolicy(
-        base=SketchConfig(method="per_element", budget=0.1, backend="mask")), False))
     cfg = kw.pop("cfg", None) or _smoke(arch)
     return dryrun.record_or_error(arch, _cell(kind).name, cfg=cfg, cell=_cell(kind),
                                   mesh_shape=shape, policy_name=policy, **kw)
+
+
+def _refused(arch, shape):
+    """A train cell in a residual layout the port still refuses (ROADMAP.md
+    Queue 1 item 2b (d)): the hidden dimension over model."""
+    from repro_torch.launch import dryrun
+
+    real = dryrun._act_sharding
+    dryrun._act_sharding = lambda mesh, *a, **k: (dryrun.dp_axes(mesh), None, "model")
+    try:
+        return _record(arch, shape, "train", skip_cost=True)
+    finally:
+        dryrun._act_sharding = real
 
 
 def _fake_gather():
@@ -361,7 +368,7 @@ def _all() -> dict:
         "prefill_zamba": _record("zamba2_7b", (2, 2), "prefill", skip_cost=True),
         "decode_seamless": _record("seamless_m4t_large_v2", (2, 2), "decode"),
         "decode_rwkv": _record("rwkv6_3b", (1, 4), "decode", skip_cost=True),
-        "refused": _record("yi_6b", (2, 4), "train", policy="per_element", skip_cost=True),
+        "refused": _refused("yi_6b", (2, 4)),
         "compact_1x4": _record("yi_6b", (1, 4), "train", policy="compact", skip_cost=True),
     }
     res["records"] = recs
@@ -471,8 +478,8 @@ def test_prefill_and_decode_cells_run(results):
 
 
 def test_refused_cell_is_recorded(results):
-    """A ``per_element`` policy on a data axis of 2: the port's own
-    NotImplementedError, naming the ROADMAP item."""
+    """A residual layout the port does not run (the hidden dimension over
+    model): the port's own NotImplementedError, naming the ROADMAP item."""
     rec = results["records"]["refused"]
     assert rec["status"] == "error"
     assert rec["error"].startswith("NotImplementedError") and "Queue 1 item 2b" in rec["error"]

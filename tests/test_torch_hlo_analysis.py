@@ -123,7 +123,8 @@ def test_mesh_counters_weigh_each_call_as_jax(n, monkeypatch):
     mesh = meshlib.layout((n,), ("model",))
     mesh._groups[("model",)] = object()
     mesh.device_mesh = object()
-    for op in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+    for op in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_to_all_single"):
         monkeypatch.setattr(dist, op, lambda *a, **k: None)
     x = torch.ones(64, 8)
     meshlib.reset_collective_bytes()
@@ -131,10 +132,12 @@ def test_mesh_counters_weigh_each_call_as_jax(n, monkeypatch):
     meshlib.pmax(x, "model", mesh)
     meshlib.psum_scatter(x, "model", mesh)
     meshlib.all_gather(x, "model", mesh)
+    meshlib.all_to_all(x, "model", mesh)
     got = meshlib.collective_bytes()
     b = x.numel() * 4
-    assert (got["psum"], got["pmax"], got["psum_scatter"], got["all_gather"]) == (b, b, b, b)
-    assert got["total"] == 4 * b
+    assert (got["psum"], got["pmax"], got["psum_scatter"], got["all_gather"],
+            got["all_to_all"]) == (b, b, b, b, b)
+    assert got["total"] == 5 * b
     wire = got["wire"]
     if n == 1:
         assert wire["total"] == 0 and sum(got["calls"].values()) == 0
@@ -142,7 +145,9 @@ def test_mesh_counters_weigh_each_call_as_jax(n, monkeypatch):
     assert wire["all-reduce"] == 2 * th.wire_bytes("all-reduce", b, n)
     assert wire["reduce-scatter"] == th.wire_bytes("reduce-scatter", b // n, n)
     assert wire["all-gather"] == th.wire_bytes("all-gather", b * n, n)
-    assert got["calls"] == {"all-reduce": 2, "reduce-scatter": 1, "all-gather": 1}
+    assert wire["all-to-all"] == th.wire_bytes("all-to-all", b, n)
+    assert got["calls"] == {"all-reduce": 2, "reduce-scatter": 1, "all-gather": 1,
+                            "all-to-all": 1}
     rec = th.collective_totals(got)
     assert rec["total"] == pytest.approx(wire["total"])
     meshlib.reset_collective_bytes()
