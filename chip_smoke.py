@@ -220,7 +220,12 @@ which raises on failure:
    ``tp_sketch`` off equal to the single-device step bit for bit, the TP plans'
    sites and launches, their collective payloads (the local plan's equal to
    its count from the shapes), a checkpoint restored bit for bit, ms per
-   step (``distributed(dev)``);
+   step (``distributed(dev)``); (a') one step with the residual stream in
+   another layout between the layers (``DIST_LAYOUT``: the relayout's
+   moves) bit for bit the fixed layout's; (e) a ``device_loss`` fault under
+   the ``Supervisor`` onto the surviving (1, 1) mesh: the state resumed at
+   the seam the checkpoint's bit for bit, JAX's ``device_loss_reshard``
+   event, training to its last step, its launches counted;
 18. the analysis tooling (``analysis(dev)``): the lint over
    ``src/repro_torch`` with no finding and exactly the reviewed waivers;
    ``analyze_runtime`` on the card for lm-100m, olmoe-1b-7b (4 layers),
@@ -319,7 +324,19 @@ which raises on failure:
    standard errors of the exact dX and dW (projected on the exact gradient
    and on random signs), the summed variance within ``SM_VAR_RTOL`` of the
    analytic; the phase's seconds;
-25. one JSON line listing the ported kernels, then the last line
+25. Mamba2's block split over emulated model ranks (``mamba_split(dev,
+   gen)``): zamba2-7b's block at full width (d 3584, d_inner 7168, 112
+   heads of 64, state 64, chunk 256, 4 x 512 float32, block-128 l1@0.2
+   ``pallas`` on ``ssm_in``/``ssm_out``) once whole (3 score + 3 fused
+   launches) and as 16 model ranks run it, 7 heads each
+   (``nn.ssm.mamba_heads``, the norm's sum of squares summed over the
+   ranks, each column rank's part of the ``ssm_in`` backwards from its own
+   scores put together, each row rank's of ``out``): 48 score + 48 fused
+   launches counted (set to 0 just before the ranks, read just after), the
+   output summed within ``MS_OUT_RTOL`` and dX within ``SPLIT_DX_RTOL`` of
+   the whole block's, every rank's compact rows the whole-width kernel
+   call's bit for bit, the phase within ``MS_LIMIT_S``;
+26. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -4187,6 +4204,11 @@ def family_engines(dev):
 # -- phase 17: the distributed runtime on a one-rank NCCL mesh ----------------
 
 DIST_TIMED = 3  # synced steps timed per configuration, after one warm-up
+# (a'): a residual-stream layout other than the fixed one (the width over
+# model, the batch replicated): on one rank the moves are copies, counted
+DIST_LAYOUT = (None, None, "model")
+# (e): the device_loss re-shard's run
+DIST_LOSS_LAYERS, DIST_LOSS_STEPS, DIST_LOSS_AT = 1, 4, 3
 
 
 def dist_group(tmp):
@@ -4344,6 +4366,20 @@ def distributed_checks(dev, cfg, policy, mesh, tmp, total):
           f"{dist_payload_a(cfg)} B)")
     del single
 
+    # (a') the residual stream living in another layout between the layers
+    # (width over model, batch replicated): the relayout's moves run, and the
+    # step is (a)'s bit for bit
+    ex_l = ExecutionConfig(mesh=mesh, act_sharding=DIST_LAYOUT)
+    mesh_l, m_l, c_l, bytes_l, _, _ = one(ex_l, policy, opt, "layout")
+    if c_l != want or not (torch.equal(m_l["loss"], m2["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(dist_leaves(mesh_l), dist_leaves(mesh_a)))):
+        raise AssertionError(f"[dist] (a') act_sharding {DIST_LAYOUT}: launches {c_l}, or the "
+                             "step differs from the fixed layout's")
+    print(f"[dist] (a') act_sharding {DIST_LAYOUT}: the step bit for bit (a)'s; launches "
+          f"{c_l}; collective payload {bytes_l} B ({bytes_l - bytes_a:+d} B: the relayout's "
+          "moves at each layer's entry and exit, counted on one-rank axes)")
+    del mesh_l, mesh_a
+
     # (b) the TP plans
     ex_b = ExecutionConfig(mesh=mesh, tp_sketch=True)
     split = dist_site_split(cfg, ex_b, policy)
@@ -4423,6 +4459,78 @@ def distributed_checks(dev, cfg, policy, mesh, tmp, total):
               f"device ops {prof[k][0]}, busy {prof[k][1]:.2f} ms)" for k in runs)
           + f"; card {smi_line()}")
     del states
+    dist_device_loss(dev, mesh, tmp, total)
+
+
+def dist_device_loss(dev, mesh, tmp, total):
+    """Phase 17 (e): the supervisor's ``device_loss`` re-shard on the
+    one-rank mesh, onto the surviving (1, 1) mesh: lm-100m at
+    ``DIST_LOSS_LAYERS`` layers, ``pallas`` l1@0.2, AdamW, ``DIST_LOSS_STEPS``
+    steps, a checkpoint every 2, the fault at step ``DIST_LOSS_AT``. The
+    state resumed at the seam (``elastic.resume_on_mesh``, spied) must be the
+    checkpoint's restore of its step bit for bit, the event JAX's, and the
+    run must finish every step with finite losses."""
+    from repro_torch.api import ExecutionConfig, Runtime
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.resilience import FaultPlan, FaultSpec, ResilienceConfig, Supervisor
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import elastic
+    from repro_torch.train.trainer import TrainerConfig
+
+    t0 = time.perf_counter()
+    cfg = lm100m(DIST_LOSS_LAYERS)
+    rt = Runtime(policy=slice_policy(0.2), device=dev,
+                 execution=ExecutionConfig(mesh=mesh, resilience=ResilienceConfig(
+                     max_grad_norm=1e13)))  # phase 12's: sketched norms reach 1e3-1e11
+    plan = FaultPlan(faults=(FaultSpec(step=DIST_LOSS_AT, kind="device_loss",
+                                       mesh_shape=(1, 1)),))
+    ckdir = os.path.join(tmp, "ckpt_device_loss")
+    tcfg = TrainerConfig(steps=DIST_LOSS_STEPS, log_every=1, ckpt_dir=ckdir, ckpt_every=2,
+                         seed=17)
+    sup = Supervisor(rt, cfg, adamw(1e-3), tcfg, fault_plan=plan)
+    seam = {}
+    real = elastic.resume_on_mesh
+
+    def spy(ckpt_dir, like, new_mesh, **kw):
+        state, step = real(ckpt_dir, like, new_mesh, **kw)
+        host, hstep = ck.restore(ckpt_dir, like, step=step, device=dev)
+        seam.update(step=step, hstep=hstep, mesh=new_mesh, same=all(
+            torch.equal(a, b) for a, b in zip(dist_leaves(state), dist_leaves(host))))
+        return state, step
+
+    elastic.resume_on_mesh = spy
+    ops.reset_launch_counts()
+    try:
+        state, hist = sup.run(LMStream(vocab=cfg.vocab, seed=17).batches(BATCH, SEQ))
+    finally:
+        elastic.resume_on_mesh = real
+    sync(dev)
+    counts = ops.launch_counts()
+    ev = [e for e in sup.events if e["event"] == "device_loss_reshard"]
+    resume = DIST_LOSS_AT - DIST_LOSS_AT % 2
+    n_steps = DIST_LOSS_STEPS + DIST_LOSS_AT - resume  # the lost steps run twice
+    want = expected_counts("pallas", n_steps, DIST_LOSS_LAYERS)
+    losses = [h["loss"] for h in hist]
+    e = ev[0] if len(ev) == 1 else {}
+    if not (seam.get("same") and seam.get("step") == seam.get("hstep") == resume
+            and e.get("step") == DIST_LOSS_AT and e.get("cause") == "device_loss"
+            and e.get("resume_step") == resume and e.get("steps_lost") == DIST_LOSS_AT - resume
+            and e.get("old_mesh") == [1, 1] and e.get("new_mesh") == [1, 1]
+            and e.get("wall_s", 0) > 0 and sup.runtime.execution.mesh is seam.get("mesh")
+            and int(state.step) == DIST_LOSS_STEPS and counts == want
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"[dist] (e) device_loss re-shard: events {sup.events}, seam "
+                             f"{seam}, step {int(state.step)}, launches {counts} (want {want}), "
+                             f"losses {losses}")
+    add_counts(total, counts)
+    print(f"[dist] (e) device_loss at step {DIST_LOSS_AT} on the one-rank NCCL mesh -> (1, 1): "
+          f"lm-100m at {DIST_LOSS_LAYERS} layers, pallas l1@0.2; resumed at step {resume} from "
+          f"the checkpoint bit for bit on the rebuilt mesh; event {ev[0]}; {int(state.step)} "
+          f"steps, losses {[round(v, 4) for v in losses]}; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del state
 
 
 # ---------------------------------------------------------------------------
@@ -5945,6 +6053,196 @@ def lm100m_impls(dev):
     return total
 
 
+# -- phase 25: Mamba2's block split over emulated model ranks -------------------------
+
+# zamba2-7b's Mamba2 block at full width over 16 emulated model ranks: d_model
+# 3584, d_inner 7168, 112 heads of 64 (7 a rank: a 448-channel shard of
+# ssm_in, 3.5 blocks of 128), state 64, chunk 256, phase 14's batch 4 x 512
+MS_D, MS_HEADS, MS_P, MS_N, MS_CHUNK = 3584, 112, 64, 64, 256
+MS_B, MS_S, MS_RANKS, MS_BUDGET = 4, 512, 16, 0.2
+# the shards' output summed against the whole block's, of its largest
+# magnitude. The float64 witness (PERF.md §7, PR 33; CPU gloo, zamba2 smoke,
+# tests/test_torch_distributed_compact.py) found the split no farther from a
+# float64 step than the gathered path (logits 2.2e-5 / 1.8e-5 against 2.4e-5,
+# gradients 2.8e-4 / 3.0e-4 against 3.2e-4 on (2, 2) / (1, 4)): the split
+# adds the reordering of the sums it splits and nothing else. One block's
+# output reorders two sums of d_inner terms (the norm's squares and the out
+# projection's products, each as 16 partial sums), so it is held to their
+# rounding bound, sum_tol(7168) = max(1e-5, sqrt(7168) 2^-24) = 1e-5
+MS_OUT_RTOL = sum_tol(2 * MS_D)
+MS_LIMIT_S = 20.0
+
+
+def ms_policy():
+    """pallas l1@0.2 block 128 on ssm_in and ssm_out only."""
+    from repro_torch.api import SketchConfig, SketchPolicy
+    from repro_torch.core.policy import ROLES
+
+    return SketchPolicy(base=SketchConfig(method="l1", budget=MS_BUDGET, backend="pallas",
+                                          block=BLOCK),
+                        exclude_roles=tuple(r for r in ROLES if r not in ("ssm_in", "ssm_out")))
+
+
+def ms_emulated(params, x, gout, cfg, ctx):
+    """The block as MS_RANKS model ranks run it, on the card: each rank's
+    ``mamba_heads`` on its 7 heads and norm (the sum of squares summed over
+    the ranks here), its row shard of ``out``; the backward site by site as
+    the ranks run it: each row rank scores the whole G of ``out`` and runs
+    the fused kernel on its d_in chunk, each column rank scores its columns
+    of ``in_z``/``in_x`` (the whole width's scores put together, as the mesh
+    all-gathers them) and runs its part of the whole plan
+    (``split_backward``). Returns (output, dX, per site the ranks' compact
+    rows, the whole-width kernel call's rows and the plans' kept blocks)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import estimators
+    from repro_torch.core.sketched_linear import split_backward
+    from repro_torch.kernels import ops
+    from repro_torch.nn import ssm
+
+    H, P, M = cfg.n_heads, cfg.head_dim, MS_RANKS
+    n, c = H // M, (H // M) * P
+    sk = ms_policy().base
+    est = estimators.get_estimator("pallas")
+    x2 = x.reshape(-1, cfg.d_model)
+    small = {k: F.linear(x, params[k]["w"]).requires_grad_() for k in ("in_B", "in_C", "in_dt")}
+    shards = []
+    for k in range(M):
+        cols = slice(k * c, (k + 1) * c)
+        z = F.linear(x, params["in_z"]["w"][cols]).requires_grad_()
+        xs = F.linear(x, params["in_x"]["w"][cols]).requires_grad_()
+        leaves = ssm.head_leaves(params, k * n, n, P)
+        y, _, _ = ssm.mamba_heads(leaves, z, xs, small["in_B"], small["in_C"],
+                                  small["in_dt"][..., k * n:(k + 1) * n], cfg, x.dtype)
+        shards.append(dict(cols=cols, z=z, xs=xs, y=y, g=leaves["g"]))
+    ss = sum(ssm.sum_squares(s["y"]) for s in shards)
+    for s in shards:
+        s["yn"] = ssm.shard_rmsnorm(s["y"], s["g"], ss, cfg.d_inner)
+    out = sum(F.linear(s["yn"].detach(), params["out"]["w"][:, s["cols"]]) for s in shards)
+    G_out = gout.reshape(-1, cfg.d_model)
+    res = {"out": {"rows": []}, "in_z": {"rows": []}, "in_x": {"rows": []}}
+    dyn = []
+    for s in shards:  # the row ranks of out
+        idx, sc = split_plan(sk, ops.col_l1_scores(G_out), ctx.site_seed("ssm_out"), x.device)
+        w_k = params["out"]["w"][:, s["cols"]]
+        dx, rows, _, _ = est._kernel(sk, G_out, idx, sc, w_k, s["yn"].detach().reshape(-1, c))
+        res["out"]["rows"].append(rows)
+        dyn.append(dx.reshape(s["yn"].shape))
+    res["out"].update(plan=idx, sc=sc)
+    inputs = [t for s in shards for t in (s["z"], s["xs"])] + list(small.values())
+    grads = torch.autograd.grad([s["yn"] for s in shards], inputs, dyn)
+    dX = sum(g.reshape(-1, g.shape[-1]) @ params[k]["w"]
+             for g, k in zip(grads[2 * M:], small))
+    for j, name in enumerate(("in_z", "in_x")):
+        Gs = [grads[2 * k + j].reshape(-1, c) for k in range(M)]
+        scores = torch.cat([ops.col_l1_scores(G) for G in Gs])  # the ranks' all-gather
+        idx, sc = split_plan(sk, scores, ctx.site_seed("ssm_in"), x.device)
+        for k, G_k in enumerate(Gs):
+            part, _ = split_backward(est, sk, G_k, x2, params[name]["w"][k * c:(k + 1) * c],
+                                     idx, sc, lo=k * c, n=cfg.d_inner)
+            dX = dX + part.dx
+            res[name]["rows"].append(part.rows)
+        res[name].update(plan=idx, G=torch.cat(Gs, 1), sc=sc)
+    res["out"]["X"] = torch.cat([s["yn"].detach().reshape(-1, c) for s in shards], 1)
+    return out.detach(), dX.reshape(x.shape), res
+
+
+def mamba_split(dev, gen):
+    """Phase 25 (module docstring). Returns the emulated ranks' launches."""
+    from repro_torch.core import estimators
+    from repro_torch.kernels import ops
+    from repro_torch.nn import ssm
+    from repro_torch.nn.common import Ctx
+
+    t_phase = time.perf_counter()
+    cfg = ssm.MambaCfg(d_model=MS_D, d_state=MS_N, expand=2, head_dim=MS_P, chunk=MS_CHUNK)
+    assert cfg.n_heads == MS_HEADS and cfg.n_heads % MS_RANKS == 0
+    params = ssm.mamba_init(gen, cfg, device=dev)
+    x = torch.randn((MS_B, MS_S, MS_D), generator=gen, device=dev)
+    gout = torch.randn((MS_B, MS_S, MS_D), generator=gen, device=dev)
+    ctx = Ctx(policy=ms_policy(), key=25)
+    # the whole block: one call of the port's training path, after a warm-up
+    # call (the first also pays the library handles' set-up)
+    warm = x.clone().requires_grad_()
+    ssm.mamba_block(params, warm, ctx, cfg).backward(gout)
+    del warm
+    xg = x.clone().requires_grad_()
+    sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    want_out = ssm.mamba_block(params, xg, ctx, cfg)
+    want_out.backward(gout)
+    sync(dev)
+    ms_whole = 1e3 * (time.perf_counter() - t0)
+    whole_counts = ops.launch_counts()
+    want_whole = {name: 0 for name in whole_counts}
+    want_whole.update(col_l1_scores=3, block_gather_matmul_fused=3)
+    if whole_counts != want_whole:
+        raise AssertionError(f"[mamba-split] the whole block launched {whole_counts}, "
+                             f"want {want_whole}")
+    # the emulated ranks, counted
+    sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, dX, res = ms_emulated(params, x, gout, cfg, ctx)
+    sync(dev)
+    ms_ranks = 1e3 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    want = {name: 0 for name in counts}
+    want.update(col_l1_scores=3 * MS_RANKS, block_gather_matmul_fused=3 * MS_RANKS)
+    if counts != want:
+        raise AssertionError(f"[mamba-split] the {MS_RANKS} ranks launched {counts}, want {want}")
+    out_err = max_err(out, want_out.detach(), MS_OUT_RTOL)
+    dx_err = max_err(dX, xg.grad, SPLIT_DX_RTOL)
+    # each rank's compact rows against the whole-width kernel call's
+    est = estimators.get_estimator("pallas")
+    sk = ms_policy().base
+    c = cfg.d_inner // MS_RANKS
+    x2 = x.reshape(-1, MS_D)
+    kept = {}
+    for name in ("in_z", "in_x"):
+        r = res[name]
+        whole = est._kernel(sk, r["G"], r["plan"], r["sc"], params[name]["w"], x2)[1]
+        total = torch.zeros_like(whole)
+        for k, part in enumerate(r["rows"]):
+            mine = part.abs().sum(1) > 0
+            if not torch.equal(part[mine], whole[mine]):
+                raise AssertionError(f"[mamba-split] {name} rank {k}: rows differ from the "
+                                     "whole call's")
+            total += part
+        if not torch.equal(total, whole):
+            raise AssertionError(f"[mamba-split] {name}: the ranks' rows do not make the whole "
+                                 "call's")
+        kept[name] = r["plan"].numel()
+    r = res["out"]
+    whole = est._kernel(sk, gout.reshape(-1, MS_D), r["plan"], r["sc"], params["out"]["w"],
+                        r["X"])[1]
+    for k, part in enumerate(r["rows"]):
+        if not torch.equal(part, whole[:, k * c:(k + 1) * c]):
+            raise AssertionError(f"[mamba-split] out rank {k}: rows are not the whole call's "
+                                 "d_in chunk")
+    kept["out"] = r["plan"].numel()
+    if not torch.isfinite(out).all() or not torch.isfinite(dX).all():
+        raise AssertionError("[mamba-split] non-finite output or dX")
+    secs = time.perf_counter() - t_phase
+    print(f"[mamba-split] zamba2-7b Mamba2 block d {MS_D} -> d_inner {cfg.d_inner}, "
+          f"{MS_HEADS} heads of {MS_P}, state {MS_N}, chunk {MS_CHUNK}, {MS_B} x {MS_S} "
+          f"float32, pallas l1@{MS_BUDGET} block {BLOCK} on ssm_in/ssm_out, over {MS_RANKS} "
+          f"emulated model ranks of {MS_HEADS // MS_RANKS} heads ({c} channels): kept blocks "
+          f"{kept} (in_z/in_x of {cfg.d_inner // BLOCK}, out of {MS_D // BLOCK}); the whole "
+          f"block launched {whole_counts}, the ranks {counts}; output summed max |err| "
+          f"{out_err[0]:.3e} (tol {out_err[1]:.3e}, {MS_OUT_RTOL:.3g} of the largest), dX "
+          f"summed {dx_err[0]:.3e} (tol {dx_err[1]:.3e}); every rank's compact rows the whole "
+          f"call's bit for bit; ms: whole block forward + backward {ms_whole:.1f} (warm), the "
+          f"ranks' forward + backward {ms_ranks:.1f} ({smi_line()})")
+    if secs > MS_LIMIT_S:
+        raise AssertionError(f"[mamba-split] the phase took {secs:.1f} s (limit {MS_LIMIT_S})")
+    del params, res, out, dX, xg, want_out
+    torch.cuda.empty_cache()
+    print(f"[time]   mamba split {secs:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5989,7 +6287,7 @@ def main() -> int:
 
 def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, stream_rows,
                flash_rows) -> int:
-    """Phases 4 to 24 (module docstring)."""
+    """Phases 4 to 25 (module docstring)."""
     t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
@@ -6101,6 +6399,11 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
     for name, n in method_counts.items():
         launches[name] += n
     print(f"[time] the split sketch methods {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mamba_counts = mamba_split(dev, gen)
+    for name, n in mamba_counts.items():
+        launches[name] += n
+    print(f"[time] the split Mamba2 block {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -6149,7 +6452,8 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
           f"backend, qwen's stale step at accum 2, and one prefill each): "
           f"{json.dumps(vlm_counts)}; the family engines (phase 16: every engine run 0): "
           f"{json.dumps(fe_counts)}; the distributed runtime (phase 17: the one-rank mesh's "
-          f"sketched steps and their single-device twins): {json.dumps(dist_counts)}; the analysis "
+          f"sketched steps, their single-device twins, the layout step and the device_loss "
+          f"run): {json.dumps(dist_counts)}; the analysis "
           f"tooling (phase 18's cross-checks, one forward and backward per config): "
           f"{json.dumps(an_counts)}; the families under a mesh (phase 19: every sketched "
           f"single-device and one-rank mesh step): {json.dumps(mesh_fam_counts)}; serving "
@@ -6160,7 +6464,9 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
           f"{json.dumps(attn_counts)}; the split compact backends (phase 23: the 16 "
           f"emulated ranks' parts, column and row shards, per backend): "
           f"{json.dumps(split_counts)}; the split sketch methods (phase 24 (a): gsv's 16 "
-          f"emulated column shards' parts): {json.dumps(method_counts)}")
+          f"emulated column shards' parts): {json.dumps(method_counts)}; the split Mamba2 "
+          f"block (phase 25: zamba2-7b's block over 16 emulated model ranks): "
+          f"{json.dumps(mamba_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

@@ -23,16 +23,25 @@ class ExecutionConfig:
         Under a mesh every rank holds its shards of the state and its rows
         of the batch (docs/port.md, "Distributed"), and its shards of the
         serving caches (docs/port.md, "Serving under a mesh").
-      act_sharding: the residual stream's spec, one of two layouts: the
-        fixed one (batch over the data axes, replicated over model:
-        ``launch.sharding.logical_rules(mesh)["activations"]``, the default
-        for None), or JAX's sequence-parallel one (``launch/dryrun.py``'s
-        ``_act_sharding(..., sp=True)``): ``(dp, model, None)``, the
-        sequence over the model axis between the blocks, gathered at each
-        block's entry and reduce-scattered at its exit (docs/port.md, "Dry
-        run"). Either may hold the batch replicated (``None`` for dp) where
-        it does not divide the data axes. Any other layout raises
-        (ROADMAP.md, Queue 1 item 2b).
+      act_sharding: where the residual stream lives between the layers
+        (JAX's ``act_sharding``, which ``Ctx.constrain`` pins at the
+        embedding and at each layer boundary): a ``(batch, seq, d)`` spec,
+        each entry None, a mesh axis or a tuple of mesh axes (in either
+        spelling, or a JAX-style sharding with a ``.spec``), no axis used
+        twice (``launch.mesh.stream_layout``; another spec raises
+        ``ValueError`` naming the rule). None is the fixed layout (batch
+        over the data axes, replicated over model:
+        ``launch.sharding.logical_rules(mesh)["activations"]``). A layer
+        computes in the fixed layout, or in JAX's sequence-parallel one
+        where the spec's sequence is over exactly the model axes
+        (``launch/dryrun.py``'s ``_act_sharding(..., sp=True)``: gathered
+        at each block's entry and reduce-scattered at its exit, docs/port.md
+        "Dry run"); any other layout is moved into that compute layout at
+        each layer's entry and back at its exit (``models/lm.py``; values
+        only move, docs/port.md "Residual-stream layouts"). A call's batch
+        or sequence that does not divide its axes stays whole for that call
+        (JAX's ``_act_sharding`` rule); a model width that does not divide
+        raises ``ValueError``.
       data_axes / model_axes: the mesh axes carrying data parallelism and
         tensor parallelism (axes the mesh lacks are dropped).
       tp_sketch: sites that can take the TP plans run them (``tp_column``,
@@ -96,28 +105,26 @@ class ExecutionConfig:
     def _check_act_sharding(self):
         if self.mesh is None:
             raise ValueError("act_sharding needs a mesh")
-        from repro_torch.launch.sharding import dim_axes, logical_rules
+        from repro_torch.launch.mesh import stream_layout
 
-        fixed = logical_rules(self.mesh)["activations"]
-        act = tuple(self.act_sharding)
-        dp, mp = self.axes_in_mesh()
-        got = tuple(map(dim_axes, act))
-        if len(got) != 3 or got[0] not in (dim_axes(fixed[0]), ()) or got[2] \
-                or got[1] not in ((), mp):
-            raise NotImplementedError(
-                f"act_sharding {act}: the port's residual stream is laid out as {fixed} "
-                "(batch over the data axes, replicated over model) or sequence-parallel "
-                f"({fixed[0]}, {mp[0] if mp else None!r}, None); another layout is not "
-                "ported (ROADMAP.md, Queue 1 item 2b)")
+        stream_layout(self.act_sharding, self.mesh)
+
+    def stream_layout(self):
+        """``act_sharding`` as one tuple of mesh axes per dimension (mesh
+        order), or None (the fixed layout, or no mesh)."""
+        if self.act_sharding is None or self.mesh is None:
+            return None
+        from repro_torch.launch.mesh import stream_layout
+
+        return stream_layout(self.act_sharding, self.mesh)
 
     @property
     def seq_parallel(self) -> bool:
-        """The residual stream is sequence-parallel (``act_sharding``)."""
-        if self.act_sharding is None or self.mesh is None:
-            return False
-        from repro_torch.launch.sharding import dim_axes
-
-        return bool(dim_axes(tuple(self.act_sharding)[1]))
+        """The layers compute in the sequence-parallel layout: the
+        ``act_sharding`` sequence is over exactly the model axes."""
+        layout = self.stream_layout()
+        mp = self.axes_in_mesh()[1]
+        return layout is not None and bool(mp) and layout[1] == self.mesh.axes(mp)
 
     def replace(self, **kw) -> "ExecutionConfig":
         return dataclasses.replace(self, **kw)
@@ -158,4 +165,5 @@ class ExecutionConfig:
         dp, mp = self.axes_in_mesh()
         return Ctx(policy=policy, key=key, layer_index=layer_index, n_layers=n_layers,
                    mesh=self.mesh, data_axes=dp, model_axes=mp, tp_sketch=self.tp_sketch,
-                   rows_sharded=rows_sharded, seq_parallel=self.seq_parallel)
+                   rows_sharded=rows_sharded, seq_parallel=self.seq_parallel,
+                   act_layout=self.stream_layout())

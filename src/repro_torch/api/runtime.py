@@ -53,6 +53,16 @@ def _cache_put(key, fn):
     _STEP_CACHE[key] = fn
 
 
+def drop_steps(mesh) -> int:
+    """Drop the cached steps of runtimes on ``mesh`` (a mesh the supervisor
+    left after a device loss: its process groups are gone); returns how
+    many."""
+    stale = [k for k in _STEP_CACHE if k[0].execution.mesh is mesh]
+    for k in stale:
+        del _STEP_CACHE[k]
+    return len(stale)
+
+
 def _ledger_key(runtime, cfg, budget) -> str:
     """Readable spelling of one step-cache key for the compile ledger (the
     runtime's hash tells equal arch and budget under other policies apart)."""

@@ -55,7 +55,7 @@ __all__ = ["Mesh", "Axes", "layout", "make_mesh", "make_production_mesh", "dp_ax
            "psum", "pmax", "psum_scatter", "all_gather", "all_to_all", "axis_index", "chunk_of",
            "collective_bytes", "reset_collective_bytes", "gather_replicated",
            "slice_replicated", "copy_to", "reduce_from", "psum_partial", "pmean_shared",
-           "split_partial", "gather_partial", "scatter_partial"]
+           "split_partial", "gather_partial", "scatter_partial", "stream_layout", "relayout"]
 
 _BYTES: Dict[str, int] = {"psum": 0, "pmax": 0, "psum_scatter": 0, "all_gather": 0,
                           "all_to_all": 0}
@@ -606,3 +606,67 @@ def scatter_partial(x, axes, mesh: Mesh, dim: int = 1):
     if not mesh.axes(axes):
         return x
     return _ScatterPartial.apply(x, mesh.axes(axes), mesh, dim)
+
+
+# -- layouts of a tensor -------------------------------------------------------
+
+
+def stream_layout(spec, mesh: Mesh, ndim: int = 3) -> Tuple[Tuple[str, ...], ...]:
+    """``spec`` (one entry per dimension: None, a mesh axis, or a tuple of
+    mesh axes; a JAX-style ``NamedSharding`` with a ``.spec`` too) as one
+    tuple of axes per dimension, each in the mesh's axis order (several
+    axes act as one, row-major). Raises ``ValueError`` naming the rule a
+    spec breaks: ``ndim`` entries, each None, an axis or a tuple of axes of
+    the mesh, no axis used twice. Whether a dimension divides its axes is
+    the caller's check: it needs the tensor's shape."""
+    spec = getattr(spec, "spec", spec)
+    try:
+        entries = tuple(spec)
+    except TypeError:
+        entries = None
+    if entries is None or len(entries) != ndim:
+        raise ValueError(f"layout {spec!r}: a layout has {ndim} entries, one per dimension")
+    out, seen = [], []
+    for e in entries:
+        axes = (e,) if isinstance(e, str) else (() if e is None else e)
+        if not isinstance(axes, tuple) or not all(isinstance(a, str) for a in axes):
+            raise ValueError(f"layout {spec!r}: each entry is None, a mesh axis or a tuple "
+                             f"of mesh axes, not {e!r}")
+        for a in axes:
+            if a not in mesh.shape:
+                raise ValueError(f"layout {spec!r}: axis {a!r} is not one of the mesh's "
+                                 f"axes {mesh.axis_names}")
+            if a in seen:
+                raise ValueError(f"layout {spec!r}: axis {a!r} is used twice; an axis "
+                                 "shards at most one dimension once")
+            seen.append(a)
+        out.append(mesh.axes(axes))
+    return tuple(out)
+
+
+def relayout(x, src, dst, mesh: Mesh):
+    """``x`` moved from the layout ``src`` to ``dst`` (per dimension the
+    tuple of axes its chunks run over, row-major in mesh order, as
+    :func:`stream_layout` gives; a dimension divides the axes of both).
+    Values only move: along each dimension the axes past the layouts'
+    common prefix are all-gathered (:func:`gather_replicated`), all
+    dimensions first, then the result is sliced over ``dst``'s axes past
+    it (:func:`slice_replicated`); the backward moves the cotangents the
+    other way. The identity where the layouts agree."""
+    src = [mesh.axes(a) for a in src]
+    dst = [mesh.axes(a) for a in dst]
+    if src == dst:
+        return x
+    keep = []
+    for s, d in zip(src, dst):
+        k = 0
+        while k < min(len(s), len(d)) and s[k] == d[k]:
+            k += 1
+        keep.append(k)
+    for dim, (s, k) in enumerate(zip(src, keep)):
+        if s[k:]:
+            x = gather_replicated(x, s[k:], mesh, dim)
+    for dim, (d, k) in enumerate(zip(dst, keep)):
+        if d[k:]:
+            x = slice_replicated(x, d[k:], mesh, dim)
+    return x

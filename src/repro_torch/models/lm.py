@@ -448,7 +448,7 @@ def _sp_block(ctx: Ctx, h, fn, ins=(), out=None, partial_out=None):
     """One block under the sequence-parallel layout (``ctx.seq_parallel``):
     ``h``, this rank's chunk of the sequence, gathered whole over model at
     the entry and the block's output ``fn(h, ctx)`` reduce-scattered (or
-    sliced) back to the chunk at the exit. ``ins``: the (role, site params)
+    moved, :func:`_move`) back to the chunk at the exit. ``ins``: the (role, site params)
     that read ``h``; where every one runs a column plan their dX are left
     partial and the entry's backward reduce-scatters them
     (``launch.mesh.gather_partial``), else the entry's backward slices a
@@ -477,11 +477,12 @@ def _sp_block(ctx: Ctx, h, fn, ins=(), out=None, partial_out=None):
     if p_out and partial_out:
         roles.add("moe")
     bctx = dataclasses.replace(ctx, sp_partial=frozenset(roles))
-    h = m.gather_partial(h, mp, mesh, 1) if p_in else m.gather_replicated(h, mp, mesh, 1)
+    sp, whole = _compute(ctx), _fixed(ctx)
+    h = m.gather_partial(h, mp, mesh, 1) if p_in else _move(h, ctx, sp, whole)
     o = fn(h, bctx)
 
     def exit_(t):
-        return m.scatter_partial(t, mp, mesh, 1) if p_out else m.slice_replicated(t, mp, mesh, 1)
+        return m.scatter_partial(t, mp, mesh, 1) if p_out else _move(t, ctx, whole, sp)
 
     # a block that also returns a state, an aux loss or its cache: (out, extra)
     return (exit_(o[0]), o[1]) if isinstance(o, tuple) else exit_(o)
@@ -574,7 +575,8 @@ def check_recurrent_segments(cfg: ArchConfig, segs) -> None:
 
 def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, caches=None,
                 pos=None, segs=None, memory=None, encoder=False):
-    """Run every layer; returns (x, aux): the MoE layers' aux losses summed
+    """Run every layer on ``x``, which lives in the stream's layout
+    (:func:`_layout_ctx`); returns (x, aux): the MoE layers' aux losses summed
     (float32 zero without MoE layers). With ``caches``, a prefill
     (``pos=None``) or decode step writes each layer's new keys and values or
     recurrent state into its cache. ``memory``: the encoder's output, for
@@ -587,6 +589,9 @@ def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, cache
     stack = params["encoder"]["layers"] if encoder else params["layers"]
     base = ENCODER_UID_BASE if encoder else 0
     remat = _remat_fn(cfg) if caches is None and torch.is_grad_enabled() else None
+    # the stream lives in its layout between the layers (the carry remat
+    # keeps) and each layer computes in the fixed or sequence-parallel one
+    live, comp = _live(ctx), _compute(ctx)
     for i, (kind, p) in enumerate(zip(kinds, stack)):
         lctx = ctx.for_layer(step_key, base + i)
         cache = caches[i] if caches is not None else None
@@ -594,7 +599,9 @@ def _run_layers(params, x, ctx: Ctx, cfg: ArchConfig, step_key, positions, cache
             p = params["shared"]
 
         def body(x, p=p, kind=kind, lctx=lctx, cache=cache):
-            return _layer(p, kind, x, lctx, cfg, positions, cache, pos, segs, memory)
+            x = _move(x, lctx, live, comp)
+            x, a = _layer(p, kind, x, lctx, cfg, positions, cache, pos, segs, memory)
+            return _move(x, lctx, comp, live), a
 
         if remat is None:
             x, a = body(x)
@@ -657,56 +664,79 @@ def _remat_fn(cfg: ArchConfig):
     return functools.partial(checkpoint, **kw)
 
 
-def _sp_ctx(ctx: Ctx, S: int) -> Ctx:
-    """``ctx`` with the sequence-parallel layout on for a sequence of ``S``
-    positions where the runtime asks for it and ``S`` divides the model
-    axis (else the fixed layout for this call, as JAX's ``_act_sharding``
-    leaves a sequence that does not divide unsharded)."""
-    if not ctx.seq_parallel:
+def _layout_ctx(ctx: Ctx, B: int, S: int, d: int) -> Ctx:
+    """``ctx`` for a call on ``B`` rows (this rank's) of ``S`` positions of
+    width ``d``: the sequence-parallel compute layout on where the runtime
+    asks for it and ``S`` divides the model axis (else the fixed layout for
+    this call, as JAX's ``_act_sharding`` leaves a sequence that does not
+    divide unsharded), and the residual stream's layout between the layers
+    (``ctx.act_layout``) resolved: a batch or sequence that does not divide
+    its axes stays whole, a width that does not raises, and a layout that
+    is the compute layout is None (no move)."""
+    if ctx.mesh is None:
         return ctx
-    on = ctx.mesh is not None and bool(ctx.model_axes) and S % ctx.n_mp == 0
-    return ctx if on else dataclasses.replace(ctx, seq_parallel=False)
+    on = ctx.seq_parallel and bool(ctx.model_axes) and S % ctx.n_mp == 0
+    ctx = dataclasses.replace(ctx, seq_parallel=on)
+    if ctx.act_layout is None:
+        return ctx
+    mesh = ctx.mesh
+    sizes = (_global_rows(B, ctx), S)
+    live = tuple(a if n % mesh.axis_size(a) == 0 else () for a, n in
+                 zip(ctx.act_layout[:2], sizes)) + (ctx.act_layout[2],)
+    if d % mesh.axis_size(live[2]):
+        raise ValueError(f"act_sharding: the model width {d} does not divide the "
+                         f"{mesh.axis_size(live[2])} ranks of {live[2]}")
+    return dataclasses.replace(ctx, act_layout=None if live == _compute(ctx) else live)
 
 
-def _sp_split(x, ctx: Ctx):
-    """The residual stream entering the sequence-parallel layout: this
-    rank's chunk of the sequence (backward: the chunks' cotangents
-    all-gathered)."""
-    if not ctx.seq_parallel:
+def _fixed(ctx: Ctx) -> tuple:
+    """The fixed layout of the stream: this rank's rows (over the data axes
+    where the rows are sharded), the whole sequence and width."""
+    return (tuple(ctx.data_axes) if ctx.rows_sharded else (), (), ())
+
+
+def _compute(ctx: Ctx) -> tuple:
+    """The layout a layer computes in: the fixed one, or its sequence over
+    model (sequence-parallel)."""
+    rows, _, _ = _fixed(ctx)
+    return (rows, tuple(ctx.model_axes) if ctx.seq_parallel else (), ())
+
+
+def _live(ctx: Ctx) -> tuple:
+    """Where the stream lives between the layers (:func:`_layout_ctx`)."""
+    return ctx.act_layout if ctx.act_layout is not None else _compute(ctx)
+
+
+def _move(x, ctx: Ctx, src, dst):
+    """``x`` moved between two layouts of the stream
+    (``launch.mesh.relayout``); itself off a mesh."""
+    if ctx.mesh is None:
         return x
-    from repro_torch.launch.mesh import slice_replicated
+    from repro_torch.launch.mesh import relayout
 
-    return slice_replicated(x, ctx.model_axes, ctx.mesh, 1)
-
-
-def _sp_join(x, ctx: Ctx):
-    """The residual stream leaving the sequence-parallel layout: the whole
-    sequence on every model rank (backward: this rank's chunk)."""
-    if not ctx.seq_parallel:
-        return x
-    from repro_torch.launch.mesh import gather_replicated
-
-    return gather_replicated(x, ctx.model_axes, ctx.mesh, 1)
+    return relayout(x, src, dst, ctx.mesh)
 
 
 def encode(params, src_embeds, ctx: Ctx, cfg: ArchConfig, step_key=None):
     """The encoder stack of an encoder-decoder config: ``src_embeds`` [B,
     S_enc, d] (the stub frontend's frames) in the compute type, the
-    bidirectional layers, the encoder's final norm. Under the
-    sequence-parallel layout the layers run on this rank's chunk of the
-    frames and the memory leaves whole."""
-    B, S, _ = src_embeds.shape
-    ctx = _sp_ctx(ctx, S)
-    x = _sp_split(src_embeds.to(getattr(torch, cfg.dtype)), ctx)
+    bidirectional layers, the encoder's final norm. The frames live in the
+    stream's layout between the layers (:func:`_layout_ctx`) and the memory
+    leaves whole."""
+    B, S, d = src_embeds.shape
+    ctx = _layout_ctx(ctx, B, S, d)
+    x = _move(src_embeds.to(getattr(torch, cfg.dtype)), ctx, _fixed(ctx), _live(ctx))
     x, _ = _run_layers(params, x, ctx, cfg, step_key,
                        _default_positions(cfg, B, S, src_embeds.device), encoder=True)
-    return _sp_join(_norm(params["encoder"]["final_norm"], x, ctx), ctx)
+    x = _norm(params["encoder"]["final_norm"], _move(x, ctx, _live(ctx), _compute(ctx)), ctx)
+    return _move(x, ctx, _compute(ctx), _fixed(ctx))
 
 
 def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
     """(embedded inputs, positions, encoder memory or None, ctx) of a
-    forward or prefill batch; under the sequence-parallel layout the
-    embedded inputs are this rank's chunk of the sequence."""
+    forward or prefill batch; the embedded inputs in the stream's layout
+    between the layers (:func:`_layout_ctx`: under the sequence-parallel
+    layout this rank's chunk of the sequence)."""
     check_decoder(cfg)
     inp = _inputs(batch)
     B, S = inp.shape[0], inp.shape[1]
@@ -718,8 +748,8 @@ def _prologue(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
     memory = (encode(params, batch["src_embeds"], ctx, cfg, step_key) if cfg.is_encdec
               else None)
     x = _embed(params, inp, cfg) if ctx.mesh is None else _mesh_embed(params, inp, ctx, cfg)
-    ctx = _sp_ctx(ctx, S)
-    return _sp_split(x, ctx), positions, memory, ctx
+    ctx = _layout_ctx(ctx, B, S, x.shape[-1])
+    return _move(x, ctx, _fixed(ctx), _live(ctx)), positions, memory, ctx
 
 
 def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -740,7 +770,7 @@ def _forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
     x, positions, memory, ctx = _prologue(params, batch, ctx, cfg, step_key)
     x, aux = _run_layers(params, x, ctx, cfg, step_key, positions,
                          segs=batch.get("segments"), memory=memory)
-    return (*_head(params, _sp_join(x, ctx), ctx, cfg), aux)
+    return (*_head(params, _move(x, ctx, _live(ctx), _fixed(ctx)), ctx, cfg), aux)
 
 
 def forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -809,7 +839,8 @@ def prefill(params, batch, ctx: Ctx, cfg: ArchConfig, max_len: int, step_key=Non
                         mesh=ctx.mesh)
     x, _ = _run_layers(params, x, ctx, cfg, step_key, positions, caches=caches,
                        segs=batch.get("segments"), memory=memory)
-    return _whole_vocab(*_head(params, _sp_join(x, ctx), ctx, cfg), ctx), caches
+    return _whole_vocab(*_head(params, _move(x, ctx, _live(ctx), _fixed(ctx)), ctx, cfg),
+                        ctx), caches
 
 
 def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key=None):
@@ -821,7 +852,8 @@ def decode_step(params, caches, tokens, pos, ctx: Ctx, cfg: ArchConfig, step_key
     [B, 1, V], caches). Under a mesh: this rank's rows of ``tokens`` and
     ``pos``, and this rank's shards of the caches (:func:`prefill`'s)."""
     check_decoder(cfg)
-    ctx = dataclasses.replace(ctx, seq_parallel=False)  # one position: the fixed layout
+    # one position: the fixed layout
+    ctx = dataclasses.replace(ctx, seq_parallel=False, act_layout=None)
     positions = _default_positions(cfg, tokens.shape[0], 1, tokens.device, offset=pos)
     x = _embed(params, tokens, cfg) if ctx.mesh is None else _mesh_embed(params, tokens, ctx,
                                                                          cfg)

@@ -30,12 +30,6 @@ _ROLE_IDS = {r: i for i, r in enumerate(ROLES)}
 # and those whose input is
 MODEL_SHARDED_OUT = ("tp_column", "tp_exact", "local_column")
 MODEL_SHARDED_IN = ("tp_row", "local_row")
-# roles whose local-plan sites keep the gathered weight on a model split:
-# Mamba2's in/out projections. Split, zamba2's random-init hybrid amplifies
-# the reordered float32 sums ~1e3-fold through its recurrence (PERF.md §7),
-# and its sketched mesh step leaves the 1e-5 of the single device's that it
-# is held to (ROADMAP.md Queue 1 item 2b)
-GATHERED_ROLES = frozenset({"ssm_in", "ssm_out"})
 
 
 @dataclasses.dataclass
@@ -58,10 +52,14 @@ class Ctx:
     # under a mesh: this rank's rows are its share of the batch over the data
     # axes (False: every data rank holds the whole batch, which did not divide)
     rows_sharded: bool = True
-    # the residual stream is sequence-parallel between the blocks
-    # (ExecutionConfig.act_sharding; models/lm.py turns it off for a call
-    # whose sequence does not divide the model axis)
+    # the layers compute in the sequence-parallel layout (ExecutionConfig.
+    # act_sharding; models/lm.py turns it off for a call whose sequence does
+    # not divide the model axis)
     seq_parallel: bool = False
+    # where the residual stream lives between the layers, one tuple of mesh
+    # axes per dimension of [B, S, d] (ExecutionConfig.stream_layout), or
+    # None: where the layers compute (models/lm.py resolves it per call)
+    act_layout: Optional[tuple] = None
     # roles whose TP plan leaves its result partial over the model axis for a
     # sequence-parallel mover to complete (the column plans' dX, the row
     # plan's output; "moe": the MoE layer's expert sum), set per block by
@@ -122,11 +120,11 @@ class Ctx:
         """Where a local-plan site ``role`` of weight ``w`` computes on its
         model shard (``tp_sketch`` off, a model axis of several ranks):
         ``"column"`` or ``"row"`` (``core.site.split_kind``); else None.
-        Mamba2's projections (:data:`GATHERED_ROLES`) and a site sketched on
-        a registered backend outside ``core.site.MODEL_SPLIT_BACKENDS``
-        keep the gathered weight (the whole width, as GSPMD runs JAX's
-        ``_local_bwd`` for any estimator in its registry)."""
-        if self.mesh is None or self.tp_sketch or role in GATHERED_ROLES:
+        A site sketched on a registered backend outside
+        ``core.site.MODEL_SPLIT_BACKENDS`` keeps the gathered weight (the
+        whole width, as GSPMD runs JAX's ``_local_bwd`` for any estimator in
+        its registry)."""
+        if self.mesh is None or self.tp_sketch:
             return None
         from repro_torch.core.site import MODEL_SPLIT_BACKENDS, split_kind
 

@@ -25,17 +25,23 @@ JAX's ``cost_mode`` (python-unrolled loops for HLO cost artifacts) has no
 counterpart: the port's chunk loop is always a Python loop.
 
 Under a mesh (training) the blocks' linears run through ``dense`` with JAX's
-roles, so under ``tp_sketch`` Mamba2's ``in_x``/``in_z`` (``ssm_in``) and
-RWKV6's ``r``/``k``/``v``/``g`` take column plans and their out projections
-row plans; ``in_B``/``in_C``/``in_dt`` (``ssm_small``), ``w1``/``w2`` and the
-small leaves stay whole. The recurrence runs on this rank's heads where
+roles, so Mamba2's ``in_x``/``in_z`` (``ssm_in``) and RWKV6's
+``r``/``k``/``v``/``g`` take column plans (``tp_column`` under
+``tp_sketch``, else the local plan split by columns) and their out
+projections row plans; ``in_B``/``in_C``/``in_dt`` (``ssm_small``),
+``w1``/``w2`` and the small leaves stay whole. The recurrence runs on this rank's heads where
 every projection feeding it ran column-parallel and the heads divide the
 model axis (the conv leaf, stored as its model chunk of channels by the
 sharding rules, is then used as it is, the per-head leaves are cut to this
 rank's heads, and the RMS norm over the channels sums its squares over
 model); otherwise each model-sharded projection is all-gathered over model
 and the recurrence runs on every head, as ``nn.attention._mesh_heads``
-does. Serving under a mesh (prefill with a cached state, and decode) always
+does. Mamba2's part between the projections and the norm is
+:func:`mamba_heads`, a function of the heads it is given
+(:func:`head_leaves` cuts them by offset and count), and the norm of a
+shard takes the channels' sum of squares from outside
+(:func:`shard_rmsnorm`): the mesh sums it over model, one device emulating
+the shards sums it itself. Serving under a mesh (prefill with a cached state, and decode) always
 runs it on every head: the cached states hold every head, batch over data
 only (``launch.sharding.cache_specs``).
 """
@@ -51,8 +57,8 @@ from repro_torch.nn.common import (MODEL_SHARDED_OUT, Ctx, dense, dense_init, rm
                                    rmsnorm_init)
 
 __all__ = ["MambaCfg", "mamba_init", "mamba_block", "mamba_prefill", "mamba_decode",
-           "mamba_state_init", "RWKVCfg", "rwkv_init", "rwkv_time_mix", "rwkv_channel_mix",
-           "rwkv_state_init"]
+           "mamba_state_init", "mamba_heads", "head_leaves", "shard_rmsnorm", "sum_squares",
+           "RWKVCfg", "rwkv_init", "rwkv_time_mix", "rwkv_channel_mix", "rwkv_state_init"]
 
 
 def _remat(fn, *args):
@@ -228,6 +234,21 @@ def _model_whole(w, ctx: Ctx, dim: int):
     return gather_replicated(w, dim_axes(spec[dim]), ctx.mesh, dim)
 
 
+def sum_squares(x):
+    """The sum of squares over the last axis in float32 (keepdim): what a
+    shard of the channels contributes to their RMS norm."""
+    return x.to(torch.float32).square().sum(-1, keepdim=True)
+
+
+def shard_rmsnorm(x, g, ss, d: int, eps: float = 1e-6):
+    """``rmsnorm`` of a chunk ``x`` of ``d`` channels whose sum of squares
+    over all of them, ``ss`` [..., 1], is given (summed over the shards
+    outside); ``g`` is the chunk's gain."""
+    x32 = x.to(torch.float32)
+    y = x32 * torch.rsqrt(ss / d + eps)
+    return (y * g.to(torch.float32)).to(x.dtype)
+
+
 def _norm(p, x, ctx: Ctx, local: bool, eps: float = 1e-6):
     """``rmsnorm`` over the channels; with ``local``, ``x`` holds this rank's
     chunk of them and the mean square is summed over model."""
@@ -235,11 +256,8 @@ def _norm(p, x, ctx: Ctx, local: bool, eps: float = 1e-6):
 
     if not local:
         return rmsnorm(p, x, eps)
-    x32 = x.to(torch.float32)
-    d = x.shape[-1] * ctx.n_mp
-    ss = psum_partial(x32.square().sum(-1, keepdim=True), ctx.model_axes, ctx.mesh)
-    y = x32 * torch.rsqrt(ss / d + eps)
-    return (y * _mine(p["g"], ctx, 0).to(torch.float32)).to(x.dtype)
+    ss = psum_partial(sum_squares(x), ctx.model_axes, ctx.mesh)
+    return shard_rmsnorm(x, _mine(p["g"], ctx, 0), ss, x.shape[-1] * ctx.n_mp, eps)
 
 
 def _out_input(p, ctx: Ctx, role: str, h, local: bool):
@@ -253,57 +271,86 @@ def _out_input(p, ctx: Ctx, role: str, h, local: bool):
 _MAMBA_IN = {"in_z": "ssm_in", "in_x": "ssm_in"}
 
 
-def _mamba_pre(params, x, ctx: Ctx, cfg: MambaCfg, conv_state=None, local=False):
-    """The projections, the conv and dt; with ``local`` (under a mesh) z,
-    x, the conv and dt on this rank's heads."""
+def _mamba_proj(params, x, ctx: Ctx, local=False):
+    """The five projections; under a mesh with ``local``, dt cut to this
+    rank's heads and B, C entering this rank's part (their cotangents are
+    partial over model), else z and x whole."""
     z = dense(params["in_z"], x, ctx, "ssm_in")
     xs = dense(params["in_x"], x, ctx, "ssm_in")
     Bc = dense(params["in_B"], x, ctx, "ssm_small")
     Cc = dense(params["in_C"], x, ctx, "ssm_small")
     dt = dense(params["in_dt"], x, ctx, "ssm_small")
-    conv, dt_bias = params["conv"], params["dt_bias"]
     if ctx.mesh is not None:
         if local:
             from repro_torch.launch.mesh import copy_to
 
-            dt, dt_bias = _mine(dt, ctx), _mine(dt_bias, ctx, 0)
+            dt = _mine(dt, ctx)
             # B and C are shared by every head: this rank's heads give
             # partial cotangents
             Bc, Cc = (copy_to(t, ctx.model_axes, ctx.mesh) for t in (Bc, Cc))
         else:
             z, xs = _whole(z, ctx, params["in_z"], "ssm_in"), _whole(xs, ctx, params["in_x"],
                                                                      "ssm_in")
-            conv = _model_whole(conv, ctx, 1)
-    xs, new_conv = _causal_conv(xs, conv, conv_state)
-    dt = F.softplus(dt.to(torch.float32) + dt_bias)
-    return z, xs, Bc, Cc, dt, new_conv
+    return z, xs, Bc, Cc, dt
 
 
-def _mamba_post(params, y, z, ctx: Ctx, dtype, local=False):
-    y = y.to(dtype) * F.silu(z.to(torch.float32)).to(dtype)
-    y = _out_input(params["out"], ctx, "ssm_out", _norm(params["norm"], y, ctx, local), local)
-    return dense(params["out"], y, ctx, "ssm_out")
+def head_leaves(params, lo: int, n: int, head_dim: int) -> dict:
+    """The per-head leaves of heads ``[lo, lo + n)`` of a whole block's
+    ``params``: the conv's channels of those heads, ``A_log``, ``D`` and
+    ``dt_bias`` (what :func:`mamba_heads` reads), and the norm gain's
+    channels (``g``, for :func:`shard_rmsnorm`)."""
+    c0, c1 = lo * head_dim, (lo + n) * head_dim
+    return {"conv": params["conv"][:, c0:c1], "g": params["norm"]["g"][c0:c1],
+            **{k: params[k][lo:lo + n] for k in ("A_log", "D", "dt_bias")}}
+
+
+def _mesh_leaves(params, ctx: Ctx, local: bool) -> dict:
+    """The leaves :func:`mamba_heads` reads, of this rank: under a mesh with
+    ``local`` its heads (the conv as the rules store it, the model chunk of
+    its channels; the per-head leaves sliced, their cotangents gathered),
+    else every head (the conv gathered where the rules shard it)."""
+    p = {k: params[k] for k in ("conv", "A_log", "D", "dt_bias")}
+    if ctx.mesh is None:
+        return p
+    if not local:
+        return dict(p, conv=_model_whole(p["conv"], ctx, 1))
+    return dict(p, **{k: _mine(p[k], ctx, 0) for k in ("A_log", "D", "dt_bias")})
+
+
+def mamba_heads(leaves, z, xs, Bc, Cc, dt, cfg: MambaCfg, dtype, conv_state=None):
+    """The Mamba2 block between its projections and its norm, on the heads
+    that ``leaves`` (:func:`head_leaves`) and the inputs hold: one shard's
+    part under a model split, every head otherwise. ``z``, ``xs`` [B, S, n
+    P] (those heads' columns of the ``ssm_in`` projections), ``dt`` [B, S,
+    n] before its bias and softplus, ``Bc``, ``Cc`` [B, S, N] (shared by
+    every head). Returns (y [B, S, n P] in ``dtype``, gated by silu(z),
+    before the norm; the final SSM state; the conv state)."""
+    xs, new_conv = _causal_conv(xs, leaves["conv"], conv_state)
+    dt = F.softplus(dt.to(torch.float32) + leaves["dt_bias"])
+    Bsz, S = xs.shape[:2]
+    H, P = leaves["A_log"].shape[0], cfg.head_dim
+    xh = xs.reshape(Bsz, S, H, P).to(torch.float32)
+    A = torch.exp(leaves["A_log"])
+    state0 = xs.new_zeros((Bsz, H, P, cfg.d_state), dtype=torch.float32)
+    y, state = _ssd(xh, dt, A, Bc.to(torch.float32), Cc.to(torch.float32), cfg, state0)
+    y = (y + leaves["D"][None, None, :, None] * xh).reshape(Bsz, S, H * P)
+    return y.to(dtype) * F.silu(z.to(torch.float32)).to(dtype), state, new_conv
 
 
 def mamba_prefill(params, x, ctx: Ctx, cfg: MambaCfg, *, whole_heads: bool = False):
     """Training/prefill path. x: [B, S, d_model] -> (out [B, S, d_model],
     the final ``{"ssm", "conv"}`` state; JAX's ``lm._mamba_prefill``).
     ``whole_heads`` (a prefill that caches the state, which holds every
-    head under a mesh): the recurrence runs on every head."""
-    Bsz, S, _ = x.shape
+    head under a mesh): the recurrence runs on every head. On this rank's
+    heads (``_heads_local``) the norm's sum of squares is summed over
+    model: each rank runs :func:`mamba_heads` on its heads, as one device
+    does on each of its emulated shards."""
     local = not whole_heads and _heads_local(ctx, params, _MAMBA_IN, cfg.n_heads)
-    H, P = cfg.n_heads // (ctx.n_mp if local else 1), cfg.head_dim
-    z, xs, Bc, Cc, dt, conv = _mamba_pre(params, x, ctx, cfg, local=local)
-    xh = xs.reshape(Bsz, S, H, P).to(torch.float32)
-    A_log, D = params["A_log"], params["D"]
-    if local:
-        A_log, D = _mine(A_log, ctx, 0), _mine(D, ctx, 0)
-    A = torch.exp(A_log)
-    state0 = x.new_zeros((Bsz, H, P, cfg.d_state), dtype=torch.float32)
-    y, state = _ssd(xh, dt, A, Bc.to(torch.float32), Cc.to(torch.float32), cfg, state0)
-    y = y + D[None, None, :, None] * xh
-    out = _mamba_post(params, y.reshape(Bsz, S, H * P), z, ctx, x.dtype, local)
-    return out, {"ssm": state, "conv": conv}
+    z, xs, Bc, Cc, dt = _mamba_proj(params, x, ctx, local)
+    y, state, conv = mamba_heads(_mesh_leaves(params, ctx, local), z, xs, Bc, Cc, dt, cfg,
+                                 x.dtype)
+    y = _out_input(params["out"], ctx, "ssm_out", _norm(params["norm"], y, ctx, local), local)
+    return dense(params["out"], y, ctx, "ssm_out"), {"ssm": state, "conv": conv}
 
 
 def mamba_block(params, x, ctx: Ctx, cfg: MambaCfg):
@@ -324,7 +371,10 @@ def mamba_decode(params, x, ctx: Ctx, cfg: MambaCfg, state):
     Returns (out [B, 1, d_model], new state)."""
     Bsz = x.shape[0]
     H, P = cfg.n_heads, cfg.head_dim
-    z, xs, Bc, Cc, dt, new_conv = _mamba_pre(params, x, ctx, cfg, state["conv"])
+    z, xs, Bc, Cc, dt = _mamba_proj(params, x, ctx)
+    leaves = _mesh_leaves(params, ctx, False)
+    xs, new_conv = _causal_conv(xs, leaves["conv"], state["conv"])
+    dt = F.softplus(dt.to(torch.float32) + leaves["dt_bias"])
     xh = xs.reshape(Bsz, H, P).to(torch.float32)
     A = torch.exp(params["A_log"])
     dt1 = dt[:, 0]  # [B,H]
@@ -333,8 +383,9 @@ def mamba_decode(params, x, ctx: Ctx, cfg: MambaCfg, state):
     s = state["ssm"] * dA[..., None, None] + inject
     y = torch.einsum("bhpn,bn->bhp", s, Cc[:, 0].to(torch.float32))
     y = y + params["D"][None, :, None] * xh
-    out = _mamba_post(params, y.reshape(Bsz, 1, cfg.d_inner), z, ctx, x.dtype)
-    return out, {"ssm": s, "conv": new_conv}
+    y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype) * F.silu(z.to(torch.float32)).to(x.dtype)
+    y = _out_input(params["out"], ctx, "ssm_out", rmsnorm(params["norm"], y), False)
+    return dense(params["out"], y, ctx, "ssm_out"), {"ssm": s, "conv": new_conv}
 
 
 # ---------------------------------------------------------------------------

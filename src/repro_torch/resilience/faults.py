@@ -16,9 +16,9 @@ Fault kinds (JAX's docs/resilience.md has the taxonomy):
     reactive Controller is the mitigation, not the sentinel).
   * ``ckpt_io``     — the next async checkpoint write raises in the writer
     thread (surfaces as CheckpointError on the next wait).
-  * ``device_loss`` — raise :class:`DeviceLossFault` before the step. JAX's
-    supervisor re-shards onto the surviving ``mesh_shape``; the port has no
-    mesh yet, and its supervisor re-raises the fault (docs/port.md).
+  * ``device_loss`` — raise :class:`DeviceLossFault` before the step; the
+    supervisor re-shards onto the surviving ``mesh_shape`` (the process
+    group re-formed on its first ranks where it has fewer), as JAX's does.
 
 Both the declarative spelling (``FaultPlan(faults=(...,))``) and a seeded
 random generator (:meth:`FaultPlan.random`) are deterministic: the same

@@ -1,5 +1,5 @@
 """Retry and rollback orchestrator: the outermost loop of a resilient run
-(port of ``repro/resilience/supervisor.py``, one device).
+(port of ``repro/resilience/supervisor.py``).
 
 :class:`Supervisor` wraps ``trainer.train_loop`` and owns the recovery the
 sentinel cannot do alone:
@@ -9,11 +9,16 @@ sentinel cannot do alone:
     restore the newest *verified* checkpoint (CRC-checked; ``train_loop``
     auto-resumes) and retry with a per-attempt seed salt, so the retried
     trajectory *resamples* every sketch: a rare bad index draw cannot recur.
-  * :class:`~repro_torch.resilience.faults.DeviceLossFault`: JAX re-shards
-    the newest checkpoint onto the surviving mesh. That needs a mesh, which
-    the port does not have yet; the port's supervisor dumps the
-    ``device_loss`` crash bundle and re-raises the fault unchanged, as JAX
-    does when it has no checkpoint directory (docs/port.md).
+  * :class:`~repro_torch.resilience.faults.DeviceLossFault` (hard fault):
+    without a checkpoint directory the fault is re-raised, as in JAX.
+    Otherwise the run moves onto the surviving mesh: where it has fewer
+    ranks, the process group is re-formed on the survivors, a prefix of the
+    old rank order (``elastic.regroup``), and the other ranks leave ``run``
+    with no state and a ``device_lost`` event; the survivors build the mesh
+    (``elastic.surviving_mesh``), rebind the runtime's execution config to
+    it (the steps cached on the old mesh dropped), restore the newest
+    checkpoint onto it (``elastic.resume_on_mesh``), record
+    ``device_loss_reshard`` and keep training (docs/port.md, "Resilience").
 
 Every recovery is recorded (cause, steps lost, wall-time cost) through the
 runtime's telemetry sinks and kept on ``Supervisor.events``;
@@ -79,16 +84,31 @@ class Supervisor:
         if sink is not None:
             sink.write(dict(rec))
 
+    def _remesh(self, mesh_shape):
+        """Rebind the runtime onto the surviving mesh (the same axis names
+        and residual layout)."""
+        from repro_torch.train import elastic
+
+        ex = self.runtime.execution
+        new_mesh = elastic.surviving_mesh(ex.mesh, mesh_shape)
+        act = getattr(ex.act_sharding, "spec", ex.act_sharding)
+        self.runtime = self.runtime.replace(execution=ex.replace(mesh=new_mesh,
+                                                                 act_sharding=act))
+        return new_mesh
+
     def run(self, data: Iterable, *, state=None, on_metrics: Optional[Callable] = None):
         """Returns ``(final_state, history)``, the history stitched across
         attempts; the recovery events are on ``self.events`` and the sinks.
+        A rank that a device loss leaves outside the surviving mesh returns
+        ``(None, history)``.
 
         A retry starts after the ``except`` block that handled the fault has
         ended: until then the exception's traceback holds the failed
         attempt's frame, and its state on the device with it."""
+        from repro_torch.api.runtime import drop_steps
         from repro_torch.telemetry import sinks as tsinks
         from repro_torch.train import checkpoint as ckptlib
-        from repro_torch.train import trainer
+        from repro_torch.train import elastic, trainer
 
         rcfg = self.runtime.execution.resilience
         sink = tsinks.build_sinks(self.runtime.execution.telemetry)
@@ -121,10 +141,33 @@ class Supervisor:
                             steps_lost=e.step + 1 - int(resume or 0),
                             wall_s=clock.now() - t0), sink)
                 except DeviceLossFault as e:
-                    # re-sharding needs a mesh (the port's distributed slice)
+                    history.extend(e.history)
                     self._ob.dump_crash("device_loss", {
                         "step": e.step, "mesh_shape": list(e.mesh_shape), "attempt": attempt})
-                    raise
+                    self._bump(e, rcfg)
+                    attempt += 1
+                    if not self.tcfg.ckpt_dir:
+                        raise
+                    with tracer.span("recovery.device_loss", step=e.step):
+                        t0 = clock.now()
+                        old = self.runtime.execution.mesh
+                        old_shape = list(old.devices_shape) if old is not None else []
+                        if old is not None:
+                            drop_steps(old)  # built on the old mesh's process groups
+                        if not self._survive(e):
+                            self._record(tsinks.recovery_record(
+                                "device_lost", step=e.step, cause="device_loss",
+                                old_mesh=old_shape, new_mesh=list(e.mesh_shape),
+                                wall_s=clock.now() - t0), sink)
+                            return None, history
+                        new_mesh = self._remesh(e.mesh_shape)
+                        state, resume = elastic.resume_on_mesh(self.tcfg.ckpt_dir, e.state,
+                                                               new_mesh)
+                        self._record(tsinks.recovery_record(
+                            "device_loss_reshard", step=e.step, cause="device_loss",
+                            resume_step=int(resume), steps_lost=e.step - int(resume),
+                            old_mesh=old_shape, new_mesh=list(e.mesh_shape),
+                            wall_s=clock.now() - t0), sink)
                 except ckptlib.CheckpointError as e:
                     # unrecoverable inside train_loop (the synchronous retry failed too)
                     self._ob.dump_crash("checkpoint_error", {"error": str(e)})
@@ -132,6 +175,27 @@ class Supervisor:
         finally:
             if sink is not None:
                 sink.close()
+
+    def _survive(self, e) -> bool:
+        """Whether this rank is on the surviving mesh of ``e``: the process
+        group re-formed on its first ranks where the mesh has fewer
+        (``elastic.regroup``). Raises where it needs more ranks than the
+        group has."""
+        import math
+
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        n = math.prod(e.mesh_shape)
+        if n > world:
+            raise ValueError(f"device_loss at step {e.step}: the surviving mesh "
+                             f"{tuple(e.mesh_shape)} needs {n} ranks, the process group has "
+                             f"{world}") from e
+        if n == world:
+            return True
+        from repro_torch.train import elastic
+
+        return elastic.regroup(n)
 
     def _bump(self, exc, rcfg):
         self.recoveries += 1

@@ -22,16 +22,17 @@ from repro_torch.launch import sharding as shardlib
 from repro_torch.train import checkpoint as ckptlib
 from repro_torch.train.train_step import TrainState
 
-__all__ = ["resume_on_mesh", "state_shardings", "surviving_mesh", "gather_state"]
+__all__ = ["resume_on_mesh", "state_shardings", "surviving_mesh", "regroup",
+           "gather_state"]
 
 
 def surviving_mesh(old_mesh, shape, *, axes=None, device=None):
     """A mesh of ``shape`` over the process group, axis names from
     ``old_mesh`` (default ``("data", "model")`` cut to ``len(shape)``).
-    The port's ranks are processes: a mesh on fewer ranks than the group
-    needs the group re-initialised on the survivors, which comes with the
-    supervisor's ``device_loss`` re-shard (ROADMAP.md), so ``shape`` must
-    cover every rank."""
+    The port's ranks are processes: ``shape`` covers the whole group, so a
+    mesh on fewer ranks than the old one is built after :func:`regroup`
+    has re-formed the group on the survivors. Raises ``ValueError`` where
+    ``shape`` needs another number of ranks than the group has."""
     import torch.distributed as dist
 
     shape = tuple(int(s) for s in shape)
@@ -42,12 +43,41 @@ def surviving_mesh(old_mesh, shape, *, axes=None, device=None):
             tuple(f"ax{i}" for i in range(len(shape)))
     world = dist.get_world_size() if dist.is_initialized() else 1
     if math.prod(shape) != world:
-        raise NotImplementedError(
-            f"surviving mesh {shape} on {world} ranks: a mesh on fewer ranks than the "
-            "process group is not ported (ROADMAP.md, Queue 1 item 2b)")
+        raise ValueError(f"surviving mesh {shape} needs {math.prod(shape)} ranks, the process "
+                         f"group has {world} (re-form it on the survivors first: regroup)")
     if device is None:
         device = old_mesh.device if old_mesh is not None else "cuda"
     return meshlib.make_mesh(shape, tuple(axes), device=device)
+
+
+def regroup(n_ranks: int) -> bool:
+    """Re-form the default process group on its first ``n_ranks`` ranks
+    (JAX's survivors: a prefix of the old device order), on a fresh
+    rendezvous under the old group's store; returns whether this rank is
+    one of them. Every rank destroys the old group (and with it every
+    mesh's groups); the others leave with no group. The survivors keep
+    their ranks, so ``make_mesh``'s rule (the mesh covers the group) holds
+    on the new group unchanged. The identity where the group already has
+    ``n_ranks`` ranks."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_ranks == world:
+        return True
+    if not 0 < n_ranks < world:
+        raise ValueError(f"regroup onto {n_ranks} of {world} ranks")
+    backend, store = dist.get_backend(), c10d._get_default_store()
+    generation = _REGROUPS[0] = _REGROUPS[0] + 1
+    dist.destroy_process_group()
+    if rank >= n_ranks:
+        return False
+    dist.init_process_group(backend, store=dist.PrefixStore(f"regroup/{generation}", store),
+                            rank=rank, world_size=n_ranks)
+    return True
+
+
+_REGROUPS = [0]  # the group's generations: each regroup rendezvous under its own prefix
 
 
 def _whole_shapes(tree):

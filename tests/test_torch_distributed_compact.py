@@ -4,13 +4,14 @@ against the port's single device and JAX's mesh step.
 
 The harness is ``test_torch_distributed_families.py``'s: 4 ranks spawned
 once, one intra-op thread each, meshes (2, 2) and (1, 4) ``("data",
-"model")``, ``tp_sketch`` off, so each sketched site runs the local plan:
+"model")``, ``tp_sketch`` off, so each sketched site runs the local plan,
 split over model (column- or row-parallel on its stored shard,
-``core/site.py``) or gathered (Mamba2's projections,
-``nn.common.GATHERED_ROLES``). Three smoke configs:
+``core/site.py``). Three smoke configs:
 
 * yi-6b (the dense decoder; its widths split into whole blocks of 16);
-* zamba2-7b (the hybrid: Mamba2's gathered sites, the shared block split);
+* zamba2-7b (the hybrid: Mamba2's projections split, ``in_z``/``in_x`` by
+  columns and ``out`` by rows, the recurrence on each rank's heads; the
+  shared block split);
 * qwen2-vl-2b (d_ff 96 and d_model 48: on 4 model ranks a shard holds 24 or
   12 columns, so kept blocks of 16 straddle two shards), its untied head
   sketched too (column-parallel over the vocabulary).
@@ -31,8 +32,23 @@ held to:
 zamba2's sketched sites are Mamba2's projections and the shared block, to
 which the slot builders give no slot, as JAX's (``core.site.site_role``):
 no carry, probe or gradient slot, so it takes one step, held to
-:data:`DEEP_TOL` (a second step from the perturbed parameters leaves it,
-the recurrence's amplification of ROADMAP.md Queue 1 item 2b (b)).
+:data:`DEEP_TOL` (a second step from the perturbed parameters leaves it:
+the random-init hybrid amplifies reordered float32 sums through its
+recurrence, PERF.md §7).
+
+The float64 witness of that amplification (ROADMAP.md Queue 1 item 2b
+(b)): zamba2's ``mask_pc`` step (``per_column``, mask, budget 0.5, the
+families file's policy) on (2, 2) and (1, 4) and its ``mask_l1`` step on
+(1, 4), with Mamba2's projections split and with them on the gathered
+weight (``Ctx.split_kind`` patched to None for ``ssm_in``/``ssm_out``, the
+route before the split), each against the same step on one device in
+float64 (every ``torch.float32`` of the port read as float64 while it
+runs; the plan's draws are the float32 ones). The split's largest
+departure of the logits and of the gradients from the float64 step is at
+most twice the gathered path's, and the float32 single device's departure
+plus twice the gathered path's, after an SGD step of 0.1, is within
+``SPLIT_WITNESS_TOL``, the bound the families file holds zamba2's split
+steps to.
 
 One ``compact`` case, yi-6b on (2, 2) at budget 0.999 (every block kept:
 the two packages' generators differ, so a plan that keeps every block is
@@ -69,13 +85,15 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_distributed_families import (STEP_SEED, assert_close_leaves, clone,
-                                             family_inputs, finish, flat, gather_whole,
-                                             init_group, jax_mesh, lead_rank, make_meshes,
-                                             progress, spawn_ranks, updated_rows)
+from test_torch_distributed_families import (SPLIT_WITNESS_TOL, STEP_SEED,
+                                             assert_close_leaves, clone, family_inputs, finish,
+                                             flat, gather_whole, init_group, jax_mesh,
+                                             lead_rank, make_meshes, progress, spawn_ranks,
+                                             updated_rows)
+from test_torch_distributed_families import policy as family_policy
 
 MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
-ALONE_S = 55  # the rank group's time alone (spawning included; see SLOWDOWN)
+ALONE_S = 65  # the rank group's time alone (spawning included; see SLOWDOWN)
 FAMILIES = ("yi_6b", "zamba2_7b", "qwen2_vl_2b")
 BACKENDS = ("compact", "pallas", "onepass", "stale")
 CARRY = ("onepass", "stale")
@@ -510,6 +528,112 @@ def row_plan_runs(inp, out, meshes):
         site._tp_sketch_bwd, site._row_scatter_axes = real_bwd, real_axes
 
 
+# -- the float64 witness of zamba2's split Mamba2 sites ---------------------------
+
+WITNESS_FAMILY = "zamba2_7b"
+WITNESS_RUNS = (("2x2", "mask_pc"), ("1x4", "mask_pc"), ("1x4", "mask_l1"))
+WITNESS_LR = 0.1  # the families file's SGD step, whose parameters it compares
+# the split may sit this many times the gathered path's distance from the
+# float64 step (ROADMAP.md Queue 1 item 2b (b))
+WITNESS_FACTOR_SPLIT = 2.0
+
+
+def capture_grads():
+    """An optimizer whose update returns the step's gradients (marked as
+    the parameters' shards) as the new parameters."""
+    from repro_torch.launch.sharding import mark_like
+    from repro_torch.optim import Optimizer
+
+    return Optimizer(init=lambda params: {},
+                     update=lambda grads, state, params, step: (mark_like(grads, params), state))
+
+
+def _flat64(tree, path="") -> dict:
+    """:func:`flat` in float64 (the float64 step's leaves kept whole)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat64(sub, f"{path}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _flat64(sub, f"{path}/{i}").items()}
+    return {path: tree.detach().to(torch.float64).numpy()} if isinstance(tree, torch.Tensor) \
+        else {}
+
+
+def witness_step(cfg, params, batch, kind, mesh=None):
+    """One step's gradients (whole, by path), its loss, and the logits of
+    the forward from ``params`` (every row)."""
+    import torch.distributed as dist
+
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    opt = capture_grads()
+    ex = None if mesh is None else ExecutionConfig(mesh=mesh)
+    st = init_state(0, cfg, opt, params=clone(params), device="cpu", execution=ex)
+    b = batch if mesh is None else shard_batch(batch, mesh=mesh)
+    with torch.no_grad():
+        logits = lm.forward(st.params, b, (ex or ExecutionConfig()).make_ctx(), cfg)
+    step = make_train_step(cfg, opt, family_policy(kind), execution=ex, device="cpu")
+    new, m = step(st, b, STEP_SEED)
+    if mesh is None:
+        return {"grads": _flat64(new.params), "loss": float(m["loss"]),
+                "logits": logits.double().numpy()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.coords["data"], logits.double().numpy()))
+    rows = dict(every)  # one of each data rank's (equal) copies
+    return {"grads": gather_whole(new.params, mesh), "loss": float(m["loss"]),
+            "logits": np.concatenate([rows[i] for i in sorted(rows)], 0)}
+
+
+def float64_step(cfg, params, batch, kind):
+    """:func:`witness_step` on one device in float64: the parameters and
+    the batch's floats in float64, and every ``torch.float32`` the port
+    names read as ``torch.float64`` while it runs (its casts, buffers and
+    the configs' dtype). The plan's uniforms come from ``torch.rand``'s
+    default float32, so the plan is the float32 step's."""
+    from repro_torch.tree import tree_map
+
+    real = torch.float32
+    p64 = tree_map(lambda t: t.double() if t.is_floating_point() else t, params)
+    b64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    torch.float32 = torch.float64
+    try:
+        out = witness_step(cfg, p64, b64, kind)
+    finally:
+        torch.float32 = real
+    assert all(v.dtype == np.float64 for v in out["grads"].values())
+    return out
+
+
+def witness_runs(inp, out, meshes):
+    """zamba2's steps of :data:`WITNESS_RUNS`: on each mesh with Mamba2's
+    projections split and gathered (``Ctx.split_kind`` None for their
+    roles), and on one device in float32 and float64 (rank 0 alone)."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.nn.common import Ctx
+
+    name = WITNESS_FAMILY
+    cfg = smoke_config(name)
+    params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
+    for kind in sorted({k for _, k in WITNESS_RUNS}) if lead_rank() else ():
+        out[f"witness/single/{kind}"] = witness_step(cfg, params, batch, kind)
+        out[f"witness/float64/{kind}"] = float64_step(cfg, params, batch, kind)
+    real = Ctx.split_kind
+
+    def gathered(self, role, w):
+        return None if role in ("ssm_in", "ssm_out") else real(self, role, w)
+
+    try:
+        for route in ("split", "gathered"):
+            Ctx.split_kind = real if route == "split" else gathered
+            for tag, kind in WITNESS_RUNS:
+                out[f"witness/{tag}/{kind}/{route}"] = witness_step(cfg, params, batch, kind,
+                                                                    meshes[tag])
+    finally:
+        Ctx.split_kind = real
+
+
 def _worker(rank, world, store, work):
     init_group(rank, world, store)
     out = {}
@@ -523,7 +647,7 @@ def _worker(rank, world, store, work):
             out[f"time/{name}"] = time.perf_counter() - t0
         progress(work, rank, "jax_case")
         jax_case_run(inp, out, meshes)
-        for part in (method_runs, row_plan_runs):
+        for part in (method_runs, row_plan_runs, witness_runs):
             progress(work, rank, part.__name__)
             t0 = time.perf_counter()
             part(inp, out, meshes)
@@ -785,3 +909,35 @@ def test_rcs_departure_is_the_single_device_summed_in_the_mesh_order(ranks, tag)
     assert witness > TOL and mesh > TOL
     assert witness / WITNESS_FACTOR <= mesh <= witness * WITNESS_FACTOR
     assert narrowed <= TOL
+
+
+def _witness(run, ref) -> dict:
+    """The largest absolute departure of ``run``'s logits, loss and
+    gradients (over every leaf) from the float64 step ``ref``."""
+    grads = max(float(np.abs(run["grads"][k] - ref["grads"][k]).max()) for k in ref["grads"])
+    return {"logits": float(np.abs(run["logits"] - ref["logits"]).max()),
+            "loss": abs(run["loss"] - ref["loss"]), "grads": grads}
+
+
+@pytest.mark.parametrize("tag,kind", WITNESS_RUNS)
+def test_split_mamba_departs_from_float64_within_twice_the_gathered(ranks, tag, kind):
+    """zamba2's step with Mamba2's projections split departs from the
+    float64 single-device step by at most twice as much as with them
+    gathered (the logits and the gradients, each its largest absolute
+    departure over every entry), and the float32 single device's departure
+    plus twice the gathered path's, scaled by the families file's SGD step
+    of 0.1, is within ``SPLIT_WITNESS_TOL``: the distance from the float32
+    single device that a split step may take there."""
+    ref = ranks[f"witness/float64/{kind}"]
+    single = _witness(ranks[f"witness/single/{kind}"], ref)
+    split, gathered = (_witness(ranks[f"witness/{tag}/{kind}/{r}"], ref)
+                       for r in ("split", "gathered"))
+    assert sorted(ranks[f"witness/{tag}/{kind}/split"]["grads"]) == sorted(ref["grads"])
+    print(f"{tag} {kind}: departure from float64 (logits / loss / grads): single "
+          + ", ".join(f"{k} {single[k]:.3e}" for k in single) + "; gathered "
+          + ", ".join(f"{k} {gathered[k]:.3e}" for k in gathered) + "; split "
+          + ", ".join(f"{k} {split[k]:.3e}" for k in split))
+    for k in ("logits", "grads"):
+        assert split[k] <= WITNESS_FACTOR_SPLIT * gathered[k], k
+    assert WITNESS_LR * (single["grads"] + WITNESS_FACTOR_SPLIT * gathered["grads"]) \
+        <= SPLIT_WITNESS_TOL

@@ -13,7 +13,7 @@ tests read their JSON:
 * the depth model's prediction against a full-depth run: FLOPs, bytes and
   payload exactly, the peak within ``PEAK_RTOL``;
 * prefill and decode cells, a refused cell recorded with the port's
-  ``NotImplementedError``, the record's keys against JAX's;
+  ``ValueError``, the record's keys against JAX's;
 * the ``compact`` policy on local plans split over a model axis of 4: its
   FLOPs per rank below the gathered layout's, and a ``pallas`` step's fake
   launches one score and one fused launch per sketched site;
@@ -163,12 +163,12 @@ def _record(arch, shape, kind, policy="mask", **kw):
 
 
 def _refused(arch, shape):
-    """A train cell in a residual layout the port still refuses (ROADMAP.md
-    Queue 1 item 2b (d)): the hidden dimension over model."""
+    """A train cell in a residual layout outside the set JAX accepts (one
+    axis sharding two dimensions), which the port refuses with the rule."""
     from repro_torch.launch import dryrun
 
     real = dryrun._act_sharding
-    dryrun._act_sharding = lambda mesh, *a, **k: (dryrun.dp_axes(mesh), None, "model")
+    dryrun._act_sharding = lambda mesh, *a, **k: (dryrun.dp_axes(mesh), "model", "model")
     try:
         return _record(arch, shape, "train", skip_cost=True)
     finally:
@@ -478,11 +478,12 @@ def test_prefill_and_decode_cells_run(results):
 
 
 def test_refused_cell_is_recorded(results):
-    """A residual layout the port does not run (the hidden dimension over
-    model): the port's own NotImplementedError, naming the ROADMAP item."""
+    """A residual layout outside the set JAX accepts (the model axis on the
+    sequence and the width at once): the record holds the port's own
+    ``ValueError``, naming the rule."""
     rec = results["records"]["refused"]
     assert rec["status"] == "error"
-    assert rec["error"].startswith("NotImplementedError") and "Queue 1 item 2b" in rec["error"]
+    assert rec["error"].startswith("ValueError") and "used twice" in rec["error"]
 
 
 def test_compact_cell_on_split_sites_is_recorded(results):

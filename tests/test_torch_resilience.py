@@ -3,8 +3,9 @@ injection, the gradient sentinel and its skip gate, the exact-bucket
 escalation, the supervisor's checkpoint rollback, and the trainer's hooks.
 
 Ports of ``tests/test_resilience.py`` on JAX's MLP fixture ``(32, 16, 16, 4)``
-(all but the 8-device re-shard, which waits for the port's distributed
-slice; in its place, the port's supervisor must re-raise a device loss) and
+(all but the 8-device re-shard, which runs on gloo ranks in
+``tests/test_torch_distributed_elastic.py``; here, the device losses the
+supervisor cannot re-shard raise) and
 of ``tests/test_obs.py``'s two resilience cases. Against JAX in the same
 process: fault plans, sentinel decisions and trip flags equal exactly (host
 logic, or one comparison per value); an exact supervised run gives JAX's
@@ -444,25 +445,36 @@ def test_supervisor_caps_recoveries(tmp_path):
         sup.run(_data())
 
 
-def test_supervisor_reraises_device_loss(tmp_path):
-    """Re-sharding onto a surviving mesh needs the port's distributed slice:
-    the supervisor dumps the ``device_loss`` crash bundle and re-raises the
-    fault unchanged, with the step, the mesh shape, the history and the
-    state."""
+@pytest.mark.parametrize("ckpt", [False, True], ids=["no_ckpt_dir", "mesh_too_large"])
+def test_supervisor_reraises_device_loss(tmp_path, ckpt):
+    """A device loss the supervisor cannot re-shard: without a checkpoint
+    directory it dumps the ``device_loss`` crash bundle, counts the
+    recovery and re-raises the fault unchanged (with the step, the mesh
+    shape, the history and the state), as JAX does; with one, a surviving
+    mesh larger than the process group (here none: one rank) raises a
+    ``ValueError`` naming both sizes, from the fault. The re-shard itself
+    runs on gloo ranks (``tests/test_torch_distributed_elastic.py``)."""
     obs = ObsConfig(crash_dir=str(tmp_path / "crash"))
-    tcfg = TrainerConfig(steps=8, log_every=1, ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=3)
+    ckpt_dir = str(tmp_path / "ckpt")
+    tcfg = TrainerConfig(steps=8, log_every=1, ckpt_dir=ckpt_dir if ckpt else None,
+                         ckpt_every=3)
     plan = FaultPlan(faults=(FaultSpec(step=5, kind="device_loss", mesh_shape=(2, 4)),))
     sup = Supervisor(_runtime(obs=obs), _cfg(), _opt(), tcfg, fault_plan=plan)
     assert sup.runtime.execution.resilience == ResilienceConfig()  # installed
-    with pytest.raises(DeviceLossFault) as err:
-        sup.run(_data())
-    e = err.value
-    assert (e.step, e.mesh_shape, e.state.step) == (5, (2, 4), 5)
-    assert [h["step"] for h in e.history] == [0, 1, 2, 3, 4]
-    assert sup.recoveries == 0
+    if ckpt:
+        with pytest.raises(ValueError, match=r"needs 8 ranks, the process group has 1") as err:
+            sup.run(_data())
+        assert isinstance(err.value.__cause__, DeviceLossFault)
+        assert ckptlib.latest_verified_step(ckpt_dir) == 3  # drained
+    else:
+        with pytest.raises(DeviceLossFault) as err:
+            sup.run(_data())
+        e = err.value
+        assert (e.step, e.mesh_shape, e.state.step) == (5, (2, 4), 5)
+        assert [h["step"] for h in e.history] == [0, 1, 2, 3, 4]
+    assert sup.recoveries == 1
     meta = json.load(open(tmp_path / "crash" / "crash_000_device_loss" / "meta.json"))
     assert meta["extra"] == {"step": 5, "mesh_shape": [2, 4], "attempt": 0}
-    assert ckptlib.latest_verified_step(str(tmp_path / "ckpt")) == 3  # drained
 
 
 def test_supervised_retry_reuses_steps_and_frees_the_failed_attempt(tmp_path, monkeypatch):

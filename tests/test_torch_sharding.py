@@ -242,25 +242,31 @@ def test_shard_slices_tile_the_array_on_every_rank(shape, axes):
 
 
 def test_act_sharding_takes_only_the_fixed_layout():
-    """The port's residual stream is batch over the data axes and replicated
-    over model (the fixed layout), or JAX's sequence-parallel layout with
-    the sequence over model; either may hold the batch replicated. So
-    ``act_sharding`` takes None or one of those specs (in either spelling)
-    and refuses any other layout, or a spec without a mesh, instead of
-    ignoring it."""
+    """The residual stream may live in any ``(batch, seq, d)`` layout JAX
+    accepts: each entry None, a mesh axis or a tuple of them (in either
+    spelling), no axis used twice. The layers compute in the fixed layout
+    or, where the sequence is over exactly the model axis, the
+    sequence-parallel one (``seq_parallel``). A spec outside that set, or
+    a spec without a mesh, raises ``ValueError`` naming the rule."""
     from repro_torch.api import ExecutionConfig, Runtime
     from repro_torch.launch.mesh import layout
 
     mesh = layout((2, 2), ("data", "model"))
-    for act in (None, ("data", None, None), (("data",), None, None), (None, None, None)):
+    for act in (None, ("data", None, None), (("data",), None, None), (None, None, None),
+                (None, None, "model"), ("model", None, None), (("data", "model"), None, None),
+                ("data", None, "model"), (None, "data", None)):
         assert not ExecutionConfig(mesh=mesh, act_sharding=act).seq_parallel
     for act in (("data", "model", None), (("data",), "model", None), (None, "model", None)):
         assert ExecutionConfig(mesh=mesh, act_sharding=act).seq_parallel
-    for act in ((None, None, "model"), ("model", None, None), ("data", None),
-                ("data", "data", None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert ExecutionConfig(mesh=mesh, act_sharding=(("model", "data"), None, None)
+                           ).stream_layout() == (("data", "model"), (), ())
+    for act, rule in ((("data", None), "3 entries"), (("data", "data", None), "used twice"),
+                      ((("data", "data"), None, None), "used twice"),
+                      (("pod", None, None), "not one of the mesh's axes"),
+                      ((1, None, None), "each entry is None")):
+        with pytest.raises(ValueError, match=rule):
             ExecutionConfig(mesh=mesh, act_sharding=act)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match=rule):
             Runtime.from_legacy_kwargs(mesh=mesh, act_sharding=act, device="cpu")
     with pytest.raises(ValueError, match="needs a mesh"):
         ExecutionConfig(act_sharding=("data", None, None))
