@@ -336,7 +336,22 @@ which raises on failure:
    output summed within ``MS_OUT_RTOL`` and dX within ``SPLIT_DX_RTOL`` of
    the whole block's, every rank's compact rows the whole-width kernel
    call's bit for bit, the phase within ``MS_LIMIT_S``;
-26. one JSON line listing the ported kernels, then the last line
+26. the vocabulary-parallel head and loss over emulated model ranks
+   (``vocab_head(dev)``): gemma3-1b's tied head (vocabulary 262,144,
+   d 1,152) and seamless-m4t-large-v2's untied one (256,206, d 1,024; 15
+   chunks of 16,013 and one of 16,011) on a 2 x 4096 float32 batch, as 16
+   model ranks run them (each rank's ``chunk_bounds`` rows, its chunk of
+   the logits, ``models.lm.vocab_chunk_terms`` against the ranks'
+   maximum, summed over the ranks): the mean nll within ``VH_LOSS_RTOL``
+   of the whole vocabulary's on one device in float64, dX and the weight's
+   gradient assembled from the chunks within ``VH_GRAD_RTOL`` of their
+   largest (the float32 whole vocabulary's departures printed beside);
+   one rank's head + loss peak on the card within ``VH_PEAK_RTOL`` of the
+   dry run's fake-tensor accounting of the same call (made by phase 21's
+   child, beside the card's phases); the ms of the whole,
+   the 16 ranks and one rank; no kernel launch; the phase within
+   ``VH_LIMIT_S``;
+27. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -5177,7 +5192,8 @@ DRY_CHILD_TIMEOUT_S = 600
 def dry_child_cells():
     """The dry run's side of phase 21 (in the child, no card): (a) the
     lm-100m cell at remat full and none on a one-rank fake mesh; (b)
-    llama3-405b train_4k on (16, 16), mask, SP, from the depth model."""
+    llama3-405b train_4k on (16, 16), mask, SP, from the depth model; and
+    phase 26's rank calls (``vh``: :func:`vh_dry_peaks`)."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as meshlib
@@ -5203,6 +5219,7 @@ def dry_child_cells():
                                  full_depth=False, coverage=False)
     rec.pop("cost_attribution", None)
     out["b"] = dict(rec, seconds=time.perf_counter() - t0)
+    out["vh"] = vh_dry_peaks()
     return out
 
 
@@ -5264,7 +5281,8 @@ def dry_real_step(dev, mesh, cfg, full, batch, flop_count=False):
 
 def dry_run(dev, child):
     """Phase 21 (module docstring). ``child``: :func:`start_dry_child`'s.
-    Returns the launches of the card's steps that count."""
+    Returns the launches of the card's steps that count, and the child's
+    accounting of phase 26's rank calls (:func:`vh_dry_peaks`)."""
     import tempfile
 
     import torch.distributed as dist
@@ -5394,7 +5412,7 @@ def dry_run(dev, child):
           f"{rec['cost_full_depth']['payload'] / 1e9:.2f} GB; "
           f"{rec['seconds']:.1f} s on the host CPU")
     print(f"[time]   dry run {time.perf_counter() - t_phase:.1f} s")
-    return total
+    return total, dry["vh"]
 
 
 # -- phase 22: JAX's chunked attention --------------------------------------------
@@ -6243,6 +6261,275 @@ def mamba_split(dev, gen):
     return counts
 
 
+# -- phase 26: the vocabulary-parallel head and loss over emulated model ranks -------
+
+# the heads of the two configs whose train_4k the vocabulary-parallel layout
+# brings onto the card: (name, vocabulary, d_model, tied); 16 model ranks,
+# a 2 x 4096 batch of float32 (TF32 off)
+VH_CASES = (("gemma3-1b", 262_144, 1_152, True), ("seamless-m4t-large-v2", 256_206, 1_024, False))
+VH_RANKS, VH_B, VH_S, VH_SEED = 16, 2, 4096, 26
+# the 16 chunks' summed nll (its mean) against the whole vocabulary's on one
+# device, relative; the gradients (dX and the head weight's, assembled from
+# the chunks) within this share of their largest magnitude. The reference is
+# the whole vocabulary's in float64 (:func:`vh_reference`): a float32 dX
+# reduces all V rows at once, and its rounding (sum_tol(V), 3.05e-5 of the
+# largest at 262,144) is above these tolerances; its departure from the
+# float64 reference is printed beside
+VH_LOSS_RTOL = 1e-5
+VH_GRAD_RTOL = 1e-5
+VH_REF_ROWS = 32_768  # vocabulary rows per slice of the float64 reference
+# one emulated rank's head + loss, forward and backward, on the card against
+# the dry run's fake-tensor accounting of the same call (phase 21's bound)
+VH_PEAK_RTOL = 0.05
+VH_LIMIT_S = 15.0
+
+
+def vh_chunk(x, w_r, labels, lo, m=None):
+    """One model rank's head and loss terms: the product of ``x`` (whole,
+    as ``models.lm._mesh_head`` takes it) with the rank's vocabulary rows
+    ``w_r``, as float32 logits, and ``models.lm.vocab_chunk_terms`` at the
+    rank's first vocabulary index ``lo`` against the maximum ``m`` (the
+    ranks' ``pmax``; None: this chunk's own, a one-rank call)."""
+    from repro_torch.models.lm import vocab_chunk_terms
+
+    lg = torch.matmul(x, w_r.t()).to(torch.float32)
+    if m is None:
+        m = lg.detach().amax(-1)
+    return lg, m, vocab_chunk_terms(lg, labels, lo, m)
+
+
+def vh_one_rank(x, w_r, labels, lo):
+    """One rank's head and loss, forward and backward: (dX part, dW rows)."""
+    _, m, (se, t) = vh_chunk(x, w_r, labels, lo)
+    loss = (torch.log(se) + m - t).mean()
+    return torch.autograd.grad(loss, (x, w_r))
+
+
+def vh_emulated(x, w, labels):
+    """The head and loss as VH_RANKS model ranks run them: each rank's rows
+    of ``w`` (what the tied table's all-to-all or the replicated weight's
+    slice gives it, ``launch.mesh.chunk_bounds``' chunks), its chunk of the
+    logits, the maximum over the ranks (``pmax``), each rank's terms summed
+    over the ranks (``reduce_from``): the mean nll, whose backward reaches
+    ``x`` summed over the ranks (``copy_to``) and ``w`` assembled from the
+    ranks' rows (the inverse all-to-all, or the gather of the rows)."""
+    from repro_torch.launch.mesh import chunk_bounds
+    from repro_torch.models.lm import vocab_chunk_terms
+
+    V = w.shape[0]
+    chunks = [chunk_bounds(V, VH_RANKS, r) for r in range(VH_RANKS)]
+    lgs = [torch.matmul(x, w[lo:lo + n].t()).to(torch.float32) for lo, n in chunks]
+    m = torch.stack([lg.detach().amax(-1) for lg in lgs]).amax(0)
+    terms = [vocab_chunk_terms(lg, labels, lo, m) for lg, (lo, _) in zip(lgs, chunks)]
+    se = sum(t[0] for t in terms)
+    t = sum(t[1] for t in terms)
+    return (torch.log(se) + m - t).mean(), chunks
+
+
+def vh_whole(x, w, labels):
+    """The whole-vocabulary head and loss on one device (``lm_loss``'s)."""
+    lg = torch.matmul(x, w.t()).to(torch.float32)
+    nll = torch.logsumexp(lg, -1) - lg.gather(-1, labels[..., None].long())[..., 0]
+    return nll.mean()
+
+
+def vh_reference(x, w, labels):
+    """The whole vocabulary's mean nll, dX and dW in float64 on one device:
+    the log-sum-exp over every row of ``w`` (running max and sum over slices
+    of VH_REF_ROWS rows, which bound the memory), then the analytic
+    gradient ``(softmax - onehot) / N`` slice by slice."""
+    d = x.shape[-1]
+    x64, w64 = x.detach().double().reshape(-1, d), w.detach().double()
+    lab = labels.reshape(-1).long()
+    N, V = x64.shape[0], w64.shape[0]
+    m = torch.full((N,), -math.inf, dtype=torch.float64, device=x.device)
+    se = torch.zeros(N, dtype=torch.float64, device=x.device)
+    for lo in range(0, V, VH_REF_ROWS):
+        lg = x64 @ w64[lo:lo + VH_REF_ROWS].t()
+        mn = torch.maximum(m, lg.amax(-1))
+        se = se * torch.exp(m - mn) + torch.exp(lg - mn[:, None]).sum(-1)
+        m = mn
+    lse = m + torch.log(se)
+    loss = (lse - (x64 * w64[lab]).sum(-1)).mean()
+    rows = torch.arange(N, device=x.device)
+    dX = torch.zeros_like(x64)
+    dW = torch.empty_like(w64)
+    for lo in range(0, V, VH_REF_ROWS):
+        wl = w64[lo:lo + VH_REF_ROWS]
+        G = torch.exp(x64 @ wl.t() - lse[:, None])
+        mine = (lab >= lo) & (lab < lo + wl.shape[0])
+        G[rows[mine], lab[mine] - lo] -= 1.0
+        G /= N
+        dX += G @ wl
+        dW[lo:lo + wl.shape[0]] = G.t() @ x64
+    return float(loss), dX.reshape(x.shape), dW
+
+
+def vh_dry_peaks():
+    """The dry run's fake-tensor accounting (``launch.dryrun.count_run``,
+    the inputs resident) of rank 0's head + loss (:func:`vh_one_rank`) for
+    each head of VH_CASES: {name: {"peak_bytes", "flops"}}. No card: the dry
+    run's child runs it (its first fake-tensor mode costs ~10 s of set-up)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import fake_mode
+    from repro_torch.launch.mesh import chunk_bounds
+
+    out = {}
+    for name, V, d, _ in VH_CASES:
+        lo, n = chunk_bounds(V, VH_RANKS, 0)
+        with fake_mode():
+            fx = torch.empty((VH_B, VH_S, d)).requires_grad_(True)
+            fw = torch.empty((n, d)).requires_grad_(True)
+            fl = torch.empty((VH_B, VH_S), dtype=torch.int64)
+            _, c = dryrun.count_run(lambda: vh_one_rank(fx, fw, fl, lo), (fx, fw, fl))
+        out[name] = {"peak_bytes": c["peak_bytes"], "flops": c["flops"]}
+    return out
+
+
+def vh_peak(dev, x, w, labels, lo, n):
+    """Rank 0's head + loss (:func:`vh_one_rank`) on the card: the peak of
+    allocated bytes above what was allocated before its inputs, after a
+    warm-up call."""
+    import gc
+
+    def inputs(device):
+        return (x.detach().to(device).clone().requires_grad_(True),
+                w[lo:lo + n].detach().to(device).clone().requires_grad_(True),
+                labels.to(device).clone())
+
+    vh_one_rank(*inputs(dev), lo)  # warm-up: the library's handles and workspaces
+    gc.collect()
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    xr, wr, lr = inputs(dev)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vh_one_rank(xr, wr, lr, lo)
+    sync(dev)
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def vh_err(name, what, got, want) -> tuple:
+    """(max |got - want|, the tolerance VH_GRAD_RTOL of max |want|), in
+    float64; raises past the tolerance."""
+    err = (got.double() - want).abs().max().item()
+    tol = VH_GRAD_RTOL * want.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"[vocab-head] {name}: the chunks' {what} max|err| {err:.3e} > "
+                             f"tol {tol:.3e}")
+    return err, tol
+
+
+def vh_case(dev, gen, dry, name, V, d, tied):
+    """Phase 26 for one head (module docstring): returns the printed line's
+    numbers."""
+    from repro_torch.launch.mesh import chunk_bounds
+
+    x = torch.randn((VH_B, VH_S, d), generator=gen, device=dev)
+    w = torch.randn((V, d), generator=gen, device=dev) * d ** -0.5
+    labels = torch.randint(0, V, (VH_B, VH_S), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    want = vh_reference(x, w, labels)
+    sync(dev)
+    s_ref = time.perf_counter() - t0
+    # the whole vocabulary on one device in float32, after a warm-up call
+    for _ in range(2):
+        xw, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        sync(dev)
+        t0 = time.perf_counter()
+        loss_w = vh_whole(xw, ww, labels)
+        loss_w.backward()
+        sync(dev)
+        ms_whole = 1e3 * (time.perf_counter() - t0)
+    whole = (abs(float(loss_w.detach()) - want[0]) / abs(want[0]),
+             (xw.grad - want[1]).abs().max().item() / want[1].abs().max().item(),
+             (ww.grad - want[2]).abs().max().item() / want[2].abs().max().item())
+    del xw, ww, loss_w
+    torch.cuda.empty_cache()
+    # the 16 emulated ranks
+    xe, we = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    sync(dev)
+    t0 = time.perf_counter()
+    loss_e, chunks = vh_emulated(xe, we, labels)
+    loss_e.backward()
+    sync(dev)
+    ms_ranks = 1e3 * (time.perf_counter() - t0)
+    loss_rel = abs(float(loss_e.detach()) - want[0]) / abs(want[0])
+    if not loss_rel <= VH_LOSS_RTOL:
+        raise AssertionError(f"[vocab-head] {name}: the chunks' loss {float(loss_e.detach())!r} against "
+                             f"the whole vocabulary's {want[0]!r} ({loss_rel:.3e} > "
+                             f"{VH_LOSS_RTOL})")
+    dx_err = vh_err(name, "dX", xe.grad, want[1])
+    dw_err = vh_err(name, "dW", we.grad, want[2])
+    lens = sorted({n for _, n in chunks})
+    del xe, we, loss_e, want
+    torch.cuda.empty_cache()
+    # one rank's call, timed, and its peak against the dry run's accounting
+    lo, n = chunk_bounds(V, VH_RANKS, 0)
+    xr = x.clone().requires_grad_(True)
+    wr = w[lo:lo + n].clone().requires_grad_(True)
+    sync(dev)
+    t0 = time.perf_counter()
+    vh_one_rank(xr, wr, labels, lo)
+    sync(dev)
+    ms_rank = 1e3 * (time.perf_counter() - t0)
+    del xr, wr
+    card = vh_peak(dev, x, w, labels, lo, n)
+    dry = dry[name]
+    peak_rel = abs(dry["peak_bytes"] - card) / card
+    if not peak_rel <= VH_PEAK_RTOL:
+        raise AssertionError(f"[vocab-head] {name}: one rank's peak dry {dry['peak_bytes']} B, "
+                             f"card {card} B ({100 * peak_rel:.2f}% > {100 * VH_PEAK_RTOL}%)")
+    del x, w, labels
+    torch.cuda.empty_cache()
+    print(f"[vocab-head] {name} {'tied table' if tied else 'untied head'} V {V:,} d {d:,}, "
+          f"{VH_B} x {VH_S} float32 over {VH_RANKS} emulated model ranks (chunks of "
+          f"{' / '.join(f'{c:,}' for c in reversed(lens))}) against the whole vocabulary's "
+          f"float64: loss rel err {loss_rel:.3e} (tol {VH_LOSS_RTOL}), dX max|err| "
+          f"{dx_err[0]:.3e} (tol {dx_err[1]:.3e}), dW assembled {dw_err[0]:.3e} (tol "
+          f"{dw_err[1]:.3e}); the float32 whole vocabulary's departures from it: loss "
+          f"{whole[0]:.3e}, dX {whole[1]:.3e}, dW {whole[2]:.3e} of the largest (dX's "
+          f"rounding bound sum_tol({V}) {sum_tol(V):.3e}); one rank's head + loss peak "
+          f"{card / 2**30:.4f} GiB on the card, {dry['peak_bytes'] / 2**30:.4f} GiB in the dry "
+          f"run's accounting ({100 * peak_rel:.2f}%, within {100 * VH_PEAK_RTOL:.0f}%; its "
+          f"FLOPs {dry['flops']:,}); ms forward + backward: whole vocabulary {ms_whole:.1f} "
+          f"(warm), the {VH_RANKS} ranks {ms_ranks:.1f}, one rank {ms_rank:.1f}; the float64 "
+          f"reference {s_ref:.2f} s ({smi_line()})")
+    return dict(loss_rel=loss_rel, dx=dx_err[0], dw=dw_err[0], whole=whole, card=card,
+                dry=dry["peak_bytes"], ms_whole=ms_whole, ms_ranks=ms_ranks, ms_rank=ms_rank)
+
+
+def vocab_head(dev, dry=None):
+    """Phase 26 (module docstring), its inputs drawn from VH_SEED. Returns
+    its launches: none (the head is an exact product; the counts are set to
+    0 before and read after). ``dry``: the dry run's accounting of the rank
+    calls, from phase 21's child; None (the phase alone): computed here
+    first, outside its time."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(VH_SEED)
+
+    if dry is None:
+        t0 = time.perf_counter()
+        dry = vh_dry_peaks()
+        print(f"[vocab-head] the dry run's accounting in this process (phase 21's child did "
+              f"not run): {time.perf_counter() - t0:.1f} s, outside the phase's time")
+    t_phase = time.perf_counter()
+    sync(dev)
+    ops.reset_launch_counts()
+    for case in VH_CASES:
+        vh_case(dev, gen, dry, *case)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[vocab-head] the exact head launched {counts}")
+    secs = time.perf_counter() - t_phase
+    if secs > VH_LIMIT_S:
+        raise AssertionError(f"[vocab-head] the phase took {secs:.1f} s (limit {VH_LIMIT_S})")
+    print(f"[time]   vocab head {secs:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6287,7 +6574,7 @@ def main() -> int:
 
 def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, stream_rows,
                flash_rows) -> int:
-    """Phases 4 to 25 (module docstring)."""
+    """Phases 4 to 26 (module docstring)."""
     t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
@@ -6380,7 +6667,7 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
         launches[name] += n
     print(f"[time] serving under a mesh {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    dry_counts = dry_run(dev, child)
+    dry_counts, vh_dry = dry_run(dev, child)
     for name, n in dry_counts.items():
         launches[name] += n
     print(f"[time] the dry run {time.perf_counter() - t0:.1f} s")
@@ -6404,6 +6691,9 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
     for name, n in mamba_counts.items():
         launches[name] += n
     print(f"[time] the split Mamba2 block {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vocab_head(dev, vh_dry)
+    print(f"[time] the vocabulary-parallel head {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 

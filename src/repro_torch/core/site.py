@@ -358,6 +358,18 @@ class MeshEnv:
         mpa = tuple(a for a in e if a not in self.data_axes)
         return m.chunk_of(rows, mpa, self.mesh, 1) if mpa and self.split != "row" else rows
 
+    def shard_db(self, db_c, cols, n_loc: int, dtype):
+        """The bias gradient of this rank's ``n_loc`` columns from a compact
+        backward's ``db_c`` at the whole width's column indices ``cols``: a
+        column-parallel split keeps its own columns of the whole width's."""
+        if self.split != "column":
+            return _scatter_db(db_c, cols, n_loc, dtype)
+        from repro_torch.launch.mesh import axis_index
+
+        lo = axis_index(self.mesh, self.model_axes) * n_loc
+        whole = _scatter_db(db_c, cols, n_loc * self.mesh.axis_size(self.model_axes), dtype)
+        return whole.narrow(0, lo, n_loc)
+
     def shard_rows(self, rows, cols, w):
         """The dense gradient of the weight shard ``w`` from compact rows at
         the whole width's row indices ``cols``: a column-parallel split
@@ -370,6 +382,12 @@ class MeshEnv:
         lo = axis_index(self.mesh, self.model_axes) * n_loc
         return _rows_into_shard(rows, cols, lo, w.shape, n_loc * self.mesh.axis_size(
             self.model_axes), w.dtype)
+
+
+def _scatter_db(db_c, cols, n: int, dtype):
+    """The dense ``[n]`` bias gradient from a compact backward's ``db_c`` at
+    its column indices ``cols``."""
+    return torch.zeros(n, dtype=dtype, device=db_c.device).index_add_(0, cols, db_c.to(dtype))
 
 
 class SketchedLinearFn(torch.autograd.Function):
@@ -444,8 +462,8 @@ class SketchedLinearFn(torch.autograd.Function):
             return (dX, out.dw.to(w.dtype), db, state_ct, probe_ct) + rest
         db = None
         if ctx.has_b:
-            db = torch.zeros(n, dtype=g.dtype, device=g.device).index_add_(
-                0, out.cols, out.db_c.to(g.dtype))
+            db = (env.shard_db(out.db_c, out.cols, n, g.dtype) if env is not None
+                  else _scatter_db(out.db_c, out.cols, n, g.dtype))
         if ctx.gslot is not None:
             # compact gradients: the rows leave through the slot; no dense dW
             rows = out.rows if env is None else env.rows_to_shard(out.rows)
@@ -635,12 +653,10 @@ def mesh_site(cfg, x, w, b, gen, mesh, data_axes, model_axes, *, sslot=None, gsl
         raise ValueError(f"gradient slot of {gslot.r} rows on a site that resolves to "
                          f"{compact_rows} compact rows ({cfg.backend!r})")
     if split is not None:
-        if b is not None:
-            raise NotImplementedError("a biased site split over the model axis")
         if sketched and cfg.backend not in MODEL_SPLIT_BACKENDS:
             raise ValueError(f"backend {cfg.backend!r} runs on the gathered weight, not "
                              "split (nn.common.Ctx.split_kind)")
-        return _split_site(cfg, x, w, gen, mesh, tuple(data_axes), split, sslot=sslot,
+        return _split_site(cfg, x, w, b, gen, mesh, tuple(data_axes), split, sslot=sslot,
                            gslot=gslot, pslot=pslot, reduce_grad=reduce_grad, partial=partial)
     wf = gather_param(w, mesh, data_axes) if reduce_grad else _gather_model(w, mesh,
                                                                             data_axes)
@@ -658,15 +674,24 @@ def _split_axes(w, data_axes, column):
     return tuple(a for a in dim_axes(spec_of(w)[0 if column else 1]) if a not in data_axes)
 
 
-def _split_site(cfg, x, w, gen, mesh, data_axes, split, *, sslot, gslot, pslot, reduce_grad,
-                partial):
+def _split_site(cfg, x, w, b, gen, mesh, data_axes, split, *, sslot, gslot, pslot,
+                reduce_grad, partial):
     """:func:`mesh_site` on the weight's model shard. Column-parallel: ``x``
     whole (replicated over model) enters through ``copy_to`` (dX summed over
     model in the backward) and the output is this rank's columns.
     Row-parallel: ``x`` is this rank's chunk of d_in and the output is
     summed over model by ``reduce_from``. A sketched backward draws the
     whole width's plan (:class:`MeshEnv`); the slots are the whole width's
-    (module docstring). The sharding rules split no biased weight."""
+    (module docstring).
+
+    A bias ``b`` (whole, replicated; its gradient summed over the data axes
+    here): a column-parallel rank adds its chunk of ``b``, whose gradient
+    comes from its own columns (the dense ``db``, or the sketch's kept
+    columns of the whole plan, :meth:`MeshEnv.shard_db`) and is
+    all-gathered over model into the whole ``db``. A row-parallel site adds
+    ``b`` once to the sum over model: it joins model rank 0's part, and the
+    ranks' ``db`` (rank 0's, zeros elsewhere) are summed over model, so
+    every rank holds the whole ``db`` of the one plan they share."""
     from repro_torch.launch import mesh as m
     from repro_torch.launch.sharding import spec_of
 
@@ -676,11 +701,20 @@ def _split_site(cfg, x, w, gen, mesh, data_axes, split, *, sslot, gslot, pslot, 
     wl = gather_fsdp(w, mesh, data_axes) if reduce_grad else w
     if column and not partial:
         x = m.copy_to(x, mp, mesh)
+    bl = None
+    if b is not None:
+        bl = _SumOverData.apply(b, mesh, data_axes)
+        if column:
+            bl = m.slice_replicated(bl, mp, mesh, 0)
+        else:
+            bl = m.copy_to(bl, mp, mesh)
+            if m.axis_index(mesh, mp) != 0:
+                bl = bl * 0  # kept in the graph: every rank joins copy_to's sum
     if cfg is None or cfg.is_noop or gen is None:
-        y = _matmul(x, wl, None)
+        y = _matmul(x, wl, bl)
     else:
         env = MeshEnv(mesh, data_axes, spec, split, mp)
-        y = SketchedLinearFn.apply(x, wl, None, sslot, pslot, cfg, gen, gslot, env)
+        y = SketchedLinearFn.apply(x, wl, bl, sslot, pslot, cfg, gen, gslot, env)
     return y if column or partial else m.reduce_from(y, mp, mesh)
 
 

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,6 +53,7 @@ from repro_torch.device import resolve_device
 
 __all__ = ["Mesh", "Axes", "layout", "make_mesh", "make_production_mesh", "dp_axes", "mp_axes",
            "psum", "pmax", "psum_scatter", "all_gather", "all_to_all", "axis_index", "chunk_of",
+           "chunk_bounds", "reshard",
            "collective_bytes", "reset_collective_bytes", "gather_replicated",
            "slice_replicated", "copy_to", "reduce_from", "psum_partial", "pmean_shared",
            "split_partial", "gather_partial", "scatter_partial", "stream_layout", "relayout"]
@@ -400,6 +401,54 @@ def chunk_of(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
     return x.narrow(dim, axis_index(mesh, axes) * size, size)
 
 
+def chunk_bounds(size: int, n: int, i: int) -> Tuple[int, int]:
+    """(start, length) of chunk ``i`` of ``n`` over ``size`` entries cut
+    into chunks of ``ceil(size / n)``, the last shorter where ``n`` does not
+    divide ``size``: equal chunks where it does."""
+    c = -(-size // n)
+    lo = min(i * c, size)
+    return lo, min(c, size - lo)
+
+
+def _gather_chunks(x, axes, mesh: Mesh, dim: int, size: int) -> torch.Tensor:
+    """:func:`chunk_bounds`' chunks of ``axes``' ranks (this rank's ``x``)
+    all-gathered into the whole ``size`` along ``dim``: each padded to the
+    longest with zeros, gathered, the padding cut."""
+    n = mesh.axis_size(axes)
+    if size % n == 0:
+        return all_gather(x, axes, mesh, axis=dim)
+    d = dim % x.dim()
+    pad = -(-size // n) - x.shape[d]
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:d] + (pad,) + x.shape[d + 1:])], d)
+    return all_gather(x, axes, mesh, axis=d).narrow(d, 0, size).contiguous()
+
+
+class _Reshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh, split_axis, concat_axis):
+        ctx.axes, ctx.mesh, ctx.split, ctx.concat = axes, mesh, split_axis, concat_axis
+        out = all_to_all(x, axes, mesh, split_axis=split_axis, concat_axis=concat_axis)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_to_all(g, ctx.axes, ctx.mesh, split_axis=ctx.concat,
+                           concat_axis=ctx.split), None, None, None, None)
+
+
+def reshard(x, axes, mesh: Mesh, *, split_axis: int, concat_axis: int):
+    """A tensor sharded over ``axes`` along ``concat_axis`` re-laid as one
+    sharded along ``split_axis`` (one :func:`all_to_all`: this rank's chunk
+    of ``split_axis``, whole along ``concat_axis``); backward: the inverse
+    all-to-all, so each rank's cotangent returns to the shard it came from.
+    The cotangents are whatever they are over other axes (a partial sum over
+    data stays one)."""
+    if not mesh.axes(axes):
+        return x
+    return _Reshard.apply(x, mesh.axes(axes), mesh, split_axis, concat_axis)
+
+
 # -- differentiable movement between layouts ---------------------------------
 #
 # The port's convention for autograd across ranks: a tensor replicated over
@@ -412,39 +461,47 @@ def chunk_of(x: torch.Tensor, axes, mesh: Mesh, dim: int) -> torch.Tensor:
 
 class _GatherReplicated(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes, mesh, dim):
-        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
-        return all_gather(x, axes, mesh, axis=dim)
+    def forward(ctx, x, axes, mesh, dim, size):
+        ctx.axes, ctx.mesh, ctx.dim, ctx.size = axes, mesh, dim, size
+        return _gather_chunks(x, axes, mesh, dim, size)
 
     @staticmethod
     def backward(ctx, g):
-        return chunk_of(g, ctx.axes, ctx.mesh, ctx.dim), None, None, None
+        lo, n = chunk_bounds(ctx.size, ctx.mesh.axis_size(ctx.axes),
+                             axis_index(ctx.mesh, ctx.axes))
+        return g.narrow(ctx.dim, lo, n), None, None, None, None
 
 
 class _SliceReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh, dim):
-        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        ctx.axes, ctx.mesh, ctx.dim, ctx.size = axes, mesh, dim, x.shape[dim]
         if mesh.axis_size(axes) == 1:
             return x.view_as(x)
-        return chunk_of(x, axes, mesh, dim).clone()
+        lo, n = chunk_bounds(x.shape[dim], mesh.axis_size(axes), axis_index(mesh, axes))
+        return x.narrow(dim, lo, n).clone()
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.axes, ctx.mesh, axis=ctx.dim), None, None, None
+        return _gather_chunks(g, ctx.axes, ctx.mesh, ctx.dim, ctx.size), None, None, None
 
 
-def gather_replicated(x, axes, mesh: Mesh, dim: int):
+def gather_replicated(x, axes, mesh: Mesh, dim: int, size: Optional[int] = None):
     """All-gather ``x`` over ``axes`` along ``dim`` into a tensor the ranks of
-    ``axes`` compute with alike; backward: this rank's slice."""
+    ``axes`` compute with alike; backward: this rank's slice. ``size``: the
+    whole's length along ``dim`` where the chunks are :func:`chunk_bounds`'
+    uneven ones (None: ``x``'s length times the ranks)."""
     if not mesh.axes(axes):
         return x
-    return _GatherReplicated.apply(x, mesh.axes(axes), mesh, dim)
+    if size is None:
+        size = x.shape[dim] * mesh.axis_size(axes)
+    return _GatherReplicated.apply(x, mesh.axes(axes), mesh, dim, size)
 
 
 def slice_replicated(x, axes, mesh: Mesh, dim: int):
-    """This rank's chunk of a tensor replicated over ``axes``; backward: the
-    all-gather of the chunks' cotangents."""
+    """This rank's :func:`chunk_bounds` chunk of a tensor replicated over
+    ``axes`` (equal chunks where the ranks divide ``dim``, else the last
+    shorter); backward: the all-gather of the chunks' cotangents."""
     if not mesh.axes(axes):
         return x
     return _SliceReplicated.apply(x, mesh.axes(axes), mesh, dim)

@@ -63,7 +63,7 @@ __all__ = ["LayerKind", "plan_segments", "layer_kinds", "jax_layer_paths", "init
            "check_supported", "attn_cfg", "cross_cfg", "check_decoder", "check_recurrent_segments",
            "init_cache", "layer_cache",
            "prefill", "decode_step", "encode", "encoder_kinds", "ENCODER_UID_BASE",
-           "param_shapes"]
+           "param_shapes", "VocabSplit", "vocab_chunk_terms"]
 
 # the encoder's layer uids start here (JAX's seg_base), so its sites never
 # share a seed with the decoder's
@@ -320,10 +320,29 @@ def _inputs(batch):
     return batch["tokens"] if "tokens" in batch else batch["embeds"]
 
 
+@dataclasses.dataclass(frozen=True)
+class VocabSplit:
+    """Logits that hold this rank's chunk of the vocabulary: the model
+    ``axes`` the vocabulary is split over and its whole ``size``, cut into
+    ``launch.mesh.chunk_bounds``' chunks (equal where the ranks divide it,
+    else ``ceil(size / n)`` each and the last shorter)."""
+
+    axes: tuple
+    size: int
+
+    def start(self, mesh) -> int:
+        """The vocabulary index of this rank's first logit."""
+        from repro_torch.launch.mesh import axis_index, chunk_bounds
+
+        return chunk_bounds(self.size, mesh.axis_size(self.axes),
+                            axis_index(mesh, self.axes))[0]
+
+
 def _head(params, x, ctx: Ctx, cfg: ArchConfig):
-    """The final norm and the head: (logits, axes), ``axes`` the model axes
-    the logits' vocabulary is split over (this rank's chunk), or None (the
-    whole vocabulary; :func:`_whole_vocab` gathers a split one)."""
+    """The final norm and the head: (logits, split), ``split`` the
+    :class:`VocabSplit` of logits that hold this rank's chunk of the
+    vocabulary, or None (the whole vocabulary; :func:`_whole_vocab` gathers
+    a split one)."""
     x = rmsnorm(params["final_norm"], x)
     w = params["embed"] if cfg.tie_embeddings else params["lm_head"]["w"]
     hcfg = ctx.cfg_for("lm_head")
@@ -334,75 +353,147 @@ def _head(params, x, ctx: Ctx, cfg: ArchConfig):
 
 
 def _mesh_head(w, x, ctx: Ctx, hcfg, tied: bool):
-    """The head on a mesh: (logits, vocabulary axes) as :func:`_head`.
+    """The head on a mesh: (logits, vocabulary split) as :func:`_head`.
 
+    * An exact head on a model axis of several ranks whose weight the
+      sharding rules do not split over the vocabulary computes this rank's
+      chunk of it (:func:`_vocab_rows`): ``x`` whole (replicated over
+      model) enters through ``copy_to`` (dX summed over model in the
+      backward) and the product is this rank's rows of the weight, whole
+      over d.
     * Under ``tp_sketch`` an exact untied head whose vocabulary divides the
       model axis runs the Megatron column-parallel ``tp_exact`` plan (JAX's
       ``tp_exact_linear``, ``models/lm.py:403-414``); on a model axis of
       one rank its logits are all-gathered (the identity) for the loss.
     * Otherwise the untied head is a ``dense`` site: on a model axis of
-      several ranks column-parallel over the vocabulary (its rule is
-      ``("mp", "dp")``), its logits this rank's chunk.
-    * A tied head (the embedding table: JAX's local plan on it) follows the
-      table's ``(None, "mp")`` spec: row-parallel over d on a model axis of
-      several ranks (this rank's chunk of ``x``'s d, the logits summed over
-      model), else the table gathered over model. Either way the table's
-      gradient stays this rank's partial sum over data, which the train
-      step sums once with the lookup's."""
+      several ranks column-parallel over the vocabulary where it divides
+      (its rule is ``("mp", "dp")``), its logits this rank's chunk.
+    * Otherwise a tied head (the embedding table: JAX's local plan on it:
+      a sketched head, or a vocabulary that does not divide the model axis)
+      follows the table's ``(None, "mp")`` spec: row-parallel over d on a
+      model axis of several ranks (this rank's chunk of ``x``'s d, the
+      logits summed over model), else the table gathered over model.
+      Either way the table's gradient stays this rank's partial sum over
+      data, which the train step sums once with the lookup's."""
     from repro_torch.core import site
     from repro_torch.core.sharded_sketch import tp_exact_linear
-    from repro_torch.launch.mesh import gather_replicated, slice_replicated
+    from repro_torch.launch.mesh import copy_to, gather_replicated, slice_replicated
     from repro_torch.launch.sharding import dim_axes, global_shape, spec_of
     from repro_torch.nn.common import _mesh_dense
 
+    seed = ctx.site_seed("lm_head") if hcfg is not None else None
+    exact = hcfg is None or hcfg.is_noop or seed is None
+    if exact and ctx.n_mp > 1:
+        rows = _vocab_rows(w, ctx, tied)
+        if rows is not None:
+            w_v, split = rows
+            return torch.matmul(copy_to(x, split.axes, ctx.mesh), w_v.t()), split
     if tied:
         split = ctx.split_kind("lm_head", w)
         if split == "row":
             x = slice_replicated(x, dim_axes(spec_of(w)[1]), ctx.mesh, -1)
-        seed = ctx.site_seed("lm_head") if hcfg is not None else None
         args = (ctx.mesh, ctx.data_axes, ctx.model_axes)
-        if hcfg is None or hcfg.is_noop or seed is None:
+        if exact:
             return site.mesh_site(None, x, w, None, None, *args, reduce_grad=False,
                                   split=split), None
         spec = ctx.site_spec("lm_head", hcfg, w)
         return site.mesh_site(spec.cfg, x, w, None, rng.generator(seed, x.device), *args,
                               reduce_grad=False, split=split), None
-    if ctx.tp_sketch and hcfg is None and global_shape(w, ctx.mesh)[0] % ctx.n_mp == 0:
+    V = global_shape(w, ctx.mesh)[0]
+    if ctx.tp_sketch and hcfg is None and V % ctx.n_mp == 0:
         logits = tp_exact_linear(x, w, ctx)
         if ctx.n_mp > 1:
-            return logits, tuple(ctx.model_axes)
+            return logits, VocabSplit(tuple(ctx.model_axes), V)
         return gather_replicated(logits, ctx.model_axes, ctx.mesh, -1), None
     logits = _mesh_dense({"w": w}, x, ctx, "lm_head", hcfg)
-    return logits, (tuple(ctx.model_axes) if ctx.split_kind("lm_head", w) == "column" else None)
+    column = ctx.split_kind("lm_head", w) == "column"
+    return logits, (VocabSplit(tuple(ctx.model_axes), V) if column else None)
 
 
-def _whole_vocab(logits, axes, ctx: Ctx):
-    """Logits over the whole vocabulary: a split one all-gathered over
-    ``axes`` (backward: this rank's chunk)."""
-    if axes is None:
+def _vocab_rows(w, ctx: Ctx, tied: bool):
+    """(this rank's vocabulary rows of the head weight ``w``, whole over d;
+    their :class:`VocabSplit`) for an exact head on a model axis of several
+    ranks, or None where the head keeps the path :func:`_mesh_head` gives
+    it otherwise. By the stored layout:
+
+    * the vocabulary already over model (the column-parallel untied head):
+      None, the ``dense`` site's split;
+    * d over model (the tied table's ``(None, "mp")``): one all-to-all over
+      model re-lays the table by vocabulary rows (``launch.mesh.reshard``;
+      backward: the inverse, so the gradient reaches the stored d-split
+      layout as this rank's partial sum over data, which the train step
+      sums with the lookup's). A vocabulary that does not divide the model
+      axis cannot cut equal all-to-all chunks: None, the row-parallel path;
+    * whole over model (an untied head whose vocabulary does not divide the
+      model axis, stored ``(None, dp)``; a tied table whose d does not
+      divide it): this rank's ``chunk_bounds`` chunk of rows
+      (``launch.mesh.slice_replicated``; backward: the chunks' gradients
+      all-gathered over model), an untied one then gathered over data as
+      its site would gather it (``core.site.gather_param``: its gradient
+      reduce-scattered back to the shard). None where the last chunk would
+      be empty (fewer rows than the ranks can share), the gathered path."""
+    from repro_torch.core.site import gather_param
+    from repro_torch.launch.mesh import chunk_bounds, reshard, slice_replicated
+    from repro_torch.launch.sharding import dim_axes, global_shape, set_spec, spec_of
+
+    mp, mesh, n = tuple(ctx.model_axes), ctx.mesh, ctx.n_mp
+    spec = spec_of(w) or (None, None)
+    V = global_shape(w, mesh)[0]
+    if any(a in mp for a in dim_axes(spec[0])):
+        return None
+    if any(a in mp for a in dim_axes(spec[1])):
+        if V % n:
+            return None
+        return reshard(w, mp, mesh, split_axis=0, concat_axis=1), VocabSplit(mp, V)
+    if chunk_bounds(V, n, n - 1)[1] < 1:
+        return None
+    w_v = slice_replicated(w, mp, mesh, 0)
+    if not tied:
+        w_v = gather_param(set_spec(w_v, spec_of(w), mesh), mesh, ctx.data_axes)
+    return w_v, VocabSplit(mp, V)
+
+
+def _whole_vocab(logits, split, ctx: Ctx):
+    """Logits over the whole vocabulary: a split one (``split`` a
+    :class:`VocabSplit`) all-gathered over its axes, uneven chunks
+    included (backward: this rank's chunk)."""
+    if split is None:
         return logits
     from repro_torch.launch.mesh import gather_replicated
 
-    return gather_replicated(logits, axes, ctx.mesh, -1)
+    return gather_replicated(logits, split.axes, ctx.mesh, -1, size=split.size)
 
 
-def _vocab_parallel_nll(logits, labels, axes, ctx: Ctx):
+def vocab_chunk_terms(lg, labels, lo: int, m):
+    """One vocabulary chunk's terms of the log-sum-exp loss: float32 logits
+    ``lg`` [..., n] of the vocabulary entries ``[lo, lo + n)``, ``m`` [...]
+    the maximum over the whole vocabulary. Returns (the chunk's sum of
+    ``exp(lg - m)``, the label's logit where the chunk holds the label and
+    0 elsewhere); summed over the chunks they give ``nll = log(se) + m -
+    t``."""
+    n = lg.shape[-1]
+    se = torch.exp(lg - m[..., None]).sum(-1)
+    lab = labels.long() - lo
+    mine = (lab >= 0) & (lab < n)
+    t = lg.gather(-1, lab.clamp(0, n - 1)[..., None])[..., 0]
+    return se, torch.where(mine, t, torch.zeros_like(t))
+
+
+def _vocab_parallel_nll(logits, labels, split, ctx: Ctx):
     """``logsumexp(logits) - logits[label]`` per token from this rank's
-    chunk of the vocabulary (split over ``axes``), without gathering the
-    logits: the max by ``pmax`` (no gradient flows through it), the sum of
-    exponentials and the label's logit (from the rank whose chunk holds it,
-    0 elsewhere) summed over ``axes`` by ``reduce_from``, whose identity
-    backward leaves every rank the whole cotangent of the sum."""
-    from repro_torch.launch.mesh import axis_index, pmax, reduce_from
+    chunk of the vocabulary (``split`` its :class:`VocabSplit`), without
+    gathering the logits: the max by ``pmax`` (no gradient flows through
+    it), the sum of exponentials and the label's logit (from the rank whose
+    chunk holds it, 0 elsewhere; :func:`vocab_chunk_terms`) summed over the
+    split's axes by ``reduce_from``, whose identity backward leaves every
+    rank the whole cotangent of the sum."""
+    from repro_torch.launch.mesh import pmax, reduce_from
 
     lg = logits.to(torch.float32)
-    V = lg.shape[-1]
-    m = pmax(lg.detach().amax(-1), axes, ctx.mesh)
-    se = reduce_from(torch.exp(lg - m[..., None]).sum(-1), axes, ctx.mesh)
-    lab = labels.long() - axis_index(ctx.mesh, axes) * V
-    mine = (lab >= 0) & (lab < V)
-    t = lg.gather(-1, lab.clamp(0, V - 1)[..., None])[..., 0]
-    t = reduce_from(torch.where(mine, t, torch.zeros_like(t)), axes, ctx.mesh)
+    m = pmax(lg.detach().amax(-1), split.axes, ctx.mesh)
+    se, t = vocab_chunk_terms(lg, labels, split.start(ctx.mesh), m)
+    se = reduce_from(se, split.axes, ctx.mesh)
+    t = reduce_from(t, split.axes, ctx.mesh)
     return torch.log(se) + m - t
 
 
@@ -761,12 +852,12 @@ def forward_with_aux(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
     self-attention stays within a segment). ``step_key``: the step's integer
     seed (None = no sketching). ``aux``: the MoE layers' summed
     load-balance loss (float32 zero without them)."""
-    logits, axes, aux = _forward(params, batch, ctx, cfg, step_key)
-    return _whole_vocab(logits, axes, ctx), aux
+    logits, split, aux = _forward(params, batch, ctx, cfg, step_key)
+    return _whole_vocab(logits, split, ctx), aux
 
 
 def _forward(params, batch, ctx: Ctx, cfg: ArchConfig, step_key):
-    """(logits, their vocabulary axes as :func:`_head`, aux)."""
+    """(logits, their vocabulary split as :func:`_head`, aux)."""
     x, positions, memory, ctx = _prologue(params, batch, ctx, cfg, step_key)
     x, aux = _run_layers(params, x, ctx, cfg, step_key, positions,
                          segs=batch.get("segments"), memory=memory)
@@ -874,10 +965,10 @@ def lm_loss(params, batch, ctx: Ctx, cfg: ArchConfig, step_key=None):
 
         loss, acc = mlpmod.mlp_loss(params, batch, ctx)
         return loss, {"loss": loss, "acc": acc, "nll": loss}
-    logits, axes, aux = _forward(params, batch, ctx, cfg, step_key)
-    if axes is not None:
+    logits, split, aux = _forward(params, batch, ctx, cfg, step_key)
+    if split is not None:
         # vocab-sharded logits (a head split over model): no [B, S, V] gather
-        nll = _vocab_parallel_nll(logits, batch["labels"], axes, ctx)
+        nll = _vocab_parallel_nll(logits, batch["labels"], split, ctx)
     else:
         lg32 = logits.to(torch.float32)
         lse = torch.logsumexp(lg32, dim=-1)

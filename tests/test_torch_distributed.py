@@ -41,6 +41,13 @@ STEP_SEED = 2
 TOY = "toy_tp_firstr_port"
 PLAN_SEEDS = 16
 FULL = 0.999  # a budget that keeps every column (and block) with scale 1
+# the biased split site (a local plan on its model shard, tp_sketch off):
+# x [BB, BS, BD_IN], w [BN, BD_IN], blocks of BLOCK_B columns (four of them:
+# one per model shard on (1, 4), two on (2, 2)); its runs: exact, pallas l1
+# block 128 at budget 0.5 and at FULL
+BB, BS, BD_IN, BN, BLOCK_B = 4, 8, 256, 512, 128
+BIAS_SEED, BIAS_SITE_SEED = 5, 77
+BIAS_RUNS = ("exact", "pallas_half", "pallas_full")
 
 
 def _arch():
@@ -572,6 +579,63 @@ def _split(mesh, tag, inp, out):
         site.split_kind = real_kind
 
 
+def _bias_arrays():
+    """The biased site's numpy inputs: x, w, b and the output cotangent g."""
+    rs = np.random.RandomState(BIAS_SEED)
+    return ((rs.standard_normal((BB, BS, BD_IN)) / 2).astype(np.float32),
+            (rs.standard_normal((BN, BD_IN)) / 16).astype(np.float32),
+            (rs.standard_normal((BN,)) / 4).astype(np.float32),
+            (rs.standard_normal((BB, BS, BN)) / 4).astype(np.float32))
+
+
+def _bias_cfg(run):
+    from repro_torch.core.sketching import SketchConfig
+
+    if run == "exact":
+        return None
+    return SketchConfig(method="l1", budget=0.5 if run == "pallas_half" else FULL,
+                        backend="pallas", block=BLOCK_B)
+
+
+def _bias_split(mesh, tag, inp, out):
+    """A hand-sharded biased site split over model (``core.site.mesh_site``
+    with ``split=``), column-parallel (the weight stored as an MLP-in's,
+    ``("model", ("data",))``) and row-parallel (as an MLP-out's), per
+    :data:`BIAS_RUNS`, the plan drawn from the site's generator: y, dX, dW
+    and db whole."""
+    import torch.distributed as dist
+
+    from repro_torch import rng
+    from repro_torch.core import site
+    from repro_torch.launch import sharding
+
+    X, W, Bv, G = (torch.as_tensor(a) for a in _bias_arrays())
+    for kind in ("column", "row"):
+        path = "/layers/0/mlp/out/w" if kind == "row" else "/layers/0/mlp/in/w"
+        wspec = sharding.spec_for_path(path, (BN, BD_IN), mesh)
+        xspec = (("data",), None, "model" if kind == "row" else None)
+        yspec = (("data",), None, None if kind == "row" else "model")
+        for run in BIAS_RUNS:
+            w = sharding.shard_tensor(W, wspec, mesh).requires_grad_(True)
+            x = sharding.shard_tensor(X, xspec, mesh).requires_grad_(True)
+            b = Bv.clone().requires_grad_(True)
+            cfg = _bias_cfg(run)
+            gen = None if cfg is None else rng.generator(BIAS_SITE_SEED, "cpu")
+            assert site.split_kind(w, mesh, ("data",), ("model",)) == kind
+            y = site.mesh_site(cfg, x, w, b, gen, mesh, ("data",), ("model",), split=kind)
+            g = sharding.shard_tensor(G, yspec, mesh)
+            dx, dw, db = torch.autograd.grad((y * g).sum(), (x, w, b))
+            key = f"{tag}/bias/{kind}/{run}"
+            out[key + "/y"] = _full(y.detach(), yspec, mesh)
+            out[key + "/dx"] = _full(dx, xspec, mesh)
+            out[key + "/dw"] = _full(dw, wspec, mesh)
+            # db is whole on every rank: rank 0's, with every rank's equal
+            every = [None] * mesh.size
+            dist.all_gather_object(every, _np(db))
+            out[key + "/db"] = _np(db)
+            out[key + "/db_equal"] = all(np.array_equal(e, every[0]) for e in every)
+
+
 def _worker(rank, world, store, work):
     import torch.distributed as dist
 
@@ -584,7 +648,7 @@ def _worker(rank, world, store, work):
         for shape in MESHES:
             mesh = make_mesh(shape, ("data", "model"), device="cpu")
             tag = "x".join(map(str, shape))
-            for part in (_steps, _split, _toy, _budget_one, _mc, _plans):
+            for part in (_steps, _split, _toy, _budget_one, _mc, _plans, _bias_split):
                 progress(work, rank, f"{tag}/{part.__name__}")
                 t0 = time.perf_counter()
                 part(mesh, tag, inp, out)
@@ -1106,3 +1170,68 @@ def test_mesh_without_process_group_raises():
         pytest.skip("a process group is initialised in this process")
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh((1, 1), ("data", "model"), device="cpu")
+
+
+@pytest.mark.parametrize("run", BIAS_RUNS)
+@pytest.mark.parametrize("kind", ["column", "row"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_biased_split_site_matches_single_device(ranks, tag, kind, run):
+    """A biased site split over model (a column-parallel rank adds its chunk
+    of b, its db from its own columns; a row-parallel site adds b once to
+    the sum over model, db whole), exact and ``pallas`` l1 block 128 at
+    budgets 0.5 and 0.999, the plan drawn from the site's generator,
+    against the port's single-device biased site with the same generator:
+    y, dX, dW and db within 1e-5, and db the same on every rank."""
+    from repro_torch import rng
+    from repro_torch.core import site
+
+    x, w, b = (torch.as_tensor(a).requires_grad_(True) for a in _bias_arrays()[:3])
+    g = torch.as_tensor(_bias_arrays()[3])
+    cfg = _bias_cfg(run)
+    gen = None if cfg is None else rng.generator(BIAS_SITE_SEED, "cpu")
+    y = site.sketched_site(cfg, x, w, b, gen)
+    dx, dw, db = torch.autograd.grad((y * g).sum(), (x, w, b))
+    key = f"{tag}/bias/{kind}/{run}"
+    assert ranks[key + "/db_equal"]
+    for name, want in (("y", y), ("dx", dx), ("dw", dw), ("db", db)):
+        np.testing.assert_allclose(ranks[f"{key}/{name}"], _np(want), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("run", ["exact", "pallas_full"])
+@pytest.mark.parametrize("kind", ["column", "row"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_biased_split_site_matches_jax_tp_plans(ranks, tag, kind, run):
+    """The biased split site against JAX's TP plans with a bias on the same
+    mesh (``repro/core/site.py:299-310``): column-parallel against
+    ``tp_exact_linear`` (exact) and ``tp_sketched_linear`` (``tp_column``),
+    row-parallel against ``tp_row_sketched_linear`` (``tp_row``), JAX's at
+    budget 0.999 and block 128 (every block kept with scale 1, the exact
+    numbers): y, dX, dW and db within 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import compat
+    from repro.core.sharded_sketch import (tp_exact_linear, tp_row_sketched_linear,
+                                           tp_sketched_linear)
+    from repro.core.sketching import SketchConfig
+    from repro.nn.common import Ctx
+
+    ctx = Ctx(mesh=_jax_mesh(tag), data_axes=("data",), model_axes=("model",), tp_sketch=True)
+    cfg = SketchConfig(method="l1", budget=FULL, backend="compact", block=BLOCK_B)
+    x, w, b, g = (jnp.asarray(a) for a in _bias_arrays())
+
+    def loss(x_, w_, b_):
+        if kind == "row":
+            y = tp_row_sketched_linear(x_, w_, ctx, cfg, compat.prng_key(3), b=b_)
+        elif run == "exact":
+            y = tp_exact_linear(x_, w_, ctx, b=b_)
+        else:
+            y = tp_sketched_linear(x_, w_, ctx, cfg, compat.prng_key(3), b=b_)
+        return jnp.sum(y * g), y
+
+    (_, y), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(x, w, b)
+    key = f"{tag}/bias/{kind}/{run}"
+    for name, want in zip(("y", "dx", "dw", "db"), (y,) + tuple(grads)):
+        np.testing.assert_allclose(ranks[f"{key}/{name}"], np.asarray(want), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)

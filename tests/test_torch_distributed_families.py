@@ -76,6 +76,16 @@ LAYOUTS = {"fixed": None, "sp": (("data",), "model", None),
            "sp_rows": (None, "model", None)}
 LAYOUT_BASE = {"sp_rows": "sp"}
 LAYOUT_FAMILIES = ("yi_6b", "zamba2_7b")
+# smoke configs changed in one field, built the same way in both packages
+VARIANTS = {"seamless_v254": ("seamless_m4t_large_v2", {"vocab": 254})}
+# the vocabulary-parallel head: the tied table (gemma3, re-laid by vocabulary
+# rows) and an untied head whose vocabulary does not divide the model axis
+# (254 over 4 ranks: chunks 64/64/64/62; over 2: 127/127)
+VOCAB_FAMILIES = ("seamless_v254",)
+VOCAB_JAX_CASES = (("gemma3_1b", "1x4"), ("seamless_m4t_large_v2", "1x4"),
+                   ("seamless_v254", "2x2"), ("seamless_v254", "1x4"))
+# the vocab-parallel nll unit: [rows, S] tokens over a vocabulary of 254
+NLL_V, NLL_SEED = 254, 7
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +109,15 @@ def family_batch(cfg, seed=0) -> dict:
     if cfg.is_encdec:
         b["src_embeds"] = (rs.standard_normal((B, S_ENC, cfg.d_model)) * 0.5).astype(np.float32)
     return b
+
+
+def port_config(name):
+    """The port's smoke config of ``name`` (a :data:`VARIANTS` name: its
+    base config with the variant's fields)."""
+    from repro_torch.configs.registry import smoke_config
+
+    base, kw = VARIANTS.get(name, (name, {}))
+    return smoke_config(base).replace(**kw) if kw else smoke_config(base)
 
 
 def np32(t):
@@ -291,6 +310,80 @@ def runtime_train(name, inp, out, mesh):
         out[f"{name}/train/{tag}"] = [h["loss"] for h in hist]
 
 
+def vocab_runs(name, inp, out, meshes):
+    """A :data:`VOCAB_FAMILIES` config: the single-device exact step and
+    forward logits (rank 0 alone) and on each mesh the exact and the exact
+    TP steps and the forward's whole-vocabulary logits (every rank's rows
+    gathered)."""
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import gather_replicated
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+
+    cfg = port_config(name)
+    params, batch = inp[f"{name}/params"], inp[f"{name}/batch"]
+    if lead_rank():
+        new, m, _ = one_step(cfg, params, batch)
+        out[f"{name}/single/exact/params"] = whole_leaves(new)
+        out[f"{name}/single/exact/loss"] = float(m["loss"])
+        with torch.no_grad():
+            out[f"{name}/single/logits"] = np32(lm.forward(params, batch, Ctx(), cfg))
+    for tag, mesh in meshes.items():
+        for run, tp in (("exact", False), ("exact_tp", True)):
+            new, m, _ = one_step(cfg, params, batch, mesh=mesh, tp=tp)
+            out[f"{name}/{tag}/{run}/params"] = whole_leaves(new, mesh)
+            out[f"{name}/{tag}/{run}/loss"] = float(m["loss"])
+        with torch.no_grad():
+            logits = lm.forward(shard_params(clone(params), mesh),
+                                shard_batch(batch, mesh=mesh),
+                                ExecutionConfig(mesh=mesh).make_ctx(), cfg)
+        out[f"{name}/{tag}/logits"] = np32(gather_replicated(logits, ("data",), mesh, 0))
+
+
+def head_collectives(inp, out, meshes):
+    """gemma3's exact mesh step's all-to-all payload on each mesh (the tied
+    table re-laid by vocabulary rows and back)."""
+    from repro_torch.launch import mesh as meshlib
+
+    cfg = port_config("gemma3_1b")
+    for tag, mesh in meshes.items():
+        one_step(cfg, inp["gemma3_1b/params"], inp["gemma3_1b/batch"], mesh=mesh)
+        out[f"head/{tag}/all_to_all"] = meshlib.collective_bytes()["all_to_all"]
+
+
+def nll_chunks(out, meshes):
+    """``lm._vocab_parallel_nll`` on each mesh over :data:`NLL_V` logits cut
+    into ``chunk_bounds``' uneven chunks over model, every rank's rows
+    gathered: the nll, and the logits' gradient of its sum gathered whole."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import axis_index, chunk_bounds, gather_replicated
+    from repro_torch.models import lm
+    from repro_torch.nn.common import Ctx
+
+    rs = np.random.RandomState(NLL_SEED)
+    logits = torch.as_tensor((rs.standard_normal((B, S, NLL_V)) * 3).astype(np.float32))
+    labels = torch.as_tensor(rs.randint(0, NLL_V, (B, S)))
+    for tag, mesh in meshes.items():
+        n_dp, n_mp = mesh.axis_size("data"), mesh.axis_size("model")
+        rows = slice(axis_index(mesh, "data") * (B // n_dp), (axis_index(mesh, "data") + 1)
+                     * (B // n_dp))
+        lo, n = chunk_bounds(NLL_V, n_mp, axis_index(mesh, "model"))
+        chunk = logits[rows, :, lo:lo + n].clone().requires_grad_()
+        split = lm.VocabSplit(("model",), NLL_V)
+        nll = lm._vocab_parallel_nll(chunk, labels[rows], split, Ctx(mesh=mesh))
+        (g,) = torch.autograd.grad(nll.sum(), chunk)
+        g = gather_replicated(g, ("model",), mesh, -1, size=NLL_V)
+        every = [None] * mesh.size
+        dist.all_gather_object(every, (axis_index(mesh, "model"), lo, n))
+        out[f"nll/{tag}/chunks"] = sorted(set(every))
+        out[f"nll/{tag}/nll"] = np32(gather_replicated(nll.detach(), ("data",), mesh, 0))
+        out[f"nll/{tag}/grad"] = np32(gather_replicated(g, ("data",), mesh, 0))
+    out["nll/logits"], out["nll/labels"] = np32(logits), labels.numpy().copy()
+
+
 def make_meshes(shapes):
     from repro_torch.launch.mesh import make_mesh
 
@@ -435,6 +528,13 @@ def _worker(rank, world, store, work):
             t0 = time.perf_counter()
             layout_runs(name, inp, out, meshes)
             out[f"time/layout/{name}"] = time.perf_counter() - t0
+        progress(work, rank, "vocab")
+        t0 = time.perf_counter()
+        for name in VOCAB_FAMILIES:
+            vocab_runs(name, inp, out, meshes)
+        head_collectives(inp, out, meshes)
+        nll_chunks(out, meshes)
+        out["time/vocab"] = time.perf_counter() - t0
     finally:
         finish(rank, out, work)
 
@@ -451,17 +551,17 @@ def jax_setup(name):
     from repro.optim import sgd
     from repro.train.train_step import init_state
 
-    jcfg = jreg.smoke_config(name).replace(remat="none")
+    base, kw = VARIANTS.get(name, (name, {}))
+    jcfg = jreg.smoke_config(base).replace(remat="none", **kw)
     return jcfg, init_state(compat.prng_key(0), jcfg, sgd(0.1))
 
 
 def family_inputs(names):
     from repro_torch import interop
-    from repro_torch.configs.registry import smoke_config
 
     inp = {}
     for name in names:
-        cfg = smoke_config(name)
+        cfg = port_config(name)
         _, st = jax_setup(name)
         inp[f"{name}/params"] = interop.params_from_jax(st.params, cfg, device="cpu")
         inp[f"{name}/batch"] = {k: torch.as_tensor(v) for k, v in family_batch(cfg).items()}
@@ -491,7 +591,6 @@ def jax_sharded_exact_step(name, tag, batch, sp=False):
     from repro.optim import sgd
     from repro.train.train_step import TrainState, make_train_step
     from repro_torch import interop
-    from repro_torch.configs.registry import smoke_config
 
     jcfg, state = jax_setup(name)
     mesh = jax_mesh(tag)
@@ -511,7 +610,7 @@ def jax_sharded_exact_step(name, tag, batch, sp=False):
     step = jax.jit(step, in_shardings=(sshard, bspec, NamedSharding(mesh, P())))
     new, m = step(state, {k: np.asarray(v.numpy()) for k, v in batch.items()},
                   compat.prng_key(STEP_SEED))
-    return flat(interop.params_from_jax(new.params, smoke_config(name), device="cpu")), \
+    return flat(interop.params_from_jax(new.params, port_config(name), device="cpu")), \
         float(m["loss"])
 
 
@@ -524,7 +623,7 @@ def assert_close_leaves(got: dict, want: dict, rtol, atol):
 @pytest.fixture(scope="module")
 def inputs():
     return family_inputs(FAMILIES + tuple(n for n in SP_FAMILIES + LAYOUT_FAMILIES
-                                          if n not in FAMILIES))
+                                          if n not in FAMILIES) + VOCAB_FAMILIES)
 
 
 @pytest.fixture(scope="module")
@@ -704,3 +803,70 @@ def test_serving_under_a_mesh_raises_naming_the_next_slice(name):
         Runtime(device="cpu", execution=ExecutionConfig(mesh=mesh,
                                                         act_sharding=("model", None, "model"))
                 ).prefill_step(cfg, S + 4)
+
+
+@pytest.mark.parametrize("name,tag", VOCAB_JAX_CASES)
+def test_vocab_parallel_head_step_matches_jax(ranks, inputs, name, tag):
+    """The vocabulary-parallel head's exact mesh step against JAX's sharded
+    exact step on the same mesh: gemma3's tied table re-laid by vocabulary
+    rows, seamless's column-parallel head, and seamless at a vocabulary of
+    254, whose chunks do not divide the model axis (64/64/64/62 on (1, 4),
+    127/127 on (2, 2)): loss rtol 1e-4; parameters rtol 2e-3, atol 2e-4
+    (JAX's own tolerances for its sharded step)."""
+    want, loss = jax_sharded_exact_step(name, tag, inputs[f"{name}/batch"])
+    np.testing.assert_allclose(ranks[f"{name}/{tag}/exact/loss"], loss, rtol=1e-4)
+    assert_close_leaves(ranks[f"{name}/{tag}/exact/params"], want, 2e-3, 2e-4)
+
+
+@pytest.mark.parametrize("run", ["exact", "exact_tp"])
+@pytest.mark.parametrize("tag", list(MESHES))
+@pytest.mark.parametrize("name", VOCAB_FAMILIES)
+def test_uneven_vocabulary_step_matches_single_device(ranks, name, tag, run):
+    """The head whose vocabulary does not divide the model axis, each rank
+    on its chunk of the replicated weight's rows (no padding), with the
+    local plans and under ``tp_sketch``: loss and every parameter within
+    1e-5 of the port's single device."""
+    np.testing.assert_allclose(ranks[f"{name}/{tag}/{run}/loss"],
+                               ranks[f"{name}/single/exact/loss"], rtol=1e-5)
+    assert_close_leaves(ranks[f"{name}/{tag}/{run}/params"],
+                        ranks[f"{name}/single/exact/params"], 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+@pytest.mark.parametrize("name", VOCAB_FAMILIES)
+def test_forward_gathers_uneven_vocabulary_chunks(ranks, name, tag):
+    """``forward`` under a mesh returns the whole vocabulary (JAX's API):
+    the uneven chunks all-gathered (padded to the longest and cut) are the
+    single device's logits within 1e-5."""
+    got, want = ranks[f"{name}/{tag}/logits"], ranks[f"{name}/single/logits"]
+    assert got.shape == want.shape == (B, S, port_config(name).vocab)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_tied_head_moves_the_table_once_each_way(ranks, tag):
+    """gemma3's exact mesh step re-lays its tied table by vocabulary rows
+    for the head (one all-to-all of this rank's [V, d / n_model] shard) and
+    its gradient back (the inverse, the same bytes): nothing else in the
+    step is an all-to-all. Float32."""
+    cfg = port_config("gemma3_1b")
+    n_mp = MESHES[tag][1]
+    assert ranks[f"head/{tag}/all_to_all"] == 2 * cfg.vocab * (cfg.d_model // n_mp) * 4
+
+
+@pytest.mark.parametrize("tag", list(MESHES))
+def test_vocab_parallel_nll_on_uneven_chunks(ranks, tag):
+    """``_vocab_parallel_nll`` over 254 logits in ``chunk_bounds``' chunks
+    (the last shorter: 64/64/64/62 on a model axis of 4, 127/127 on 2)
+    against ``torch.logsumexp`` over the whole vocabulary minus the label's
+    logit, and the gradient of its sum against ``softmax - onehot``:
+    within 1e-6."""
+    logits = torch.as_tensor(ranks["nll/logits"])
+    labels = torch.as_tensor(ranks["nll/labels"]).long()
+    want_chunks = {"1x4": [(0, 0, 64), (1, 64, 64), (2, 128, 64), (3, 192, 62)],
+                   "2x2": [(0, 0, 127), (1, 127, 127)]}[tag]
+    assert ranks[f"nll/{tag}/chunks"] == want_chunks
+    want = torch.logsumexp(logits, -1) - logits.gather(-1, labels[..., None])[..., 0]
+    np.testing.assert_allclose(ranks[f"nll/{tag}/nll"], want.numpy(), rtol=1e-6, atol=1e-6)
+    grad = torch.softmax(logits, -1) - torch.nn.functional.one_hot(labels, NLL_V)
+    np.testing.assert_allclose(ranks[f"nll/{tag}/grad"], grad.numpy(), rtol=1e-6, atol=1e-6)

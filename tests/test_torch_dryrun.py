@@ -264,6 +264,61 @@ def _split_compact():
     return out
 
 
+def _vocab_tensors():
+    """The largest tensor a train step of rank 0 makes whose last dimension
+    is the whole vocabulary (numel and shape; 0 where none), on fake groups
+    (``mask``, SP): gemma3's smoke config on (2, 2) (the tied table) and
+    seamless's with a vocabulary of 254 on (1, 4) (uneven chunks); and, as
+    the control, the same spy on ``lm.forward`` of gemma3's mesh, which
+    returns the whole vocabulary of this rank's rows."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.api import ExecutionConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import dryrun, input_specs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import lm
+    from repro_torch.optim import sgd
+
+    class Widest(TorchDispatchMode):
+        def __init__(self, vocab):
+            super().__init__()
+            self.vocab, self.most, self.shape = vocab, 0, None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in dryrun._tensors(out):
+                if t.dim() and t.shape[-1] == self.vocab and t.numel() > self.most:
+                    self.most, self.shape = t.numel(), list(t.shape)
+            return out
+
+    cases = {"gemma3_2x2": ("gemma3_1b", (2, 2), {}),
+             "seamless_v254_1x4": ("seamless_m4t_large_v2", (1, 4), {"vocab": 254})}
+    cell, out = _cell("train"), {}
+    for name, (arch, shape, kw) in cases.items():
+        cfg = _smoke(arch, **kw)
+        with dryrun.fake_group(shape[0] * shape[1]):
+            mesh = meshlib.make_mesh(shape, ("data", "model"), device="cpu")
+            mode = input_specs.fake_mode()
+            rt = dryrun._runtime(mesh, dryrun._POLICIES["mask"], batch_div=True,
+                                 seq_len=cell.seq_len, sp=True, accum=1, device="cpu")
+            opt = sgd(0.1)
+            with mode:
+                st = rt.init_state(0, cfg, opt, params=input_specs.params_struct(
+                    cfg, mode=mode, device="cpu"))
+                batch = shard_batch(input_specs.train_inputs(cfg, cell, mode=mode,
+                                                             device="cpu"), mesh=mesh)
+                step, fwd = Widest(cfg.vocab), Widest(cfg.vocab)
+                with step:
+                    rt.train_step(cfg, opt)(st, batch, 0)
+                with fwd, torch.no_grad():
+                    lm.forward(st.params, batch, ExecutionConfig(mesh=mesh).make_ctx(), cfg)
+        out[name] = {"step": step.most, "step_shape": step.shape, "forward": fwd.most,
+                     "rows_S_V": cell.global_batch // shape[0] * cell.seq_len * cfg.vocab}
+    return out
+
+
 def _remat_peaks():
     """The fake tracker's peak of one exact step at remat full and none."""
     from repro_torch.launch import dryrun
@@ -356,7 +411,7 @@ def _all() -> dict:
                             "yi_1x4_exact": _fake_vs_real("yi_6b", (1, 4), "exact")},
            "gather": _fake_gather(), "kernels": _kernels(), "remat": _remat_peaks(),
            "attn": _attn_peaks(), "split_compact": _split_compact(),
-           "sp_one_rank": _sp_one_rank()}
+           "sp_one_rank": _sp_one_rank(), "vocab": _vocab_tensors()}
     recs = {
         "train_depth_yi": _record("yi_6b", (2, 2), "train", cfg=_smoke("yi_6b", n_layers=4),
                                   coverage=False),
@@ -589,3 +644,17 @@ def test_meta_tensors_take_no_bytes():
 
     _, counts = dryrun.count_run(run, ())
     assert counts["peak_bytes"] == 2 * 4096
+
+
+@pytest.mark.parametrize("case", ["gemma3_2x2", "seamless_v254_1x4"])
+def test_no_step_tensor_holds_the_whole_vocabulary(results, case):
+    """On a fake mesh the train step's head and loss hold only this rank's
+    chunk of the vocabulary: no tensor of the step has the whole vocabulary
+    as its last dimension over this rank's rows (gemma3's tied table re-laid
+    by vocabulary rows on (2, 2); seamless at a vocabulary of 254, uneven
+    chunks, on (1, 4)), while ``lm.forward`` on the same mesh, which
+    returns whole-vocabulary logits, does hold [rows, S, V] (the spy sees
+    it)."""
+    got = results["vocab"][case]
+    assert got["step"] < got["rows_S_V"], got
+    assert got["forward"] == got["rows_S_V"], got
