@@ -98,7 +98,7 @@ def run(quick=True, device="cuda"):
             res[m] = {}
             for p in budgets:
                 t0 = time.perf_counter()
-                r = _train(apply_fn, init, make_policy(m, p), data, **kw)
+                r = _train(apply_fn, init, make_policy(m, p, include_head=False), data, **kw)
                 res[m][str(p)] = r
                 print(f"[{arch}] {m:11s} p={p:.2f} test_acc={r['test_acc']:.4f} "
                       f"({time.perf_counter() - t0:.1f} s)")

@@ -89,8 +89,9 @@ which raises on failure:
    same run stopped at step 2 and resumed by a fresh Runtime (losses, both
    checkpoints verified, a corrupted one refused with ``restore`` falling
    back, bytes and seconds per checkpoint);
-11. the serving engines on lm-100m (``attn_impl="pallas"``, random weights
-   from a seed): 32 requests from numpy (prompts of 16-768 tokens, max_new
+11. the serving engines on lm-100m (4 of its 12 layers, ``ENGINE_LAYERS``;
+   ``attn_impl="pallas"``, random weights from a seed): 32 requests from
+   numpy (prompts of 16-768 tokens, max_new
    8-64) and one 1,100-token prompt that is left-truncated, no stop token,
    through ``Runtime.serve(params, cfg, serve=ServeConfig(n_slots=8,
    max_len=1024, page_size=16)).run`` (paged), the contiguous engine
@@ -110,7 +111,7 @@ which raises on failure:
    spans, one compile-ledger entry per bucket, a memory-ledger peak above
    0); and a profiler trace of one engine decode step (device ops, busy
    time, exactly one device-to-host copy, the page gather's and scatter's
-   device time and bytes) beside phase 8's plain decode step;
+   device time and bytes) beside phase 8's plain decode step (12 layers);
 12. resilience around the lm-100m trainer (4 of its 12 layers,
    ``LOOP_LAYERS``; batch 8 x 256, block-128 l1@0.2,
    ``examples/train_lm.py``'s AdamW, ``ResilienceConfig(max_grad_norm=1e13)``:
@@ -144,12 +145,12 @@ which raises on failure:
    x 512: one gradient at budget
    0.999 equal to exact backprop's for every leaf (olmoe under ``pallas``,
    ``onepass`` and ``stale``, gemma3 under ``pallas``), then
-   ``Runtime.train`` for 3 steps at l1@0.2 block 128 under each of those
+   ``Runtime.train`` for 2 steps at l1@0.2 block 128 under each of those
    backends with the launch counts set to 0 before and read after (olmoe
    392 per kernel per step, 2 x (4 + 3 x 64) sites; gemma3 84), finite
    losses and aux, the replicas dropped by the capacity printed; one exact
    step beside one pallas step (ms, device-busy ms, device ops, idle share,
-   peak memory; olmoe's pallas step timed but not profiled); serving
+   peak memory; olmoe's pallas step only in its training run); serving
    through ``Runtime.prefill_step`` / ``decode_step`` with
    ``attn_impl="pallas"``: olmoe at its full 16 layers (4 x 512 prompts), gemma3 (2 x 2048 prompts, its local layers windowed at
    512 with ring caches), 16 greedy decode steps each, one flash launch per
@@ -166,7 +167,7 @@ which raises on failure:
    layers, one period and a one-layer remainder), each at batch 4 x 512
    and the full configs' chunk of 256: one gradient at budget 0.999 equal
    to exact backprop's for every leaf under ``pallas``, ``onepass`` and
-   ``stale``, every exact gradient finite; ``Runtime.train`` for 3 steps per
+   ``stale``, every exact gradient finite; ``Runtime.train`` for 2 steps per
    backend with the launch counts set to 0 before and read after (rwkv 32
    sites per step, zamba 28); one profiled ``pallas`` step each (ms,
    device-busy ms, device ops, idle share, peak memory); serving at full
@@ -188,7 +189,7 @@ which raises on failure:
    halved for layer remat's recompute, and again for the chunked
    attention's host ops): one gradient at budget
    0.999 equal to exact backprop's for every leaf under each backend, every
-   exact gradient finite; ``Runtime.train`` for 3 steps per backend with the
+   exact gradient finite; ``Runtime.train`` for 2 steps per backend with the
    launch counts set to 0 before and read after (qwen 49 sites per step,
    seamless 96), and a qwen ``stale`` step at accum 2 whose split takes
    the positions on axis 1 (2 x 49); one exact and one profiled ``pallas``
@@ -228,10 +229,11 @@ which raises on failure:
    event, training to its last step, its launches counted;
 18. the analysis tooling (``analysis(dev)``): the lint over
    ``src/repro_torch`` with no finding and exactly the reviewed waivers;
-   ``analyze_runtime`` on the card for lm-100m, olmoe-1b-7b (4 layers),
-   gemma3-1b, rwkv6-3b (8), zamba2-7b (13), qwen2-vl-2b,
-   seamless-m4t-large-v2, yi-6b (4) and mixtral-8x22b (1) at full width
-   under the block-128 l1@0.2 ``pallas`` policy, the baseline gate green;
+   ``analyze_runtime`` on the card for lm-100m, olmoe-1b-7b (2 layers),
+   gemma3-1b (12), rwkv6-3b (4), zamba2-7b (7), qwen2-vl-2b (7),
+   seamless-m4t-large-v2 (6 + 6), yi-6b (4) and mixtral-8x22b (1) at full
+   width under the block-128 l1@0.2 ``pallas`` policy, the baseline gate
+   green;
    and one forward and backward of each at 1 x 256 whose score and fused
    kernels each launch exactly the analyzer's count of sketched site
    applications;
@@ -249,7 +251,7 @@ which raises on failure:
    12 flash_attention launches per prefill and none in decode, logits and
    tokens bit for bit the single device's, every prefill's and decode
    step's collective payload equal to ``serve_payload``'s count from the
-   shapes; phase 11's paged and run-to-completion engines and one
+   shapes; phase 11's paged and run-to-completion engines (4 layers) and one
    contiguous engine per phase-16 family (at its depth) on the mesh, their
    tokens equal to the single-device engines';
 21. the dry run (``dry_run(dev)``; ``repro_torch.launch.dryrun``), run in a
@@ -351,7 +353,25 @@ which raises on failure:
    child, beside the card's phases); the ms of the whole,
    the 16 ranks and one rank; no kernel launch; the phase within
    ``VH_LIMIT_S``;
-27. one JSON line listing the ported kernels, then the last line
+27. the paper's figure experiments on the §5 MLP (``figures(dev)``; the
+   scripts in ``benchmarks/torch/``, all on the ``mask`` backend): (a) every
+   distinct policy of the eight figures' quick grids (each ``FIG_SCRIPTS``
+   script's ``grid()``: exact, fig1a's correlated and independent l1,
+   fig1b's masks and sketches, fig2a's proxies, fig2b's gsv and rcs, fig4's
+   first and last layers, the 784-512-512-10 MLP per column and in blocks
+   of 128, bench_variance's; and ``bench_adaptive.POLICY``) trained by
+   ``train_mlp`` for one epoch at lr 0.2 on the quick-mode data: every
+   accuracy finite, exact backprop's test accuracy above twice chance, no
+   kernel launched (the counts set to 0 just before each run and read just
+   after); (b) bench_variance's quick methods and budgets and l1 with
+   independent gates (``sample_independent``), its quick draws each on its
+   problem (``bench_variance.problem``): ``bias_sq`` within
+   ``FIG_CHI2_1_TAIL`` x V / n_mc, and V within ``FIG_V_SIGMAS`` standard
+   errors of the same draws' V on the host CPU from the same weights and
+   batch; (c) ``bench_adaptive.run(tiny=True)``: one build per bucket of
+   each schedule, adaptive backward FLOPs within fixed's, the budgets within
+   the buckets; (d) each part's seconds, the phase within ``FIG_LIMIT_S``;
+28. one JSON line listing the ported kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Every profiled step whose kernels are counted is traced again (up to twice)
@@ -2291,6 +2311,10 @@ ENGINE_SEED = 0  # the requests
 ENGINE_PARAM_SEED = 23
 ENGINE_REF = 8  # requests decoded one at a time as the reference
 ENGINE_TRAIN_STEPS = 3
+# the engines serve lm-100m at LOOP_LAYERS of its 12 layers (all 12 before,
+# ~35 s of the script; the engines' checks are per request, token and page),
+# here and in phase 20's engines, which must give the same tokens
+ENGINE_LAYERS = LOOP_LAYERS
 # the single-device engines' tokens of phases 11 and 16, which phase 20's mesh
 # engines must equal: {config: {engine: {request: tokens}}}
 ENGINE_TOKENS: dict = {}
@@ -2595,7 +2619,8 @@ def engine_decode_trace(dev, params, cfg, specs, plain):
           f"written (bound {(read + written) / HBM_BYTES_PER_S * 1e3:.3f} ms); scatter "
           f"(aten::index_put_) {dev_ms('aten::index_put_'):.3f} ms device, "
           f"{scatter / 1e6:.3f} MB each way")
-    print(f"[engine-trace]   phase 8's plain decode step (batch {SERVE_WAVES[0][0]}, cache "
+    print(f"[engine-trace]   phase 8's plain decode step (12 layers, batch "
+          f"{SERVE_WAVES[0][0]}, cache "
           f"{SERVE_WAVES[0][1] + DECODE_STEPS}): {plain['ops']} device ops, busy "
           f"{plain['busy_ms']:.2f} ms, {plain['call_ms']:.2f} ms per call")
     for e in sorted(kern, key=_device_us, reverse=True)[:6]:
@@ -2664,7 +2689,7 @@ def serving_engines(dev, plain_decode):
     from repro_torch.models import lm
     from repro_torch.serve.legacy import RunToCompletionEngine
 
-    cfg = lm100m().replace(attn_impl="pallas")
+    cfg = lm100m(ENGINE_LAYERS).replace(attn_impl="pallas")
     plain_cfg = cfg.replace(attn_impl="chunked")
     params = lm.init_params(ENGINE_PARAM_SEED, cfg, device=dev)
     specs = engine_specs(cfg.vocab)
@@ -2672,7 +2697,8 @@ def serving_engines(dev, plain_decode):
     total = {}
     runtime = Runtime(device=dev)
     kv_bytes = sv.pool_pages * sv.page_size * 2 * cfg.n_layers * cfg.n_kv * cfg.head_dim * 4
-    print(f"[engine] lm-100m, attn_impl pallas, {len(specs)} requests (prompts "
+    print(f"[engine] lm-100m ({cfg.n_layers} layers), attn_impl pallas, {len(specs)} requests "
+          f"(prompts "
           f"{[len(p) for p, _ in specs]}, max_new {[m for _, m in specs]}), eos None; "
           f"ServeConfig(n_slots={sv.n_slots}, max_len={sv.max_len}, page_size={sv.page_size}): "
           f"{sv.pool_pages} pages, {kv_bytes / 1e9:.3f} GB of K/V")
@@ -2732,10 +2758,10 @@ def serving_engines(dev, plain_decode):
     print(f"[engine] sequential reference of requests {ref_idx}: "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # obs on and off, interleaved after the first (off) run: off, on, on, off
+    # obs on and off, interleaved after the first (off) run: off, on, off
     obs_tokens = []
     with tempfile.TemporaryDirectory() as tmp:
-        for i, on in enumerate((True, True, False)):
+        for i, on in enumerate((True, False)):
             obs = None
             if on:
                 d = os.path.join(tmp, f"run{i}")
@@ -2767,7 +2793,7 @@ def serving_engines(dev, plain_decode):
         engine_trainer(dev, tmp, total)
     off, on = walls["off"], walls["on"]
     print(f"[engine] wall s per run, obs off {[round(w, 3) for w in off]} / on "
-          f"{[round(w, 3) for w in on]} (order off, on, on, off): mean on over mean off "
+          f"{[round(w, 3) for w in on]} (order off, on, off): mean on over mean off "
           f"{100 * (sum(on) / len(on) / (sum(off) / len(off)) - 1):+.2f}%")
 
     for label, toks in obs_tokens:
@@ -3138,7 +3164,9 @@ def resilience(dev):
 # training batch of both models: 2,048 token rows (olmoe's expert capacity is
 # then ceil(2048 * 8 * 1.25 / 64) = 320 rows per bucket)
 FAM_BATCH, FAM_SEQ = 4, 512
-FAM_STEPS = 3
+# training steps per backend in phases 13 to 15 (two: the launch counts and
+# finite losses hold per step, and a third step's time went to phase 27)
+FAM_STEPS = 2
 # olmoe trains at 2 of its 16 layers: float32 weights, gradients and AdamW's
 # two moments take 16 B per parameter (~110 GB at 16); 4 until layer remat
 # (PR 29), whose recompute of the host-bound steps took the script's time
@@ -3528,20 +3556,21 @@ def family_train(dev, cfg, backend, data_seed, accum=1, steps=FAM_STEPS):
     return counts
 
 
-def family_breakdown(dev, cfg, data_seed, exact=True, profile_sketched=True):
+def family_breakdown(dev, cfg, data_seed, exact=True, sketched=True):
     """One exact step (unless ``exact`` is False) beside one pallas l1@0.2
-    step (AdamW, after a warm-up step each): synced ms per step, and under
-    the profiler (the sketched step only if ``profile_sketched``)
-    device-busy ms, device ops and the device-idle share; peak memory. The
-    profiled sketched step's trace must hold every launch the counters
-    count (``traced_step``)."""
+    step (unless ``sketched`` is False: its synced time is then the training
+    run's second step; AdamW, after a warm-up step each): synced ms per
+    step, and under the profiler device-busy ms, device ops and the
+    device-idle share; peak memory. The profiled sketched step's trace must
+    hold every launch the counters count (``traced_step``)."""
     from repro_torch.api import Runtime
     from repro_torch.kernels import ops
     from repro_torch.optim import adamw, cosine_warmup
 
     batches = [b for b, _ in zip(family_batches(cfg, data_seed), range(3))]
-    runs = (("exact", None), ("pallas-l1@0.2", slice_policy(0.2)))
-    for label, policy in runs if exact else runs[1:]:
+    runs = ((("exact", None),) if exact else ()) + (
+        (("pallas-l1@0.2", slice_policy(0.2)),) if sketched else ())
+    for label, policy in runs:
         runtime = Runtime(policy=policy, device=dev)
         opt = adamw(cosine_warmup(3e-4, 15, 300), weight_decay=0.1, clip=1.0)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3555,13 +3584,6 @@ def family_breakdown(dev, cfg, data_seed, exact=True, profile_sketched=True):
         float(m["loss"])
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0)
-        if policy is not None and not profile_sketched:
-            print(f"[families] {cfg.name} breakdown {label}: {step_ms:.1f} ms/step (synced, one "
-                  f"step); not profiled; peak memory "
-                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-            del state, fn, opt
-            torch.cuda.empty_cache()
-            continue
         want = {} if policy is None else {name: n for name, n in
                                           family_counts(cfg, "pallas", 1).items() if n}
         box = [state]
@@ -3840,7 +3862,7 @@ def families(dev, gen):
         t1 = time.perf_counter()
         # olmoe's sketched step (~154,000 device ops) takes ~90 s under the
         # profiler; the script's time goes to phase 14 instead
-        family_breakdown(dev, cfg, FAM_SEED + 2, profile_sketched=not cfg.n_experts)
+        family_breakdown(dev, cfg, FAM_SEED + 2, sketched=not cfg.n_experts)
         torch.cuda.empty_cache()
         print(f"[time]   {cfg.name} breakdown {time.perf_counter() - t1:.1f} s")
         print(f"[time]   {cfg.name} training {time.perf_counter() - t0:.1f} s")
@@ -4554,12 +4576,17 @@ def dist_device_loss(dev, mesh, tmp, total):
 # ---------------------------------------------------------------------------
 
 # (config, layers: None for the registry's depth, sketched site applications
-# per step). The depths are the training phases' (float32 weights and
-# gradients must fit 80 GB: mixtral's one layer takes ~23 GB); yi-6b and
-# mixtral-8x22b run here for the first time at full width
-ANALYSIS_CFGS = (("lm-100m", None, 84), ("olmoe-1b-7b", 4, 784),
-                 ("gemma3-1b", None, 182), ("rwkv6-3b", 8, 64), ("zamba2-7b", 13, 53),
-                 ("qwen2-vl-2b", None, 196), ("seamless-m4t-large-v2", None, 384),
+# per step). The depths are the training phases 13 to 15's (float32 weights
+# and gradients must fit 80 GB: mixtral's one layer takes ~23 GB; the
+# analyzer's host time grows with the depth: olmoe 4, gemma3, qwen2-vl and
+# seamless at their full depth, rwkv6 8 and zamba2 13 layers took ~20 s more);
+# yi-6b and mixtral-8x22b run here for the first time at full width
+ANALYSIS_CFGS = (("lm-100m", None, 84), ("olmoe-1b-7b", OLMOE_TRAIN_LAYERS, 392),
+                 ("gemma3-1b", GEMMA_TRAIN_LAYERS, 84),
+                 ("rwkv6-3b", SSM_TRAIN_LAYERS["rwkv6-3b"], 32),
+                 ("zamba2-7b", SSM_TRAIN_LAYERS["zamba2-7b"], 28),
+                 ("qwen2-vl-2b", VLM_TRAIN_LAYERS["qwen2-vl-2b"], 49),
+                 ("seamless-m4t-large-v2", VLM_TRAIN_LAYERS["seamless-m4t-large-v2"], 96),
                  ("yi-6b", 4, 28), ("mixtral-8x22b", 1, 28))
 # the cross-check's forward and backward: one row of 256 tokens
 ANALYSIS_BATCH, ANALYSIS_SEQ = 1, 256
@@ -5077,7 +5104,7 @@ def mesh_engines(dev, mesh):
 
     meshed = Runtime(device=dev, execution=ExecutionConfig(mesh=mesh))
     single = Runtime(device=dev)
-    cfg = lm100m().replace(attn_impl="pallas")
+    cfg = lm100m(ENGINE_LAYERS).replace(attn_impl="pallas")
     params = lm.init_params(ENGINE_PARAM_SEED, cfg, device=dev)
     specs = engine_specs(cfg.vocab)
     sv = ServeConfig(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN, page_size=ENGINE_PAGE)
@@ -6530,6 +6557,160 @@ def vocab_head(dev, dry=None):
     return counts
 
 
+# -- phase 27: the paper's figure experiments on the §5 MLP ---------------------
+
+# the figure scripts whose quick grids (each script's grid()) phase 27 (a)
+# trains, each distinct (policy, sizes) once; bench_adaptive's POLICY is added
+# by fig_policies
+FIG_SCRIPTS = ("fig1a_correlation", "fig1b_mask_vs_sketch", "fig2a_proxies", "fig2b_spectral",
+               "fig4_location", "bench_block_granularity", "bench_variance")
+FIG_SIZES = (784, 64, 64, 10)  # the §5 MLP, where a script sets no SIZES
+FIG_LR = 0.2
+FIG_EPOCHS = 1
+FIG_CHANCE = 0.1  # 10 classes: exact backprop's test accuracy must pass 2x this
+# bench_variance's quick methods and budgets, and l1 with independent gates
+FIG_MC = tuple((m, p, e) for m in ("per_column", "l1", "ds") for p in (0.1, 0.5)
+               for e in ((True, False) if m == "l1" else (True,)))
+# P(chi2_1 > 15.137) = 1e-4: n ||mean - g||^2 / V of an unbiased estimator is a
+# weighted sum of chi2_1 variables, whose tail beyond 1.54 is at most chi2_1's
+# (tests/test_torch_figures.py, where the same bound rejects the mask without
+# its 1/p rescale). At n = 100 it rejects only a squared bias above 15% of V:
+# at budget 0.1, where V is ~500 |g|^2, it cannot see a bias below several
+# times the gradient; V itself is held against the same draws on the host
+FIG_CHI2_1_TAIL = 15.137
+# the card's V against the host CPU's on the same weights and batch (other
+# draws): within FIG_V_SIGMAS standard errors of their difference, each the
+# card's (its per-draw ||g^ - g||^2's standard deviation over sqrt(n)), as the
+# CPU test holds the port's V against JAX's
+FIG_V_SIGMAS = 4.0
+# the phase is host-bound (~150 small ops per sketched site): 22.5 and 31.7 s in
+# the script before (b)'s host-CPU witness, 29.9 s with it. The card machines'
+# hosts differ ~2x in speed, so the bound is 2x the slowest reading of the
+# phase as it stands: it catches a regression beyond that spread only
+FIG_LIMIT_S = 60.0
+
+
+def fig_policies():
+    """The distinct (label, policy, sizes) of the figure scripts' quick grids."""
+    import importlib
+
+    from benchmarks.torch import bench_adaptive
+    from benchmarks.torch.common import make_policy
+
+    seen, out = set(), []
+    entries = []
+    for name in FIG_SCRIPTS:
+        mod = importlib.import_module(f"benchmarks.torch.{name}")
+        sizes = getattr(mod, "SIZES", FIG_SIZES)
+        entries += [(f"{m}@{p} {kw}", make_policy(m, p, **kw), sizes)
+                    for m, p, kw in mod.grid(quick=True)]
+    entries.append(("adaptive l1@0.6", bench_adaptive.POLICY, bench_adaptive.SIZES))
+    for label, pol, sizes in entries:
+        if (pol, sizes) not in seen:
+            seen.add((pol, sizes))
+            out.append((label, pol, sizes))
+    return out
+
+
+def figures(dev):
+    """Phase 27: the figure experiments' paths on the card (module
+    docstring). Returns their launches: none (the ``mask`` backend)."""
+    from benchmarks.torch import bench_adaptive, bench_variance
+    from benchmarks.torch.common import make_policy, mlp_data, train_mlp
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in ops.KERNELS}
+
+    def read(label):
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"[figures] {label} launched {counts}: the mask backend "
+                                 f"runs no kernel")
+        for name, n in counts.items():
+            total[name] += n
+
+    data = mlp_data()
+    t0 = time.perf_counter()
+    accs = []
+    for label, pol, sizes in fig_policies():
+        ops.reset_launch_counts()
+        r = train_mlp(pol, lr=FIG_LR, epochs=FIG_EPOCHS, data=data, sizes=sizes, device=dev)
+        read(label)
+        if not all(math.isfinite(a) for a in r.values()):
+            raise AssertionError(f"[figures] {label}: accuracies {r}")
+        if pol is None and r["test_acc"] <= 2 * FIG_CHANCE:
+            raise AssertionError(f"[figures] exact backprop at chance: {r}")
+        accs.append(f"{label}{'' if sizes == FIG_SIZES else ' ' + str(sizes)} "
+                    f"{r['test_acc']:.4f}")
+    secs_a = time.perf_counter() - t0
+    print(f"[figures] (a) {len(accs)} policies, {FIG_EPOCHS} epoch at lr {FIG_LR}, test "
+          f"accuracy: {'; '.join(accs)}; launches 0; {secs_a:.1f} s")
+
+    t0 = time.perf_counter()
+    n_mc = bench_variance.N_MC_QUICK
+    params, batch, exact = bench_variance.problem(dev)
+    host = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    h_params = tree_map(lambda t: t.requires_grad_(), host(params))
+    h_batch, h_exact = host(batch), host(exact)
+    flat = lambda tree: torch.cat([t.reshape(-1) for t in tree_leaves(tree)])  # noqa: E731
+    lines, secs_host = [], 0.0
+    for m, p, exact_r in FIG_MC:
+        policy = make_policy(m, p, exact_r=exact_r)
+        draws = []
+        ops.reset_launch_counts()
+        stats = bench_variance.mc_stats(params, batch, policy, exact, n_mc, dev, record=draws)
+        read(f"{m}@{p} variance")
+        V, bias_sq = float(stats["variance"]), float(stats["bias_sq"])
+        bound = FIG_CHI2_1_TAIL * V / n_mc
+        if not (math.isfinite(V) and bias_sq <= bound):
+            raise AssertionError(f"[figures] {m}@{p} exact_r {exact_r}: bias_sq {bias_sq} over "
+                                 f"{bound} (V {V})")
+        err = torch.stack([(flat(g) - flat(exact)).square().sum() for g in draws])
+        se = float(err.std()) / math.sqrt(n_mc)
+        t1 = time.perf_counter()
+        h_V = float(bench_variance.mc_stats(h_params, h_batch, policy, h_exact, n_mc,
+                                            "cpu")["variance"])
+        secs_host += time.perf_counter() - t1
+        if abs(V - h_V) > FIG_V_SIGMAS * math.sqrt(2) * se:
+            raise AssertionError(f"[figures] {m}@{p} exact_r {exact_r}: V {V} on the card, "
+                                 f"{h_V} on the host CPU, beyond {FIG_V_SIGMAS} x sqrt(2) x "
+                                 f"its standard error {se}")
+        lines.append(f"{m}@{p}{'' if exact_r else ' independent'} V {V:.4g} (host CPU "
+                     f"{h_V:.4g}, {abs(V - h_V) / (math.sqrt(2) * se):.2f} standard errors) "
+                     f"bias_sq {bias_sq:.4g} ({bias_sq / bound:.3f} of its bound)")
+    secs_b = time.perf_counter() - t0
+    print(f"[figures] (b) {n_mc} draws each, |exact g|^2 {float(stats['exact_norm_sq']):.4g}: "
+          f"{'; '.join(lines)}; {secs_b:.1f} s ({secs_host:.1f} s of it the host CPU's draws)")
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = bench_adaptive.run(tiny=True, device=dev)
+    read("bench_adaptive tiny")
+    for name in ("fixed", "warmup_exact", "adaptive"):
+        # one build per bucket of the schedule (by construction: docs/port.md)
+        if set(out[name]["traces"].values()) != {1} or \
+                len(out[name]["traces"]) != out[name]["n_buckets"]:
+            raise AssertionError(f"[figures] {name}: builds {out[name]['traces']}")
+    if out["adaptive"]["total_bwd_flops"] > out["fixed"]["total_bwd_flops"] or \
+            not set(out["adaptive"]["budget_hist"]) <= {1.0, 0.5, 0.25}:
+        raise AssertionError(f"[figures] adaptive: {out['adaptive']}")
+    secs_c = time.perf_counter() - t0
+    print(f"[figures] (c) bench_adaptive tiny: builds "
+          f"{ {k: out[k]['traces'] for k in ('fixed', 'warmup_exact', 'adaptive')} }, adaptive "
+          f"FLOPs {out['adaptive']['total_bwd_flops'] / out['fixed']['total_bwd_flops']:.3f} "
+          f"of fixed, test accuracy {out['adaptive']['test_acc']:.4f} against "
+          f"{out['fixed']['test_acc']:.4f}; {secs_c:.1f} s")
+    secs = time.perf_counter() - t_phase
+    print(f"[figures] (d) seconds: (a) {secs_a:.1f}, (b) {secs_b:.1f}, (c) {secs_c:.1f}")
+    if secs > FIG_LIMIT_S:
+        raise AssertionError(f"[figures] the phase took {secs:.1f} s (limit {FIG_LIMIT_S})")
+    print(f"[time]   figures {secs:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6574,7 +6755,7 @@ def main() -> int:
 
 def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, stream_rows,
                flash_rows) -> int:
-    """Phases 4 to 26 (module docstring)."""
+    """Phases 4 to 27 (module docstring)."""
     t0 = time.perf_counter()
     wiring_check(dev)
     path_counts = {backend: main_path(dev, backend) for backend in BACKENDS}
@@ -6694,6 +6875,11 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
     t0 = time.perf_counter()
     vocab_head(dev, vh_dry)
     print(f"[time] the vocabulary-parallel head {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fig_counts = figures(dev)
+    for name, n in fig_counts.items():
+        launches[name] += n
+    print(f"[time] the figure experiments {time.perf_counter() - t0:.1f} s")
     paper_f32 = {name: [r for rows in paper_rows.values() for r in f32(rows[name])]
                  for name in ("col_l1_scores", "block_gather_matmul_fused")}
 
@@ -6756,7 +6942,9 @@ def run_phases(dev, gen, smi, child, score_rows, fused_rows, unfused_rows, strea
           f"{json.dumps(split_counts)}; the split sketch methods (phase 24 (a): gsv's 16 "
           f"emulated column shards' parts): {json.dumps(method_counts)}; the split Mamba2 "
           f"block (phase 25: zamba2-7b's block over 16 emulated model ranks): "
-          f"{json.dumps(mamba_counts)}")
+          f"{json.dumps(mamba_counts)}; the figure experiments (phase 27: every policy of "
+          f"the figures, the variance draws, the adaptive run, all on the mask backend): "
+          f"{json.dumps(fig_counts)}")
     print("# kernels: times are float32, summed over one lm-100m step's calls at the paths' "
           "shapes (the unfused pair: the fused kernel's calls, which it would replace); "
           "flash_attention: over one wave-1 prefill's calls; the paper's models' times are "

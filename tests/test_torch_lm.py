@@ -216,8 +216,9 @@ def test_site_seeds_follow_step_layer_role_and_never_repeat():
 
 def test_port_imports_neither_jax_nor_repro():
     """The package (the §5 models, rcs and variance, the serving engines, the
-    observability and resilience layers included), its benchmarks and
-    chip_smoke.py import no JAX and nothing of repro."""
+    observability and resilience layers included), its benchmarks (the §5
+    figure experiments included) and chip_smoke.py import no JAX and nothing
+    of repro."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
              + sorted((ROOT / "benchmarks" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
@@ -227,6 +228,11 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/core/variance.py", "benchmarks/torch/quickstart.py",
             "benchmarks/torch/fig3_larger_archs.py", "benchmarks/torch/serve_lm.py",
             "benchmarks/torch/bench_resilience.py", "benchmarks/torch/trace_drops.py"} <= names
+    # the §5 figure experiments and their harness
+    assert {f"benchmarks/torch/{m}.py" for m in (
+        "common", "fig1a_correlation", "fig1b_mask_vs_sketch", "fig2a_proxies", "fig2b_spectral",
+        "fig4_location", "bench_block_granularity", "bench_variance", "bench_adaptive",
+        "sketch_comparison")} <= names
     # the serving engines, the observability and resilience layers,
     # pure-Python modules included: the port keeps its own copy of each
     for sub, mods in (("obs", ("__init__", "clock", "metrics", "tracing", "ledgers", "flight")),
